@@ -1,0 +1,933 @@
+"""Batched conflict detection in PyTorch — the resolver's conflict step.
+
+Port of ``foundationdb_tpu/ops/conflict_kernel.py`` (monolithic history,
+heat off). The step is the same fixed-shape program:
+
+  local_phases        reads vs history (phase 1) + intra-batch overlap
+                      edges (phase 2), in ``fused_sort`` or ``bsearch`` mode
+  commit fixpoint     earlier-in-batch-wins verdicts; a CUDA kernel on the
+                      card (fixpoint_cuda.py), the plain torch loop below on
+                      the CPU
+  apply_writes_and_gc committed-write union, boundary-table merge, GC/rebase
+  status_of           per-transaction verdict codes
+
+Every output equals the JAX function's element for element, padding rows
+included (tests/test_torch_conflict_kernel.py).
+
+Representation. Packed keys travel as int64 tensors [N, K] holding the
+zero-extended uint32 words: torch has no `<`, `>>`, sort or searchsorted for
+uint32, and int64 keeps the all-ones sentinel 0xFFFFFFFF (invalid rows)
+sorting after every real key word. Versions, txn indices, group ids and bit
+words are int32 as in the JAX package; bit words hold the uint32 bits of the
+JAX words (``Tensor.view`` reinterprets them). Positions and counts are
+int64 inside a function (torch's index type) and int32 at its outputs.
+``now`` and ``gc`` are host ints in the batch dict: the host knows them, so
+the GC branch is taken on the host with no device sync.
+
+JAX semantics the port reproduces explicitly:
+  * out-of-range gathers clamp (after wrapping a negative index once) —
+    ``_take``; torch raises instead, and on CUDA that is a device-side
+    assert that kills the process;
+  * ``.at[].set/add/max/min(mode="drop")`` scatters drop out-of-range
+    indices — every scatter here targets a buffer with one extra dustbin
+    slot (``_drop``) that is sliced off;
+  * ``torch.cumsum``/``sum`` of int32 return int64 — cast back at outputs.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from ..core.types import TransactionCommitResult
+from . import keypack
+
+NEG_VERSION = -(2**30)
+#: all-ones uint32 key word: no real key reaches length 2^32-1, so rows
+#: carrying it sort after every real key (int64 keeps it positive)
+U32_ALL = 0xFFFFFFFF
+
+HISTORY_SEARCH_MODES = ("fused_sort", "bsearch", "auto")
+HISTORY_STRUCTURES = ("monolithic", "tiered")
+
+Tensor = torch.Tensor
+
+
+@dataclass(frozen=True)
+class KernelConfig:
+    """The JAX package's KernelConfig without its ``fixpoint`` switch: the
+    port dispatches the fixpoint on the tensors' device (CPU -> plain
+    version, CUDA -> kernel), never on a config string. The heat and tiered
+    fields stay so a JAX-built config converts field for field; this slice
+    runs heat off and the monolithic table only."""
+
+    key_words: int = 4          # exact-compare width = 4*key_words bytes
+    capacity: int = 1 << 16     # H: max boundaries in the interval table
+    max_reads: int = 1 << 12    # Rr: RANGE read rows per device batch
+    max_writes: int = 1 << 12   # Wr: RANGE write rows per device batch
+    max_txns: int = 1 << 12     # T: transactions per device batch
+    max_point_reads: int = -1   # Rp: POINT read rows (-1: same as max_reads)
+    max_point_writes: int = -1  # Wp: POINT write rows (-1: same as max_writes)
+    history_search: str = "auto"
+    heat_buckets: int = 0
+    history_structure: str = "monolithic"
+    history_runs: int = 8
+    history_run_rows: int = 0
+
+    @property
+    def lanes(self) -> int:     # K: words per packed key incl. length
+        return self.key_words + 1
+
+    @property
+    def rp(self) -> int:
+        return self.max_point_reads if self.max_point_reads >= 0 else self.max_reads
+
+    @property
+    def wp(self) -> int:
+        return self.max_point_writes if self.max_point_writes >= 0 else self.max_writes
+
+    @property
+    def r_all(self) -> int:     # total read rows (point ++ range)
+        return self.rp + self.max_reads
+
+    @property
+    def w_all(self) -> int:     # total write rows (point ++ range)
+        return self.wp + self.max_writes
+
+    @property
+    def wr_words(self) -> int:  # RANGE write rows as 32-bit words
+        return (self.max_writes + 31) // 32
+
+    @property
+    def wp_words(self) -> int:  # POINT write rows as 32-bit words
+        return (self.wp + 31) // 32
+
+    @property
+    def batch_rows(self) -> int:  # rows the fused sort adds to the table
+        return self.rp + 3 * self.max_reads + self.wp + 2 * self.max_writes
+
+    @property
+    def gid_space(self) -> int:  # upper bound on per-key group ids
+        return self.capacity + self.batch_rows
+
+    @property
+    def levels(self) -> int:    # sparse-table levels
+        return int(math.ceil(math.log2(self.capacity))) + 1
+
+    @property
+    def run_slots(self) -> int:
+        return self.history_runs
+
+    @property
+    def run_rows(self) -> int:
+        return self.history_run_rows if self.history_run_rows > 0 else 2 * self.w_all
+
+    @property
+    def run_levels(self) -> int:
+        return int(math.ceil(math.log2(max(2, self.run_rows)))) + 1
+
+    def bucket(self, t: int) -> "KernelConfig":
+        """Sub-capacity clone: batch-side shapes scale down to `t`
+        transactions (row caps pro rata, rounded up to a multiple of 32)
+        while the capacity-sized table stays shape-invariant. t == max_txns
+        returns self."""
+        if t == self.max_txns:
+            return self
+        if not (0 < t < self.max_txns):
+            raise ValueError(f"bucket size {t} outside (0, {self.max_txns}]")
+        if t % 32:
+            raise ValueError(f"bucket size {t} must be a multiple of 32")
+
+        def scale(rows: int) -> int:
+            if rows <= 0:
+                return rows
+            return min(rows, max(32, -(-rows * t // self.max_txns) + 31 & ~31))
+
+        return KernelConfig(
+            key_words=self.key_words,
+            capacity=self.capacity,
+            max_reads=scale(self.max_reads),
+            max_writes=scale(self.max_writes),
+            max_txns=t,
+            max_point_reads=scale(self.rp),
+            max_point_writes=scale(self.wp),
+            history_search=self.history_search,
+            heat_buckets=self.heat_buckets,
+            history_structure=self.history_structure,
+            history_runs=self.history_runs,
+            history_run_rows=self.run_rows,
+        )
+
+
+def pick_history_search(cfg: KernelConfig) -> str:
+    """The `auto` rule: bsearch when the batch rows are at most a quarter of
+    the boundary table, else the fused sort."""
+    return "bsearch" if cfg.batch_rows * 4 <= cfg.capacity else "fused_sort"
+
+
+def resolved_history_search(cfg: KernelConfig) -> str:
+    """Concrete mode ("fused_sort" | "bsearch") a given config runs."""
+    mode = cfg.history_search
+    if mode not in HISTORY_SEARCH_MODES:
+        raise ValueError(
+            f"unknown history_search mode {mode!r}; expected one of "
+            f"{HISTORY_SEARCH_MODES}")
+    return pick_history_search(cfg) if mode == "auto" else mode
+
+
+def resolved_history_structure(cfg: KernelConfig) -> str:
+    """Concrete history structure. Only the monolithic table is ported;
+    "tiered" raises until its slice lands."""
+    structure = cfg.history_structure
+    if structure not in HISTORY_STRUCTURES:
+        raise ValueError(
+            f"unknown history_structure {structure!r}; expected one of "
+            f"{HISTORY_STRUCTURES}")
+    if structure != "monolithic":
+        raise NotImplementedError(
+            "history_structure='tiered' is not ported to foundationdb_tpu_torch yet")
+    return structure
+
+
+def check_supported(cfg: KernelConfig) -> None:
+    """Raise on a config this slice does not run: an unknown search mode,
+    the tiered structure, or heat."""
+    resolved_history_search(cfg)
+    resolved_history_structure(cfg)
+    if cfg.heat_buckets:
+        raise NotImplementedError(
+            "heat_buckets > 0 is not ported to foundationdb_tpu_torch yet")
+
+
+# ---------------------------------------------------------------------------
+# JAX gather / scatter semantics
+# ---------------------------------------------------------------------------
+
+def _take(x: Tensor, idx: Tensor) -> Tensor:
+    """x[idx] along dim 0 with JAX's out-of-range rule: a negative index
+    wraps once, then the index clamps into [0, len-1]. Known clamp sites:
+    _present at s == n == H (a full table whose last row sorts before the
+    query), eq_wpb2's s_wpb + eq_wpb, and _lower_bound_n's frozen lanes."""
+    n = x.shape[0]
+    idx = torch.where(idx < 0, idx + n, idx).clamp_(0, n - 1)
+    return x[idx]
+
+
+def _drop(idx: Tensor, n: int) -> Tensor:
+    """Scatter index with JAX's mode="drop": out-of-range -> dustbin n."""
+    return torch.where((idx >= 0) & (idx < n), idx, n)
+
+
+def _i32(x: Tensor) -> Tensor:
+    return x.to(torch.int32)
+
+
+def _u32_to_i32(x: Tensor) -> Tensor:
+    """int64 holding a uint32 value -> int32 with the same bits."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def _arange(n: int, dev) -> Tensor:
+    return torch.arange(n, dtype=torch.int64, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# packed-key helpers
+# ---------------------------------------------------------------------------
+
+def _key_less(a: Tensor, b: Tensor) -> Tensor:
+    """Lexicographic a < b over the trailing lane axis (the first differing
+    lane decides, as the JAX argmax form does)."""
+    less = torch.zeros(a.shape[:-1], dtype=torch.bool, device=a.device)
+    for c in range(a.shape[-1] - 1, -1, -1):
+        ac, bc = a[..., c], b[..., c]
+        less = (ac < bc) | ((ac == bc) & less)
+    return less
+
+
+def _key_eq(a: Tensor, b: Tensor) -> Tensor:
+    return torch.all(a == b, dim=-1)
+
+
+def _bump(q: Tensor) -> Tensor:
+    """Successor of a packed key in packed order: (words, len) -> (words,
+    len+1), with the uint32 wrap of the JAX add."""
+    return torch.cat([q[..., :-1], (q[..., -1:] + 1) & U32_ALL], dim=-1)
+
+
+def _present(table: Tensor, q: Tensor, s: Tensor) -> Tensor:
+    """1 iff q occurs in the table, given s = lower_bound(q): one row gather
+    (clamped at s == H). upper_bound(q) == s + _present(table, q, s)."""
+    return _key_eq(_take(table, s), q).to(torch.int64)
+
+
+def _lower_bound(cfg: KernelConfig, hkeys: Tensor, n: Tensor, q: Tensor) -> Tensor:
+    return _lower_bound_n(hkeys, n, q, cfg.levels)
+
+
+def _lower_bound_n(table: Tensor, n: Tensor, q: Tensor, levels: int) -> Tensor:
+    """Branchless K-word binary search: lower_bound of every query row into
+    the key-sorted valid prefix table[0:n], all queries in lockstep for
+    `levels` rounds. A converged lane (lo == hi == n) may probe row n == H:
+    the JAX gather clamps it, and so does _take."""
+    lo = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+    hi = lo + n.to(torch.int64)
+    for _ in range(levels):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        go_right = _key_less(_take(table, mid), q)
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    return lo
+
+
+def _build_sparse_max(cfg: KernelConfig, vers: Tensor, n: Tensor) -> Tensor:
+    return _build_sparse_max_n(vers, n, cfg.capacity, cfg.levels)
+
+
+def _build_sparse_max_n(vers: Tensor, n: Tensor, h: int, n_levels: int) -> Tensor:
+    """out[k, i] = max(vers[i : i+2^k]) with invalid slots -> NEG."""
+    dev = vers.device
+    base = torch.where(_arange(h, dev) < n.to(torch.int64), vers,
+                       torch.full_like(vers, NEG_VERSION))
+    levels = [base]
+    for k in range(1, n_levels):
+        half = 1 << (k - 1)
+        prev = levels[-1]
+        shifted = torch.cat([prev[half:], torch.full((half,), NEG_VERSION,
+                                                     dtype=prev.dtype, device=dev)])
+        levels.append(torch.maximum(prev, shifted))
+    return torch.stack(levels)
+
+
+def _bit_length(v: Tensor) -> Tensor:
+    """Bit length of int64 values in [0, 2^32) by a 5-step binary search —
+    the port of ``31 - lax.clz`` (a float log2 would round wrongly)."""
+    n = torch.zeros_like(v)
+    for sh in (16, 8, 4, 2, 1):
+        big = (v >> sh) > 0
+        n = n + torch.where(big, sh, 0)
+        v = torch.where(big, v >> sh, v)
+    return n + (v > 0).to(v.dtype)
+
+
+def _range_max(cfg: KernelConfig, sparse: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
+    return _range_max_n(sparse, lo, hi, cfg.capacity)
+
+
+def _range_max_n(sparse: Tensor, lo: Tensor, hi: Tensor, h: int) -> Tensor:
+    """max(vers[lo:hi]) for hi > lo, via two overlapping power-of-two
+    blocks. For hi == lo the JAX form gets k = -1 (clz(0) = 32) and a
+    negative, wrapped index; the same arithmetic and _take reproduce it."""
+    s = (hi - lo) & U32_ALL
+    k = _bit_length(s) - 1
+    flat = sparse.reshape(-1)
+    pw = torch.where(k >= 0, torch.ones_like(k) << k.clamp(min=0), 0)
+    m1 = _take(flat, k * h + lo)
+    m2 = _take(flat, k * h + hi - pw)
+    return torch.maximum(m1, m2)
+
+
+def _pack_bits(bits: Tensor, n_words: int) -> Tensor:
+    """Pack a [..., W] bool tensor into [..., n_words] int32 words holding
+    the uint32 bits of JAX's _pack_bits (bit j of word i = column 32i+j).
+    The JAX sum runs in uint32; here the OR of the bits runs in int64 and
+    the low 32 bits are kept in an int32 word."""
+    w = bits.shape[-1]
+    pad = 32 * n_words - w
+    if pad:
+        bits = torch.cat([bits, torch.zeros(bits.shape[:-1] + (pad,), dtype=torch.bool,
+                                            device=bits.device)], dim=-1)
+    b = bits.reshape(bits.shape[:-1] + (n_words, 32))
+    acc = torch.zeros(b.shape[:-1], dtype=torch.int64, device=bits.device)
+    for j in range(32):
+        acc |= b[..., j].to(torch.int64) << j
+    return _u32_to_i32(acc)
+
+
+def _lex_sort_perm(cols: List[Tensor]) -> Tensor:
+    """Permutation sorting rows by the int64 columns `cols` (each holding
+    uint32 values) lexicographically — the port of
+    ``lax.sort(ops, num_keys=len(ops))``. torch has no multi-key sort, so
+    this runs stable LSD passes of torch.sort from the last key to the
+    first. Two uint32 columns fuse into one int64 key,
+    (hi - 2^31) * 2^32 + lo, whose signed order is their lexicographic
+    order, so K+1 operands take ceil((K+1)/2) passes. The callers' last
+    operand (code | original index) is unique per row, so the order is total
+    and the permutation equals JAX's exactly."""
+    keys = []
+    for i in range(0, len(cols) - 1, 2):
+        keys.append((cols[i] - 2**31) * 2**32 + cols[i + 1])
+    if len(cols) % 2:
+        keys.append(cols[-1])
+    perm = None
+    for k in reversed(keys):
+        v = k if perm is None else k[perm]
+        order = torch.sort(v, stable=True).indices
+        perm = order if perm is None else perm[order]
+    return perm
+
+
+def _inverse_perm(perm: Tensor) -> Tensor:
+    pos = torch.empty_like(perm)
+    pos[perm] = _arange(perm.shape[0], perm.device)
+    return pos
+
+
+def _group_ids(skeys: Tensor) -> Tensor:
+    """1-based per-key group ids of key-sorted rows: a new group starts
+    where a row's key differs from its predecessor's."""
+    new = torch.ones(skeys.shape[0], dtype=torch.bool, device=skeys.device)
+    new[1:] = torch.any(skeys[1:] != skeys[:-1], dim=-1)
+    return torch.cumsum(new, 0)
+
+
+def _sorted_rows(keys: Tensor, codes: Tensor, valid: Tensor):
+    """One lexicographic sort of rows by (key words, tie code, index):
+    invalid rows carry all-ones keys and code 7. Returns (perm, sorted
+    keys)."""
+    N, K = keys.shape
+    dev = keys.device
+    idx_bits = max(1, (N - 1).bit_length())
+    keys_eff = torch.where(valid[:, None], keys, U32_ALL)
+    codeidx = (torch.where(valid, codes, 7) << idx_bits) | _arange(N, dev)
+    perm = _lex_sort_perm([keys_eff[:, c] for c in range(K)] + [codeidx])
+    return perm, keys_eff[perm]
+
+
+# ---------------------------------------------------------------------------
+# phases 1-2
+# ---------------------------------------------------------------------------
+
+def local_phases(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict):
+    """Phases 1-2: reads vs history + intra-batch overlap edges.
+
+    Returns (hist_hits int32 [T], edges, wpos) exactly as the JAX function:
+    edges = {"ovw" int32 [r_all, wr_words], "ovrp" int32 [Rr, wp_words],
+    "gid_rp" int32 [Rp], "gid_wp" int32 [Wp]} and wpos = {"lo_b", "lo_e",
+    "up_e"} int32 [w_all]. See the JAX docstring for the tie-code ladder
+    (end-read 0 < end-write 1 < begin-write 2 < {begin-read, point-read} 3
+    < point-write 4 < table 5) that makes position compares exact
+    half-open interval logic."""
+    check_supported(cfg)
+    hkeys, hvers, n = state["hkeys"], state["hvers"], state["n"]
+    dev = hkeys.device
+    Rp, Rr = cfg.rp, cfg.max_reads
+    Wp, Wr = cfg.wp, cfg.max_writes
+    T, H = cfg.max_txns, cfg.capacity
+    n64 = n.to(torch.int64)
+
+    rpb = batch["rpb"]
+    rb, re = batch["rb"], batch["re"]
+    wpb = batch["wpb"]
+    wb, we = batch["wb"], batch["we"]
+    rp_valid, r_valid = batch["rp_valid"], batch["r_valid"]
+    wp_valid, w_valid = batch["wp_valid"], batch["w_valid"]
+    rp_txn, r_txn = batch["rp_txn"].long(), batch["r_txn"].long()
+    wp_txn, w_txn = batch["wp_txn"].long(), batch["w_txn"].long()
+    empty_r = ~_key_less(rb, re)
+
+    def codes(groups):
+        return torch.cat([torch.full((g[0].shape[0],), g[1], dtype=torch.int64, device=dev)
+                          for g in groups])
+
+    mode = resolved_history_search(cfg)
+    if mode == "fused_sort":
+        # ONE sort of table ++ batch rows: table rows sort after every equal
+        # batch key, so a batch row's lower bound is the count of valid
+        # table rows before its sorted position. bump(rb) rows ride along
+        # to give upper(rb) for non-empty range reads.
+        groups = (
+            (rpb, 3, rp_valid), (rb, 3, r_valid), (re, 0, r_valid),
+            (_bump(rb), 0, r_valid), (wpb, 4, wp_valid),
+            (wb, 2, w_valid), (we, 1, w_valid),
+        )
+        keys_all = torch.cat([hkeys] + [g[0] for g in groups])
+        code_all = torch.cat([torch.full((H,), 5, dtype=torch.int64, device=dev),
+                              codes(groups)])
+        valid_all = torch.cat([_arange(H, dev) < n64] + [g[2] for g in groups])
+        perm, skeys = _sorted_rows(keys_all, code_all, valid_all)
+        pos = _inverse_perm(perm)
+        is_tab = (perm < H) & (perm < n64)
+        cum_tab = torch.cumsum(is_tab, 0)
+        gid_sorted = _group_ids(skeys)
+        bpos = pos[H:]
+        lb = cum_tab[bpos]
+        gid = gid_sorted[bpos]
+        pos_rpb, pos_rb, pos_re, _, pos_wpb, pos_wb, pos_we = torch.split(
+            bpos, [Rp, Rr, Rr, Rr, Wp, Wr, Wr])
+        lb_rp, lb_rb, s_re, lb_rbb, s_wpb, s_wb, s_we = torch.split(
+            lb, [Rp, Rr, Rr, Rr, Wp, Wr, Wr])
+        gid_rp = gid[:Rp]
+        gid_wp = gid[Rp + 3 * Rr:Rp + 3 * Rr + Wp]
+    else:
+        # Sort only the batch rows (same ladder minus table and bump rows)
+        # and recover every lower bound by binary search into hkeys[0:n].
+        groups = (
+            (rpb, 3, rp_valid), (rb, 3, r_valid), (re, 0, r_valid),
+            (wpb, 4, wp_valid), (wb, 2, w_valid), (we, 1, w_valid),
+        )
+        perm, skeys = _sorted_rows(torch.cat([g[0] for g in groups]), codes(groups),
+                                   torch.cat([g[2] for g in groups]))
+        pos = _inverse_perm(perm)
+        gid = _group_ids(skeys)[pos]
+        pos_rpb, pos_rb, pos_re, pos_wpb, pos_wb, pos_we = torch.split(
+            pos, [Rp, Rr, Rr, Wp, Wr, Wr])
+        gid_rp = gid[:Rp]
+        gid_wp = gid[Rp + 2 * Rr:Rp + 2 * Rr + Wp]
+        qvalid = torch.cat([rp_valid, r_valid, r_valid, r_valid, wp_valid, w_valid, w_valid])
+        qkeys = torch.cat([rpb, rb, _bump(rb), re, wpb, wb, we])
+        q_eff = torch.where(qvalid[:, None], qkeys, U32_ALL)
+        lb = _lower_bound(cfg, hkeys, n, q_eff)
+        lb_rp, lb_rb, lb_rbb, s_re, s_wpb, s_wb, s_we = torch.split(
+            lb, [Rp, Rr, Rr, Rr, Wp, Wr, Wr])
+    s_rp = lb_rp
+
+    # Equality gathers (one table row each) derive every upper bound.
+    eq_rp = _present(hkeys, rpb, s_rp)
+    eq_wpb = _present(hkeys, wpb, s_wpb)
+    eq_we = _present(hkeys, we, s_we)
+    eq_wpb2 = _present(hkeys, _bump(wpb), s_wpb + eq_wpb)
+
+    # Write-interval endpoint positions in the OLD table, for the apply.
+    wpos = {
+        "lo_b": _i32(torch.cat([s_wpb, s_wb])),
+        "lo_e": _i32(torch.cat([s_wpb + eq_wpb, s_we])),
+        "up_e": _i32(torch.cat([s_wpb + eq_wpb + eq_wpb2, s_we + eq_we])),
+    }
+
+    # ---- Phase 1: reads vs. history ----
+    vmax_p = _take(hvers, torch.clamp(s_rp + eq_rp - 1, min=0))
+    hit_p = rp_valid & (vmax_p > batch["rp_snap"])
+    hist = torch.zeros(T + 1, dtype=torch.int32, device=dev)
+    hist.scatter_reduce_(0, _drop(rp_txn, T), _i32(hit_p), "amax", include_self=True)
+    if Rr > 0:
+        sparse = _build_sparse_max(cfg, hvers, n)
+        s_qlo = torch.where(empty_r, lb_rb, lb_rbb)
+        lo_e = torch.clamp(s_qlo - 1, min=0)
+        lo = torch.where(empty_r, lo_e, s_qlo - 1)
+        hi = torch.where(empty_r, lo_e + 1, s_re)
+        rmax = _range_max(cfg, sparse, lo, hi)
+        hit_rg = r_valid & (rmax > batch["r_snap"])
+        hist.scatter_reduce_(0, _drop(r_txn, T), _i32(hit_rg), "amax", include_self=True)
+    hist_hits = hist[:T]
+
+    # ---- Phase 2: intra-batch overlap edges (earlier txn -> later txn) ----
+    ov_pr = ((pos_wb[None, :] < pos_rpb[:, None])        # wb <= k
+             & (pos_rpb[:, None] < pos_we[None, :])      # k < we
+             & (w_txn[None, :] < rp_txn[:, None])
+             & rp_valid[:, None] & w_valid[None, :])
+    nonempty = ~empty_r & r_valid
+    ov_rp = ((pos_rb[:, None] < pos_wpb[None, :])        # rb <= k
+             & (pos_wpb[None, :] < pos_re[:, None])      # k < re
+             & (wp_txn[None, :] < r_txn[:, None])
+             & nonempty[:, None] & wp_valid[None, :])
+    ov_rr = ((pos_rb[:, None] < pos_we[None, :])
+             & (pos_wb[None, :] < pos_re[:, None])
+             & (w_txn[None, :] < r_txn[:, None])
+             & nonempty[:, None] & w_valid[None, :])
+    edges = {
+        "ovw": _pack_bits(torch.cat([ov_pr, ov_rr]), cfg.wr_words),
+        "ovrp": _pack_bits(ov_rp, cfg.wp_words),
+        "gid_rp": _i32(gid_rp),
+        "gid_wp": _i32(gid_wp),
+    }
+    return hist_hits, edges, wpos
+
+
+# ---------------------------------------------------------------------------
+# the commit fixpoint, plain form (the CUDA kernel's reference)
+# ---------------------------------------------------------------------------
+
+def _group_bounds(txn: Tensor, valid: Tensor, T: int) -> Tuple[Tensor, Tensor]:
+    """Row range [starts[t], ends[t]) of txn t's rows within one group
+    (valid rows are a prefix, grouped by ascending txn)."""
+    idx = _drop(torch.where(valid, txn.long(), T), T)
+    cnt = torch.zeros(T + 1, dtype=torch.int64, device=txn.device)
+    cnt.index_add_(0, idx, torch.ones_like(idx))
+    cnt = cnt[:T]
+    ends = torch.cumsum(cnt, 0)
+    return ends - cnt, ends
+
+
+def _read_group_bounds(cfg: KernelConfig, batch: Dict):
+    """Per-txn row windows of the two read groups (loop-invariant)."""
+    T = cfg.max_txns
+    ps, pe = _group_bounds(batch["rp_txn"], batch["rp_valid"], T)
+    rs, re_ = _group_bounds(batch["r_txn"], batch["r_valid"], T)
+    return ps, pe, rs, re_
+
+
+def _blocked_rows(cfg: KernelConfig, edges: Dict[str, Tensor], batch: Dict,
+                  c: Tensor) -> Tuple[Tensor, Tensor]:
+    """Per-read-row intra-batch blocked flags under committed mask c:
+    (point rows [Rp], range rows [Rr])."""
+    T, Rp, G = cfg.max_txns, cfg.rp, cfg.gid_space
+    wp_txn = batch["wp_txn"].long()
+    cwp = _take(c, wp_txn) & batch["wp_valid"]
+    cwr = _take(c, batch["w_txn"].long()) & batch["w_valid"]
+    maskw = _pack_bits(cwr, cfg.wr_words)
+    hit_w = torch.any((edges["ovw"] & maskw[None, :]) != 0, dim=-1)
+    maskp = _pack_bits(cwp, cfg.wp_words)
+    hit_rp = torch.any((edges["ovrp"] & maskp[None, :]) != 0, dim=-1)
+    # point-point: per-gid min of committed writer txns (T = +inf); G+1 is
+    # the dustbin slot for uncommitted rows, G+2 the dropped-index slot
+    mn = torch.full((G + 3,), T, dtype=torch.int64, device=c.device)
+    gsl = _drop(torch.where(cwp, edges["gid_wp"].long(), G + 1), G + 2)
+    mn.scatter_reduce_(0, gsl, wp_txn, "amin", include_self=True)
+    hit_pp = _take(mn[:G + 2], edges["gid_rp"].long()) < batch["rp_txn"]
+    return hit_w[:Rp] | hit_pp, hit_w[Rp:] | hit_rp
+
+
+def _blocked_txns(cfg: KernelConfig, edges: Dict[str, Tensor], batch: Dict,
+                  c: Tensor, bounds=None) -> Tensor:
+    """Per-txn blocked counts [T] under the committed mask c."""
+    ps, pe, rs, re_ = bounds if bounds is not None else _read_group_bounds(cfg, batch)
+
+    def seg_count(hit, starts, ends):
+        csum = torch.cat([torch.zeros(1, dtype=torch.int64, device=hit.device),
+                          torch.cumsum(hit, 0)])
+        return csum[ends] - csum[starts]
+
+    hit_point, hit_range = _blocked_rows(cfg, edges, batch, c)
+    return seg_count(hit_point, ps, pe) + seg_count(hit_range, rs, re_)
+
+
+def commit_fixpoint(cfg: KernelConfig, t_ok: Tensor, hist_hits: Tensor,
+                    edges: Dict[str, Tensor], batch: Dict) -> Tensor:
+    """Earlier-in-batch-wins verdicts, the plain torch form of the JAX
+    while_loop: start from base = t_ok & ~hist_hit and iterate
+    c <- base & ~blocked(c) to its fixpoint, at most T rounds after the
+    first. The loop test reads a device value, so on the card every round
+    syncs with the host; the engine's path uses the CUDA kernel there
+    (fixpoint_cuda.py) and this form runs on the card only to check it."""
+    T = cfg.max_txns
+    base = t_ok & ~(hist_hits > 0)
+    bounds = _read_group_bounds(cfg, batch)
+
+    def step(c):
+        return base & ~(_blocked_txns(cfg, edges, batch, c, bounds) > 0)
+
+    prev, c, it = base, step(base), 0
+    while it < T and bool(torch.any(c != prev)):
+        prev, c, it = c, step(c), it + 1
+    return c
+
+
+def _fixpoint(cfg: KernelConfig, t_ok, hist_hits, edges, batch) -> Tensor:
+    """Dispatch on the tensors' device: CPU tensors take the plain version,
+    CUDA tensors the kernel (which raises on an unsupported config rather
+    than fall back)."""
+    from . import fixpoint_cuda
+
+    return fixpoint_cuda.commit_fixpoint(cfg, t_ok, hist_hits, edges, batch)
+
+
+# ---------------------------------------------------------------------------
+# phases 3-5
+# ---------------------------------------------------------------------------
+
+def apply_writes_and_gc(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
+                        committed: Tensor, wpos: Dict[str, Tensor]):
+    """Phases 3-5: committed-write union, boundary-table merge, GC/rebase.
+    Returns (new_state, overflow bool 0-d, reclaimed int32 0-d)."""
+    check_supported(cfg)
+    hkeys, hvers, n = state["hkeys"], state["hvers"], state["n"]
+    dev = hkeys.device
+    Wa, H, K = cfg.w_all, cfg.capacity, cfg.lanes
+    now = int(batch["now"])
+    n64 = n.to(torch.int64)
+    w_txn_all = torch.cat([batch["wp_txn"], batch["w_txn"]]).long()
+    w_valid_all = torch.cat([batch["wp_valid"], batch["w_valid"]])
+    bkeys = torch.cat([batch["wpb"], batch["wb"]])
+    ekeys = torch.cat([_bump(batch["wpb"]), batch["we"]])
+
+    # ---- Phase 3: committed-write union ----
+    cw = w_valid_all & _take(committed, w_txn_all)
+    allk = torch.cat([bkeys, ekeys])                                  # [2Wa, K]
+    ecode = torch.cat([torch.zeros(Wa, dtype=torch.int64, device=dev),
+                       torch.ones(Wa, dtype=torch.int64, device=dev)])
+    evalid = torch.cat([cw, cw])
+    perm, s_keys = _sorted_rows(allk, ecode, evalid)
+    # invalid rows sort last with code 7 (the JAX form writes 3; both are
+    # >= 2, which is all s_valid reads)
+    s_valid = evalid[perm]
+    s_delta = torch.where(ecode[perm] == 0, 1, -1)
+    d = torch.where(s_valid, s_delta, 0)
+    cum = torch.cumsum(d, 0)
+    is_ub = s_valid & (s_delta > 0) & ((cum - d) == 0)
+    is_ue = s_valid & (s_delta < 0) & (cum == 0)
+    ubi = torch.cumsum(is_ub, 0) - 1
+    uei = torch.cumsum(is_ue, 0) - 1
+    u_count = is_ub.sum()
+    pe_lo = torch.cat([wpos["lo_b"], wpos["lo_e"]]).long()
+    pe_up = torch.cat([wpos["lo_b"], wpos["up_e"]]).long()
+    sc = torch.cat([s_keys, pe_lo[perm][:, None], pe_up[perm][:, None]], dim=1)
+    ubc = torch.zeros((Wa + 1, K + 2), dtype=torch.int64, device=dev)
+    ubc[_drop(torch.where(is_ub, ubi, Wa), Wa)] = sc
+    uec = torch.zeros((Wa + 1, K + 2), dtype=torch.int64, device=dev)
+    uec[_drop(torch.where(is_ue, uei, Wa), Wa)] = sc
+    ub_keys, ue_keys = ubc[:Wa, :K], uec[:Wa, :K]
+    u_start, u_stop = ubc[:Wa, K], uec[:Wa, K]
+    ue_ver = _take(hvers, torch.clamp(uec[:Wa, K + 1] - 1, min=0))
+
+    # ---- Phase 4: merge the union into the table at version `now` ----
+    jslot = _arange(H, dev)
+    valid_u = _arange(Wa, dev) < u_count
+    cov_delta = torch.zeros(H + 2, dtype=torch.int64, device=dev)
+    cov_delta.index_add_(0, _drop(torch.where(valid_u, u_start, H + 1), H + 1),
+                         torch.ones(Wa, dtype=torch.int64, device=dev))
+    cov_delta.index_add_(0, _drop(torch.where(valid_u, u_stop, H + 1), H + 1),
+                         torch.full((Wa,), -1, dtype=torch.int64, device=dev))
+    covered = torch.cumsum(cov_delta[:H], 0) > 0
+    old_keep = (jslot < n64) & ~covered
+
+    # new rows interleave begins (version now) and ends (version ue_ver)
+    nb_keys = torch.stack([ub_keys, ue_keys], dim=1).reshape(2 * Wa, K)
+    nb_vers = torch.stack([torch.full((Wa,), now, dtype=torch.int64, device=dev),
+                           ue_ver.long()], dim=1).reshape(2 * Wa)
+    nb_lb = torch.stack([u_start, u_stop], dim=1).reshape(2 * Wa)
+    j_of = _arange(2 * Wa, dev) >> 1
+    is_end_row = (_arange(2 * Wa, dev) & 1) == 1
+    nb_valid = j_of < u_count
+    # drop an end row when an equal, uncovered old boundary already exists
+    lbc = torch.clamp(nb_lb, max=H - 1)
+    eq_exists = (nb_lb < n64) & _key_eq(hkeys[lbc], nb_keys) & ~covered[lbc]
+    nb_keep = nb_valid & ~(is_end_row & eq_exists)
+
+    ncomp_pos = torch.cumsum(nb_keep, 0) - 1
+    nc = nb_keep.sum()
+    ncc = torch.zeros((2 * Wa + 1, K + 2), dtype=torch.int64, device=dev)
+    ncc[_drop(torch.where(nb_keep, ncomp_pos, 2 * Wa), 2 * Wa)] = torch.cat(
+        [nb_keys, nb_vers[:, None], nb_lb[:, None]], dim=1)
+    nck, ncv, lb_old = ncc[:2 * Wa, :K], ncc[:2 * Wa, K], ncc[:2 * Wa, K + 1]
+
+    cum_keep = torch.cumsum(old_keep, 0)
+    new_cnt = torch.zeros(H + 2, dtype=torch.int64, device=dev)
+    new_cnt.index_add_(0, _drop(torch.where(_arange(2 * Wa, dev) < nc, lb_old, H + 1), H + 1),
+                       torch.ones(2 * Wa, dtype=torch.int64, device=dev))
+    new_before_old = torch.cumsum(new_cnt[:H], 0)
+    pos_old = cum_keep - 1 + new_before_old
+    cum_cov = torch.cumsum(covered, 0)
+    cov_before = torch.where(lb_old > 0, _take(cum_cov, torch.clamp(lb_old - 1, min=0)), 0)
+    pos_new = _arange(2 * Wa, dev) + (lb_old - cov_before)
+
+    # merged rows (keys | version) in one int64 matrix, with a dustbin row H
+    outc = torch.zeros((H + 1, K + 1), dtype=torch.int64, device=dev)
+    outc[:, K] = NEG_VERSION
+    outc[_drop(torch.where(old_keep, pos_old, H), H)] = torch.cat(
+        [hkeys, hvers.long()[:, None]], dim=1)
+    nc_mask = _arange(2 * Wa, dev) < nc
+    outc[_drop(torch.where(nc_mask, pos_new, H), H)] = torch.cat(
+        [nck, ncv[:, None]], dim=1)
+    outc = outc[:H]
+    out_v = outc[:, K]
+    n1 = cum_keep[-1] + nc
+    overflow = n1 > H
+
+    # ---- Phase 5: GC + rebase (keep rule of removeBefore) ----
+    # gc is a host int, so the branch is taken on the host with no sync.
+    gc = int(batch["gc"])
+    if gc > 0:
+        prev_v = torch.cat([torch.full((1,), 2**30, dtype=torch.int64, device=dev), out_v[:-1]])
+        keep = (jslot < n1) & ((jslot == 0) | (out_v >= gc) | (prev_v >= gc))
+        cpos = torch.cumsum(keep, 0) - 1
+        finc = torch.zeros((H + 1, K + 1), dtype=torch.int64, device=dev)
+        finc[:, K] = NEG_VERSION
+        finc[_drop(torch.where(keep, cpos, H), H)] = outc
+        n2 = keep.sum()
+        fin_v = torch.where(jslot < n2, torch.clamp(finc[:H, K] - gc, min=-1), NEG_VERSION)
+        hk = finc[:H, :K]
+    else:
+        fin_v = torch.where(jslot < n1, torch.clamp(out_v, min=-1), NEG_VERSION)
+        hk = outc[:, :K]
+        n2 = n1
+    new_state = {"hkeys": hk.contiguous(), "hvers": _i32(fin_v), "n": _i32(n2)}
+    return new_state, overflow, _i32(n1 - n2)
+
+
+def detect_step(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict):
+    """Phases 1-2 only, for the host long-key tier, which combines global
+    verdicts across device and host tiers BEFORE any tier applies writes."""
+    return local_phases(cfg, state, batch)
+
+
+def fix_step(cfg: KernelConfig, t_ok: Tensor, hist_hits: Tensor,
+             edges: Dict[str, Tensor], batch: Dict) -> Tensor:
+    """Re-run the fixpoint with an updated t_ok (host-tier aborts folded in)."""
+    return _fixpoint(cfg, t_ok, hist_hits, edges, batch)
+
+
+def apply_step(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
+               committed: Tensor, wpos: Dict[str, Tensor]):
+    """Apply the globally agreed committed writes (+GC): (new_state, overflow)."""
+    new_state, overflow, _ = apply_writes_and_gc(cfg, state, batch, committed, wpos)
+    return new_state, overflow
+
+
+def status_of(t_too_old: Tensor, committed: Tensor) -> Tensor:
+    return torch.where(
+        t_too_old, int(TransactionCommitResult.TOO_OLD),
+        torch.where(committed, int(TransactionCommitResult.COMMITTED),
+                    int(TransactionCommitResult.CONFLICT))).to(torch.int32)
+
+
+def resolve_step(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict):
+    """One resolver batch: (state, batch) -> (state', {"status", "overflow",
+    "n"})."""
+    hist_hits, edges, wpos = local_phases(cfg, state, batch)
+    committed = _fixpoint(cfg, batch["t_ok"], hist_hits, edges, batch)
+    new_state, overflow, _ = apply_writes_and_gc(cfg, state, batch, committed, wpos)
+    out = {"status": status_of(batch["t_too_old"], committed),
+           "overflow": overflow, "n": new_state["n"]}
+    return new_state, out
+
+
+# ---------------------------------------------------------------------------
+# shapes, state and batches
+# ---------------------------------------------------------------------------
+
+def state_shapes(cfg: KernelConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Shapes and dtypes of the device interval table (the port of
+    state_struct)."""
+    return {
+        "hkeys": ((cfg.capacity, cfg.lanes), torch.int64),
+        "hvers": ((cfg.capacity,), torch.int32),
+        "n": ((), torch.int32),
+    }
+
+
+def batch_shapes(cfg: KernelConfig) -> Dict[str, Tuple[Tuple[int, ...], object]]:
+    """Shapes and dtypes of one device batch (the port of batch_struct).
+    `now` and `gc` are host ints."""
+    K = cfg.lanes
+    i32, i64, b = torch.int32, torch.int64, torch.bool
+    return {
+        "rpb": ((cfg.rp, K), i64),
+        "rp_snap": ((cfg.rp,), i32),
+        "rp_txn": ((cfg.rp,), i32),
+        "rp_valid": ((cfg.rp,), b),
+        "rb": ((cfg.max_reads, K), i64),
+        "re": ((cfg.max_reads, K), i64),
+        "r_snap": ((cfg.max_reads,), i32),
+        "r_txn": ((cfg.max_reads,), i32),
+        "r_valid": ((cfg.max_reads,), b),
+        "wpb": ((cfg.wp, K), i64),
+        "wp_txn": ((cfg.wp,), i32),
+        "wp_valid": ((cfg.wp,), b),
+        "wb": ((cfg.max_writes, K), i64),
+        "we": ((cfg.max_writes, K), i64),
+        "w_txn": ((cfg.max_writes,), i32),
+        "w_valid": ((cfg.max_writes,), b),
+        "t_ok": ((cfg.max_txns,), b),
+        "t_too_old": ((cfg.max_txns,), b),
+        "now": ((), int),
+        "gc": ((), int),
+    }
+
+
+_NP_OF = {torch.int64: np.int64, torch.int32: np.int32, torch.bool: np.bool_}
+
+
+def _to_tensor(a, shape, dtype, name: str, device) -> Tensor:
+    a = np.asarray(a)
+    if a.shape != tuple(shape):
+        raise ValueError(f"{name}: shape {a.shape}, expected {tuple(shape)}")
+    # uint32 key words widen to int64 by zero extension
+    return torch.from_numpy(np.array(a, dtype=_NP_OF[dtype], order="C")).to(device)
+
+
+def batch_from_numpy(cfg: KernelConfig, arrays: Dict, device) -> Dict:
+    """Device batch from the numpy dict build_batch_arrays returns (the JAX
+    package's build_batch_arrays gives the same dict)."""
+    out: Dict = {}
+    for name, (shape, dtype) in batch_shapes(cfg).items():
+        if dtype is int:
+            out[name] = int(arrays[name])
+        else:
+            out[name] = _to_tensor(arrays[name], shape, dtype, name, device)
+    return out
+
+
+def state_from_numpy(cfg: KernelConfig, arrays: Dict, device) -> Dict[str, Tensor]:
+    """Device table from numpy {"hkeys" uint32 [H, K], "hvers" int32 [H],
+    "n"} — initial_state's arrays in either package."""
+    return {name: _to_tensor(arrays[name], shape, dtype, name, device)
+            for name, (shape, dtype) in state_shapes(cfg).items()}
+
+
+def state_to_numpy(state: Dict[str, Tensor]) -> Dict[str, np.ndarray]:
+    """Inverse of state_from_numpy: hkeys back to uint32."""
+    return {
+        "hkeys": state["hkeys"].cpu().numpy().astype(np.uint32),
+        "hvers": state["hvers"].cpu().numpy(),
+        "n": np.int32(int(state["n"])),
+    }
+
+
+def initial_state(cfg: KernelConfig, version_rel: int = 0, first_key: bytes = b"",
+                  device="cpu") -> Dict[str, Tensor]:
+    """Fresh boundary table whose single interval [first_key, +inf) carries
+    version_rel."""
+    resolved_history_structure(cfg)
+    hkeys = np.zeros((cfg.capacity, cfg.lanes), np.uint32)
+    hkeys[0] = keypack.pack_key(first_key, cfg.key_words)
+    hvers = np.full((cfg.capacity,), NEG_VERSION, np.int32)
+    hvers[0] = version_rel
+    return state_from_numpy(cfg, {"hkeys": hkeys, "hvers": hvers, "n": 1}, device)
+
+
+def build_batch_arrays(
+    cfg: KernelConfig,
+    rp_keys: List[bytes], rp_snap: List[int], rp_txn: List[int],
+    r_keys_b: List[bytes], r_keys_e: List[bytes], r_snap: List[int], r_txn: List[int],
+    wp_keys: List[bytes], wp_txn: List[int],
+    w_keys_b: List[bytes], w_keys_e: List[bytes], w_txn: List[int],
+    t_ok: np.ndarray, t_too_old: np.ndarray,
+    now_rel: int, gc_rel: int,
+) -> Dict[str, np.ndarray]:
+    """Pad host-side range lists to the kernel's fixed shapes (numpy; the
+    same arrays as the JAX package's build_batch_arrays).
+
+    Layout invariant the fixpoint relies on: within each group, valid rows
+    are a contiguous prefix grouped by ascending owning transaction."""
+    for lst in (rp_txn, r_txn):
+        if any(a > b for a, b in zip(lst, lst[1:])):
+            raise ValueError("read rows must be grouped by ascending txn")
+    Rp, Rr, Wp, Wr, K = cfg.rp, cfg.max_reads, cfg.wp, cfg.max_writes, cfg.lanes
+
+    def padk(keys: List[bytes], cap: int, endpoint: bool = False) -> np.ndarray:
+        arr = np.zeros((cap, K), np.uint32)
+        if keys:
+            pack = keypack.pack_endpoint_keys if endpoint else keypack.pack_keys
+            arr[: len(keys)] = pack(keys, cfg.key_words)
+        return arr
+
+    def padi(vals: List[int], cap: int) -> np.ndarray:
+        return np.pad(np.asarray(vals, np.int32), (0, cap - len(vals)))
+
+    return {
+        "rpb": padk(rp_keys, Rp),
+        "rp_snap": padi(rp_snap, Rp),
+        "rp_txn": padi(rp_txn, Rp),
+        "rp_valid": np.arange(Rp) < len(rp_txn),
+        "rb": padk(r_keys_b, Rr, endpoint=True),
+        "re": padk(r_keys_e, Rr, endpoint=True),
+        "r_snap": padi(r_snap, Rr),
+        "r_txn": padi(r_txn, Rr),
+        "r_valid": np.arange(Rr) < len(r_txn),
+        "wpb": padk(wp_keys, Wp),
+        "wp_txn": padi(wp_txn, Wp),
+        "wp_valid": np.arange(Wp) < len(wp_txn),
+        "wb": padk(w_keys_b, Wr, endpoint=True),
+        "we": padk(w_keys_e, Wr, endpoint=True),
+        "w_txn": padi(w_txn, Wr),
+        "w_valid": np.arange(Wr) < len(w_txn),
+        "t_ok": np.asarray(t_ok, bool),
+        "t_too_old": np.asarray(t_too_old, bool),
+        "now": np.asarray(now_rel, np.int32),
+        "gc": np.asarray(gc_rel, np.int32),
+    }

@@ -1,0 +1,72 @@
+"""foundationdb_tpu_torch and chip_smoke.py import neither jax nor anything
+of the JAX package, and the engine runs on the card unless told otherwise.
+
+tests/conftest.py imports jax into this process, so the import check runs
+in a fresh subprocess.
+"""
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from foundationdb_tpu_torch.ops.conflict_kernel import KernelConfig
+from foundationdb_tpu_torch.ops.host_engine import TorchConflictEngine
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "foundationdb_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "foundationdb_tpu")
+
+
+def port_modules():
+    return sorted(
+        "foundationdb_tpu_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
+        for p in PKG.rglob("*.py") if p.name != "__init__.py")
+
+
+def test_subprocess_import_loads_no_jax():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {port_modules()!r}: importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "foundationdb_tpu_torch.ops.host_engine" in loaded
+    bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+def test_source_scan_finds_no_jax_import():
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        bad = [r for r in imported_roots(path) if r in FORBIDDEN]
+        assert not bad, (path, bad)
+
+
+def test_engine_defaults_to_the_card():
+    cfg = KernelConfig(key_words=2, capacity=256, max_reads=8, max_writes=8, max_txns=32)
+    if torch.cuda.is_available():
+        assert TorchConflictEngine(cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            TorchConflictEngine(cfg)
+    assert TorchConflictEngine(cfg, device="cpu").state["hkeys"].device.type == "cpu"
