@@ -13,18 +13,29 @@ toolkit. The script
      over an 8192-key hot pool, a 24576-row table): runs local_phases on the
      card, then the fixpoint kernel and its plain torch version on the same
      inputs, and requires bit-equal verdicts on every batch, with the range
-     groups filled so every term of the kernel runs; times both with CUDA
-     events; then the same at the shape the engine phase gives the kernel
-     (the default KernelConfig: 4096 rows in every group);
-  3. step phase: resolve_step on device-resident batches for a few hundred
+     groups filled so every term of the kernel runs; times the kernel's
+     device time per launch (CUDA events around launches queued behind a
+     spin kernel, so the host's time drops out) and both calls as their
+     caller sees them (CUDA events, host time included), and the kernel on
+     a batch with no rows (its floor: launch, setup, one round); then the
+     same at the shape the engine phase gives the kernel (the default
+     KernelConfig: 4096 rows in every group);
+  3. deep-chain phase, at the bench width: CHAIN_TXNS txns, each reading
+     the key the one before writes, so the fixpoint takes one round per
+     link; kernel and plain version must agree bit for bit and in rounds;
+  4. step phase: resolve_step on device-resident batches for a few hundred
      steps with the bench's GC lag; prints ms per batch and txn/s;
-  4. engine phase (the main path a user calls): TorchConflictEngine() on the
+  5. engine phase (the main path a user calls): TorchConflictEngine() on the
      card at the default KernelConfig (65536-row table, 4096 txns, 4096 rows
      per group) resolves byte-key CommitTransaction batches, long keys
      included; its verdicts must equal the same engine on the CPU on every
      batch and OracleConflictEngine on the first batches. The launch counts
      are zeroed just before and read just after: the kernel must have run,
-     and the plain version must never have seen a CUDA tensor.
+     and the plain version must never have seen a CUDA tensor. The packed
+     arrays of the engine's largest chunk are recorded on the way (a wrapper
+     around the engine's _batch, installed by this script) and replayed
+     through local_phases and the kernel: the shape users' batches give the
+     kernel, most rows padding.
 
 It prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero with no
@@ -53,6 +64,8 @@ SEED = 2026
 POOL_KEYS = 8192
 N_DISTINCT = 8
 BYTE_KEYS = 20000
+#: txns of the deep-chain batch: 1023 links, so 1024 rounds
+CHAIN_TXNS = 1024
 
 
 def fail(msg: str) -> None:
@@ -152,19 +165,55 @@ def versioned(cfg, batch, now: int, rng=None):
     return out, now + T - gc
 
 
-def cuda_ms(fn, repeats: int) -> float:
-    """Median CUDA-event time of `repeats` calls, after one warm call."""
+def cuda_ms(fn, repeats: int, samples: int = 5) -> float:
+    """Median over `samples` of the CUDA-event time of `repeats` calls run
+    back to back, per call, after one warm call: what a call costs its
+    caller, the host's time for it included where the host falls behind
+    the card."""
     import torch
 
     fn()
     times = []
-    for _ in range(repeats):
+    for _ in range(samples):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(repeats):
+            fn()
         b.record()
         torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / repeats)
+    return statistics.median(times)
+
+
+def device_ms(fn, calls: int, samples: int = 5) -> float:
+    """Median over `samples` of the device time per call of `calls` calls
+    queued behind a spin kernel, so that all of them are on the card's
+    queue before the first one starts: the kernel's own time on the card
+    (with the card's gap between launches), without the wrapper's host
+    time. A sample counts only if the spin outlasted the queueing; else the
+    spin doubles. (A torch.profiler trace of the same launches lost some or
+    all of its kernel events in 2 of 12 runs, so the events are timed
+    directly.)"""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    spin = 10_000_000                       # cycles: ~6 ms at 1.7 GHz
+    times = []
+    while len(times) < samples:
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        ahead = not a.query()               # the spin was still running
+        torch.cuda.synchronize()
+        if ahead:
+            times.append(a.elapsed_time(b) / calls)
+        else:
+            spin *= 2
+            check(spin < 2**36, "the host never got ahead of the card")
     return statistics.median(times)
 
 
@@ -212,30 +261,98 @@ def kernel_phase(ck, fc, cfg, dev, rng, n_batches: int):
     check(hist_hit_txns > 0, "no read hit history in the kernel phase")
 
     batch, hist, edges = last
-    kernel_ms = cuda_ms(lambda: fc.commit_fixpoint_kernel(cfg, batch["t_ok"], hist, edges, batch), 50)
-    plain_ms = cuda_ms(lambda: fc.commit_fixpoint_plain(cfg, batch["t_ok"], hist, edges, batch), 5)
+    kernel = lambda: fc.commit_fixpoint_kernel(cfg, batch["t_ok"], hist, edges, batch)  # noqa: E731
+    kernel_ms = device_ms(kernel, 20)
+    call_ms = cuda_ms(kernel, 20)
+    plain_ms = cuda_ms(lambda: fc.commit_fixpoint_plain(cfg, batch["t_ok"], hist, edges, batch), 1)
     r = rounds[-1]
-    # bound: every input read once and the output written once over HBM,
-    # against the ALU work the rounds of these inputs need
-    ins = [batch["t_ok"], hist, batch["rp_txn"], batch["rp_valid"], edges["gid_rp"],
-           batch["r_txn"], batch["r_valid"], batch["wp_txn"], batch["wp_valid"],
-           edges["gid_wp"], batch["w_txn"], batch["w_valid"], edges["ovw"], edges["ovrp"]]
-    in_bytes = sum(x.numel() * x.element_size() for x in ins) + cfg.max_txns + 4
-    nrp, nrr = int(batch["rp_valid"].sum()), int(batch["r_valid"].sum())
-    ops = r * (nrp * (2 + 2 * cfg.wr_words) + nrr * 2 * (cfg.wr_words + cfg.wp_words)
-               + 3 * (cfg.wp + cfg.max_writes) + 3 * cfg.max_txns // 32)
-    bytes_ms = in_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / ALU_OPS_PER_S * 1e3
-    round_bytes = (edges["ovw"].numel() + edges["ovrp"].numel()) * 4
+    # the kernel's floor at this shape: a batch with no rows, one round, so
+    # only the launch, the setup of the shared tables and one mask rebuild
+    _, empty = replay_phase(ck, fc, cfg, state,
+                            ck.batch_from_numpy(cfg, chain_packed(ck, cfg, 0), dev))
+    check(empty["rounds"] == 1, f"an empty batch took {empty['rounds']} rounds")
     return {
         "batches": n_batches, "mismatches": 0, "commits": commits, "aborts": aborts,
         "history_hit_txns": hist_hit_txns,
         "rounds_median": statistics.median(rounds), "rounds_max": max(rounds),
-        "rounds_timed": r, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "input_bytes": in_bytes, "ops": ops,
-        "reread_floor_ms": r * round_bytes / HBM_BYTES_PER_S * 1e3,
+        "rounds_timed": r, "kernel_ms": kernel_ms, "call_ms": call_ms, "plain_ms": plain_ms,
+        "empty_ms": empty["kernel_ms"],
+        **fixpoint_bound(cfg, batch, hist, edges, r),
     }
+
+
+def fixpoint_bound(cfg, batch, hist, edges, rounds: int):
+    """The least time the card could take for one fixpoint on these inputs,
+    counting what this data needs: t_ok, the history hits and every valid
+    flag read once; the txn, gid slot and edge words of the VALID rows only
+    (an invalid row's edge words are zero and decide nothing); the output
+    written once — over HBM, against the ALU work `rounds` rounds of the
+    valid rows need (the word ANDs, the writer masks, the bitmap update)."""
+    T, WRW, WPW = cfg.max_txns, cfg.wr_words, cfg.wp_words
+    nrp, nrr = int(batch["rp_valid"].sum()), int(batch["r_valid"].sum())
+    nwp, nwr = int(batch["wp_valid"].sum()), int(batch["w_valid"].sum())
+    in_bytes = (5 * T + cfg.rp + cfg.max_reads + cfg.wp + cfg.max_writes  # t_ok, hist, flags
+                + nrp * (8 + 4 * WRW)              # rp_txn, gid_rp, the ovw row
+                + nrr * (4 + 4 * (WRW + WPW))      # r_txn, the ovw and ovrp rows
+                + nwp * 8 + nwr * 4                # wp_txn, gid_wp; w_txn
+                + T + 4)                           # committed, rounds
+    ops = rounds * (nrp * (2 + 2 * WRW) + nrr * 2 * (WRW + WPW) + 3 * (nwp + nwr) + 3 * T // 32)
+    bytes_ms = in_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ALU_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "input_bytes": in_bytes, "ops": ops}
+
+
+def replay_phase(ck, fc, cfg, state, batch, repeats: int = 20):
+    """local_phases on one recorded (state, batch), then kernel vs plain:
+    bit-equal verdicts; the kernel timed. Returns (committed, results)."""
+    import torch
+
+    hist, edges, _ = ck.local_phases(cfg, state, batch)
+    got = fc.commit_fixpoint_kernel(cfg, batch["t_ok"], hist, edges, batch)
+    rounds = int(fc.FIXPOINT.last_rounds.item())
+    want = fc.commit_fixpoint_plain(cfg, batch["t_ok"], hist, edges, batch)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"kernel and plain fixpoint disagree at "
+          f"{int((got != want).sum())} of {cfg.max_txns} txns")
+    kernel = lambda: fc.commit_fixpoint_kernel(cfg, batch["t_ok"], hist, edges, batch)  # noqa: E731
+    kernel_ms = device_ms(kernel, repeats)
+    call_ms = cuda_ms(kernel, repeats)
+    return got, {
+        "rounds": rounds, "kernel_ms": kernel_ms, "call_ms": call_ms, "commits": int(got.sum()),
+        "txns": int(batch["t_ok"].sum()), "valid_point_reads": int(batch["rp_valid"].sum()),
+        "valid_range_reads": int(batch["r_valid"].sum()),
+        "nonzero_edge_words": int((edges["ovw"] != 0).sum() + (edges["ovrp"] != 0).sum()),
+        **fixpoint_bound(cfg, batch, hist, edges, rounds)}
+
+
+def chain_packed(ck, cfg, n: int):
+    """A deep chain of n txns over point rows: txn i reads the key txn i-1
+    writes. The fixpoint settles one link per round: n rounds in all."""
+    import numpy as np
+
+    T = cfg.max_txns
+    key = [b"c%05d" % i for i in range(n)]
+    t_ok = np.zeros((T,), bool)
+    t_ok[:n] = True
+    return ck.build_batch_arrays(
+        cfg, key[:-1], [0] * (n - 1), list(range(1, n)), [], [], [], [],
+        key, list(range(n)), [], [], [], t_ok, np.zeros((T,), bool), 10, 0)
+
+
+def chain_phase(ck, fc, cfg, dev):
+    """The deep chain on an empty table: bit-equal, n rounds, and the
+    alternating verdicts the chain must give."""
+    import torch
+
+    batch = ck.batch_from_numpy(cfg, chain_packed(ck, cfg, CHAIN_TXNS), dev)
+    got, out = replay_phase(ck, fc, cfg, ck.initial_state(cfg, device=dev), batch, repeats=3)
+    check(out["rounds"] == CHAIN_TXNS, f"deep chain took {out['rounds']} rounds, "
+          f"expected {CHAIN_TXNS}")
+    alt = torch.arange(CHAIN_TXNS, device=dev) % 2 == 0
+    check(torch.equal(got[:CHAIN_TXNS], alt), "deep chain verdicts do not alternate")
+    return out
 
 
 def step_phase(ck, cfg, dev, rng, steps: int):
@@ -337,6 +454,20 @@ def engine_phase(ck, fc, he, oracle_mod, dev, rng, cfg, sizes, oracle_batches: i
 
     gpu = he.TorchConflictEngine(cfg) if dev.type == "cuda" else he.TorchConflictEngine(cfg, device=dev)
     cpu = he.TorchConflictEngine(cfg, device="cpu")
+    # record the packed arrays (and the table they meet) of the largest
+    # chunk. Inside the timed resolve, so it takes only references: t_ok is
+    # the host array, and a step returns a new table without writing the old.
+    captured = {"txns": -1}
+    packed = gpu._batch
+
+    def recording_batch(per_shard):
+        batch = packed(per_shard)
+        n = int(per_shard[0]["t_ok"].sum())
+        if n > captured["txns"]:
+            captured.update(txns=n, batch=batch, state=gpu.state)
+        return batch
+
+    gpu._batch = recording_batch
     ora = oracle_mod.OracleConflictEngine()
     now, oldest = 10_000, 0
     counts = [0, 0, 0]
@@ -364,7 +495,7 @@ def engine_phase(ck, fc, he, oracle_mod, dev, rng, cfg, sizes, oracle_batches: i
     check(plain_cuda == 0, "the engine path ran the plain fixpoint on CUDA tensors")
     check(gpu._tier_has_writes, "no long-key write reached the host tier")
     check(min(counts) > 0, f"verdict mix lacks a class: {counts}")
-    return {"batches": len(sizes), "txns": sum(sizes), "oracle_batches": oracle_batches,
+    return captured, {"batches": len(sizes), "txns": sum(sizes), "oracle_batches": oracle_batches,
             "launches": launches, "conflict": counts[0], "too_old": counts[1],
             "committed": counts[2], "card_resolve_s": gpu_s}
 
@@ -414,10 +545,20 @@ def main(argv=None) -> int:
         print(f"kernel phase, {label} shape [{card}]: {kp['batches']} batches bit-equal, "
               f"{kp['commits']} commits / {kp['aborts']} aborts ({kp['history_hit_txns']} "
               f"history hits), rounds median {kp['rounds_median']} max {kp['rounds_max']}; "
-              f"kernel_ms={kp['kernel_ms']:.4f} plain_ms={kp['plain_ms']:.4f} "
+              f"kernel_ms={kp['kernel_ms']:.4f} (call {kp['call_ms']:.4f}, empty batch "
+              f"{kp['empty_ms']:.4f}) plain_ms={kp['plain_ms']:.4f} "
               f"bound_ms={kp['bound_ms']:.6f} ({kp['bound_by']}) at {kp['rounds_timed']} rounds "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
     kb, kp = results["kernel_phase_bench"], results["kernel_phase_engine"]
+
+    t0 = time.perf_counter()
+    cp = chain_phase(ck, fc, cfg, dev)
+    results["chain_phase"] = cp
+    print(f"deep-chain phase, bench shape [{card}]: {CHAIN_TXNS} txns bit-equal, "
+          f"{cp['rounds']} rounds, kernel_ms={cp['kernel_ms']:.4f} (call {cp['call_ms']:.4f}) "
+          f"({cp['kernel_ms'] / cp['rounds'] * 1e3:.2f} us per round), "
+          f"bound_ms={cp['bound_ms']:.6f} ({cp['bound_by']}) "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
     sp = step_phase(ck, cfg, dev, rng, steps=300)
@@ -433,13 +574,24 @@ def main(argv=None) -> int:
         print(f"  {ms:.4f} ms/step  {name}", flush=True)
 
     t0 = time.perf_counter()
-    ep = engine_phase(ck, fc, he, oracle_mod, dev, rng, engine_cfg,
-                      sizes=[256, 384, 512, 512, 1500, 3000, 4500, 6000], oracle_batches=4)
+    captured, ep = engine_phase(ck, fc, he, oracle_mod, dev, rng, engine_cfg,
+                                sizes=[256, 384, 512, 512, 1500, 3000, 4500, 6000],
+                                oracle_batches=4)
     results["engine_phase"] = ep
     print(f"engine phase [{card}]: {ep['txns']} txns in {ep['batches']} resolve() batches "
           f"match the CPU engine ({ep['oracle_batches']} also the oracle): "
           f"{ep['committed']} committed / {ep['conflict']} conflict / {ep['too_old']} too old; "
           f"{ep['launches']} kernel launches; card resolve {ep['card_resolve_s']:.3f} s "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    _, tp = replay_phase(ck, fc, engine_cfg, captured["state"], captured["batch"])
+    results["engine_traffic"] = tp
+    print(f"engine-traffic replay [{card}]: the engine's largest chunk ({tp['txns']} txns, "
+          f"{tp['valid_point_reads']} + {tp['valid_range_reads']} valid read rows of "
+          f"{engine_cfg.rp} + {engine_cfg.max_reads}, {tp['nonzero_edge_words']} nonzero edge "
+          f"words) bit-equal, {tp['rounds']} rounds, kernel_ms={tp['kernel_ms']:.4f} "
+          f"(call {tp['call_ms']:.4f}) bound_ms={tp['bound_ms']:.6f} ({tp['bound_by']}) "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     kernels = {"kernels": [{
@@ -458,6 +610,10 @@ def main(argv=None) -> int:
         "rounds": kp["rounds_timed"],
         "bench_shape": {"ms": kb["kernel_ms"], "plain_ms": kb["plain_ms"],
                         "bound_ms": kb["bound_ms"], "rounds": kb["rounds_timed"]},
+        "engine_traffic_ms": tp["kernel_ms"],
+        "engine_traffic_rounds": tp["rounds"],
+        "chain_ms": cp["kernel_ms"],
+        "chain_rounds": cp["rounds"],
     }]}
     results.update(kernels)
     if args.out:

@@ -9,6 +9,7 @@ only the port's dependencies:
 (--noconftest: tests/conftest.py sets up jax for the rest of the suite.)
 All quantities are integers: every comparison is exact.
 """
+import ctypes
 import random
 
 import numpy as np
@@ -73,15 +74,153 @@ def synth_batch(rng, cfg, now_rel):
         t_ok, np.zeros((T,), bool), now_rel, 0)
 
 
+def chain_rows(build, cfg, n, kind="point"):
+    """A deep chain of n txns, n-1 links: txn i reads the key txn i-1
+    writes, so the fixpoint settles one link per round and takes
+    links + 1 = n rounds (the last one finds no change). kind="point":
+    point reads of point writes (the gid term). kind="range": range reads
+    of range writes (even writers, ovw) and point writes (odd, ovrp).
+    `build` is a build_batch_arrays (the port's or the JAX package's)."""
+    T = cfg.max_txns
+    assert n <= T
+    key = [b"c%05d" % i for i in range(n)]
+    rp_k, rp_t, r_b, r_e, r_t, wp_k, wp_t, w_b, w_e, w_t = ([] for _ in range(10))
+    for i in range(n):
+        if i and kind == "point":
+            rp_k.append(key[i - 1]); rp_t.append(i)
+        elif i:
+            r_b.append(key[i - 1]); r_e.append(key[i - 1] + b"\x00"); r_t.append(i)
+        if kind == "range" and i % 2 == 0:
+            w_b.append(key[i]); w_e.append(key[i] + b"\x00"); w_t.append(i)
+        else:
+            wp_k.append(key[i]); wp_t.append(i)
+    t_ok = np.zeros((T,), bool)
+    t_ok[:n] = True
+    return build(cfg, rp_k, [0] * len(rp_k), rp_t, r_b, r_e, [0] * len(r_b), r_t,
+                 wp_k, wp_t, w_b, w_e, w_t, t_ok, np.zeros((T,), bool), 10, 0)
+
+
+def dense_rows(build, cfg, n):
+    """n txns that each range-read and range-write one wide range holding
+    every point key, with the point groups spread over them: every read
+    row has an edge to every writer of an earlier txn, so about half of
+    all edge words are nonzero (the compacted list's worst case)."""
+    T = cfg.max_txns
+    assert n <= T
+    lists = {g: [] for g in ("rp_k", "rp_t", "r_t", "wp_k", "wp_t", "w_t")}
+    for i in range(n):
+        for g, cap, keyed in (("rp", cfg.rp, True), ("r", cfg.max_reads, False),
+                              ("wp", cfg.wp, True), ("w", cfg.max_writes, False)):
+            for j in range(cap // n + (i < cap % n)):
+                lists[g + "_t"].append(i)
+                if keyed:
+                    lists[g + "_k"].append(b"k%04d" % ((7 * i + j) % 997))
+    nr, nw = len(lists["r_t"]), len(lists["w_t"])
+    t_ok = np.zeros((T,), bool)
+    t_ok[:n] = True
+    return build(cfg, lists["rp_k"], [0] * len(lists["rp_k"]), lists["rp_t"],
+                 [b"a"] * nr, [b"z"] * nr, [0] * nr, lists["r_t"],
+                 lists["wp_k"], lists["wp_t"], [b"a"] * nw, [b"z"] * nw, lists["w_t"],
+                 t_ok, np.zeros((T,), bool), 10, 0)
+
+
+def fixpoint_rounds(cfg, t_ok, hist, edges, batch):
+    """Rounds the plain version runs (the kernel's round count): one first
+    round, then one per change, at most T+1."""
+    base = t_ok & ~(hist > 0)
+    c, rounds = base, 0
+    while True:
+        nxt = base & ~(ck._blocked_txns(cfg, edges, batch, c) > 0)
+        rounds += 1
+        if torch.equal(nxt, c) or rounds > cfg.max_txns:
+            return rounds
+        c = nxt
+
+
+def kernel_vs_plain(card, cfg, arrays):
+    """(kernel verdicts, plain verdicts, kernel rounds, plain rounds) for one
+    packed batch on a fresh table: the plain side on the CPU."""
+    batch = ck.batch_from_numpy(cfg, arrays, "cpu")
+    hist, edges, _ = ck.local_phases(cfg, ck.initial_state(cfg), batch)
+    want = fc.commit_fixpoint(cfg, batch["t_ok"], hist, edges, batch)
+    dbatch = {k: (v.to(card) if isinstance(v, torch.Tensor) else v) for k, v in batch.items()}
+    got = fc.commit_fixpoint(cfg, dbatch["t_ok"], hist.to(card),
+                             {k: v.to(card) for k, v in edges.items()}, dbatch)
+    torch.cuda.synchronize()
+    return (got.cpu(), want, int(fc.FIXPOINT.last_rounds.item()),
+            fixpoint_rounds(cfg, batch["t_ok"], hist, edges, batch))
+
+
+#: deep chains and the dense batch need room: T=1024, 1024 rows per group
+WIDE = ck.KernelConfig(key_words=2, capacity=8192, max_txns=1024, max_point_reads=1024,
+                       max_point_writes=1024, max_reads=1024, max_writes=1024)
+#: 4 rows per txn in every group, 128-word edge rows: the dense batch's
+#: nonzero words pass the shared-memory capacity of the compacted lists
+DENSE = ck.KernelConfig(key_words=2, capacity=16384, max_txns=1024, max_point_reads=4096,
+                        max_point_writes=4096, max_reads=4096, max_writes=4096)
+#: read rows (200 + 72) that fill 8 slices of 32 rows unevenly
+RAGGED = ck.KernelConfig(key_words=2, capacity=2048, max_txns=96, max_point_reads=200,
+                         max_point_writes=160, max_reads=72, max_writes=40)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("cfg", CONFIGS, ids=["small", "medium"])
+@pytest.mark.parametrize("kind", ["point", "range"])
+def test_kernel_deep_chain(card, kind):
+    n = WIDE.max_txns
+    got, want, rounds, plain_rounds = kernel_vs_plain(card, WIDE, chain_rows(
+        ck.build_batch_arrays, WIDE, n, kind))
+    assert torch.equal(got, want)
+    assert rounds == plain_rounds == (n - 1) + 1
+    assert torch.equal(want[:n], torch.arange(n) % 2 == 0)
+
+
+@pytest.mark.cuda
+def test_kernel_large_gid_table(card):
+    """A table of 2^21 rows: the round-tagged gid table has ~2M slots, of
+    which a batch touches a few hundred."""
+    cfg = ck.KernelConfig(key_words=2, capacity=2**21, max_txns=256, max_point_reads=512,
+                          max_point_writes=512, max_reads=64, max_writes=64)
+    got, want, rounds, plain_rounds = kernel_vs_plain(
+        card, cfg, chain_rows(ck.build_batch_arrays, cfg, cfg.max_txns))
+    assert torch.equal(got, want) and rounds == plain_rounds == cfg.max_txns
+    got, want, rounds, plain_rounds = kernel_vs_plain(
+        card, cfg, synth_batch(random.Random(9), cfg, 100))
+    assert torch.equal(got, want) and rounds == plain_rounds
+
+
+@pytest.mark.cuda
+def test_kernel_dense_edges(card):
+    """About half of all edge words nonzero: the compacted lists pass their
+    shared-memory capacity and continue in the global spill."""
+    plan = fc.launch_plan(DENSE)
+    arrays = dense_rows(ck.build_batch_arrays, DENSE, DENSE.max_txns)
+    edges = ck.local_phases(DENSE, ck.initial_state(DENSE), ck.batch_from_numpy(
+        DENSE, arrays, "cpu"))[1]
+    nonzero = int((edges["ovw"] != 0).sum() + (edges["ovrp"] != 0).sum())
+    assert nonzero > plan["cluster"] * plan["entry_cap"]
+    got, want, rounds, plain_rounds = kernel_vs_plain(card, DENSE, arrays)
+    assert torch.equal(got, want) and rounds == plain_rounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", [WIDE, RAGGED], ids=["wide", "ragged"])
+def test_kernel_no_valid_rows(card, cfg):
+    arrays = chain_rows(ck.build_batch_arrays, cfg, 0)
+    arrays["t_ok"][:] = True
+    got, want, rounds, _ = kernel_vs_plain(card, cfg, arrays)
+    assert torch.equal(got, want) and bool(got.all()) and rounds == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", CONFIGS + (RAGGED, ck.KernelConfig()),
+                         ids=["small", "medium", "ragged", "default"])
 def test_kernel_matches_plain(card, cfg):
     """Kernel on the card vs plain version on the CPU, same local_phases
     outputs, on an evolving table."""
     rng = random.Random(17)
     state = ck.initial_state(cfg)
     fc.FIXPOINT.reset_counts()
-    n = 24
+    n = 24 if cfg.max_txns <= 256 else 6
     for trial in range(n):
         batch = ck.batch_from_numpy(cfg, synth_batch(rng, cfg, 100 + trial), "cpu")
         hist, edges, _ = ck.local_phases(cfg, state, batch)
@@ -109,6 +248,22 @@ def test_wrapper_rejects_bad_inputs(card):
     odd = ck.KernelConfig(key_words=2, capacity=512, max_txns=40, max_reads=32, max_writes=32)
     with pytest.raises(ValueError):
         fc.commit_fixpoint(odd, batch["t_ok"], hist, edges, batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", CONFIGS + (ck.KernelConfig(),), ids=["small", "medium", "default"])
+def test_card_schedules_the_cluster(card, cfg):
+    """The card holds at least one cluster of the launch plan's shape, and
+    the answer is asked once per card and shape."""
+    plan = fc.launch_plan(cfg)
+    n = ctypes.c_int(0)
+    with torch.cuda.device(card):
+        assert fc.FIXPOINT.lib().fdb_fixpoint_active_clusters(
+            plan["cluster"], plan["smem_bytes"], ctypes.byref(n)) == 0
+        assert n.value >= 1
+        fc.FIXPOINT.check_schedulable(plan, torch.device("cuda", torch.cuda.current_device()))
+    assert any(key[1:] == (plan["cluster"], plan["smem_bytes"])
+               for key in fc.FIXPOINT._schedulable)
 
 
 @pytest.mark.cuda

@@ -21,6 +21,7 @@ from foundationdb_tpu.ops import conflict_kernel as jck
 from foundationdb_tpu.ops import fixpoint_pallas as fp
 from foundationdb_tpu_torch.ops import conflict_kernel as tck
 from foundationdb_tpu_torch.ops import fixpoint_cuda as fc
+from test_torch_cuda import CONFIGS, DENSE, RAGGED, WIDE, chain_rows, dense_rows, fixpoint_rounds
 
 torch.set_num_threads(1)
 
@@ -123,3 +124,75 @@ def test_kernel_refuses_cpu_tensors_and_unsupported_configs():
     with pytest.raises(ValueError):
         fc.commit_fixpoint_kernel(odd, tb["t_ok"], th, te, tb)
     assert fc.FIXPOINT.launches == 0
+
+
+BENCH = tck.KernelConfig(key_words=4, capacity=24576, max_point_reads=8192,
+                         max_point_writes=8192, max_reads=256, max_writes=256, max_txns=4096)
+
+
+@pytest.mark.parametrize("cfg", [TCFG, CONFIGS[1], RAGGED, WIDE, DENSE, BENCH, tck.KernelConfig()],
+                         ids=["small", "medium", "ragged", "wide", "dense", "bench", "engine"])
+def test_launch_plan(cfg):
+    """The kernel's launch plan, computed without a card: a cluster of more
+    than one CTA whose slices (multiples of 32 rows) cover every read row
+    exactly once, shared memory within a CTA's 227 KB, and lists that hold
+    the worst case (every point row valid, every edge word nonzero) between
+    shared memory and the global spill."""
+    plan = fc.launch_plan(cfg)
+    nc = plan["cluster"]
+    assert 1 < nc <= 16 and len(plan["slices"]) == nc
+    rows = [g for g0, g1 in plan["slices"] for g in range(g0, g1)]
+    assert rows == list(range(cfg.r_all))
+    assert all(g0 % 32 == 0 for g0, g1 in plan["slices"] if g1 > g0)
+    assert plan["rows_per_cta"] % 32 == 0
+    assert plan["smem_bytes"] <= fc.SMEM_LIMIT == 232448
+    for g0, g1 in plan["slices"]:
+        points = max(0, min(g1, cfg.rp) - g0)
+        words = (g1 - g0) * cfg.wr_words + max(0, g1 - max(g0, cfg.rp)) * cfg.wp_words
+        assert plan["point_cap"] + plan["point_spill_cap"] >= points
+        assert plan["entry_cap"] + plan["entry_spill_cap"] >= words
+    assert plan["entry_scratch_bytes"] == nc * plan["entry_spill_cap"] * fc.ENTRY_BYTES
+    assert plan["point_scratch_bytes"] == nc * plan["point_spill_cap"] * fc.POINT_BYTES
+    assert plan["writers_per_cta"] * nc >= cfg.wp
+    assert plan["gid_table"] == "global"
+    assert plan["gid_table_bytes"] == 8 * (cfg.gid_space + 2)
+    assert fc.supported(cfg)
+
+
+def test_launch_plan_raises_past_a_ctas_shared_memory():
+    huge_t = tck.KernelConfig(max_txns=2**21, max_reads=32, max_writes=32)
+    with pytest.raises(ValueError):
+        fc.launch_plan(huge_t)
+    assert not fc.supported(huge_t)
+
+
+def jax_and_port(arrays):
+    """(JAX batch, port batch, JAX phases, port phases) on an empty table."""
+    jb = {k: jnp.asarray(v) for k, v in arrays.items()}
+    tb = tck.batch_from_numpy(TCFG, arrays, "cpu")
+    jstate = jck.initial_state(CFG)
+    tstate = tck.state_from_numpy(TCFG, {k: np.asarray(v) for k, v in jstate.items()}, "cpu")
+    return jb, tb, jck.local_phases(CFG, jstate, jb), tck.local_phases(TCFG, tstate, tb)
+
+
+@pytest.mark.parametrize("case", ["chain_point", "chain_range", "dense"])
+def test_worst_cases_plain_matches_xla_and_pallas_interpret(case):
+    """The deep chains and the all-dense batch of the card tests, at the
+    small width: the port's plain fixpoint equals the JAX package's XLA
+    fixpoint and its Pallas kernel (interpret mode) bit for bit, and the
+    chain takes one round per link plus one."""
+    T = CFG.max_txns
+    if case == "dense":
+        arrays = dense_rows(jck.build_batch_arrays, CFG, T)
+    else:
+        arrays = chain_rows(jck.build_batch_arrays, CFG, T, case.split("_")[1])
+    jb, tb, (jh, je, _), (th, te, _) = jax_and_port(arrays)
+    want = np.asarray(jck.commit_fixpoint(CFG, jb["t_ok"], jh, je, jb))
+    pallas = np.asarray(fp.commit_fixpoint_pallas(CFG, jb["t_ok"], jh, je, jb, interpret=True))
+    got = fc.commit_fixpoint(TCFG, tb["t_ok"], th, te, tb).numpy()
+    assert np.array_equal(pallas, want) and np.array_equal(got, want)
+    rounds = fixpoint_rounds(TCFG, tb["t_ok"], th, te, tb)
+    if case == "dense":
+        assert rounds == 2 and got[0] and not got[1:T].any()
+    else:
+        assert rounds == T and np.array_equal(got, np.arange(T) % 2 == 0)
