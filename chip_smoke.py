@@ -28,14 +28,37 @@ toolkit. The script
   5. engine phase (the main path a user calls): TorchConflictEngine() on the
      card at the default KernelConfig (65536-row table, 4096 txns, 4096 rows
      per group) resolves byte-key CommitTransaction batches, long keys
-     included; its verdicts must equal the same engine on the CPU on every
+     and range rows included, so the general router takes nearly every
+     batch; its verdicts must equal the same engine on the CPU on every
      batch and OracleConflictEngine on the first batches. The launch counts
      are zeroed just before and read just after: the kernel must have run,
      and the plain version must never have seen a CUDA tensor. The packed
-     arrays of the engine's largest chunk are recorded on the way (a wrapper
-     around the engine's _batch, installed by this script) and replayed
+     arrays of the engine's largest chunk are recorded on the way (wrappers
+     around the engine's _run_step and _run_detect, installed by this
+     script) and replayed
      through local_phases and the kernel: the shape users' batches give the
-     kernel, most rows padding.
+     kernel, most rows padding;
+  6. graph-step phase: the step phase's batches through a captured CUDA
+     graph of an 8-step chunk scan, against the eager step on the same
+     schedule: equal statuses on every batch; ms per batch, txn/s, device
+     busy share and launches per replay of both;
+  7. columnar engine phase: TorchConflictEngine() with the bucket ladder
+     (512, 1024, 2048) and scans (2, 4, 8), warmed up (graph memory read
+     before and after), on point-only traffic of 200 to 20000 txns a batch
+     through columnar_pack / columnar_dispatch / force, the dispatch under
+     torch.cuda.set_sync_debug_mode("error"); verdicts equal the oracle's
+     and the general router's on every batch, every bucket and scan size
+     serves, nothing is captured after warmup(); host-pack, dispatch and
+     force ms per batch, txn/s, and each layer's time apart;
+  8. pipeline phase: the same traffic through ResolverPipeline at depth 1,
+     2 and 3, packing inline and on a one-thread executor: verdicts equal
+     serial resolve(); txn/s per depth.
+
+Each path's kernel launches are counted from 0 just before it and read
+just after (a captured graph's fixpoint launches are counted at each
+replay: FIXPOINT.graph_launches); a path that launched none fails. The
+graph-step and columnar phases also read a replay's fixpoint kernels from
+the card's trace (torch.profiler): C per C-step graph, or they fail.
 
 It prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero with no
@@ -45,6 +68,7 @@ file without the package.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import subprocess
@@ -66,6 +90,17 @@ N_DISTINCT = 8
 BYTE_KEYS = 20000
 #: txns of the deep-chain batch: 1023 links, so 1024 rounds
 CHAIN_TXNS = 1024
+#: chunks of the graph-step phase's captured scan
+GRAPH_C = 8
+#: the columnar engine's ladder and scan sizes, and its batch sizes: with
+#: 2 point reads per txn a chunk holds at most 2048 txns, so these reach
+#: every bucket and scans of 1, 2, 4 and 8 top-bucket chunks
+LADDER = (512, 1024, 2048)
+SCANS = (2, 4, 8)
+COLUMNAR_SIZES = [200, 300, 900, 1800, 4000, 9000, 20000]
+VERSION_STEP = 5000
+#: runs of each pipeline configuration
+PIPELINE_RUNS = 3
 
 
 def fail(msg: str) -> None:
@@ -148,12 +183,16 @@ def versioned(cfg, batch, now: int, rng=None):
     """The bench's version schedule (bench.py:196-205): snapshots half a
     batch behind `now`, the GC horizon GC_LAG_BATCHES batches behind. With
     `rng`, each txn's snapshot lies up to two batches behind instead, so
-    reads also hit history."""
+    reads also hit history. `now` and `gc` become 0-d device tensors made
+    by a fill, not a copy, so nothing waits on the card; the step is told
+    the GC branch (`gc_branch(batch)`) instead of reading it."""
     import torch
 
     T = cfg.max_txns
     gc = max(now - GC_LAG_BATCHES * T, 0)
-    out = dict(batch, now=now, gc=gc)
+    dev = batch["t_ok"].device
+    out = dict(batch, now=torch.full((), now, dtype=torch.int32, device=dev),
+               gc=torch.full((), gc, dtype=torch.int32, device=dev), _gc=gc)
     if rng is None:
         out["rp_snap"] = torch.full_like(batch["rp_snap"], max(now - T // 2, 0))
         out["r_snap"] = torch.full_like(batch["r_snap"], max(now - T // 2, 0))
@@ -163,6 +202,10 @@ def versioned(cfg, batch, now: int, rng=None):
         out["rp_snap"] = snap[batch["rp_txn"].long()]
         out["r_snap"] = snap[batch["r_txn"].long()]
     return out, now + T - gc
+
+
+def gc_branch(batch) -> bool:
+    return batch["_gc"] > 0
 
 
 def cuda_ms(fn, repeats: int, samples: int = 5) -> float:
@@ -233,7 +276,7 @@ def kernel_phase(ck, fc, cfg, dev, rng, n_batches: int):
     now = 1
     for i in range(GC_LAG_BATCHES + 2):           # warm the table first
         batch, now = versioned(cfg, batches[i % N_DISTINCT], now)
-        state, _ = ck.resolve_step(cfg, state, batch)
+        state, _ = ck.resolve_step(cfg, state, batch, gc_branch(batch))
     commits = aborts = mixed = 0
     rounds = []
     last = None
@@ -253,7 +296,8 @@ def kernel_phase(ck, fc, cfg, dev, rng, n_batches: int):
         aborts += cfg.max_txns - c
         mixed += 0 < c < cfg.max_txns
         rounds.append(int(fc.FIXPOINT.last_rounds.item()))
-        state, overflow, _ = ck.apply_writes_and_gc(cfg, state, batch, got, wpos)
+        state, overflow, _ = ck.apply_writes_and_gc(cfg, state, batch, got, wpos,
+                                                    gc_branch(batch))
         check(not bool(overflow), f"table overflow in the kernel phase, batch {i}")
         now = nxt
         last = (batch, hist, edges)
@@ -370,7 +414,7 @@ def step_phase(ck, cfg, dev, rng, steps: int):
         nonlocal state, now
         for i in range(i0, i0 + n):
             batch, now = versioned(cfg, batches[i % N_DISTINCT], now)
-            state, out = ck.resolve_step(cfg, state, batch)
+            state, out = ck.resolve_step(cfg, state, batch, gc_branch(batch))
             flags.append(out["overflow"])
 
     run(2 * N_DISTINCT, 0)
@@ -453,21 +497,25 @@ def engine_phase(ck, fc, he, oracle_mod, dev, rng, cfg, sizes, oracle_batches: i
     import torch
 
     gpu = he.TorchConflictEngine(cfg) if dev.type == "cuda" else he.TorchConflictEngine(cfg, device=dev)
+    gpu.warmup(scan_sizes=())            # the general router's one program
     cpu = he.TorchConflictEngine(cfg, device="cpu")
     # record the packed arrays (and the table they meet) of the largest
-    # chunk. Inside the timed resolve, so it takes only references: t_ok is
-    # the host array, and a step returns a new table without writing the old.
+    # chunk, fused or split-step. Inside the timed resolve, so it takes
+    # references and one stream-ordered copy of the table, which the
+    # engine updates in place.
     captured = {"txns": -1}
-    packed = gpu._batch
 
-    def recording_batch(per_shard):
-        batch = packed(per_shard)
-        n = int(per_shard[0]["t_ok"].sum())
-        if n > captured["txns"]:
-            captured.update(txns=n, batch=batch, state=gpu.state)
-        return batch
+    def recording(run):
+        def wrapped(per_shard):
+            n = int(per_shard[0]["t_ok"].sum())
+            if n > captured["txns"]:
+                captured.update(txns=n, arrays=per_shard[0],
+                                state={k: v.clone() for k, v in gpu.state.items()})
+            return run(per_shard)
+        return wrapped
 
-    gpu._batch = recording_batch
+    gpu._run_step = recording(gpu._run_step)
+    gpu._run_detect = recording(gpu._run_detect)
     ora = oracle_mod.OracleConflictEngine()
     now, oldest = 10_000, 0
     counts = [0, 0, 0]
@@ -490,14 +538,375 @@ def engine_phase(ck, fc, he, oracle_mod, dev, rng, cfg, sizes, oracle_batches: i
             check(got == ref, f"engine batch {b}: verdicts differ from the oracle")
         for v in got:
             counts[v] += 1
-    launches, plain_cuda = fc.FIXPOINT.launches, fc.FIXPOINT.plain_cuda_calls
+    eager, graph = fc.FIXPOINT.launches, fc.FIXPOINT.graph_launches
+    launches = eager + graph
+    plain_cuda = fc.FIXPOINT.plain_cuda_calls
     check(launches > 0, "the engine path never launched the fixpoint kernel")
     check(plain_cuda == 0, "the engine path ran the plain fixpoint on CUDA tensors")
     check(gpu._tier_has_writes, "no long-key write reached the host tier")
     check(min(counts) > 0, f"verdict mix lacks a class: {counts}")
     return captured, {"batches": len(sizes), "txns": sum(sizes), "oracle_batches": oracle_batches,
-            "launches": launches, "conflict": counts[0], "too_old": counts[1],
+            "launches": launches, "eager_launches": eager, "graph_launches": graph,
+            "conflict": counts[0], "too_old": counts[1],
             "committed": counts[2], "card_resolve_s": gpu_s}
+
+
+# ---------------------------------------------------------------------------
+# the serving path: captured chunk scans, the columnar engine, the pipeline
+# ---------------------------------------------------------------------------
+
+#: the fixpoint kernel's name in a device trace (csrc/fixpoint.cu)
+FIXPOINT_KERNEL = "commit_fixpoint_kernel"
+
+
+def profile_window(run, units: int):
+    """torch.profiler over `units` calls of run(): wall ms per call, device
+    kernel ms per call, the device's busy share of the wall time, kernel
+    launches per call (kernels replayed from a CUDA graph included), and of
+    them the fixpoint kernels the card ran per call, read from the trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(units):
+            run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us, launches, fixpoints = 0.0, 0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy_us += e.time_range.elapsed_us()
+            launches += 1
+            fixpoints += FIXPOINT_KERNEL in e.name
+    return {"wall_ms": wall_us / units / 1e3, "device_ms": busy_us / units / 1e3,
+            "device_busy_share": busy_us / wall_us if busy_us else None,
+            "kernels": launches / units, "fixpoint_kernels": fixpoints / units}
+
+
+def traced_replays(run, units: int, fixpoints: int, what: str):
+    """profile_window over `units` calls of a graph replay that must run
+    `fixpoints` fixpoint kernels on the card each. A trace that shows more
+    fails; one that shows fewer is taken again, up to 3 traces in all,
+    since a trace can lose kernel events (see device_ms)."""
+    for attempt in range(1, 4):
+        pw = profile_window(run, units)
+        check(pw["fixpoint_kernels"] <= fixpoints, f"the card ran {pw['fixpoint_kernels']} "
+              f"fixpoint kernels per replay of {what}, expected {fixpoints}")
+        if pw["fixpoint_kernels"] == fixpoints:
+            return dict(pw, traces=attempt)
+    fail(f"3 traces of {what} show {pw['fixpoint_kernels']} fixpoint kernels per replay, "
+         f"expected {fixpoints}")
+
+
+def graph_step_phase(ck, fc, he, cfg, dev, rng, units: int):
+    """The step phase's packed batches (same generator, same pool) through
+    the captured chunk scan of C = GRAPH_C at the bench shape, against the
+    eager step on the same schedule: unit u is GRAPH_C chunks at one
+    version, the GC horizon GC_LAG_BATCHES batches behind on its last
+    chunk, as the chunks of one engine batch run. Statuses and overflow
+    flags must be equal on every chunk."""
+    import torch
+
+    T = cfg.max_txns
+    pool = key_pool(cfg, rng)
+    batches = [ck.batch_from_numpy(cfg, synth_packed(cfg, rng, pool), dev)
+               for _ in range(N_DISTINCT)]
+    eng = he.TorchConflictEngine(cfg, device=dev, scan_sizes=(GRAPH_C,))
+    t0 = time.perf_counter()
+    prog = eng._program(cfg, GRAPH_C)
+    capture_s = time.perf_counter() - t0
+    sched, now = [], 1
+    for u in range(units):
+        gc = max(now - GC_LAG_BATCHES * T, 0)
+        rows = []
+        for c in range(GRAPH_C):
+            b = dict(batches[(u * GRAPH_C + c) % N_DISTINCT])
+            last = c == GRAPH_C - 1
+            b["now"] = torch.full((), now, dtype=torch.int32, device=dev)
+            b["gc"] = torch.full((), gc if last else 0, dtype=torch.int32, device=dev)
+            b["rp_snap"] = torch.full_like(b["rp_snap"], max(now - T // 2, 0))
+            b["r_snap"] = torch.full_like(b["r_snap"], max(now - T // 2, 0))
+            rows.append(b)
+        inputs = {k: torch.stack([ck._u32_to_i32(b[k]) if k in he.KEY_FIELDS else b[k]
+                                  for b in rows]) for k in prog.inputs}
+        sched.append((rows, inputs, gc > 0))
+        now = now + T - gc
+
+    def eager(out=None):
+        state = ck.initial_state(cfg, device=dev)
+        for rows, _, gc_last in sched:
+            for c, b in enumerate(rows):
+                state, o = ck.resolve_step(cfg, state, b, gc_last and c == GRAPH_C - 1)
+                if out is not None:
+                    out.append((o["status"], o["overflow"]))
+        return state
+
+    replay_host_s = []
+
+    def graph(out=None):
+        eng._reset_device_state(0)
+        for _, inputs, gc_last in sched:
+            for k, v in inputs.items():
+                prog.inputs[k].copy_(v)
+            t0 = time.perf_counter()
+            prog.run(gc_last)
+            replay_host_s.append(time.perf_counter() - t0)
+            if out is not None:
+                out.append((prog.status.clone(), prog.overflow.clone()))
+
+    want, got = [], []
+    eager(want)
+    fc.FIXPOINT.reset_counts()
+    graph(got)
+    launches = fc.FIXPOINT.graph_launches
+    check(fc.FIXPOINT.plain_cuda_calls == 0 and fc.FIXPOINT.launches == 0,
+          "the graph replays ran a fixpoint outside the graph")
+    check(launches == units * GRAPH_C, f"{launches} fixpoint launches in {units} replays")
+    want_s = torch.stack([s for s, _ in want])
+    got_s = torch.cat([s for s, _ in got])
+    check(torch.equal(got_s, want_s), f"graph and eager statuses differ at "
+          f"{int((got_s != want_s).sum())} of {want_s.numel()} txns")
+    check(torch.equal(torch.cat([o for _, o in got]), torch.stack([o for _, o in want])),
+          "graph and eager overflow flags differ")
+    check(not bool(torch.stack([o for _, o in want]).any()), "table overflow in the graph phase")
+    statuses = torch.bincount(want_s.flatten().long(), minlength=3).tolist()
+    check(statuses[0] > 0 and statuses[2] > 0, f"no abort mix in the graph phase: {statuses}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    chunks = units * GRAPH_C
+    eager_s, graph_s = timed(eager), timed(graph)
+    eager_s2, graph_s2 = timed(eager), timed(graph)
+    n_prof = 2
+    it = iter(range(10**9))
+
+    def one_unit():
+        rows, inputs, gc_last = sched[next(it) % units]
+        for k, v in inputs.items():
+            prog.inputs[k].copy_(v)
+        prog.run(gc_last)
+
+    gp = traced_replays(one_unit, n_prof, GRAPH_C, f"the {GRAPH_C}-step graph")
+    state = ck.initial_state(cfg, device=dev)
+
+    def eager_unit():
+        nonlocal state
+        rows, _, gc_last = sched[next(it) % units]
+        for c, b in enumerate(rows):
+            state, _ = ck.resolve_step(cfg, state, b, gc_last and c == GRAPH_C - 1)
+
+    ep = profile_window(eager_unit, n_prof)
+    return {
+        "units": units, "C": GRAPH_C, "chunks": chunks, "mismatches": 0, "launches": launches,
+        "verdicts": statuses, "capture_s": capture_s, "captures": eng.perf.captures,
+        "fixpoint_launches_per_replay": launches / units,
+        "fixpoint_kernels_per_replay_traced": gp["fixpoint_kernels"],
+        "graph_ms_per_batch": [graph_s / chunks * 1e3, graph_s2 / chunks * 1e3],
+        "eager_ms_per_batch": [eager_s / chunks * 1e3, eager_s2 / chunks * 1e3],
+        "graph_txn_per_s": T * chunks / min(graph_s, graph_s2),
+        "eager_txn_per_s": T * chunks / min(eager_s, eager_s2),
+        "graph_profile": {k: (v / GRAPH_C if k in ("wall_ms", "device_ms") else v)
+                          for k, v in gp.items()},
+        "eager_profile": {k: (v / GRAPH_C if k in ("wall_ms", "device_ms") else v)
+                          for k, v in ep.items()},
+        "kernels_per_replay": gp["kernels"],
+        "replay_host_ms": statistics.median(replay_host_s) * 1e3,
+    }
+
+
+def columnar_traffic(rng, sizes):
+    """Point-only CommitTransactions (bench.py:46-49): 2 point reads and 2
+    point writes per txn over one hot pool of POOL_KEYS 16-byte keys.
+    Versions advance VERSION_STEP a batch; the GC horizon trails by
+    GC_LAG_BATCHES batches, and ~3% of snapshots lie behind it (too old).
+    Each txn's wire block is encoded here, as a client encodes its commit
+    request once: the timed pack is the resolver's."""
+    from foundationdb_tpu_torch.core.types import CommitTransaction, KeyRange
+
+    out, now = [], 10_000
+    for b, n in enumerate(sizes):
+        now += VERSION_STEP
+        oldest = max(0, now - GC_LAG_BATCHES * VERSION_STEP)
+        lag = rng.integers(1, 2 * VERSION_STEP, size=n)
+        old = rng.random(n) < 0.03
+        lag[old] = rng.integers((GC_LAG_BATCHES + 1) * VERSION_STEP,
+                                (GC_LAG_BATCHES + 2) * VERSION_STEP, size=int(old.sum()))
+        keys = rng.integers(0, POOL_KEYS, size=(n, 4))
+        txns = []
+        for i in range(n):
+            t = CommitTransaction(read_snapshot=int(max(0, now - lag[i])))
+            for j in range(4):
+                k = b"h/%014d" % keys[i, j]
+                (t.read_conflict_ranges if j < 2 else t.write_conflict_ranges).append(
+                    KeyRange(k, k + b"\x00"))
+            t.conflict_wire_info()
+            txns.append(t)
+        out.append((txns, now, oldest))
+    return out
+
+
+def columnar_engine_phase(ck, fc, he, oracle_mod, cfg, batches):
+    """TorchConflictEngine() on the card with the bucket ladder and chunk
+    scans, warmed up; every point-only batch through columnar_pack /
+    columnar_dispatch / force (the dispatch under sync debug mode "error":
+    a synchronizing call there fails the phase); verdicts against the
+    oracle and the general router of a second engine (columnar path
+    bypassed) on every batch."""
+    import torch
+
+    eng = he.TorchConflictEngine(cfg, ladder=LADDER, scan_sizes=SCANS)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()            # what earlier phases left cached
+    mem0 = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    mem1 = torch.cuda.memory_reserved()
+    captures = eng.perf.captures
+    n_graphs = len(eng.buckets) * (1 + len(SCANS)) * 2
+    check(captures == n_graphs, f"warmup captured {captures} graphs, expected {n_graphs}")
+    router = he.TorchConflictEngine(cfg)
+    router._resolve_columnar = lambda *a: None
+    router.warmup(scan_sizes=())
+    ora = oracle_mod.OracleConflictEngine()
+    pack_s = dispatch_s = force_s = 0.0
+    launches = plain = 0
+    serial, counts = [], [0, 0, 0]
+    for b, (txns, now, oldest) in enumerate(batches):
+        fc.FIXPOINT.reset_counts()
+        t0 = time.perf_counter()
+        plan = eng.columnar_pack(txns, now, oldest)
+        t1 = time.perf_counter()
+        check(plan is not None, f"batch {b} did not take the columnar path")
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            force = eng.columnar_dispatch(plan)
+        except RuntimeError as e:
+            fail(f"batch {b}: the columnar dispatch synchronized with the card: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        t2 = time.perf_counter()
+        got = [int(v) for v in force()]
+        t3 = time.perf_counter()
+        launches += fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+        plain += fc.FIXPOINT.plain_cuda_calls
+        pack_s, dispatch_s, force_s = pack_s + t1 - t0, dispatch_s + t2 - t1, force_s + t3 - t2
+        want = [int(v) for v in ora.resolve(txns, now, oldest)]
+        check(got == want, f"columnar batch {b}: verdicts differ from the oracle at "
+              f"{sum(g != w for g, w in zip(got, want))} of {len(txns)} txns")
+        check([int(v) for v in router.resolve(txns, now, oldest)] == got,
+              f"columnar batch {b}: verdicts differ from the general router")
+        serial.append(got)
+        for v in got:
+            counts[v] += 1
+    check(eng.perf.captures == captures, "the columnar engine captured after warmup()")
+    check(launches > 0 and plain == 0, f"columnar path: {launches} kernel launches, "
+          f"{plain} plain fixpoints on CUDA tensors")
+    check(all(v > 0 for v in eng.perf.bucket_hits.values()),
+          f"a bucket went unused: {eng.perf.bucket_hits}")
+    check(all(eng.perf.scan_dispatches.get(c, 0) > 0 for c in (1,) + SCANS),
+          f"a scan size went unused: {eng.perf.scan_dispatches}")
+    check(min(counts) > 0, f"verdict mix lacks a class: {counts}")
+    # the layers apart: each program's kernel time per replay (profiler:
+    # the host cannot queue replays ahead of the card, so spin-queued CUDA
+    # events do not apply; on the last inputs it was given, without GC),
+    # the host time to launch it, and the copies of one top-bucket chunk's
+    # hot fields to the card (device time, and the host time to issue them)
+    program_ms, launch_ms = {}, {}
+    for key in sorted(eng._programs):
+        prog = eng._programs[key]
+        if key[1] == 1 or key == (cfg.max_txns, max(SCANS)):
+            pw = traced_replays(lambda: prog.run(False), 2, key[1], f"the {key} program")
+            program_ms[f"{key[0]}x{key[1]}"] = pw["device_ms"]
+            # host ms of a launch on an idle card, then of relaunching the
+            # same graph while that launch still runs
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prog.run(False)
+            t1 = time.perf_counter()
+            prog.run(False)
+            t2 = time.perf_counter()
+            launch_ms[f"{key[0]}x{key[1]}"] = [(t1 - t0) * 1e3, (t2 - t1) * 1e3]
+            torch.cuda.synchronize()
+    top = eng._programs[(cfg.max_txns, 1)]
+    bufs, lease = eng.arena.lease(cfg)
+    h2d_ms = device_ms(lambda: top.load(0, bufs, lease.pack), 20)
+    h2d_bytes = sum(t.nbytes for t in lease.pack.tensors.values())
+    load_host_s = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        top.load(0, bufs, lease.pack)
+        load_host_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    lease.release()
+    n, txns_total = len(batches), sum(len(t) for t, _, _ in batches)
+    return eng, serial, {
+        "program_device_ms": program_ms, "program_launch_host_ms": launch_ms,
+        "h2d_chunk_ms": h2d_ms,
+        "h2d_chunk_bytes": h2d_bytes, "h2d_chunk_copies": len(he.HOT_FIELDS),
+        "h2d_chunk_host_ms": statistics.median(load_host_s) * 1e3,
+        "batches": n, "txns": txns_total, "mismatches": 0, "launches": launches,
+        "conflict": counts[0], "too_old": counts[1], "committed": counts[2],
+        "captures": captures, "warmup_s": warm_s,
+        "memory_reserved_before_warmup": mem0, "memory_reserved_after_warmup": mem1,
+        "bucket_hits": eng.perf.bucket_hits, "scan_dispatches": eng.perf.scan_dispatches,
+        "arena_misses": eng.arena.misses,
+        "pack_ms_per_batch": pack_s / n * 1e3, "dispatch_ms_per_batch": dispatch_s / n * 1e3,
+        "force_ms_per_batch": force_s / n * 1e3,
+        "txn_per_s": txns_total / (pack_s + dispatch_s + force_s),
+        "sizes": [len(t) for t, _, _ in batches],
+    }
+
+
+def pipeline_phase(fc, pl, eng, batches, serial):
+    """The same traffic through the port's ResolverPipeline at depth 1, 2
+    and 3, packing inline and on a one-thread executor, PIPELINE_RUNS times
+    each in turns, on the warmed engine reset to an empty table each run:
+    verdicts equal serial resolve()'s on every batch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    out = {}
+    captures = eng.perf.captures
+    launches = 0
+    for _, depth, threads in itertools.product(range(PIPELINE_RUNS), (1, 2, 3), (0, 1)):
+        eng.base = eng.oldest_version = 0
+        eng.clear(0)
+        torch.cuda.synchronize()
+        fc.FIXPOINT.reset_counts()
+        ex = ThreadPoolExecutor(threads) if threads else None
+        try:
+            pipe = pl.ResolverPipeline(eng, depth=depth, executor=ex)
+            t0 = time.perf_counter()
+            handles = [pipe.submit(txns, now, oldest) for txns, now, oldest in batches]
+            got = [[int(v) for v in h.result()] for h in handles]
+            wall = time.perf_counter() - t0
+        finally:
+            if ex is not None:
+                ex.shutdown()
+        n = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+        check(n > 0 and fc.FIXPOINT.plain_cuda_calls == 0,
+              f"pipeline depth {depth}: {n} kernel launches")
+        launches += n
+        for b, (g, w) in enumerate(zip(got, serial)):
+            check(g == w, f"pipeline depth {depth}, executor threads {threads}: batch {b} "
+                  "differs from serial resolve()")
+        run = out.setdefault(f"depth{depth}_{'executor' if threads else 'inline'}",
+                             {"txn_per_s": []})
+        run["txn_per_s"].append(sum(len(t) for t, _, _ in batches) / wall)
+    check(eng.perf.captures == captures, "the pipeline captured after warmup()")
+    out["launches"] = launches
+    return out
 
 
 def main(argv=None) -> int:
@@ -517,6 +926,7 @@ def main(argv=None) -> int:
         from foundationdb_tpu_torch.ops import fixpoint_cuda as fc
         from foundationdb_tpu_torch.ops import host_engine as he
         from foundationdb_tpu_torch.ops import oracle as oracle_mod
+        from foundationdb_tpu_torch import pipeline as pl
     except ImportError as e:
         fail(f"foundationdb_tpu_torch is not importable next to this script ({e})")
 
@@ -581,11 +991,13 @@ def main(argv=None) -> int:
     print(f"engine phase [{card}]: {ep['txns']} txns in {ep['batches']} resolve() batches "
           f"match the CPU engine ({ep['oracle_batches']} also the oracle): "
           f"{ep['committed']} committed / {ep['conflict']} conflict / {ep['too_old']} too old; "
-          f"{ep['launches']} kernel launches; card resolve {ep['card_resolve_s']:.3f} s "
+          f"{ep['launches']} kernel launches ({ep['graph_launches']} in graph replays, "
+          f"{ep['eager_launches']} eager); card resolve {ep['card_resolve_s']:.3f} s "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
-    _, tp = replay_phase(ck, fc, engine_cfg, captured["state"], captured["batch"])
+    _, tp = replay_phase(ck, fc, engine_cfg, captured["state"],
+                         ck.batch_from_numpy(engine_cfg, captured["arrays"], dev))
     results["engine_traffic"] = tp
     print(f"engine-traffic replay [{card}]: the engine's largest chunk ({tp['txns']} txns, "
           f"{tp['valid_point_reads']} + {tp['valid_range_reads']} valid read rows of "
@@ -594,12 +1006,66 @@ def main(argv=None) -> int:
           f"(call {tp['call_ms']:.4f}) bound_ms={tp['bound_ms']:.6f} ({tp['bound_by']}) "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    t0 = time.perf_counter()
+    gp = graph_step_phase(ck, fc, he, cfg, dev, rng, units=40)
+    results["graph_step_phase"] = gp
+    print(f"graph-step phase, bench shape [{card}]: {gp['chunks']} batches in {gp['units']} "
+          f"replays of a captured {gp['C']}-step scan equal the eager step's statuses; "
+          f"graph {gp['graph_ms_per_batch'][0]:.4f} / {gp['graph_ms_per_batch'][1]:.4f} ms/batch "
+          f"({gp['graph_txn_per_s']:.0f} txn/s) against eager "
+          f"{gp['eager_ms_per_batch'][0]:.4f} / {gp['eager_ms_per_batch'][1]:.4f} ms/batch "
+          f"({gp['eager_txn_per_s']:.0f} txn/s); {gp['fixpoint_launches_per_replay']:.0f} "
+          f"fixpoint launches counted and {gp['fixpoint_kernels_per_replay_traced']:.0f} in the "
+          f"card's trace, {gp['kernels_per_replay']:.0f} kernels per replay, "
+          f"{gp['replay_host_ms']:.4f} ms of host time to launch one; capture "
+          f"{gp['capture_s']:.2f} s ({time.perf_counter() - t0:.1f} s)", flush=True)
+    for label in ("graph", "eager"):
+        pr = gp[f"{label}_profile"]
+        print(f"  {label} profile [{card}]: {pr['wall_ms']:.4f} ms wall/batch, "
+              f"{pr['device_ms']:.4f} ms device/batch, device busy share "
+              f"{pr['device_busy_share']}, {pr['kernels']:.0f} kernels per {GRAPH_C} batches",
+              flush=True)
+
+    t0 = time.perf_counter()
+    batches = columnar_traffic(rng, COLUMNAR_SIZES)
+    eng, serial, colp = columnar_engine_phase(ck, fc, he, oracle_mod, engine_cfg, batches)
+    results["columnar_engine_phase"] = colp
+    print(f"columnar engine phase [{card}]: {colp['txns']} point-only txns in {colp['batches']} "
+          f"batches {colp['sizes']} match the oracle and the general router: "
+          f"{colp['committed']} committed / {colp['conflict']} conflict / {colp['too_old']} too old; "
+          f"buckets {colp['bucket_hits']}, scans {colp['scan_dispatches']}; {colp['captures']} graphs "
+          f"captured in warmup ({colp['warmup_s']:.2f} s), none after; memory reserved "
+          f"{colp['memory_reserved_before_warmup']} -> {colp['memory_reserved_after_warmup']} B; "
+          f"pack {colp['pack_ms_per_batch']:.4f} dispatch {colp['dispatch_ms_per_batch']:.4f} force "
+          f"{colp['force_ms_per_batch']:.4f} ms/batch, {colp['txn_per_s']:.0f} txn/s; "
+          f"{colp['launches']} kernel launches; arena misses {colp['arena_misses']} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"  columnar layers [{card}]: program kernel ms per replay "
+          f"{ {k: round(v, 4) for k, v in colp['program_device_ms'].items()} }, host ms to "
+          f"launch one on an idle card / to relaunch it at once "
+          f"{ {k: [round(x, 4) for x in v] for k, v in colp['program_launch_host_ms'].items()} }; "
+          f"one top-bucket chunk's {colp['h2d_chunk_bytes']} hot bytes to the card in "
+          f"{colp['h2d_chunk_copies']} copies: {colp['h2d_chunk_ms']:.4f} ms on the card, "
+          f"{colp['h2d_chunk_host_ms']:.4f} ms of host time to issue", flush=True)
+
+    t0 = time.perf_counter()
+    pp = pipeline_phase(fc, pl, eng, batches, serial)
+    results["pipeline_phase"] = pp
+    print(f"pipeline phase [{card}]: depth 1-3, inline and executor packing, all equal serial "
+          f"resolve(): " + ", ".join(f"{k} " + " / ".join(f"{x:.0f}" for x in v["txn_per_s"])
+                                     + " txn/s" for k, v in pp.items() if k != "launches")
+          + f"; {pp['launches']} kernel launches ({time.perf_counter() - t0:.1f} s)", flush=True)
+
     kernels = {"kernels": [{
         "name": "commit_fixpoint",
         "route": "cuda",
         "source": "foundationdb_tpu_torch/csrc/fixpoint.cu",
         "replaces": "foundationdb_tpu/ops/fixpoint_pallas.py:336",
-        "launches": ep["launches"],
+        "launches": ep["launches"] + gp["launches"] + colp["launches"] + pp["launches"],
+        "launches_by_path": {"engine_general_router_graph": ep["graph_launches"],
+                             "engine_general_router_eager": ep["eager_launches"],
+                             "graph_step": gp["launches"], "columnar_engine": colp["launches"],
+                             "pipeline": pp["launches"]},
         "mismatches": 0,
         "max_abs_err": 0,
         "ms": kp["kernel_ms"],

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import enum
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Tuple
 
 Version = int  # int64 semantics
 Key = bytes
@@ -42,6 +42,25 @@ class CommitTransaction:
     read_conflict_ranges: List[KeyRange] = field(default_factory=list)
     write_conflict_ranges: List[KeyRange] = field(default_factory=list)
     read_snapshot: Version = 0
+
+    def conflict_wire_info(self) -> Tuple[bytes, bool, int]:
+        """This transaction's conflict ranges as one columnar wire block
+        (core/wire.py) plus the (all_point, max_key_len) classification of
+        the encode. Cached against the range tuples themselves: a hit costs
+        O(ranges) identity compares, and replacing a range in place
+        invalidates it."""
+        from . import wire
+
+        key = (tuple(self.read_conflict_ranges), tuple(self.write_conflict_ranges))
+        cached = getattr(self, "_wire_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        info = wire.conflict_wire_ex(key[0], key[1])
+        self._wire_cache = (key, info)
+        return info
+
+    def conflict_wire_block(self) -> bytes:
+        return self.conflict_wire_info()[0]
 
 
 class TransactionCommitResult(enum.IntEnum):

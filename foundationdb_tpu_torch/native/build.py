@@ -1,11 +1,14 @@
-"""Build the port's CUDA sources into shared libraries with a plain C
+"""Build the port's native sources into shared libraries with a plain C
 interface, loaded with ctypes.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc -gencode
-arch=compute_90a,code=sm_90a`` into ``_build/lib<name>-<hash>.so``, at first
-use. The hash covers the source and the flags, so an edited source rebuilds
-and an unchanged one is reused. Sources build in parallel, one nvcc each.
-Nothing here runs at import time; a machine with a card but no nvcc raises.
+arch=compute_90a,code=sm_90a``, each ``csrc/<name>.c`` (host code) with the
+toolchain's ``cc -O2 -fPIC -shared``, into ``_build/lib<name>-<hash>.so``,
+at first use. The hash covers the source and the flags, so an edited source
+rebuilds and an unchanged one is reused. Sources build in parallel, one
+compiler process each. Nothing here runs at import time; a machine without
+the compiler a source needs raises (nvcc for the kernels, cc for the host
+packer), and nothing falls back to a Python path.
 """
 from __future__ import annotations
 
@@ -23,13 +26,17 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+CC_FLAGS = ("-O2", "-fPIC", "-shared")
+#: host C compilers tried in order
+C_COMPILERS = ("cc", "gcc", "clang")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
 def sources() -> Dict[str, Path]:
-    """{name: path} of every CUDA source the package ships."""
-    return {p.stem: p for p in sorted(CSRC_DIR.glob("*.cu"))}
+    """{name: path} of every native source the package ships: CUDA (.cu)
+    and host C (.c)."""
+    return {p.stem: p for p in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.c")])}
 
 
 def nvcc() -> str:
@@ -50,9 +57,30 @@ def nvcc() -> str:
         "from csrc/ at first use and need the CUDA toolkit (set CUDA_HOME)")
 
 
+def c_compiler() -> str:
+    """Path of the host C compiler: the first of C_COMPILERS on PATH."""
+    for cc in C_COMPILERS:
+        found = shutil.which(cc)
+        if found:
+            return found
+    raise RuntimeError(
+        f"no C compiler found (tried {', '.join(C_COMPILERS)} on PATH): the host "
+        "packer of foundationdb_tpu_torch (csrc/fastpack.c) is built at first use "
+        "and needs one")
+
+
+def _flags(src: Path):
+    return NVCC_FLAGS if src.suffix == ".cu" else CC_FLAGS
+
+
+def _command(src: Path, out: Path):
+    compiler = nvcc() if src.suffix == ".cu" else c_compiler()
+    return [compiler, *_flags(src), "-o", str(out), str(src)]
+
+
 def library_path(name: str) -> Path:
     src = sources()[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(_flags(src)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
@@ -60,7 +88,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Build every named source (default: all) that has no library for its
     current hash, all nvcc processes started together. Returns {name:
     seconds spent building} (0.0 for a reused library). The ptxas report of
-    each build lands in ``_build/<name>.log``."""
+    each CUDA build lands in ``_build/<name>.log``."""
     names = list(sources()) if names is None else list(names)
     BUILD_DIR.mkdir(exist_ok=True)
     todo = {}
@@ -71,7 +99,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             took[name] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(sources()[name])]
+        cmd = _command(sources()[name], tmp)
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         todo[name] = (proc, tmp, out, time.perf_counter())
     failed = []
@@ -80,11 +108,12 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
         took[name] = time.perf_counter() - t0
         (BUILD_DIR / f"{name}.log").write_bytes(log)
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log.decode(errors='replace')}")
+            failed.append(f"{name}: {Path(proc.args[0]).name} exited {proc.returncode}\n"
+                          f"{log.decode(errors='replace')}")
             continue
         os.replace(tmp, out)       # atomic: a concurrent build sees old or new
     if failed:
-        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+        raise RuntimeError("native build failed:\n" + "\n".join(failed))
     return took
 
 

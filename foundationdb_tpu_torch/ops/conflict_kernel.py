@@ -10,6 +10,8 @@ heat off). The step is the same fixed-shape program:
                       the CPU
   apply_writes_and_gc committed-write union, boundary-table merge, GC/rebase
   status_of           per-transaction verdict codes
+  resolve_step_scan   C same-shape batches as one program, threading the
+                      table through (the engine captures it as a CUDA graph)
 
 Every output equals the JAX function's element for element, padding rows
 included (tests/test_torch_conflict_kernel.py).
@@ -21,8 +23,11 @@ sorting after every real key word. Versions, txn indices, group ids and bit
 words are int32 as in the JAX package; bit words hold the uint32 bits of the
 JAX words (``Tensor.view`` reinterprets them). Positions and counts are
 int64 inside a function (torch's index type) and int32 at its outputs.
-``now`` and ``gc`` are host ints in the batch dict: the host knows them, so
-the GC branch is taken on the host with no device sync.
+``now`` and ``gc`` are 0-d int32 tensors in the batch dict, so a captured
+CUDA graph reads them from its input buffers at every replay. The GC
+branch (JAX's ``lax.cond(gc > 0, ...)``) is chosen on the host: every
+caller passes ``gc_branch``, the host's answer to ``gc > 0``, so the step
+never reads ``gc`` back from the card.
 
 JAX semantics the port reproduces explicitly:
   * out-of-range gathers clamp (after wrapping a negative index once) —
@@ -631,14 +636,15 @@ def _fixpoint(cfg: KernelConfig, t_ok, hist_hits, edges, batch) -> Tensor:
 # ---------------------------------------------------------------------------
 
 def apply_writes_and_gc(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
-                        committed: Tensor, wpos: Dict[str, Tensor]):
+                        committed: Tensor, wpos: Dict[str, Tensor], gc_branch: bool):
     """Phases 3-5: committed-write union, boundary-table merge, GC/rebase.
-    Returns (new_state, overflow bool 0-d, reclaimed int32 0-d)."""
+    `gc_branch` is the host's answer to batch["gc"] > 0. Returns
+    (new_state, overflow bool 0-d, reclaimed int32 0-d)."""
     check_supported(cfg)
     hkeys, hvers, n = state["hkeys"], state["hvers"], state["n"]
     dev = hkeys.device
     Wa, H, K = cfg.w_all, cfg.capacity, cfg.lanes
-    now = int(batch["now"])
+    now = batch["now"].to(torch.int64)
     n64 = n.to(torch.int64)
     w_txn_all = torch.cat([batch["wp_txn"], batch["w_txn"]]).long()
     w_valid_all = torch.cat([batch["wp_valid"], batch["w_valid"]])
@@ -687,8 +693,7 @@ def apply_writes_and_gc(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict
 
     # new rows interleave begins (version now) and ends (version ue_ver)
     nb_keys = torch.stack([ub_keys, ue_keys], dim=1).reshape(2 * Wa, K)
-    nb_vers = torch.stack([torch.full((Wa,), now, dtype=torch.int64, device=dev),
-                           ue_ver.long()], dim=1).reshape(2 * Wa)
+    nb_vers = torch.stack([now.expand(Wa), ue_ver.long()], dim=1).reshape(2 * Wa)
     nb_lb = torch.stack([u_start, u_stop], dim=1).reshape(2 * Wa)
     j_of = _arange(2 * Wa, dev) >> 1
     is_end_row = (_arange(2 * Wa, dev) & 1) == 1
@@ -729,9 +734,9 @@ def apply_writes_and_gc(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict
     overflow = n1 > H
 
     # ---- Phase 5: GC + rebase (keep rule of removeBefore) ----
-    # gc is a host int, so the branch is taken on the host with no sync.
-    gc = int(batch["gc"])
-    if gc > 0:
+    # The branch is the host's (gc_branch): a captured graph holds one.
+    gc = batch["gc"].to(torch.int64)
+    if gc_branch:
         prev_v = torch.cat([torch.full((1,), 2**30, dtype=torch.int64, device=dev), out_v[:-1]])
         keep = (jslot < n1) & ((jslot == 0) | (out_v >= gc) | (prev_v >= gc))
         cpos = torch.cumsum(keep, 0) - 1
@@ -762,9 +767,10 @@ def fix_step(cfg: KernelConfig, t_ok: Tensor, hist_hits: Tensor,
 
 
 def apply_step(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
-               committed: Tensor, wpos: Dict[str, Tensor]):
+               committed: Tensor, wpos: Dict[str, Tensor], gc_branch: bool):
     """Apply the globally agreed committed writes (+GC): (new_state, overflow)."""
-    new_state, overflow, _ = apply_writes_and_gc(cfg, state, batch, committed, wpos)
+    new_state, overflow, _ = apply_writes_and_gc(cfg, state, batch, committed, wpos,
+                                                 gc_branch)
     return new_state, overflow
 
 
@@ -775,15 +781,35 @@ def status_of(t_too_old: Tensor, committed: Tensor) -> Tensor:
                     int(TransactionCommitResult.CONFLICT))).to(torch.int32)
 
 
-def resolve_step(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict):
+def resolve_step(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
+                 gc_branch: bool):
     """One resolver batch: (state, batch) -> (state', {"status", "overflow",
-    "n"})."""
+    "n"}). `gc_branch`: whether batch["gc"] > 0."""
     hist_hits, edges, wpos = local_phases(cfg, state, batch)
     committed = _fixpoint(cfg, batch["t_ok"], hist_hits, edges, batch)
-    new_state, overflow, _ = apply_writes_and_gc(cfg, state, batch, committed, wpos)
+    new_state, overflow, _ = apply_writes_and_gc(cfg, state, batch, committed, wpos,
+                                                 gc_branch)
     out = {"status": status_of(batch["t_too_old"], committed),
            "overflow": overflow, "n": new_state["n"]}
     return new_state, out
+
+
+def resolve_step_scan(cfg: KernelConfig, state: Dict[str, Tensor], batches: Dict,
+                      gc_last: bool):
+    """C same-shape batches (leaves [C, ...]) as one program: resolve_step
+    chunk by chunk, threading the table through — the port of JAX's
+    lax.scan form, so status [C, T] and overflow [C] equal C serial
+    resolve_steps. `gc_last`: whether the LAST chunk carries gc > 0;
+    earlier chunks take the no-GC branch (only a batch's last chunk carries
+    its GC horizon)."""
+    C = batches["t_ok"].shape[0]
+    status, overflow = [], []
+    for c in range(C):
+        state, out = resolve_step(cfg, state, {k: v[c] for k, v in batches.items()},
+                                  gc_last and c == C - 1)
+        status.append(out["status"])
+        overflow.append(out["overflow"])
+    return state, {"status": torch.stack(status), "overflow": torch.stack(overflow)}
 
 
 # ---------------------------------------------------------------------------
@@ -800,9 +826,8 @@ def state_shapes(cfg: KernelConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dt
     }
 
 
-def batch_shapes(cfg: KernelConfig) -> Dict[str, Tuple[Tuple[int, ...], object]]:
-    """Shapes and dtypes of one device batch (the port of batch_struct).
-    `now` and `gc` are host ints."""
+def batch_shapes(cfg: KernelConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Shapes and dtypes of one device batch (the port of batch_struct)."""
     K = cfg.lanes
     i32, i64, b = torch.int32, torch.int64, torch.bool
     return {
@@ -824,8 +849,8 @@ def batch_shapes(cfg: KernelConfig) -> Dict[str, Tuple[Tuple[int, ...], object]]
         "w_valid": ((cfg.max_writes,), b),
         "t_ok": ((cfg.max_txns,), b),
         "t_too_old": ((cfg.max_txns,), b),
-        "now": ((), int),
-        "gc": ((), int),
+        "now": ((), i32),
+        "gc": ((), i32),
     }
 
 
@@ -843,13 +868,8 @@ def _to_tensor(a, shape, dtype, name: str, device) -> Tensor:
 def batch_from_numpy(cfg: KernelConfig, arrays: Dict, device) -> Dict:
     """Device batch from the numpy dict build_batch_arrays returns (the JAX
     package's build_batch_arrays gives the same dict)."""
-    out: Dict = {}
-    for name, (shape, dtype) in batch_shapes(cfg).items():
-        if dtype is int:
-            out[name] = int(arrays[name])
-        else:
-            out[name] = _to_tensor(arrays[name], shape, dtype, name, device)
-    return out
+    return {name: _to_tensor(arrays[name], shape, dtype, name, device)
+            for name, (shape, dtype) in batch_shapes(cfg).items()}
 
 
 def state_from_numpy(cfg: KernelConfig, arrays: Dict, device) -> Dict[str, Tensor]:

@@ -46,13 +46,17 @@ POINT_BYTES = 8
 
 
 class FixpointKernel:
-    """Launch bookkeeping of the kernel: `launches` counts kernel launches,
-    `plain_cuda_calls` counts plain-version calls on CUDA tensors, and
-    `last_rounds` holds the device int32 [1] round count of the newest
+    """Launch bookkeeping of the kernel: `launches` counts the wrapper's
+    launches (eager, or recorded into a CUDA graph while it is captured),
+    `graph_launches` the kernel launches made by replaying captured graphs
+    (the replaying engine adds each graph's captured count at every
+    replay), `plain_cuda_calls` counts plain-version calls on CUDA tensors,
+    and `last_rounds` holds the device int32 [1] round count of the newest
     launch."""
 
     def __init__(self):
         self.launches = 0
+        self.graph_launches = 0
         self.plain_cuda_calls = 0
         self.last_rounds: Optional[Tensor] = None
         self._lib = None
@@ -60,6 +64,7 @@ class FixpointKernel:
 
     def reset_counts(self) -> None:
         self.launches = 0
+        self.graph_launches = 0
         self.plain_cuda_calls = 0
 
     def lib(self):

@@ -1,13 +1,29 @@
 """Host side of the device-backed ConflictSet engine, and the engine.
 
-Port of the general router of ``foundationdb_tpu/ops/host_engine.py``: the
-int32 version window (device versions are offsets from a host-tracked
-base), routing and clipping of every conflict range, the exact host tier for
-keys beyond the device's compare window, greedy chunking against the device
-caps, and fixed-shape batch packing. This slice runs one shard and one
-bucket (the config's own shape); the columnar fast path, the bucket ladder
-and the chunk scan are later slices, so ``resolve()`` always takes the
-general router, which is exact for every input.
+Port of ``foundationdb_tpu/ops/host_engine.py`` for one shard: the int32
+version window (device versions are offsets from a host-tracked base),
+routing and clipping of every conflict range, the exact host tier for keys
+beyond the device's compare window, greedy chunking against the device
+caps, and fixed-shape batch packing — the general router — plus the serving
+path the JAX engine takes first:
+
+  columnar_pack      conflict-wire blocks -> padded point-row arrays by two
+                     native passes (csrc/fastpack.c) into pooled pack
+                     buffers (HostPackArena), pinned on the card; no
+                     per-range Python runs
+  bucket ladder      each chunk runs on the smallest bucket shape it fits
+                     (KernelConfig.bucket); every bucket shares the one
+                     capacity-sized table
+  chunk scan         consecutive same-bucket chunks run as ONE program of C
+                     steps (conflict_kernel.resolve_step_scan); on the card
+                     each (bucket, C) program is a captured CUDA graph over
+                     static input and state buffers, the port's counterpart
+                     of the JAX engine's AOT-compiled programs
+  columnar_dispatch  copies in, replays, copies the verdicts out — all
+                     stream-ordered, no host sync; force() waits on an event
+
+``resolve()`` tries the columnar path first and takes the general router
+when any range is not a short-key point row.
 
 Batch splitting on transaction boundaries is exact: sub-batch writes land at
 version `now` and every later read in the same batch has snapshot < now, so
@@ -15,16 +31,20 @@ history-vs-intra-batch classification cannot change any verdict.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Dict, List, Sequence, Tuple
+import ctypes
+import threading
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..core import error
+from ..core import error, wire
 from ..core.keyshard import KeyShardMap
 from ..core.types import Key, TransactionCommitResult, Version, is_point_range as _is_point
+from ..native import fastpack
 from . import conflict_kernel as ck
+from . import fixpoint_cuda
 from . import keypack
 from .conflict_kernel import KernelConfig, build_batch_arrays
 from .oracle import VersionIntervalMap
@@ -62,16 +82,292 @@ class _RoutedTxn:
         return bool(self.preads or self.rreads or self.tier_preads
                     or self.tier_ereads or self.tier_rreads)
 
+def wire_pass1(window: int, blocks: List[bytes]):
+    """Native pass 1 over concatenated conflict-wire blocks: per-txn POINT
+    row counts. Returns (blob, offs, rp_cnt, wp_cnt), or None when the batch
+    has any range, empty or long-key row (the general router takes it)."""
+    if not blocks:
+        return None
+    lib = fastpack.lib()
+    n = len(blocks)
+    blob = b"".join(blocks)
+    offs = np.zeros((n + 1,), np.int64)
+    np.cumsum(np.fromiter((len(b) for b in blocks), np.int64, count=n), out=offs[1:])
+    rp_cnt = np.zeros((n,), np.int32)
+    wp_cnt = np.zeros((n,), np.int32)
+    rc = lib.conflict_counts(
+        blob, offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), n, window,
+        rp_cnt.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        wp_cnt.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    if rc != 0:
+        return None
+    return blob, offs, rp_cnt, wp_cnt
+
+
+# ---------------------------------------------------------------------------
+# one chunk's batch: a tensor per field
+# ---------------------------------------------------------------------------
+
+#: batch fields the columnar pack writes (copied to the card per chunk) ...
+HOT_FIELDS = ("t_ok", "t_too_old", "now", "gc", "rp_valid", "wp_valid",
+              "rp_snap", "rp_txn", "wp_txn", "rpb", "wpb")
+#: ... and the range-row fields, all zero on the columnar path
+COLD_FIELDS = ("r_valid", "w_valid", "r_snap", "r_txn", "w_txn", "rb", "re", "wb", "we")
+#: the key fields: uint32 words, which the step computes on as int64
+KEY_FIELDS = frozenset(("rpb", "wpb", "rb", "re", "wb", "we"))
+_KEY_MASK = 0xFFFFFFFF
+
+
+def input_shapes(cfg: KernelConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Shape and dtype of each batch field as it crosses to the card: the
+    step's (ck.batch_shapes), except that keys travel as the int32 bits of
+    their uint32 words (half the int64 the step computes in) and widen
+    inside the program."""
+    return {name: (tuple(shape), torch.int32 if name in KEY_FIELDS else dtype)
+            for name, (shape, dtype) in ck.batch_shapes(cfg).items()}
+
+
+def host_tensors(cfg: KernelConfig, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """CPU tensors over every field of a batch dict (build_batch_arrays'
+    form) at the input shapes and dtypes: keys as the int32 bits of their
+    words."""
+    out = {}
+    for name, (shape, _) in input_shapes(cfg).items():
+        a = np.asarray(arrays[name])
+        if name in KEY_FIELDS:
+            a = np.ascontiguousarray(a, np.uint32).view(np.int32)
+        out[name] = torch.from_numpy(np.ascontiguousarray(a).reshape(shape))
+    return out
+
+
+class PackSet:
+    """One chunk's host pack buffers: a tensor per hot field at a bucket's
+    input shapes (pinned when the engine is on the card, so each copy to
+    the card is asynchronous), and numpy views of them, keys as uint32."""
+
+    __slots__ = ("tensors", "arrays", "pinned")
+
+    def __init__(self, cfg: KernelConfig, pin: bool = False):
+        shapes = input_shapes(cfg)
+        self.pinned = pin
+        self.tensors = {name: torch.zeros(shapes[name][0], dtype=shapes[name][1], pin_memory=pin)
+                        for name in HOT_FIELDS}
+        self.arrays = {name: t.numpy().view(np.uint32) if name in KEY_FIELDS else t.numpy()
+                       for name, t in self.tensors.items()}
+
+
+class ArenaLease:
+    """Checkout handle for one chunk's pack buffers. A dispatched copy may
+    still be reading them, so they return to the pool only when release()
+    is called — columnar_dispatch's force() does it after the unit's event
+    completed. An unreleased lease is merely unpooled: the buffers fall to
+    the GC, never to reuse-while-read."""
+
+    __slots__ = ("_arena", "_key", "pack")
+
+    def __init__(self, arena: "HostPackArena", key, pack: PackSet):
+        self._arena = arena
+        self._key = key
+        self.pack = pack
+
+    def release(self) -> None:
+        if self.pack is not None:
+            self._arena._give_back(self._key, self.pack)
+            self.pack = None
+
+
+class HostPackArena:
+    """Pooled pack buffers keyed by bucket shape, so a chunk allocates
+    nothing in steady state.
+
+    Reuse is bit-safe WITHOUT zeroing the key planes: every row beyond a
+    group's valid prefix is dead — invalid rows sort under an all-ones key
+    override, their hits are masked by the *_valid lanes, and the segment
+    reduces only cover valid prefixes. Only the [T] t_ok / t_too_old lanes
+    (whole-array semantics) are cleared per checkout (wire_chunk_arrays).
+    The range-row fields are zero forever on the columnar path, so one
+    immutable zero set per shape is shared by every chunk.
+
+    With `pin`, prefill() — called from warmup() on the thread that owns
+    the card — puts pinned sets in the pool. A lease that finds the pool
+    empty makes a pageable set (a `miss`): lease() runs on the pipeline's
+    pack thread and touches no CUDA state. Thread-safe."""
+
+    MAX_POOLED = 32
+    #: pinned sets warmup() puts in each bucket's pool: enough for a few
+    #: batches of several chunks in flight
+    PREFILL = 16
+
+    def __init__(self, pin: bool = False) -> None:
+        self.pin = pin
+        self._lock = threading.Lock()
+        self._pools: Dict[KernelConfig, List[PackSet]] = {}
+        self._shared: Dict[KernelConfig, Dict[str, np.ndarray]] = {}
+        #: sets made because the pool was empty
+        self.misses = 0
+
+    def prefill(self, cfg: KernelConfig, n: int = PREFILL) -> None:
+        made = [PackSet(cfg, pin=self.pin) for _ in range(n)]
+        with self._lock:
+            pool = self._pools.setdefault(cfg, [])
+            pool.extend(made[:max(0, self.MAX_POOLED - len(pool))])
+
+    def lease(self, cfg: KernelConfig) -> Tuple[Dict[str, np.ndarray], ArenaLease]:
+        """Buffers for one chunk at `cfg`'s shapes: (bufs, lease). bufs holds
+        the set's hot views, the shared zero range rows and cached
+        aranges."""
+        with self._lock:
+            shared = self._shared.get(cfg)
+            if shared is None:
+                shared = self._shared[cfg] = shared_arrays(cfg)
+            pool = self._pools.get(cfg)
+            pack = pool.pop() if pool else None
+            if pack is None:
+                self.misses += 1
+        if pack is None:
+            pack = PackSet(cfg)
+        out = dict(shared)
+        out.update(pack.arrays)
+        return out, ArenaLease(self, cfg, pack)
+
+    def _give_back(self, cfg: KernelConfig, pack: PackSet) -> None:
+        with self._lock:
+            pool = self._pools.setdefault(cfg, [])
+            if len(pool) < self.MAX_POOLED:
+                # pinned sets go to the end, which lease() pops first
+                if pack.pinned:
+                    pool.append(pack)
+                else:
+                    pool.insert(0, pack)
+
+
+def shared_arrays(cfg: KernelConfig) -> Dict[str, np.ndarray]:
+    """The zero range-row arrays and the aranges a columnar chunk shares."""
+    K, Rr, Wr = cfg.lanes, cfg.max_reads, cfg.max_writes
+    return {
+        "rb": np.zeros((Rr, K), np.uint32), "re": np.zeros((Rr, K), np.uint32),
+        "r_snap": np.zeros((Rr,), np.int32), "r_txn": np.zeros((Rr,), np.int32),
+        "r_valid": np.zeros((Rr,), bool),
+        "wb": np.zeros((Wr, K), np.uint32), "we": np.zeros((Wr, K), np.uint32),
+        "w_txn": np.zeros((Wr,), np.int32), "w_valid": np.zeros((Wr,), bool),
+        "_arange_rp": np.arange(cfg.rp), "_arange_wp": np.arange(cfg.wp),
+    }
+
+
+def fresh_bufs(cfg: KernelConfig) -> Tuple[Dict[str, np.ndarray], PackSet]:
+    """Unpooled pack buffers for one chunk (an engine built with
+    arena=False): (bufs, the set behind them)."""
+    pack = PackSet(cfg)
+    bufs = shared_arrays(cfg)
+    bufs.update(pack.arrays)
+    return bufs, pack
+
+
+def wire_chunk_arrays(
+    cfg: KernelConfig,
+    blob: bytes,
+    offs: np.ndarray,
+    t0: int,
+    t1: int,
+    skip: np.ndarray,          # uint8 [ntx], 1 = contribute no rows (too old)
+    snap_rel: np.ndarray,      # int32 [ntx]
+    eff_r: np.ndarray,         # int32 [ntx] read counts with skipped txns zeroed
+    now_rel: int,
+    gc_rel: int,
+    bufs: Optional[Dict[str, np.ndarray]] = None,
+) -> Dict[str, np.ndarray]:
+    """Native pass 2: the batch dict for txns [t0, t1) straight from wire
+    bytes — the point rows written into their padded arrays by C, the int
+    lanes by vectorized numpy. `bufs` (HostPackArena.lease or fresh_bufs)
+    supplies the buffers; rows beyond each valid prefix stay stale — masked
+    by the *_valid lanes (see HostPackArena)."""
+    if bufs is None:
+        bufs, _ = fresh_bufs(cfg)
+    lib = fastpack.lib()
+    n = t1 - t0
+    rpb, rp_txn = bufs["rpb"], bufs["rp_txn"]
+    wpb, wp_txn = bufs["wpb"], bufs["wp_txn"]
+    out_n = np.zeros((2,), np.int64)
+    lib.build_point_rows(
+        blob, offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        t0, t1, bytes(skip), cfg.key_words,
+        rpb.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        rp_txn.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        wpb.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        wp_txn.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        out_n.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    n_rp, n_wp = int(out_n[0]), int(out_n[1])
+    rp_snap = bufs["rp_snap"]
+    rp_snap[:n_rp] = np.repeat(snap_rel[t0:t1], eff_r[t0:t1])
+    t_ok, t_too_old = bufs["t_ok"], bufs["t_too_old"]
+    t_ok.fill(False)
+    t_too_old.fill(False)
+    t_too_old[:n] = skip[t0:t1] != 0
+    t_ok[:n] = ~t_too_old[:n]
+    rp_valid, wp_valid = bufs["rp_valid"], bufs["wp_valid"]
+    np.less(bufs["_arange_rp"], n_rp, out=rp_valid)
+    np.less(bufs["_arange_wp"], n_wp, out=wp_valid)
+    bufs["now"][...] = now_rel
+    bufs["gc"][...] = gc_rel
+    return {
+        "rpb": rpb, "rp_snap": rp_snap, "rp_txn": rp_txn, "rp_valid": rp_valid,
+        "rb": bufs["rb"], "re": bufs["re"], "r_snap": bufs["r_snap"],
+        "r_txn": bufs["r_txn"], "r_valid": bufs["r_valid"],
+        "wpb": wpb, "wp_txn": wp_txn, "wp_valid": wp_valid,
+        "wb": bufs["wb"], "we": bufs["we"], "w_txn": bufs["w_txn"], "w_valid": bufs["w_valid"],
+        "t_ok": t_ok, "t_too_old": t_too_old, "now": bufs["now"], "gc": bufs["gc"],
+    }
+
+
+@dataclass
+class EnginePerf:
+    """Serving-path counters of a bucketed engine (the JAX EnginePerf's
+    counters this path uses)."""
+
+    #: CUDA graphs captured (the role of the JAX engine's `compiles`); after
+    #: warmup() this must NOT grow in steady state; 0 on the CPU
+    captures: int = 0
+    #: chunks dispatched per bucket T (columnar path)
+    bucket_hits: Dict[int, int] = field(default_factory=dict)
+    #: dispatches per chunk-scan length (1 = single-chunk program)
+    scan_dispatches: Dict[int, int] = field(default_factory=dict)
+    #: transactions by final verdict: committed / conflicts / too_old
+    verdicts: Dict[str, int] = field(default_factory=dict)
+
+    def record_verdicts(self, status) -> None:
+        """Fold one chunk's statuses into the verdict counters."""
+        arr = np.asarray(status, dtype=np.int64)
+        if arr.size == 0:
+            return
+        committed = int(np.sum(arr == int(TransactionCommitResult.COMMITTED)))
+        too_old = int(np.sum(arr == int(TransactionCommitResult.TOO_OLD)))
+        v = self.verdicts
+        v["committed"] = v.get("committed", 0) + committed
+        v["too_old"] = v.get("too_old", 0) + too_old
+        v["conflicts"] = v.get("conflicts", 0) + int(arr.size) - committed - too_old
+
 
 class RoutedConflictEngineBase:
     """Host side of a device-backed ConflictSet engine. Subclasses implement
-    `_run_step(per_shard_batches) -> (status[T] np.ndarray, overflow bool)`,
-    the split steps `_run_detect` / `_run_fix` / `_run_apply` of the
-    long-key path, and `_reset_device_state(version_rel)`."""
+    `_dispatch_unit(bucket, per_chunks, packs)` (C same-bucket chunks as one
+    program; returns force() -> (status [C, T], overflow)), the split steps
+    `_run_detect` / `_run_fix` / `_run_apply` of the long-key path, and
+    `_reset_device_state(version_rel)`.
+
+    Bucket ladder: `ladder` lists sub-capacity batch sizes (each < the
+    config's max_txns and a multiple of 32; the config itself is always
+    the top bucket; None = the top bucket only). Every bucket's program
+    shares the one capacity-sized table, so a chunk runs on the smallest
+    bucket whose batch-side shapes fit. Consecutive same-bucket chunks fuse
+    into one program of C steps for C in `scan_sizes`; warmup() builds
+    every (bucket, C) program up front."""
 
     name = "routed"
 
-    def __init__(self, cfg: KernelConfig, shards: KeyShardMap):
+    def __init__(self, cfg: KernelConfig, shards: KeyShardMap,
+                 ladder: Optional[Sequence[int]] = None,
+                 scan_sizes: Sequence[int] = (2, 4, 8),
+                 arena: bool = True, pin_memory: bool = False):
         ck.check_supported(cfg)
         self.cfg = cfg
         self.shards = shards
@@ -83,11 +379,84 @@ class RoutedConflictEngineBase:
         #: short-key-only workloads never touch it
         self.tier_map = VersionIntervalMap(0)
         self._tier_has_writes = False
+        sizes = sorted({t for t in (ladder or ()) if t < cfg.max_txns})
+        self.buckets: List[KernelConfig] = [cfg.bucket(t) for t in sizes] + [cfg]
+        self._scan_sizes = tuple(sorted({int(c) for c in scan_sizes if c > 1}))
+        #: (bucket_T, n_chunks) -> program (engine-specific handle)
+        self._programs: Dict[Tuple[int, int], Any] = {}
+        self.perf = EnginePerf(bucket_hits={b.max_txns: 0 for b in self.buckets})
+        self.arena: Optional[HostPackArena] = HostPackArena(pin=pin_memory) if arena else None
+
+    # -- bucket ladder / programs -------------------------------------------
+    def bucket_for(self, n_txns: int, n_reads: int, n_writes: int) -> KernelConfig:
+        """Smallest bucket that fits a chunk's txn count and point-row
+        counts; the top bucket always fits by chunk construction."""
+        for b in self.buckets:
+            if n_txns <= b.max_txns and n_reads <= b.rp and n_writes <= b.wp:
+                return b
+        return self.buckets[-1]
+
+    def _program(self, bucket: KernelConfig, n_chunks: int):
+        key = (bucket.max_txns, n_chunks)
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = self._make_program(bucket, n_chunks)
+        return prog
+
+    def _make_program(self, bucket: KernelConfig, n_chunks: int):
+        """Build the program for `n_chunks` stacked chunks at `bucket`
+        shapes (1 = one step, > 1 = the chunk scan)."""
+        raise NotImplementedError
+
+    def warmup(self, buckets: Optional[Sequence[KernelConfig]] = None,
+               scan_sizes: Optional[Sequence[int]] = None) -> "RoutedConflictEngineBase":
+        """Build every (bucket, scan-size) program the serving path can
+        dispatch, and fill the pack arena, so that steady state captures
+        nothing. Idempotent; returns self for chaining."""
+        for b in (buckets if buckets is not None else self.buckets):
+            for c in (1,) + tuple(scan_sizes if scan_sizes is not None else self._scan_sizes):
+                self._program(b, c)
+            if self.arena is not None and self.arena.pin:
+                self.arena.prefill(b)
+        return self
+
+    def ensure_warm(self, used_only: bool = True) -> None:
+        """(Re-)warm program coverage: all of it, or only the buckets that
+        served traffic (a stream that used none warms nothing)."""
+        if not used_only:
+            self.warmup()
+            return
+        used = [b for b in self.buckets if self.perf.bucket_hits.get(b.max_txns, 0) > 0]
+        if used:
+            self.warmup(buckets=used)
+
+    def _split_run(self, n: int) -> List[int]:
+        """Decompose a run of n same-bucket chunks into dispatchable scan
+        lengths (largest built size first, singles as remainder)."""
+        out: List[int] = []
+        for c in sorted(self._scan_sizes, reverse=True):
+            while n >= c:
+                out.append(c)
+                n -= c
+        out.extend([1] * n)
+        return out
 
     # -- subclass interface -------------------------------------------------
-    def _run_step(self, per_shard: List[Dict[str, np.ndarray]]) -> Tuple[np.ndarray, bool]:
-        """Fused detect+fix+apply (no host tier involved)."""
+    def _dispatch_unit(self, bucket: KernelConfig, per_chunks: List[List[Dict[str, np.ndarray]]],
+                       packs: Optional[List[Optional[PackSet]]] = None):
+        """Dispatch C = len(per_chunks) same-bucket chunks as ONE program
+        with no host sync. `packs` gives each chunk's pack set when its
+        arrays live in one (the columnar path). Returns force() ->
+        (status [C, T] np.ndarray, overflow bool), which blocks on the
+        device. The chunks' host buffers must stay untouched until force()
+        ran (columnar_dispatch releases leases inside force())."""
         raise NotImplementedError
+
+    def _run_step(self, per_shard: List[Dict[str, np.ndarray]]) -> Tuple[np.ndarray, bool]:
+        """Fused detect+fix+apply of one general-router chunk at the top
+        shape (no host tier involved)."""
+        status, overflow = self._dispatch_unit(self.cfg, [per_shard])()
+        return status[0], overflow
 
     def _run_detect(self, per_shard: List[Dict[str, np.ndarray]]):
         """Phases 1-2; returns an opaque device context for _run_fix/_run_apply."""
@@ -214,7 +583,13 @@ class RoutedConflictEngineBase:
                 new_oldest: Version) -> List[TransactionCommitResult]:
         """Resolve one ordered batch at version `now` and advance the GC
         horizon to `new_oldest`. Transactions are any objects carrying
-        read_conflict_ranges, write_conflict_ranges and read_snapshot."""
+        read_conflict_ranges, write_conflict_ranges and read_snapshot. The
+        columnar path takes the batch when every range is a short-key point
+        row; else the general router does."""
+        if transactions:
+            res = self._resolve_columnar(transactions, now, new_oldest)
+            if res is not None:
+                return res
         cfg = self.cfg
         S = self.n_shards
         routed = [self._route_txn(tr) for tr in transactions]
@@ -252,6 +627,147 @@ class RoutedConflictEngineBase:
             self.oldest_version = new_oldest
             self.base += max(0, new_oldest - self.base)
         return results
+
+    def _resolve_columnar(self, transactions: Sequence[Any], now: Version,
+                          new_oldest: Version) -> Optional[List[TransactionCommitResult]]:
+        """Columnar fast path = pack + dispatch + force, in one call."""
+        plan = self.columnar_pack(transactions, now, new_oldest)
+        if plan is None:
+            return None
+        return self.columnar_dispatch(plan)()
+
+    def columnar_pack(self, transactions: Sequence[Any], now: Version,
+                      new_oldest: Version) -> Optional[dict]:
+        """Host half of the columnar fast path over conflict-wire blocks:
+        when every range is a short-key POINT row, batch assembly is two
+        native passes + numpy (no per-range Python). Point reads of
+        in-window keys never couple with the host long-key tier (keypack.py:
+        short-key membership is device-exact), so the fused step is always
+        safe here. Host numpy and C only: it touches no CUDA state, so the
+        pipeline runs it on an executor thread.
+
+        Returns an opaque plan for columnar_dispatch, or None when the
+        preconditions fail (the general router must handle the batch).
+        Mutates NO engine state, but the packed arrays embed base-relative
+        versions: the matching columnar_dispatch must run before any LATER
+        batch packs (the ResolverPipeline keeps this ordering)."""
+        cfg = self.cfg
+        ntx = len(transactions)
+        if ntx == 0 or self.n_shards != 1:
+            return None                 # the sharded passes are a later slice
+        blocks = []
+        for tr in transactions:
+            info = getattr(tr, "conflict_wire_info", None)
+            blk, all_point, max_len = (info() if info is not None else wire.conflict_wire_ex(
+                tr.read_conflict_ranges, tr.write_conflict_ranges))
+            if not all_point or max_len > self._window:
+                return None             # early out: later txns are not even encoded
+            blocks.append(blk)
+        p1 = wire_pass1(self._window, blocks)
+        if p1 is None:
+            return None
+        blob, offs, rp_cnt, wp_cnt = p1
+        if int(rp_cnt.max()) > cfg.rp or int(wp_cnt.max()) > cfg.wp:
+            raise error.client_invalid_operation(
+                "single transaction exceeds device conflict-range capacity")
+        snaps = np.fromiter((tr.read_snapshot for tr in transactions), np.int64, count=ntx)
+        rel = snaps - self.base
+        if int(rel.max()) >= 2**30 or now - self.base >= 2**30:
+            raise error.client_invalid_operation(
+                f"version too far beyond base {self.base} for int32 device window")
+        snap_rel = np.maximum(rel, -1).astype(np.int32)
+        too_old = (snaps < self.oldest_version) & (rp_cnt > 0)
+        skip = too_old.astype(np.uint8)
+        eff_r = np.where(too_old, 0, rp_cnt).astype(np.int32)
+        eff_w = np.where(too_old, 0, wp_cnt).astype(np.int32)
+        cr = np.cumsum(eff_r)
+        cw = np.cumsum(eff_w)
+
+        now_rel = self._rel(now)
+        #: (per_shard_arrays, n_txns, bucket_cfg, arena_lease, pack_set) per chunk
+        chunks: List[Tuple[List[Dict[str, np.ndarray]], int, KernelConfig,
+                           Optional[ArenaLease], PackSet]] = []
+        i = 0
+        while i < ntx:
+            r0 = int(cr[i - 1]) if i else 0
+            w0 = int(cw[i - 1]) if i else 0
+            j = min(i + cfg.max_txns, ntx,
+                    int(np.searchsorted(cr, r0 + cfg.rp, side="right")),
+                    int(np.searchsorted(cw, w0 + cfg.wp, side="right")))
+            j = max(j, i + 1)           # a single txn always fits (checked above)
+            last = j >= ntx
+            gc_rel = self._rel(new_oldest) if last and new_oldest > self.oldest_version else 0
+            bucket = self.bucket_for(j - i, int(cr[j - 1]) - r0, int(cw[j - 1]) - w0)
+            lease = None
+            if self.arena is not None:
+                bufs, lease = self.arena.lease(bucket)
+                pack = lease.pack
+            else:
+                bufs, pack = fresh_bufs(bucket)
+            per = [wire_chunk_arrays(bucket, blob, offs, i, j, skip, snap_rel, eff_r,
+                                     now_rel, gc_rel, bufs=bufs)]
+            chunks.append((per, j - i, bucket, lease, pack))
+            i = j
+        return {"chunks": chunks, "new_oldest": new_oldest, "now": now,
+                "chunk_buckets": [c[2].max_txns for c in chunks]}
+
+    def columnar_dispatch(self, plan: dict):
+        """Device half of the columnar fast path: group consecutive
+        same-bucket chunks into chunk-scan units (one program threading the
+        table through C chunks), dispatch every unit with no host sync, and
+        advance the host version bookkeeping. Returns force() ->
+        List[TransactionCommitResult], which blocks on the device.
+
+        The ResolverPipeline keeps several dispatched batches in flight and
+        forces them in commit-version order, so abort sets are identical to
+        the serial resolve() path (the programs run in the same order on the
+        one stream either way). One observable difference: a boundary-table
+        overflow raises at force() time, after any later chunks of the SAME
+        batch were already dispatched (the general router stops at the
+        overflowing chunk); overflow is a fatal capacity error in both
+        cases."""
+        chunks = plan["chunks"]
+        #: (unit_force, [n_txns per chunk], [leases per chunk])
+        outs: List[Tuple[Callable, List[int], List[Optional[ArenaLease]]]] = []
+        i = 0
+        while i < len(chunks):
+            bucket = chunks[i][2]
+            j = i
+            while j < len(chunks) and chunks[j][2] is bucket:
+                j += 1
+            run = chunks[i:j]
+            self.perf.bucket_hits[bucket.max_txns] = (
+                self.perf.bucket_hits.get(bucket.max_txns, 0) + len(run))
+            for c in self._split_run(len(run)):
+                sub, run = run[:c], run[c:]
+                unit = self._dispatch_unit(bucket, [ch[0] for ch in sub], [ch[4] for ch in sub])
+                self.perf.scan_dispatches[c] = self.perf.scan_dispatches.get(c, 0) + 1
+                outs.append((unit, [ch[1] for ch in sub], [ch[3] for ch in sub]))
+            i = j
+        new_oldest = plan["new_oldest"]
+        if new_oldest > self.oldest_version:
+            self.tier_map.gc(new_oldest)
+            self.oldest_version = new_oldest
+            self.base += max(0, new_oldest - self.base)
+        capacity = self.cfg.capacity
+
+        def force() -> List[TransactionCommitResult]:
+            results: List[TransactionCommitResult] = []
+            for unit, ns, leases in outs:
+                status, overflow = unit()
+                if overflow:
+                    raise error.conflict_capacity_exceeded(
+                        f"a shard's boundary table needs > {capacity} rows")
+                for c, n in enumerate(ns):
+                    self.perf.record_verdicts(status[c, :n])
+                    results.extend(TransactionCommitResult(int(v)) for v in status[c, :n])
+                # the unit's copies are done: its buffers may be reused
+                for lease in leases:
+                    if lease is not None:
+                        lease.release()
+            return results
+
+        return force
 
     def _resolve_chunk(self, routed: Sequence[_RoutedTxn], now: Version,
                        new_oldest: Version) -> List[TransactionCommitResult]:
@@ -328,6 +844,7 @@ class RoutedConflictEngineBase:
                     f"a shard's boundary table needs > {cfg.capacity} rows"
                 )
             results = [TransactionCommitResult(int(v)) for v in status[:n]]
+            self.perf.record_verdicts(status[:n])
             if chunk_has_rwrites:
                 self._tier_record(routed, results, now, new_oldest)
             elif new_oldest > self.oldest_version:
@@ -400,6 +917,7 @@ class RoutedConflictEngineBase:
                 f"a shard's boundary table needs > {cfg.capacity} rows"
             )
         results = [TransactionCommitResult(int(v)) for v in status[:n]]
+        self.perf.record_verdicts(status[:n])
         self._tier_record(routed, results, now, new_oldest)
         return results
 
@@ -444,24 +962,136 @@ def _default_device(device) -> torch.device:
     return torch.device(device)
 
 
+class _Program:
+    """One (bucket, C) program: C steps of the bucket's shapes over the
+    engine's static state, reading static [C, ...] input tensors, one per
+    batch field (input_shapes), and writing static status [C, T] /
+    overflow [C] buffers.
+
+    On the card it is up to two captured CUDA graphs, one per answer to
+    "does the last chunk carry gc > 0" (JAX's lax.cond on the device
+    scalar; only a batch's last chunk carries its GC horizon). The graphs
+    end by copying the new table into the engine's static state buffers,
+    which every bucket shares: the table has the same shape in all. On the
+    CPU the program runs resolve_step_scan eagerly on the same buffers."""
+
+    def __init__(self, engine: "TorchConflictEngine", bucket: KernelConfig, C: int):
+        dev = engine.device
+        self.engine = engine
+        self.bucket, self.C = bucket, C
+        self.inputs = {name: torch.zeros((C,) + shape, dtype=dtype, device=dev)
+                       for name, (shape, dtype) in input_shapes(bucket).items()}
+        self.status = torch.zeros((C, bucket.max_txns), dtype=torch.int32, device=dev)
+        self.overflow = torch.zeros((C,), dtype=torch.bool, device=dev)
+        #: chunk slots whose range rows a general-router chunk wrote
+        self.cold_dirty = [False] * C
+        self.graphs: Dict[bool, "torch.cuda.CUDAGraph"] = {}
+        #: fixpoint kernels one replay launches (counted at capture)
+        self.launches = 0
+        if dev.type == "cuda":
+            for gc_last in (False, True):
+                self._capture(gc_last)
+
+    def batches(self) -> Dict[str, torch.Tensor]:
+        """The step's batch dict, leaves [C, ...], over the static inputs:
+        the tensors themselves, except the keys, which widen to int64 by
+        zero extension (inside a captured graph, at every replay)."""
+        return {name: (v.to(torch.int64) & _KEY_MASK) if name in KEY_FIELDS else v
+                for name, v in self.inputs.items()}
+
+    def _body(self, state: Dict[str, torch.Tensor], gc_last: bool) -> None:
+        new_state, out = ck.resolve_step_scan(self.bucket, state, self.batches(), gc_last)
+        for k, v in state.items():
+            v.copy_(new_state[k])
+        self.status.copy_(out["status"])
+        self.overflow.copy_(out["overflow"])
+
+    def _capture(self, gc_last: bool) -> None:
+        """Capture one variant. An eager run on a scratch copy of the table
+        comes first, on the capture stream: it does what must not happen
+        under capture (the fixpoint's one-time cluster occupancy query,
+        library handles). A capture that fails raises; nothing falls back
+        to the eager step."""
+        eng = self.engine
+        stream = eng.capture_stream
+        stream.wait_stream(torch.cuda.current_stream(eng.device))
+        with torch.cuda.stream(stream):
+            scratch = {k: v.clone() for k, v in eng.state.items()}
+            self._body(scratch, gc_last)
+        torch.cuda.current_stream(eng.device).wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        before = fixpoint_cuda.FIXPOINT.launches
+        with torch.cuda.graph(graph, pool=eng.graph_pool, stream=stream,
+                              capture_error_mode="relaxed"):
+            self._body(eng.state, gc_last)
+        launches = fixpoint_cuda.FIXPOINT.launches - before
+        if launches != self.C:
+            raise RuntimeError(f"captured {launches} fixpoint launches in a {self.C}-step graph")
+        self.launches = launches
+        self.graphs[gc_last] = graph
+        eng.perf.captures += 1
+
+    def load(self, c: int, arrays: Dict[str, np.ndarray], pack: Optional[PackSet]) -> None:
+        """Copy chunk c into the static inputs, stream-ordered, one copy a
+        field: a pack set's hot fields from its tensors (the range rows
+        are zero on the columnar path, and stay zero in the static inputs
+        unless a general-router chunk wrote them), or every field of any
+        other batch dict."""
+        if pack is not None:
+            src = pack.tensors
+            if self.cold_dirty[c]:
+                for name in COLD_FIELDS:
+                    self.inputs[name][c].zero_()
+                self.cold_dirty[c] = False
+        else:
+            src = host_tensors(self.bucket, arrays)
+            self.cold_dirty[c] = True
+        for name, t in src.items():
+            self.inputs[name][c].copy_(t, non_blocking=True)
+
+    def run(self, gc_last: bool) -> None:
+        if self.graphs:
+            self.graphs[gc_last].replay()
+            fixpoint_cuda.FIXPOINT.graph_launches += self.launches
+        else:
+            self._body(self.engine.state, gc_last)
+
+
 class TorchConflictEngine(RoutedConflictEngineBase):
     """Single-card ConflictSet engine backed by the torch conflict step and
     the CUDA fixpoint kernel (one shard). Same resolve() contract as
     OracleConflictEngine. `device=None` means the card, and raises where
-    there is none; `device="cpu"` runs the same step on the CPU, with the
-    plain fixpoint."""
+    there is none; `device="cpu"` runs the same programs eagerly on the
+    CPU, with the plain fixpoint.
+
+    The interval table lives in static buffers (`state`) that every
+    program reads and writes in place: anything that sets the table copies
+    into them, so a captured graph never reads a dead table."""
 
     name = "torch"
 
     def __init__(self, cfg: KernelConfig = KernelConfig(), initial_version: Version = 0,
-                 device=None):
-        super().__init__(cfg, KeyShardMap([]))
-        self.device = _default_device(device)
-        self.state = ck.initial_state(cfg, version_rel=initial_version, device=self.device)
+                 device=None, ladder: Optional[Sequence[int]] = None,
+                 scan_sizes: Sequence[int] = (2, 4, 8), arena: bool = True):
+        device = _default_device(device)
+        super().__init__(cfg, KeyShardMap([]), ladder=ladder, scan_sizes=scan_sizes,
+                         arena=arena, pin_memory=device.type == "cuda")
+        self.device = device
+        self.state = ck.initial_state(cfg, version_rel=initial_version, device=device)
         self.tier_map = VersionIntervalMap(initial_version)
+        if device.type == "cuda":
+            #: one memory pool for every graph: replays are serialized on
+            #: one stream, the table ends in the static buffers and outputs
+            #: are copied out before the next replay
+            self.graph_pool = torch.cuda.graph_pool_handle()
+            self.capture_stream = torch.cuda.Stream(device)
+
+    def _set_state(self, new: Dict[str, torch.Tensor]) -> None:
+        for k, v in self.state.items():
+            v.copy_(new[k])
 
     def _reset_device_state(self, version_rel: int) -> None:
-        self.state = ck.initial_state(self.cfg, version_rel=version_rel, device=self.device)
+        self._set_state(ck.initial_state(self.cfg, version_rel=version_rel, device=self.device))
 
     def load_state(self, state_np: Dict[str, np.ndarray], base: Version,
                    oldest_version: Version, tier_map=None) -> None:
@@ -469,7 +1099,7 @@ class TorchConflictEngine(RoutedConflictEngineBase):
         {"hkeys", "hvers", "n"} (base-relative versions), its version base
         and GC horizon, and optionally its host long-key tier (any object
         with `keys` / `vers` lists)."""
-        self.state = ck.state_from_numpy(self.cfg, state_np, self.device)
+        self._set_state(ck.state_from_numpy(self.cfg, state_np, self.device))
         self.base = base
         self.oldest_version = oldest_version
         self.tier_map = VersionIntervalMap(0)
@@ -478,13 +1108,40 @@ class TorchConflictEngine(RoutedConflictEngineBase):
             self.tier_map.vers = list(tier_map.vers)
         self._tier_has_writes = len(self.tier_map) > 1
 
+    def _make_program(self, bucket: KernelConfig, n_chunks: int) -> _Program:
+        return _Program(self, bucket, n_chunks)
+
+    def _dispatch_unit(self, bucket: KernelConfig, per_chunks: List[List[Dict[str, np.ndarray]]],
+                       packs: Optional[List[Optional[PackSet]]] = None):
+        C = len(per_chunks)
+        gcs = [int(per[0]["gc"]) for per in per_chunks]
+        if any(gcs[:-1]):
+            raise ValueError("only the last chunk of a dispatch unit may carry a GC horizon")
+        prog = self._program(bucket, C)
+        for c, (arrays,) in enumerate(per_chunks):
+            prog.load(c, arrays, packs[c] if packs else None)
+        prog.run(gcs[-1] > 0)
+        if self.device.type == "cpu":
+            status, overflow = prog.status.numpy().copy(), bool(prog.overflow.any())
+            return lambda: (status, overflow)
+        status = torch.empty(prog.status.shape, dtype=torch.int32, pin_memory=True)
+        flags = torch.empty(prog.overflow.shape, dtype=torch.bool, pin_memory=True)
+        status.copy_(prog.status, non_blocking=True)
+        flags.copy_(prog.overflow, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        keep = (per_chunks, packs)
+
+        def force() -> Tuple[np.ndarray, bool]:
+            done.synchronize()
+            _ = keep            # the host buffers live until the copies ran
+            return status.numpy(), bool(flags.numpy().any())
+
+        return force
+
     def _batch(self, per_shard) -> Dict:
         (arrays,) = per_shard
         return ck.batch_from_numpy(self.cfg, arrays, self.device)
-
-    def _run_step(self, per_shard) -> Tuple[np.ndarray, bool]:
-        self.state, out = ck.resolve_step(self.cfg, self.state, self._batch(per_shard))
-        return out["status"].cpu().numpy(), bool(out["overflow"])
 
     def _run_detect(self, per_shard):
         batch = self._batch(per_shard)
@@ -499,7 +1156,9 @@ class TorchConflictEngine(RoutedConflictEngineBase):
     def _run_apply(self, ctx, per_shard, committed: np.ndarray) -> Tuple[np.ndarray, bool]:
         cm = torch.from_numpy(np.ascontiguousarray(committed)).to(self.device)
         batch = ctx["batch"]
-        self.state, overflow = ck.apply_step(self.cfg, self.state, batch, cm, ctx["wpos"])
+        new_state, overflow = ck.apply_step(self.cfg, self.state, batch, cm, ctx["wpos"],
+                                            gc_branch=int(per_shard[0]["gc"]) > 0)
+        self._set_state(new_state)
         status = ck.status_of(batch["t_too_old"], cm)
         return status.cpu().numpy(), bool(overflow)
 
@@ -508,8 +1167,8 @@ ENGINE_MODES = ("torch",)
 
 
 def make_engine(mode: str, cfg: KernelConfig, **kw):
-    """Registry entry point: build the engine family `mode` names. This
-    slice ports the single-card step engine only."""
+    """Registry entry point: build the engine family `mode` names. The port
+    has the single-card engine only."""
     if mode == "torch":
         return TorchConflictEngine(cfg, **kw)
     raise ValueError(f"unknown engine mode {mode!r}; expected one of {ENGINE_MODES}")

@@ -166,7 +166,7 @@ def test_phases_match_jax_on_a_stream(mode):
         tc = tck.commit_fixpoint(tcfg, tb["t_ok"], th, te, tb)
         assert eq(tc, jc), ("committed", trial)
         jns, jov, jrec = fns(cfg)["apply"](jstate, jb, jc, jw)
-        tns, tov, trec = tck.apply_writes_and_gc(tcfg, tstate, tb, tc, tw)
+        tns, tov, trec = tck.apply_writes_and_gc(tcfg, tstate, tb, tc, tw, gc > 0)
         check_state(tns, jns)
         assert bool(tov) == bool(jov) and int(trec) == int(jrec)
         saw_hit |= bool(np.any(np.asarray(jh) > 0))
@@ -193,7 +193,8 @@ def test_resolve_step_stream_matches_jax(mode):
         gc = now - 45 if trial % 2 else 0
         batch_np = synth_batch(rng, cfg, now, gc, n_keys=200, width=16)
         jstate, jout = fns(cfg)["step"](jstate, to_jax(batch_np))
-        tstate, tout = tck.resolve_step(tcfg, tstate, tck.batch_from_numpy(tcfg, batch_np, "cpu"))
+        tstate, tout = tck.resolve_step(tcfg, tstate, tck.batch_from_numpy(tcfg, batch_np, "cpu"),
+                                       gc > 0)
         assert tout["status"].dtype == torch.int32
         assert eq(tout["status"], jout["status"]), trial
         assert bool(tout["overflow"]) == bool(jout["overflow"])
@@ -241,7 +242,7 @@ def test_full_table_clamp_sites(mode):
     tc = tck.commit_fixpoint(tcfg, tb["t_ok"], th, te, tb)
     assert eq(tc, jc)
     jns, jov, _ = fns(cfg)["apply"](jstate, jb, jc, jw)
-    tns, tov, _ = tck.apply_writes_and_gc(tcfg, tstate, tb, tc, tw)
+    tns, tov, _ = tck.apply_writes_and_gc(tcfg, tstate, tb, tc, tw, False)
     assert bool(jov) and bool(tov)
     check_state(tns, jns)
 

@@ -1,4 +1,7 @@
-"""The port's CUDA fixpoint kernel on the card, against its plain version.
+"""The port's CUDA fixpoint kernel on the card, against its plain version,
+and the engine's serving path there: captured (bucket, C) graphs against
+the eager step, no captures after warmup(), the static table under
+load_state and clear(), and a dispatch with no host sync.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither jax nor the JAX package, so it runs on a machine that has
@@ -19,6 +22,7 @@ import torch
 from foundationdb_tpu_torch.core.types import CommitTransaction, KeyRange
 from foundationdb_tpu_torch.ops import conflict_kernel as ck
 from foundationdb_tpu_torch.ops import fixpoint_cuda as fc
+from foundationdb_tpu_torch.ops import oracle as toracle
 from foundationdb_tpu_torch.ops.host_engine import TorchConflictEngine
 
 torch.set_num_threads(1)
@@ -231,7 +235,7 @@ def test_kernel_matches_plain(card, cfg):
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want), trial
         assert 1 <= int(fc.FIXPOINT.last_rounds.item()) <= cfg.max_txns + 1
-        state, _ = ck.resolve_step(cfg, state, batch)
+        state, _ = ck.resolve_step(cfg, state, batch, False)
     assert fc.FIXPOINT.launches == n and fc.FIXPOINT.plain_cuda_calls == 0
 
 
@@ -294,3 +298,142 @@ def test_engine_on_card_matches_cpu(card):
         assert [int(v) for v in gpu.resolve(txns, now, oldest)] == \
             [int(v) for v in cpu.resolve(txns, now, oldest)], b
     assert fc.FIXPOINT.launches > 0 and fc.FIXPOINT.plain_cuda_calls == 0
+
+
+# ---------------------------------------------------------------------------
+# the serving path: captured (bucket, C) programs
+# ---------------------------------------------------------------------------
+
+#: T = 256 over a ladder (64, 128); scans of 2 and 4 chunks
+LADDER_CFG = CONFIGS[1]
+LADDER = (64, 128)
+SCANS = (2, 4)
+
+
+def point_batches(seed, sizes, pool=600, lag=400, old_frac=0.05):
+    """(txns, now, new_oldest) of point-only transactions; the GC horizon
+    trails by ~4 batches and `old_frac` of the snapshots lie behind it."""
+    rng = random.Random(seed)
+    now, out = 1000, []
+    for n in sizes:
+        now += lag
+        txns = []
+        for _ in range(n):
+            back = rng.randrange(5 * lag, 6 * lag) if rng.random() < old_frac else rng.randrange(1, 2 * lag)
+            t = CommitTransaction(read_snapshot=max(0, now - back))
+            for _ in range(2):
+                k = b"p%05d" % rng.randrange(pool)
+                t.read_conflict_ranges.append(KeyRange(k, k + b"\x00"))
+            for _ in range(2):
+                k = b"p%05d" % rng.randrange(pool)
+                t.write_conflict_ranges.append(KeyRange(k, k + b"\x00"))
+            txns.append(t)
+        out.append((txns, now, max(0, now - 4 * lag)))
+    return out
+
+
+@pytest.mark.cuda
+def test_graph_replay_equals_eager_step(card):
+    """Every (bucket, C) program, both GC variants: a replay gives the
+    statuses, overflow flags and table of resolve_step_scan run eagerly on
+    the card from the same table and inputs."""
+    eng = TorchConflictEngine(LADDER_CFG, ladder=LADDER, scan_sizes=SCANS).warmup()
+    rng = random.Random(21)
+    now = 100
+    for (t, C), prog in sorted(eng._programs.items()):
+        for gc_last in (False, True, False):
+            now += 50
+            for c in range(C):
+                arrays = synth_batch(rng, prog.bucket, now)
+                arrays["gc"] = np.asarray(now - 120 if gc_last and c == C - 1 else 0, np.int32)
+                prog.load(c, arrays, None)
+            before = {k: v.clone() for k, v in eng.state.items()}
+            want_state, want = ck.resolve_step_scan(prog.bucket, before, prog.batches(), gc_last)
+            launches = fc.FIXPOINT.graph_launches
+            prog.run(gc_last)
+            torch.cuda.synchronize()
+            assert fc.FIXPOINT.graph_launches - launches == C
+            assert torch.equal(prog.status, want["status"]), (t, C, gc_last)
+            assert torch.equal(prog.overflow, want["overflow"]), (t, C, gc_last)
+            for k in eng.state:
+                assert torch.equal(eng.state[k], want_state[k]), (t, C, gc_last, k)
+            if gc_last:
+                now -= 120          # versions rebase onto the horizon
+    assert eng.perf.captures == 2 * len(eng._programs)
+
+
+@pytest.mark.cuda
+def test_no_captures_after_warmup(card):
+    """Steady traffic over every bucket and scan size, range batches
+    included, captures nothing after warmup(); verdicts equal the oracle's."""
+    eng = TorchConflictEngine(LADDER_CFG, ladder=LADDER, scan_sizes=SCANS).warmup()
+    captured = eng.perf.captures
+    assert captured == 2 * 3 * 3
+    ora = toracle.OracleConflictEngine()
+    batches = point_batches(3, [20, 40, 70, 250, 600, 1700, 30, 900])
+    batches[5][0][7].read_conflict_ranges.append(KeyRange(b"p00010", b"p00090"))
+    for b, (txns, now, oldest) in enumerate(batches):
+        assert [int(v) for v in eng.resolve(txns, now, oldest)] == \
+            [int(v) for v in ora.resolve(txns, now, oldest)], b
+    assert eng.perf.captures == captured
+    assert all(v > 0 for v in eng.perf.bucket_hits.values())
+    assert all(eng.perf.scan_dispatches.get(c, 0) > 0 for c in (1, 2, 4))
+
+
+@pytest.mark.cuda
+def test_load_state_and_clear_then_graph_resolves(card):
+    """The table's static buffers take load_state and clear(): graph
+    resolves after either give the oracle's (and the CPU engine's)
+    verdicts."""
+    batches = point_batches(8, [120, 300, 700, 60, 400, 900, 250, 500])
+    cpu = TorchConflictEngine(LADDER_CFG, device="cpu", ladder=LADDER, scan_sizes=SCANS)
+    ora = toracle.OracleConflictEngine()
+    for txns, now, oldest in batches[:4]:
+        cpu.resolve(txns, now, oldest)
+        ora.resolve(txns, now, oldest)
+    gpu = TorchConflictEngine(LADDER_CFG, ladder=LADDER, scan_sizes=SCANS).warmup()
+    gpu.resolve(*batches[-1])            # a table the load must replace
+    gpu.load_state(ck.state_to_numpy(cpu.state), cpu.base, cpu.oldest_version, cpu.tier_map)
+    for b, (txns, now, oldest) in enumerate(batches[4:]):
+        want = [int(v) for v in ora.resolve(txns, now, oldest)]
+        assert [int(v) for v in gpu.resolve(txns, now, oldest)] == want, b
+        assert [int(v) for v in cpu.resolve(txns, now, oldest)] == want, b
+    later = point_batches(9, [300, 800, 50])
+    shift = batches[-1][1] + 1000
+    gpu.clear(shift)
+    ora.clear(shift)
+    for b, (txns, now, oldest) in enumerate(later):
+        for t in txns:
+            t.read_snapshot += shift
+        want = [int(v) for v in ora.resolve(txns, now + shift, oldest + shift)]
+        assert [int(v) for v in gpu.resolve(txns, now + shift, oldest + shift)] == want, b
+
+
+@pytest.mark.cuda
+def test_columnar_dispatch_makes_no_host_sync(card):
+    """Pack, copy in, replay, copy out: no synchronizing call between the
+    host and the card until force()."""
+    eng = TorchConflictEngine(LADDER_CFG, ladder=LADDER, scan_sizes=SCANS).warmup()
+    ora = toracle.OracleConflictEngine()
+    for txns, now, oldest in point_batches(4, [70, 900, 200, 1500]):
+        plan = eng.columnar_pack(txns, now, oldest)
+        assert plan is not None
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            force = eng.columnar_dispatch(plan)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert [int(v) for v in force()] == [int(v) for v in ora.resolve(txns, now, oldest)]
+
+
+@pytest.mark.cuda
+def test_packer_build_raises_without_a_compiler(card, tmp_path, monkeypatch):
+    import shutil
+
+    from foundationdb_tpu_torch.native import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(build, "_LOADED", {})
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    with pytest.raises(RuntimeError, match="no C compiler found"):
+        build.load("fastpack")

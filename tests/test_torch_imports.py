@@ -44,6 +44,31 @@ def test_subprocess_import_loads_no_jax():
     assert not bad, bad
 
 
+@pytest.mark.parametrize("module", [
+    "foundationdb_tpu_torch.core.wire",
+    "foundationdb_tpu_torch.pipeline",
+    "foundationdb_tpu_torch.pipeline.resolver_pipeline",
+    "foundationdb_tpu_torch.native.fastpack",
+])
+def test_serving_path_modules_load_no_jax(module):
+    """The columnar path's modules, each imported alone in a fresh process
+    (the packer's loader also builds and loads csrc/fastpack.c there)."""
+    code = (
+        "import importlib, json, sys\n"
+        f"m = importlib.import_module({module!r})\n"
+        "if hasattr(m, 'lib'): m.lib()\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert module in loaded
+    bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
 def imported_roots(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -57,6 +82,8 @@ def imported_roots(path: Path):
 def test_source_scan_finds_no_jax_import():
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    for name in ("core/wire.py", "pipeline/resolver_pipeline.py", "native/fastpack.py"):
+        assert PKG / name in files, name
     for path in files:
         bad = [r for r in imported_roots(path) if r in FORBIDDEN]
         assert not bad, (path, bad)
