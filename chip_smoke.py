@@ -44,15 +44,28 @@ toolkit. The script
      busy share and launches per replay of both;
   7. columnar engine phase: TorchConflictEngine() with the bucket ladder
      (512, 1024, 2048) and scans (2, 4, 8), warmed up (graph memory read
-     before and after), on point-only traffic of 200 to 20000 txns a batch
-     through columnar_pack / columnar_dispatch / force, the dispatch under
+     before and after), on point-only traffic of 200 to 20000 txns a batch,
+     two batches of them read-only, through columnar_pack /
+     columnar_dispatch / force, the dispatch under
      torch.cuda.set_sync_debug_mode("error"); verdicts equal the oracle's
      and the general router's on every batch, every bucket and scan size
      serves, nothing is captured after warmup(); host-pack, dispatch and
      force ms per batch, txn/s, and each layer's time apart;
-  8. pipeline phase: the same traffic through ResolverPipeline at depth 1,
-     2 and 3, packing inline and on a one-thread executor: verdicts equal
-     serial resolve(); txn/s per depth.
+  8. tiered columnar engine phase: the same with history_structure=
+     "tiered" (8 run slots, the lazy merge an IF node in every captured
+     step); verdicts equal the card's monolithic engine's, the CPU tiered
+     engine's and the oracle's on every batch; merges must run inside
+     replays at least twice, with no host read of the merge predicate; the
+     captured IF nodes are counted; program kernel ms with and without a
+     merge, and the merge alone. Then both engines serve the traffic again,
+     in turns (monolithic, tiered), for txn/s and per-layer ms;
+  9. tiered general-router phase: the engine phase's traffic (byte keys,
+     ranges, long keys) through a tiered engine on the card; verdicts equal
+     the monolithic card engine's, the CPU tiered engine's and the
+     oracle's;
+  10. pipeline phase: the traffic through ResolverPipeline at depth 1, 2 and
+     3, packing inline and on a one-thread executor: verdicts equal serial
+     resolve(); txn/s per depth; then the tiered engine at depth 1-3.
 
 Each path's kernel launches are counted from 0 just before it and read
 just after (a captured graph's fixpoint launches are counted at each
@@ -98,9 +111,14 @@ GRAPH_C = 8
 LADDER = (512, 1024, 2048)
 SCANS = (2, 4, 8)
 COLUMNAR_SIZES = [200, 300, 900, 1800, 4000, 9000, 20000]
+#: read-only batches (point reads only) inserted into that traffic, at
+#: these positions: they append no run under the tiered structure
+READ_ONLY = {5: 3000, 7: 6000}
 VERSION_STEP = 5000
 #: runs of each pipeline configuration
 PIPELINE_RUNS = 3
+#: txns of the engine phases' resolve() batches
+ENGINE_SIZES = [256, 384, 512, 512, 1500, 3000, 4500, 6000]
 
 
 def fail(msg: str) -> None:
@@ -491,14 +509,31 @@ def byte_txns(rng, n, now, long_frac):
     return txns
 
 
-def engine_phase(ck, fc, he, oracle_mod, dev, rng, cfg, sizes, oracle_batches: int):
+def byte_traffic(rng, sizes):
+    """(txns, now, oldest) of the engine phases: byte_txns batches, long
+    keys in every third batch from the second, the GC horizon moving on
+    odd batches."""
+    out, now, oldest = [], 10_000, 0
+    for b, n in enumerate(sizes):
+        now += 4096
+        if b % 2:
+            oldest = now - 2 * 4096
+        out.append((byte_txns(rng, n, now, long_frac=0.02 if b % 3 == 1 else 0.0), now, oldest))
+    return out
+
+
+def engine_phase(fc, he, oracle_mod, dev, cfg, traffic, oracle_batches: int,
+                 structure="monolithic", card_reference=None):
     """The main path: resolve() on the card vs the same engine on the CPU
-    (every batch) and the oracle (the first `oracle_batches` batches)."""
+    (every batch), the oracle (the first `oracle_batches` batches) and,
+    where given, another card engine's verdicts (`card_reference`, one list
+    per batch). Returns (the largest chunk's recorded arrays and table,
+    results, verdicts per batch)."""
     import torch
 
-    gpu = he.TorchConflictEngine(cfg) if dev.type == "cuda" else he.TorchConflictEngine(cfg, device=dev)
+    gpu = he.TorchConflictEngine(cfg, history_structure=structure)
     gpu.warmup(scan_sizes=())            # the general router's one program
-    cpu = he.TorchConflictEngine(cfg, device="cpu")
+    cpu = he.TorchConflictEngine(cfg, device="cpu", history_structure=structure)
     # record the packed arrays (and the table they meet) of the largest
     # chunk, fused or split-step. Inside the timed resolve, so it takes
     # references and one stream-ordered copy of the table, which the
@@ -517,38 +552,41 @@ def engine_phase(ck, fc, he, oracle_mod, dev, rng, cfg, sizes, oracle_batches: i
     gpu._run_step = recording(gpu._run_step)
     gpu._run_detect = recording(gpu._run_detect)
     ora = oracle_mod.OracleConflictEngine()
-    now, oldest = 10_000, 0
     counts = [0, 0, 0]
     gpu_s = 0.0
+    verdicts = []
     fc.FIXPOINT.reset_counts()
-    for b, n in enumerate(sizes):
-        now += 4096
-        if b % 2:
-            oldest = now - 2 * 4096
-        txns = byte_txns(rng, n, now, long_frac=0.02 if b % 3 == 1 else 0.0)
+    for b, (txns, now, oldest) in enumerate(traffic):
         t0 = time.perf_counter()
         got = [int(v) for v in gpu.resolve(txns, now, oldest)]
         torch.cuda.synchronize()
         gpu_s += time.perf_counter() - t0
         want = [int(v) for v in cpu.resolve(txns, now, oldest)]
-        check(got == want, f"engine batch {b}: card and CPU verdicts differ at "
-              f"{sum(g != w for g, w in zip(got, want))} of {n} txns")
+        check(got == want, f"{structure} engine batch {b}: card and CPU verdicts differ at "
+              f"{sum(g != w for g, w in zip(got, want))} of {len(txns)} txns")
+        if card_reference is not None:
+            check(got == card_reference[b], f"{structure} engine batch {b}: verdicts differ "
+                  "from the monolithic card engine's")
         if b < oracle_batches:
             ref = [int(v) for v in ora.resolve(txns, now, oldest)]
-            check(got == ref, f"engine batch {b}: verdicts differ from the oracle")
+            check(got == ref, f"{structure} engine batch {b}: verdicts differ from the oracle")
+        verdicts.append(got)
         for v in got:
             counts[v] += 1
     eager, graph = fc.FIXPOINT.launches, fc.FIXPOINT.graph_launches
     launches = eager + graph
     plain_cuda = fc.FIXPOINT.plain_cuda_calls
-    check(launches > 0, "the engine path never launched the fixpoint kernel")
-    check(plain_cuda == 0, "the engine path ran the plain fixpoint on CUDA tensors")
+    check(launches > 0, f"the {structure} engine path never launched the fixpoint kernel")
+    check(plain_cuda == 0, f"the {structure} engine path ran the plain fixpoint on CUDA tensors")
     check(gpu._tier_has_writes, "no long-key write reached the host tier")
     check(min(counts) > 0, f"verdict mix lacks a class: {counts}")
-    return captured, {"batches": len(sizes), "txns": sum(sizes), "oracle_batches": oracle_batches,
-            "launches": launches, "eager_launches": eager, "graph_launches": graph,
-            "conflict": counts[0], "too_old": counts[1],
-            "committed": counts[2], "card_resolve_s": gpu_s}
+    return captured, {
+        "structure": gpu.history_structure, "batches": len(traffic),
+        "txns": sum(len(t) for t, _, _ in traffic), "oracle_batches": oracle_batches,
+        "launches": launches, "eager_launches": eager, "graph_launches": graph,
+        "merges": gpu.perf.merges,
+        "conflict": counts[0], "too_old": counts[1],
+        "committed": counts[2], "card_resolve_s": gpu_s}, verdicts
 
 
 # ---------------------------------------------------------------------------
@@ -722,17 +760,21 @@ def graph_step_phase(ck, fc, he, cfg, dev, rng, units: int):
     }
 
 
-def columnar_traffic(rng, sizes):
+def columnar_traffic(rng, sizes, read_only):
     """Point-only CommitTransactions (bench.py:46-49): 2 point reads and 2
-    point writes per txn over one hot pool of POOL_KEYS 16-byte keys.
+    point writes per txn over one hot pool of POOL_KEYS 16-byte keys, with
+    batches of `read_only` ({position: txns}) holding the reads alone.
     Versions advance VERSION_STEP a batch; the GC horizon trails by
     GC_LAG_BATCHES batches, and ~3% of snapshots lie behind it (too old).
     Each txn's wire block is encoded here, as a client encodes its commit
     request once: the timed pack is the resolver's."""
     from foundationdb_tpu_torch.core.types import CommitTransaction, KeyRange
 
+    plan = [(n, False) for n in sizes]
+    for pos in sorted(read_only):
+        plan.insert(pos, (read_only[pos], True))
     out, now = [], 10_000
-    for b, n in enumerate(sizes):
+    for b, (n, reads_only) in enumerate(plan):
         now += VERSION_STEP
         oldest = max(0, now - GC_LAG_BATCHES * VERSION_STEP)
         lag = rng.integers(1, 2 * VERSION_STEP, size=n)
@@ -743,7 +785,7 @@ def columnar_traffic(rng, sizes):
         txns = []
         for i in range(n):
             t = CommitTransaction(read_snapshot=int(max(0, now - lag[i])))
-            for j in range(4):
+            for j in range(2 if reads_only else 4):
                 k = b"h/%014d" % keys[i, j]
                 (t.read_conflict_ranges if j < 2 else t.write_conflict_ranges).append(
                     KeyRange(k, k + b"\x00"))
@@ -753,19 +795,27 @@ def columnar_traffic(rng, sizes):
     return out
 
 
-def columnar_engine_phase(ck, fc, he, oracle_mod, cfg, batches):
+def columnar_engine_phase(ck, fc, he, cfg, batches, structure, references):
     """TorchConflictEngine() on the card with the bucket ladder and chunk
-    scans, warmed up; every point-only batch through columnar_pack /
-    columnar_dispatch / force (the dispatch under sync debug mode "error":
-    a synchronizing call there fails the phase); verdicts against the
-    oracle and the general router of a second engine (columnar path
-    bypassed) on every batch."""
+    scans and the given history structure, warmed up; every point-only
+    batch through columnar_pack / columnar_dispatch / force (the dispatch
+    under sync debug mode "error": a synchronizing call there fails the
+    phase); verdicts against each of `references`, [(name, fn(b, txns,
+    now, oldest) -> verdicts)], on every batch. Tiered: warmup() captures
+    one IF node per step, merges run inside replays (at least twice) and
+    the merge predicate is never read on the host."""
     import torch
 
-    eng = he.TorchConflictEngine(cfg, ladder=LADDER, scan_sizes=SCANS)
+    from foundationdb_tpu_torch.ops import graph_if
+
+    eng = he.TorchConflictEngine(cfg, ladder=LADDER, scan_sizes=SCANS,
+                                 history_structure=structure)
+    cfg = eng.cfg
+    tiered = eng.history_structure == "tiered"
     torch.cuda.synchronize()
     torch.cuda.empty_cache()            # what earlier phases left cached
     mem0 = torch.cuda.memory_reserved()
+    nodes0 = graph_if.GRAPH_IF.nodes
     t0 = time.perf_counter()
     eng.warmup()
     torch.cuda.synchronize()
@@ -774,10 +824,10 @@ def columnar_engine_phase(ck, fc, he, oracle_mod, cfg, batches):
     captures = eng.perf.captures
     n_graphs = len(eng.buckets) * (1 + len(SCANS)) * 2
     check(captures == n_graphs, f"warmup captured {captures} graphs, expected {n_graphs}")
-    router = he.TorchConflictEngine(cfg)
-    router._resolve_columnar = lambda *a: None
-    router.warmup(scan_sizes=())
-    ora = oracle_mod.OracleConflictEngine()
+    if_nodes = graph_if.GRAPH_IF.nodes - nodes0
+    want_nodes = 2 * len(eng.buckets) * (1 + sum(SCANS)) if tiered else 0
+    check(if_nodes == want_nodes, f"warmup captured {if_nodes} IF nodes, expected {want_nodes}")
+    host_reads = ck.MERGE.host_reads
     pack_s = dispatch_s = force_s = 0.0
     launches = plain = 0
     serial, counts = [], [0, 0, 0]
@@ -791,7 +841,7 @@ def columnar_engine_phase(ck, fc, he, oracle_mod, cfg, batches):
         try:
             force = eng.columnar_dispatch(plan)
         except RuntimeError as e:
-            fail(f"batch {b}: the columnar dispatch synchronized with the card: {e}")
+            fail(f"batch {b}: the {structure} columnar dispatch synchronized with the card: {e}")
         finally:
             torch.cuda.set_sync_debug_mode("default")
         t2 = time.perf_counter()
@@ -800,17 +850,20 @@ def columnar_engine_phase(ck, fc, he, oracle_mod, cfg, batches):
         launches += fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
         plain += fc.FIXPOINT.plain_cuda_calls
         pack_s, dispatch_s, force_s = pack_s + t1 - t0, dispatch_s + t2 - t1, force_s + t3 - t2
-        want = [int(v) for v in ora.resolve(txns, now, oldest)]
-        check(got == want, f"columnar batch {b}: verdicts differ from the oracle at "
-              f"{sum(g != w for g, w in zip(got, want))} of {len(txns)} txns")
-        check([int(v) for v in router.resolve(txns, now, oldest)] == got,
-              f"columnar batch {b}: verdicts differ from the general router")
+        for name, ref in references:
+            want = ref(b, txns, now, oldest)
+            check(got == want, f"{structure} columnar batch {b}: verdicts differ from {name} at "
+                  f"{sum(g != w for g, w in zip(got, want))} of {len(txns)} txns")
         serial.append(got)
         for v in got:
             counts[v] += 1
-    check(eng.perf.captures == captures, "the columnar engine captured after warmup()")
-    check(launches > 0 and plain == 0, f"columnar path: {launches} kernel launches, "
+    check(eng.perf.captures == captures, f"the {structure} columnar engine captured after warmup()")
+    check(launches > 0 and plain == 0, f"{structure} columnar path: {launches} kernel launches, "
           f"{plain} plain fixpoints on CUDA tensors")
+    check(ck.MERGE.host_reads == host_reads,
+          f"the {structure} columnar path read the merge predicate on the host")
+    merges = eng.perf.merges
+    check(not tiered or merges >= 2, f"only {merges} merges ran inside tiered replays")
     check(all(v > 0 for v in eng.perf.bucket_hits.values()),
           f"a bucket went unused: {eng.perf.bucket_hits}")
     check(all(eng.perf.scan_dispatches.get(c, 0) > 0 for c in (1,) + SCANS),
@@ -821,12 +874,13 @@ def columnar_engine_phase(ck, fc, he, oracle_mod, cfg, batches):
     # events do not apply; on the last inputs it was given, without GC),
     # the host time to launch it, and the copies of one top-bucket chunk's
     # hot fields to the card (device time, and the host time to issue them)
-    program_ms, launch_ms = {}, {}
+    program_ms, program_kernels, launch_ms = {}, {}, {}
     for key in sorted(eng._programs):
         prog = eng._programs[key]
         if key[1] == 1 or key == (cfg.max_txns, max(SCANS)):
             pw = traced_replays(lambda: prog.run(False), 2, key[1], f"the {key} program")
             program_ms[f"{key[0]}x{key[1]}"] = pw["device_ms"]
+            program_kernels[f"{key[0]}x{key[1]}"] = pw["kernels"]
             # host ms of a launch on an idle card, then of relaunching the
             # same graph while that launch still runs
             torch.cuda.synchronize()
@@ -849,14 +903,16 @@ def columnar_engine_phase(ck, fc, he, oracle_mod, cfg, batches):
     torch.cuda.synchronize()
     lease.release()
     n, txns_total = len(batches), sum(len(t) for t, _, _ in batches)
-    return eng, serial, {
-        "program_device_ms": program_ms, "program_launch_host_ms": launch_ms,
+    out = {
+        "structure": eng.history_structure,
+        "program_device_ms": program_ms, "program_kernels": program_kernels,
+        "program_launch_host_ms": launch_ms,
         "h2d_chunk_ms": h2d_ms,
         "h2d_chunk_bytes": h2d_bytes, "h2d_chunk_copies": len(he.HOT_FIELDS),
         "h2d_chunk_host_ms": statistics.median(load_host_s) * 1e3,
         "batches": n, "txns": txns_total, "mismatches": 0, "launches": launches,
         "conflict": counts[0], "too_old": counts[1], "committed": counts[2],
-        "captures": captures, "warmup_s": warm_s,
+        "captures": captures, "if_nodes": if_nodes, "merges": merges, "warmup_s": warm_s,
         "memory_reserved_before_warmup": mem0, "memory_reserved_after_warmup": mem1,
         "bucket_hits": eng.perf.bucket_hits, "scan_dispatches": eng.perf.scan_dispatches,
         "arena_misses": eng.arena.misses,
@@ -865,13 +921,115 @@ def columnar_engine_phase(ck, fc, he, oracle_mod, cfg, batches):
         "txn_per_s": txns_total / (pack_s + dispatch_s + force_s),
         "sizes": [len(t) for t, _, _ in batches],
     }
+    if tiered:
+        out.update(merge_costs(ck, cfg, eng, batches[-1]))
+    return eng, serial, out
 
 
-def pipeline_phase(fc, pl, eng, batches, serial):
+def merge_costs(ck, cfg, eng, batch):
+    """The tiered top-bucket one-chunk program on a write-bearing chunk of
+    `batch`, its run stack set before each replay: to 0 (the run appends)
+    and to full (the step merges first), kernel ms and kernels per replay
+    from the card's trace (each replay also runs the fill that sets the
+    stack); then _merge_runs alone on the engine's table with a full stack
+    (device ms of a graph replay)."""
+    import torch
+
+    prog = eng._programs[(cfg.max_txns, 1)]
+    txns, now, oldest = batch
+    plan = eng.columnar_pack(txns, now, oldest)
+    per, _, bucket, lease, pack = next(c for c in plan["chunks"] if c[2] is cfg)
+    prog.load(0, per[0], pack)
+    NR = cfg.run_slots
+    out = {}
+    for label, nruns in (("append", 0), ("merge", NR)):
+        def run():
+            eng.state["nruns"].fill_(nruns)
+            prog.run(False)
+        pw = traced_replays(run, 2, 1, f"the tiered top program ({label})")
+        check(bool(prog.merged[0]) == (nruns == NR), f"the {label} replay merged "
+              f"{bool(prog.merged[0])}")
+        out[f"top_program_{label}_ms"] = pw["device_ms"]
+        out[f"top_program_{label}_kernels"] = pw["kernels"]
+    torch.cuda.synchronize()
+    for c in plan["chunks"]:
+        if c[3] is not None:
+            c[3].release()
+    # the merge alone, captured in a graph of its own: eagerly its ~700+
+    # launches would fill the launch queue behind device_ms's spin
+    st = eng.state
+    full = torch.full((), NR, dtype=torch.int32, device=st["n"].device)
+
+    def merge():
+        return ck._merge_runs(cfg, st["hkeys"], st["hvers"], st["n"], st["rkeys"],
+                              st["rvers"], st["rn"], full)
+
+    merge()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=torch.cuda.Stream(), capture_error_mode="relaxed"):
+        merge()
+    out["merge_ms"] = device_ms(graph.replay, 5)
+    out["merge_rows"] = NR * cfg.run_rows
+    return out
+
+
+def columnar_report(card, colp, references, seconds):
+    print(f"{colp['structure']} columnar engine phase [{card}]: {colp['txns']} point-only txns "
+          f"in {colp['batches']} batches {colp['sizes']} match {references}: "
+          f"{colp['committed']} committed / {colp['conflict']} conflict / {colp['too_old']} too old; "
+          f"buckets {colp['bucket_hits']}, scans {colp['scan_dispatches']}; {colp['captures']} graphs "
+          f"captured in warmup ({colp['warmup_s']:.2f} s), none after; memory reserved "
+          f"{colp['memory_reserved_before_warmup']} -> {colp['memory_reserved_after_warmup']} B; "
+          f"pack {colp['pack_ms_per_batch']:.4f} dispatch {colp['dispatch_ms_per_batch']:.4f} force "
+          f"{colp['force_ms_per_batch']:.4f} ms/batch, {colp['txn_per_s']:.0f} txn/s; "
+          f"{colp['launches']} kernel launches; arena misses {colp['arena_misses']} "
+          f"({seconds:.1f} s)", flush=True)
+    print(f"  columnar layers [{card}]: program kernel ms per replay "
+          f"{ {k: round(v, 4) for k, v in colp['program_device_ms'].items()} }, kernels per replay "
+          f"{ {k: round(v, 1) for k, v in colp['program_kernels'].items()} }, host ms to "
+          f"launch one on an idle card / to relaunch it at once "
+          f"{ {k: [round(x, 4) for x in v] for k, v in colp['program_launch_host_ms'].items()} }; "
+          f"one top-bucket chunk's {colp['h2d_chunk_bytes']} hot bytes to the card in "
+          f"{colp['h2d_chunk_copies']} copies: {colp['h2d_chunk_ms']:.4f} ms on the card, "
+          f"{colp['h2d_chunk_host_ms']:.4f} ms of host time to issue", flush=True)
+
+
+def columnar_timing(eng, batches, serial):
+    """The traffic once more through a warmed engine reset to an empty
+    table: pack, dispatch and force ms per batch and txn/s; verdicts equal
+    its first pass's; nothing captured."""
+    import torch
+
+    eng.base = eng.oldest_version = 0
+    eng.clear(0)
+    torch.cuda.synchronize()
+    captures, merges = eng.perf.captures, eng.perf.merges
+    pack_s = dispatch_s = force_s = 0.0
+    for b, (txns, now, oldest) in enumerate(batches):
+        t0 = time.perf_counter()
+        plan = eng.columnar_pack(txns, now, oldest)
+        t1 = time.perf_counter()
+        force = eng.columnar_dispatch(plan)
+        t2 = time.perf_counter()
+        got = [int(v) for v in force()]
+        t3 = time.perf_counter()
+        pack_s, dispatch_s, force_s = pack_s + t1 - t0, dispatch_s + t2 - t1, force_s + t3 - t2
+        check(got == serial[b], f"{eng.history_structure} timing pass, batch {b}: verdicts "
+              "differ from the first pass")
+    check(eng.perf.captures == captures, "a timing pass captured")
+    n = len(batches)
+    return {"pack_ms_per_batch": pack_s / n * 1e3, "dispatch_ms_per_batch": dispatch_s / n * 1e3,
+            "force_ms_per_batch": force_s / n * 1e3,
+            "txn_per_s": sum(len(t) for t, _, _ in batches) / (pack_s + dispatch_s + force_s),
+            "merges": eng.perf.merges - merges}
+
+
+def pipeline_phase(fc, pl, eng, batches, serial, runs=PIPELINE_RUNS, executors=(0, 1)):
     """The same traffic through the port's ResolverPipeline at depth 1, 2
-    and 3, packing inline and on a one-thread executor, PIPELINE_RUNS times
-    each in turns, on the warmed engine reset to an empty table each run:
-    verdicts equal serial resolve()'s on every batch."""
+    and 3, packing inline (0) and on a one-thread executor (1), `runs`
+    times each in turns, on the warmed engine reset to an empty table each
+    run: verdicts equal serial resolve()'s on every batch."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -879,7 +1037,7 @@ def pipeline_phase(fc, pl, eng, batches, serial):
     out = {}
     captures = eng.perf.captures
     launches = 0
-    for _, depth, threads in itertools.product(range(PIPELINE_RUNS), (1, 2, 3), (0, 1)):
+    for _, depth, threads in itertools.product(range(runs), (1, 2, 3), executors):
         eng.base = eng.oldest_version = 0
         eng.clear(0)
         torch.cuda.synchronize()
@@ -984,9 +1142,9 @@ def main(argv=None) -> int:
         print(f"  {ms:.4f} ms/step  {name}", flush=True)
 
     t0 = time.perf_counter()
-    captured, ep = engine_phase(ck, fc, he, oracle_mod, dev, rng, engine_cfg,
-                                sizes=[256, 384, 512, 512, 1500, 3000, 4500, 6000],
-                                oracle_batches=4)
+    traffic = byte_traffic(rng, ENGINE_SIZES)
+    captured, ep, router_verdicts = engine_phase(fc, he, oracle_mod, dev, engine_cfg, traffic,
+                                                 oracle_batches=4)
     results["engine_phase"] = ep
     print(f"engine phase [{card}]: {ep['txns']} txns in {ep['batches']} resolve() batches "
           f"match the CPU engine ({ep['oracle_batches']} also the oracle): "
@@ -1027,26 +1185,71 @@ def main(argv=None) -> int:
               flush=True)
 
     t0 = time.perf_counter()
-    batches = columnar_traffic(rng, COLUMNAR_SIZES)
-    eng, serial, colp = columnar_engine_phase(ck, fc, he, oracle_mod, engine_cfg, batches)
+    batches = columnar_traffic(rng, COLUMNAR_SIZES, READ_ONLY)
+    ora = oracle_mod.OracleConflictEngine()
+    oracle_verdicts = []
+
+    def oracle_ref(b, txns, now, oldest):
+        if b == len(oracle_verdicts):
+            oracle_verdicts.append([int(v) for v in ora.resolve(txns, now, oldest)])
+        return oracle_verdicts[b]
+
+    router = he.TorchConflictEngine(engine_cfg)
+    router._resolve_columnar = lambda *a: None
+    router.warmup(scan_sizes=())
+    eng, serial, colp = columnar_engine_phase(ck, fc, he, engine_cfg, batches, "monolithic", [
+        ("the oracle", oracle_ref),
+        ("the general router", lambda b, txns, now, oldest: [
+            int(v) for v in router.resolve(txns, now, oldest)])])
+    del router
     results["columnar_engine_phase"] = colp
-    print(f"columnar engine phase [{card}]: {colp['txns']} point-only txns in {colp['batches']} "
-          f"batches {colp['sizes']} match the oracle and the general router: "
-          f"{colp['committed']} committed / {colp['conflict']} conflict / {colp['too_old']} too old; "
-          f"buckets {colp['bucket_hits']}, scans {colp['scan_dispatches']}; {colp['captures']} graphs "
-          f"captured in warmup ({colp['warmup_s']:.2f} s), none after; memory reserved "
-          f"{colp['memory_reserved_before_warmup']} -> {colp['memory_reserved_after_warmup']} B; "
-          f"pack {colp['pack_ms_per_batch']:.4f} dispatch {colp['dispatch_ms_per_batch']:.4f} force "
-          f"{colp['force_ms_per_batch']:.4f} ms/batch, {colp['txn_per_s']:.0f} txn/s; "
-          f"{colp['launches']} kernel launches; arena misses {colp['arena_misses']} "
+    columnar_report(card, colp, "the oracle and the general router", time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    cpu_tiered = he.TorchConflictEngine(engine_cfg, device="cpu", ladder=LADDER, scan_sizes=SCANS,
+                                        history_structure="tiered")
+    teng, tserial, tcol = columnar_engine_phase(ck, fc, he, engine_cfg, batches, "tiered", [
+        ("the oracle", oracle_ref),
+        ("the monolithic card engine", lambda b, *_: serial[b]),
+        ("the CPU tiered engine", lambda b, txns, now, oldest: [
+            int(v) for v in cpu_tiered.resolve(txns, now, oldest)])])
+    del cpu_tiered
+    results["tiered_columnar_engine_phase"] = tcol
+    columnar_report(card, tcol, "the oracle, the monolithic card engine and the CPU tiered "
+                    "engine", time.perf_counter() - t0)
+    print(f"  tiered merges [{card}]: {tcol['merges']} merges inside replays "
+          f"({tcol['if_nodes']} IF nodes captured, no host read of the predicate); top one-chunk "
+          f"program {tcol['top_program_append_ms']:.4f} ms in {tcol['top_program_append_kernels']:.0f} "
+          f"kernels appending, {tcol['top_program_merge_ms']:.4f} ms in "
+          f"{tcol['top_program_merge_kernels']:.0f} kernels merging; _merge_runs alone "
+          f"({tcol['merge_rows']} run rows) {tcol['merge_ms']:.4f} ms", flush=True)
+
+    # both engines again, in turns: monolithic, tiered (their first passes
+    # ran in the same order above)
+    t0 = time.perf_counter()
+    turns = {"monolithic": [colp], "tiered": [tcol]}
+    for label, e, sv in (("monolithic", eng, serial), ("tiered", teng, tserial)):
+        turns[label].append(columnar_timing(e, batches, sv))
+    results["columnar_turns"] = {k: [{f: r[f] for f in ("pack_ms_per_batch",
+                                                           "dispatch_ms_per_batch",
+                                                           "force_ms_per_batch", "txn_per_s")}
+                                     for r in v] for k, v in turns.items()}
+    for label, runs in results["columnar_turns"].items():
+        print(f"  columnar turns, {label} [{card}]: " + "; ".join(
+            f"pack {r['pack_ms_per_batch']:.4f} dispatch {r['dispatch_ms_per_batch']:.4f} force "
+            f"{r['force_ms_per_batch']:.4f} ms/batch, {r['txn_per_s']:.0f} txn/s" for r in runs)
+            + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    _, tep, _ = engine_phase(fc, he, oracle_mod, dev, engine_cfg, traffic, oracle_batches=4,
+                             structure="tiered", card_reference=router_verdicts)
+    results["tiered_engine_phase"] = tep
+    print(f"tiered engine phase [{card}]: {tep['txns']} txns in {tep['batches']} resolve() "
+          f"batches match the monolithic card engine and the CPU tiered engine "
+          f"({tep['oracle_batches']} also the oracle); {tep['merges']} merges; "
+          f"{tep['launches']} kernel launches ({tep['graph_launches']} in graph replays, "
+          f"{tep['eager_launches']} eager); card resolve {tep['card_resolve_s']:.3f} s "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    print(f"  columnar layers [{card}]: program kernel ms per replay "
-          f"{ {k: round(v, 4) for k, v in colp['program_device_ms'].items()} }, host ms to "
-          f"launch one on an idle card / to relaunch it at once "
-          f"{ {k: [round(x, 4) for x in v] for k, v in colp['program_launch_host_ms'].items()} }; "
-          f"one top-bucket chunk's {colp['h2d_chunk_bytes']} hot bytes to the card in "
-          f"{colp['h2d_chunk_copies']} copies: {colp['h2d_chunk_ms']:.4f} ms on the card, "
-          f"{colp['h2d_chunk_host_ms']:.4f} ms of host time to issue", flush=True)
 
     t0 = time.perf_counter()
     pp = pipeline_phase(fc, pl, eng, batches, serial)
@@ -1055,17 +1258,28 @@ def main(argv=None) -> int:
           f"resolve(): " + ", ".join(f"{k} " + " / ".join(f"{x:.0f}" for x in v["txn_per_s"])
                                      + " txn/s" for k, v in pp.items() if k != "launches")
           + f"; {pp['launches']} kernel launches ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    tpp = pipeline_phase(fc, pl, teng, batches, tserial, runs=1, executors=(0,))
+    results["tiered_pipeline_phase"] = tpp
+    print(f"tiered pipeline phase [{card}]: depth 1-3, inline packing, all equal serial "
+          f"resolve(): " + ", ".join(f"{k} " + " / ".join(f"{x:.0f}" for x in v["txn_per_s"])
+                                     + " txn/s" for k, v in tpp.items() if k != "launches")
+          + f"; {tpp['launches']} kernel launches ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     kernels = {"kernels": [{
         "name": "commit_fixpoint",
         "route": "cuda",
         "source": "foundationdb_tpu_torch/csrc/fixpoint.cu",
         "replaces": "foundationdb_tpu/ops/fixpoint_pallas.py:336",
-        "launches": ep["launches"] + gp["launches"] + colp["launches"] + pp["launches"],
+        "launches": sum(r["launches"] for r in (ep, gp, colp, pp, tep, tcol, tpp)),
         "launches_by_path": {"engine_general_router_graph": ep["graph_launches"],
                              "engine_general_router_eager": ep["eager_launches"],
                              "graph_step": gp["launches"], "columnar_engine": colp["launches"],
-                             "pipeline": pp["launches"]},
+                             "pipeline": pp["launches"],
+                             "tiered_engine_general_router_graph": tep["graph_launches"],
+                             "tiered_engine_general_router_eager": tep["eager_launches"],
+                             "tiered_columnar_engine": tcol["launches"],
+                             "tiered_pipeline": tpp["launches"]},
         "mismatches": 0,
         "max_abs_err": 0,
         "ms": kp["kernel_ms"],

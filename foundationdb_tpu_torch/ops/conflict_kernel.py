@@ -1,14 +1,17 @@
 """Batched conflict detection in PyTorch — the resolver's conflict step.
 
-Port of ``foundationdb_tpu/ops/conflict_kernel.py`` (monolithic history,
-heat off). The step is the same fixed-shape program:
+Port of ``foundationdb_tpu/ops/conflict_kernel.py`` (monolithic and tiered
+history, heat off). The step is the same fixed-shape program:
 
   local_phases        reads vs history (phase 1) + intra-batch overlap
-                      edges (phase 2), in ``fused_sort`` or ``bsearch`` mode
+                      edges (phase 2), in ``fused_sort`` or ``bsearch`` mode;
+                      under the tiered structure every run is probed too
   commit fixpoint     earlier-in-batch-wins verdicts; a CUDA kernel on the
                       card (fixpoint_cuda.py), the plain torch loop below on
                       the CPU
-  apply_writes_and_gc committed-write union, boundary-table merge, GC/rebase
+  apply_writes_and_gc committed-write union, then either the boundary-table
+                      merge + GC/rebase (monolithic) or the run append,
+                      elementwise GC rebase and lazy run merge (tiered)
   status_of           per-transaction verdict codes
   resolve_step_scan   C same-shape batches as one program, threading the
                       table through (the engine captures it as a CUDA graph)
@@ -48,7 +51,7 @@ import numpy as np
 import torch
 
 from ..core.types import TransactionCommitResult
-from . import keypack
+from . import graph_if, keypack
 
 NEG_VERSION = -(2**30)
 #: all-ones uint32 key word: no real key reaches length 2^32-1, so rows
@@ -184,22 +187,34 @@ def resolved_history_search(cfg: KernelConfig) -> str:
 
 
 def resolved_history_structure(cfg: KernelConfig) -> str:
-    """Concrete history structure. Only the monolithic table is ported;
-    "tiered" raises until its slice lands."""
+    """Concrete structure ("monolithic" | "tiered"), with the tiered
+    geometry checked as the JAX package checks it (same messages)."""
     structure = cfg.history_structure
     if structure not in HISTORY_STRUCTURES:
         raise ValueError(
             f"unknown history_structure {structure!r}; expected one of "
             f"{HISTORY_STRUCTURES}")
-    if structure != "monolithic":
-        raise NotImplementedError(
-            "history_structure='tiered' is not ported to foundationdb_tpu_torch yet")
+    if structure == "tiered":
+        if cfg.history_runs < 2:
+            raise ValueError(
+                f"history_runs={cfg.history_runs} must be >= 2 for the "
+                f"tiered structure (one slot would merge on every batch — "
+                f"strictly worse than monolithic — and the heat-borne run "
+                f"accounting could not distinguish append from merge)")
+        if cfg.run_rows < 2 * cfg.w_all:
+            raise ValueError(
+                f"history_run_rows={cfg.run_rows} cannot hold one batch's "
+                f"committed-write union (needs >= 2*w_all = {2 * cfg.w_all})")
     return structure
 
 
+def is_tiered(cfg: KernelConfig) -> bool:
+    return resolved_history_structure(cfg) == "tiered"
+
+
 def check_supported(cfg: KernelConfig) -> None:
-    """Raise on a config this slice does not run: an unknown search mode,
-    the tiered structure, or heat."""
+    """Raise on a config this slice does not run: an unknown search mode or
+    structure, a tiered geometry the JAX package rejects, or heat."""
     resolved_history_search(cfg)
     resolved_history_structure(cfg)
     if cfg.heat_buckets:
@@ -404,6 +419,98 @@ def _sorted_rows(keys: Tensor, codes: Tensor, valid: Tensor):
 
 
 # ---------------------------------------------------------------------------
+# the tiered structure's run probe
+# ---------------------------------------------------------------------------
+
+def _take_rows(x: Tensor, idx: Tensor) -> Tensor:
+    """Per-run _take: x [NR, N, ...], idx [NR, Q] -> x[j, idx[j, q]] with
+    JAX's clamp inside each run's own N rows, as the JAX probe's per-run
+    gathers clamp."""
+    nr, n = x.shape[0], x.shape[1]
+    idx = torch.where(idx < 0, idx + n, idx).clamp_(0, n - 1)
+    flat = x.reshape((nr * n,) + tuple(x.shape[2:]))
+    return flat[idx + _arange(nr, x.device)[:, None] * n]
+
+
+def _lower_bound_runs(tables: Tensor, n: Tensor, q: Tensor, levels: int) -> Tensor:
+    """_lower_bound_n of the same queries into every run at once: tables
+    [NR, RC, K] with valid prefixes n [NR], q [Q, K] -> [NR, Q]. One [NR,
+    Q, K] gather a round instead of NR gathers."""
+    nr = tables.shape[0]
+    lo = torch.zeros((nr, q.shape[0]), dtype=torch.int64, device=q.device)
+    hi = lo + n.to(torch.int64)[:, None]
+    for _ in range(levels):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        go_right = _key_less(_take_rows(tables, mid), q[None])
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    return lo
+
+
+def _build_sparse_max_runs(vers: Tensor, n: Tensor, n_levels: int) -> Tensor:
+    """_build_sparse_max_n of every run at once: vers [NR, RC], n [NR] ->
+    [NR, n_levels, RC]."""
+    nr, rc = vers.shape
+    dev = vers.device
+    base = torch.where(_arange(rc, dev)[None, :] < n.to(torch.int64)[:, None], vers,
+                       torch.full_like(vers, NEG_VERSION))
+    levels = [base]
+    for k in range(1, n_levels):
+        half = 1 << (k - 1)
+        prev = levels[-1]
+        shifted = torch.cat([prev[:, half:], torch.full((nr, half), NEG_VERSION,
+                                                        dtype=prev.dtype, device=dev)], dim=1)
+        levels.append(torch.maximum(prev, shifted))
+    return torch.stack(levels, dim=1)
+
+
+def _tiered_read_probe(cfg: KernelConfig, state: Dict[str, Tensor], rpb: Tensor,
+                       rp_valid: Tensor, rb: Tensor, re: Tensor, r_valid: Tensor,
+                       empty_r: Tensor) -> Tuple[Tensor, Tensor]:
+    """The runs' history answers for both read classes: (point_max [Rp],
+    range_max [Rr]), max-folded into the base table's answers before any
+    hit. The JAX function loops over the NR runs; here all runs are probed
+    in one batched pass ([NR, Q, K] gathers, an [NR, levels, RC] sparse
+    table) with the same values. Each run is a mini interval table whose
+    rows alternate (union-begin, now) / (union-end, NEG gap); a run has no
+    minimal-key row, so an upper bound of 0 or an empty row window answers
+    NEG — except an empty read at b'', which takes the run's row AT b''
+    (the oracle clamps its predecessor scan to the minimal key)."""
+    RC, levels = cfg.run_rows, cfg.run_levels
+    Rp, Rr = cfg.rp, cfg.max_reads
+    rkeys, rvers, rn = state["rkeys"], state["rvers"], state["rn"]
+
+    qvalid = torch.cat([rp_valid, r_valid, r_valid, r_valid])
+    qkeys = torch.cat([rpb, rb, _bump(rb), re])
+    q_eff = torch.where(qvalid[:, None], qkeys, U32_ALL)
+    lb = _lower_bound_runs(rkeys, rn, q_eff, levels)                  # [NR, Q]
+    lb_p, lb_b, lb_bb, lb_e = torch.split(lb, [Rp, Rr, Rr, Rr], dim=1)
+
+    # point read: value at k = vers[upper(k) - 1], NEG before the run
+    up_p = lb_p + _key_eq(_take_rows(rkeys, lb_p), rpb[None]).to(torch.int64)
+    vp = torch.where(up_p > 0, _take_rows(rvers, torch.clamp(up_p - 1, min=0)),
+                     NEG_VERSION).amax(dim=0)
+    if Rr == 0:
+        return vp, torch.full((0,), NEG_VERSION, dtype=torch.int32, device=vp.device)
+    sparse = _build_sparse_max_runs(rvers, rn, levels)               # [NR, L, RC]
+    is_min = torch.all(rb == 0, dim=-1)         # q == b'' (packed zero)
+    eq_b = _key_eq(_take_rows(rkeys, lb_b), rb[None]).to(torch.int64)
+    s_qlo = torch.where(empty_r, lb_b + torch.where(is_min, eq_b, 0), lb_bb)
+    lo = torch.clamp(s_qlo - 1, min=0)
+    hi = torch.where(empty_r, s_qlo, lb_e)
+    # _range_max_n per run: indices clamp inside the run's own flat table
+    hi1 = torch.maximum(hi, lo + 1)
+    k = _bit_length((hi1 - lo) & U32_ALL) - 1
+    pw = torch.where(k >= 0, torch.ones_like(k) << k.clamp(min=0), 0)
+    flat = sparse.reshape(sparse.shape[0], -1, 1)
+    m1 = _take_rows(flat, k * RC + lo)[..., 0]
+    m2 = _take_rows(flat, k * RC + hi1 - pw)[..., 0]
+    vr = torch.where(hi > lo, torch.maximum(m1, m2), NEG_VERSION).amax(dim=0)
+    return vp, vr
+
+
+# ---------------------------------------------------------------------------
 # phases 1-2
 # ---------------------------------------------------------------------------
 
@@ -505,7 +612,14 @@ def local_phases(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict):
     }
 
     # ---- Phase 1: reads vs. history ----
+    # Tiered: every run's answer folds into the base table's before any hit.
+    tiered = is_tiered(cfg)
+    if tiered:
+        run_vp, run_vr = _tiered_read_probe(cfg, state, rpb, rp_valid, rb, re, r_valid,
+                                            empty_r)
     vmax_p = _take(hvers, torch.clamp(s_rp + eq_rp - 1, min=0))
+    if tiered:
+        vmax_p = torch.maximum(vmax_p, run_vp)
     hit_p = rp_valid & (vmax_p > batch["rp_snap"])
     hist = torch.zeros(T + 1, dtype=torch.int32, device=dev)
     hist.scatter_reduce_(0, _drop(rp_txn, T), _i32(hit_p), "amax", include_self=True)
@@ -516,6 +630,8 @@ def local_phases(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict):
         lo = torch.where(empty_r, lo_e, s_qlo - 1)
         hi = torch.where(empty_r, lo_e + 1, s_re)
         rmax = _range_max(cfg, sparse, lo, hi)
+        if tiered:
+            rmax = torch.maximum(rmax, run_vr)
         hit_rg = r_valid & (rmax > batch["r_snap"])
         hist.scatter_reduce_(0, _drop(r_txn, T), _i32(hit_rg), "amax", include_self=True)
     hist_hits = hist[:T]
@@ -639,7 +755,15 @@ def apply_writes_and_gc(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict
                         committed: Tensor, wpos: Dict[str, Tensor], gc_branch: bool):
     """Phases 3-5: committed-write union, boundary-table merge, GC/rebase.
     `gc_branch` is the host's answer to batch["gc"] > 0. Returns
-    (new_state, overflow bool 0-d, reclaimed int32 0-d)."""
+    (new_state, overflow bool 0-d, reclaimed int32 0-d). The tiered
+    structure updates the state's tensors in place (_tiered_apply)."""
+    return _apply_writes(cfg, state, batch, committed, wpos, gc_branch)[:3]
+
+
+def _apply_writes(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
+                  committed: Tensor, wpos: Dict[str, Tensor], gc_branch: bool):
+    """apply_writes_and_gc, plus the merge flag: (new_state, overflow,
+    reclaimed, merged bool 0-d under the tiered structure, else None)."""
     check_supported(cfg)
     hkeys, hvers, n = state["hkeys"], state["hvers"], state["n"]
     dev = hkeys.device
@@ -678,6 +802,10 @@ def apply_writes_and_gc(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict
     uec[_drop(torch.where(is_ue, uei, Wa), Wa)] = sc
     ub_keys, ue_keys = ubc[:Wa, :K], uec[:Wa, :K]
     u_start, u_stop = ubc[:Wa, K], uec[:Wa, K]
+    if is_tiered(cfg):
+        # phase 3's union IS the new run: the capacity-H re-merge and GC
+        # compaction of phases 4-5 give way to append, rebase, lazy merge
+        return _tiered_apply(cfg, state, batch, ub_keys, ue_keys, u_count, gc_branch)
     ue_ver = _take(hvers, torch.clamp(uec[:Wa, K + 1] - 1, min=0))
 
     # ---- Phase 4: merge the union into the table at version `now` ----
@@ -751,7 +879,220 @@ def apply_writes_and_gc(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict
         hk = outc[:, :K]
         n2 = n1
     new_state = {"hkeys": hk.contiguous(), "hvers": _i32(fin_v), "n": _i32(n2)}
-    return new_state, overflow, _i32(n1 - n2)
+    return new_state, overflow, _i32(n1 - n2), None
+
+
+# ---------------------------------------------------------------------------
+# the tiered structure: run append, GC rebase, lazy merge
+# ---------------------------------------------------------------------------
+
+def _merge_runs(cfg: KernelConfig, hkeys: Tensor, hvers: Tensor, n: Tensor,
+                rkeys: Tensor, rvers: Tensor, rn: Tensor, nruns: Tensor):
+    """The lazy compaction: fold base + every active run into one key-sorted
+    boundary table. Returns (mkeys [H, K], mvers int32 [H], m_n int32 0-d,
+    overflow bool 0-d, dropped int32 0-d) as the JAX function does.
+
+    Stage 1 folds the runs alone: one sort of the NR*RC run rows, an [NR,
+    NR*RC] cummax forward fill (each run's value at every sorted run key;
+    the runs' combined value is the max), one delta row per distinct run
+    key, value-redundant delta rows dropped. Stage 2 merges the delta into
+    the sorted base positionally, as the monolithic phase 4 does, then one
+    value-equal-predecessor pass over the merged image of H + NR*RC rows, so
+    an overflowing merge still counts m_n exactly before truncating."""
+    NR, RC = cfg.run_slots, cfg.run_rows
+    H, K = cfg.capacity, cfg.lanes
+    Md = NR * RC
+    dev = hkeys.device
+    n64 = n.to(torch.int64)
+    posn = _arange(Md, dev)
+
+    # ---- Stage 1: fold the runs into one coalesced delta boundary list ----
+    akeys = rkeys.reshape(Md, K)
+    avers = rvers.reshape(Md)
+    asrc = posn // RC
+    avalid = ((_arange(RC, dev)[None, :] < rn.to(torch.int64)[:, None])
+              & (_arange(NR, dev)[:, None] < nruns.to(torch.int64))).reshape(Md)
+    # valid rows sort first, invalid ones (all-ones keys) after them by index
+    perm, skeys = _sorted_rows(akeys, torch.zeros(Md, dtype=torch.int64, device=dev), avalid)
+    svalid = avalid[perm]
+    ssrc = asrc[perm]
+    svers = avers[perm]
+    tag2 = torch.where(svalid[None, :] & (ssrc[None, :] == _arange(NR, dev)[:, None]),
+                       posn[None, :], -1)
+    last2 = torch.cummax(tag2, dim=1).values
+    val2 = torch.where(last2 >= 0, svers[torch.clamp(last2, min=0)], NEG_VERSION)
+    dval = val2.amax(dim=0)
+
+    # one delta row per distinct run key: the last row of each equal-key group
+    diff_next = torch.ones(Md, dtype=torch.bool, device=dev)
+    diff_next[:-1] = torch.any(skeys[:-1] != skeys[1:], dim=-1)
+    is_cand = svalid & diff_next
+    ptag = torch.where(is_cand, posn, -1)
+    prevc = torch.cat([torch.full((1,), -1, dtype=torch.int64, device=dev),
+                       torch.cummax(ptag, dim=0).values[:-1]])
+    prev_val = torch.where(prevc >= 0, dval[torch.clamp(prevc, min=0)], 2**30)
+    dkeep = is_cand & (dval != prev_val)
+
+    dpos = torch.cumsum(dkeep, 0) - 1
+    d_n = dkeep.sum()
+    dc = torch.zeros((Md + 1, K + 1), dtype=torch.int64, device=dev)
+    dc[_drop(torch.where(dkeep, dpos, Md), Md)] = torch.cat(
+        [skeys, dval.to(torch.int64)[:, None]], dim=1)
+    dkeys, dvers = dc[:Md, :K], dc[:Md, K]
+
+    # ---- Stage 2: positional merge of the delta into the sorted base ----
+    valid_d = posn < d_n
+    lo = _lower_bound_n(hkeys, n, dkeys, cfg.levels)
+    eq = valid_d & (lo < n64) & _key_eq(hkeys[torch.clamp(lo, max=H - 1)], dkeys)
+    # a NEG delta row takes the base's value there, hvers[upper - 1]
+    ubm1 = lo + eq.to(torch.int64) - 1
+    fill = torch.where(ubm1 >= 0, _take(hvers, torch.clamp(ubm1, min=0)).to(torch.int64),
+                       NEG_VERSION)
+    dv2 = torch.where(dvers == NEG_VERSION, fill, dvers)
+
+    # base rows inside a covering delta segment are overwritten; an
+    # equal-key base row is superseded by its delta row either way
+    covering = valid_d & (dvers != NEG_VERSION)
+    nxt_lo = torch.cat([lo[1:], torch.zeros(1, dtype=torch.int64, device=dev)])
+    stop = torch.where(posn + 1 < d_n, nxt_lo, n64)
+    cov_delta = torch.zeros(H + 2, dtype=torch.int64, device=dev)
+    ones = torch.ones(Md, dtype=torch.int64, device=dev)
+    cov_delta.index_add_(0, _drop(torch.where(covering, lo, H + 1), H + 1), ones)
+    cov_delta.index_add_(0, _drop(torch.where(covering, stop, H + 1), H + 1), -ones)
+    covered = torch.cumsum(cov_delta[:H], 0) > 0
+    eq_kill = torch.zeros(H + 1, dtype=torch.bool, device=dev).index_fill_(
+        0, _drop(torch.where(eq, lo, H), H), True)[:H]
+    old_keep = (_arange(H, dev) < n64) & ~covered & ~eq_kill
+
+    # merged positions: kept base rows shift by the delta rows before them,
+    # delta rows by the kept base rows before them
+    cum_keep = torch.cumsum(old_keep, 0)
+    new_cnt = torch.zeros(H + 2, dtype=torch.int64, device=dev)
+    new_cnt.index_add_(0, _drop(torch.where(valid_d, lo, H + 1), H + 1), ones)
+    pos_old = cum_keep - 1 + torch.cumsum(new_cnt[:H], 0)
+    drop_before = torch.cumsum(covered | eq_kill, 0)
+    db = torch.where(lo > 0, _take(drop_before, torch.clamp(lo - 1, min=0)), 0)
+    pos_new = posn + (lo - db)
+
+    G = H + Md
+    img = torch.zeros((G + 1, K + 1), dtype=torch.int64, device=dev)
+    img[:, K] = NEG_VERSION
+    img[_drop(torch.where(old_keep, pos_old, G), G)] = torch.cat(
+        [hkeys, hvers.to(torch.int64)[:, None]], dim=1)
+    img[_drop(torch.where(valid_d, pos_new, G), G)] = torch.cat([dkeys, dv2[:, None]], dim=1)
+    img = img[:G]
+    gvers = img[:, K]
+    mn_raw = cum_keep[H - 1] + d_n
+
+    # boundary redundancy over the merged image: drop rows whose value
+    # equals the previous row's (the first row's sentinel matches nothing)
+    pv = torch.cat([torch.full((1,), 2**30, dtype=torch.int64, device=dev), gvers[:-1]])
+    keep = (_arange(G, dev) < mn_raw) & (gvers != pv)
+    cpos = torch.cumsum(keep, 0) - 1
+    m_n = keep.sum()
+    out = torch.zeros((H + 1, K + 1), dtype=torch.int64, device=dev)
+    out[:, K] = NEG_VERSION
+    out[_drop(torch.where(keep, cpos, H), H)] = img
+    total = n64 + torch.where(_arange(NR, dev) < nruns.to(torch.int64), rn.to(torch.int64),
+                              0).sum()
+    return (out[:H, :K], _i32(out[:H, K]), _i32(m_n), m_n > H, _i32(total - m_n))
+
+
+class MergeBranch:
+    """Host reads of the tiered step's one device-dependent branch (is the
+    run stack full when a run must append?) made on the card outside a
+    CUDA graph capture: each one is a sync. Under capture the branch is an
+    IF node (graph_if.GRAPH_IF.nodes counts them)."""
+
+    def __init__(self):
+        self.host_reads = 0
+
+
+MERGE = MergeBranch()
+
+
+def run_if(pred: Tensor, body) -> None:
+    """body() iff the 0-d bool `pred` holds, without computing body when it
+    does not: on the CPU a host branch; on the card under CUDA graph
+    capture a conditional IF node whose body replays only when `pred` holds
+    (graph_if; body must write its results into tensors that exist before
+    the node); on the card outside a capture a host read of `pred`, a
+    sync, counted in MERGE.host_reads. Nothing computes both sides and
+    selects."""
+    if pred.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        with graph_if.if_node(pred):
+            body()
+        return
+    if pred.device.type == "cuda":
+        MERGE.host_reads += 1
+    if bool(pred):
+        body()
+
+
+def _tiered_apply(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
+                  ub_keys: Tensor, ue_keys: Tensor, u_count: Tensor, gc_branch: bool):
+    """Tiered phases 4-5, IN PLACE on the state's tensors: merge the run
+    stack into the base when the incoming run finds no free slot
+    (run_if), append the batch's committed-write union as one sorted run
+    (O(RC*K): one slot written, branch-free), then the GC as an elementwise
+    horizon rebase of base and runs (NEG gap rows stay NEG). Returns
+    (state, overflow bool 0-d, reclaimed int32 0-d, merged bool 0-d)."""
+    NR, RC = cfg.run_slots, cfg.run_rows
+    H, K, Wa = cfg.capacity, cfg.lanes, cfg.w_all
+    dev = ub_keys.device
+    hkeys, hvers, n = state["hkeys"], state["hvers"], state["n"]
+    rkeys, rvers, rn, nruns = state["rkeys"], state["rvers"], state["rn"], state["nruns"]
+
+    # the new run: interleaved (union-begin, now) / (union-end, NEG) rows,
+    # padded with all-ones keys and NEG versions
+    row_valid = (_arange(2 * Wa, dev) >> 1) < u_count
+    nrk = torch.stack([ub_keys, ue_keys], dim=1).reshape(2 * Wa, K)
+    nrv = torch.stack([batch["now"].expand(Wa),
+                       torch.full((Wa,), NEG_VERSION, dtype=torch.int32, device=dev)],
+                      dim=1).reshape(2 * Wa)
+    runk = torch.full((RC, K), U32_ALL, dtype=torch.int64, device=dev)
+    runk[:2 * Wa] = torch.where(row_valid[:, None], nrk, U32_ALL)
+    runv = torch.full((RC,), NEG_VERSION, dtype=torch.int32, device=dev)
+    runv[:2 * Wa] = torch.where(row_valid, nrv, NEG_VERSION)
+    has_rows = u_count > 0
+
+    # lazy merge: only when a run must append and every slot is taken
+    do_merge = has_rows & (nruns >= NR)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    reclaimed = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def merge():
+        mk, mv, mn, moverflow, dropped = _merge_runs(cfg, hkeys, hvers, n, rkeys, rvers,
+                                                     rn, nruns)
+        hkeys.copy_(mk)
+        hvers.copy_(mv)
+        n.copy_(mn)
+        rkeys.fill_(U32_ALL)
+        rvers.fill_(NEG_VERSION)
+        rn.zero_()
+        nruns.zero_()
+        overflow.copy_(moverflow)
+        reclaimed.copy_(dropped)
+
+    run_if(do_merge, merge)
+
+    # append at the first free slot (slot 0 after a merge); a read-only
+    # batch rewrites that slot with what it holds
+    slot = torch.clamp(nruns.to(torch.int64), max=NR - 1).reshape(1)
+    rkeys.index_copy_(0, slot, torch.where(has_rows, runk, rkeys.index_select(0, slot)[0])[None])
+    rvers.index_copy_(0, slot, torch.where(has_rows, runv, rvers.index_select(0, slot)[0])[None])
+    rn.index_copy_(0, slot, torch.where(has_rows, _i32(2 * u_count),
+                                        rn.index_select(0, slot)[0]).reshape(1))
+    nruns.add_(has_rows.to(torch.int32))
+
+    # GC as a range deletion; the branch is the host's (gc_branch)
+    if gc_branch:
+        gc = batch["gc"]
+        hvers.copy_(torch.where(_arange(H, dev) < n.to(torch.int64),
+                                torch.clamp(hvers - gc, min=-1), NEG_VERSION))
+        rvers.copy_(torch.where(rvers == NEG_VERSION, NEG_VERSION,
+                                torch.clamp(rvers - gc, min=-1)))
+    return state, overflow, reclaimed, do_merge
 
 
 def detect_step(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict):
@@ -784,13 +1125,16 @@ def status_of(t_too_old: Tensor, committed: Tensor) -> Tensor:
 def resolve_step(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
                  gc_branch: bool):
     """One resolver batch: (state, batch) -> (state', {"status", "overflow",
-    "n"}). `gc_branch`: whether batch["gc"] > 0."""
+    "n"}, plus "merged" under the tiered structure: whether this step merged
+    the run stack). `gc_branch`: whether batch["gc"] > 0."""
     hist_hits, edges, wpos = local_phases(cfg, state, batch)
     committed = _fixpoint(cfg, batch["t_ok"], hist_hits, edges, batch)
-    new_state, overflow, _ = apply_writes_and_gc(cfg, state, batch, committed, wpos,
-                                                 gc_branch)
+    new_state, overflow, _, merged = _apply_writes(cfg, state, batch, committed, wpos,
+                                                   gc_branch)
     out = {"status": status_of(batch["t_too_old"], committed),
            "overflow": overflow, "n": new_state["n"]}
+    if merged is not None:
+        out["merged"] = merged
     return new_state, out
 
 
@@ -801,15 +1145,15 @@ def resolve_step_scan(cfg: KernelConfig, state: Dict[str, Tensor], batches: Dict
     lax.scan form, so status [C, T] and overflow [C] equal C serial
     resolve_steps. `gc_last`: whether the LAST chunk carries gc > 0;
     earlier chunks take the no-GC branch (only a batch's last chunk carries
-    its GC horizon)."""
+    its GC horizon). Under the tiered structure the outputs gain "merged"
+    [C]."""
     C = batches["t_ok"].shape[0]
-    status, overflow = [], []
+    outs = []
     for c in range(C):
         state, out = resolve_step(cfg, state, {k: v[c] for k, v in batches.items()},
                                   gc_last and c == C - 1)
-        status.append(out["status"])
-        overflow.append(out["overflow"])
-    return state, {"status": torch.stack(status), "overflow": torch.stack(overflow)}
+        outs.append(out)
+    return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0] if k != "n"}
 
 
 # ---------------------------------------------------------------------------
@@ -818,12 +1162,18 @@ def resolve_step_scan(cfg: KernelConfig, state: Dict[str, Tensor], batches: Dict
 
 def state_shapes(cfg: KernelConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """Shapes and dtypes of the device interval table (the port of
-    state_struct)."""
-    return {
+    state_struct): the run planes exist only under the tiered structure."""
+    out = {
         "hkeys": ((cfg.capacity, cfg.lanes), torch.int64),
         "hvers": ((cfg.capacity,), torch.int32),
         "n": ((), torch.int32),
     }
+    if is_tiered(cfg):
+        out["rkeys"] = ((cfg.run_slots, cfg.run_rows, cfg.lanes), torch.int64)
+        out["rvers"] = ((cfg.run_slots, cfg.run_rows), torch.int32)
+        out["rn"] = ((cfg.run_slots,), torch.int32)
+        out["nruns"] = ((), torch.int32)
+    return out
 
 
 def batch_shapes(cfg: KernelConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
@@ -874,30 +1224,74 @@ def batch_from_numpy(cfg: KernelConfig, arrays: Dict, device) -> Dict:
 
 def state_from_numpy(cfg: KernelConfig, arrays: Dict, device) -> Dict[str, Tensor]:
     """Device table from numpy {"hkeys" uint32 [H, K], "hvers" int32 [H],
-    "n"} — initial_state's arrays in either package."""
+    "n"}, and under the tiered structure {"rkeys" uint32 [NR, RC, K],
+    "rvers" int32 [NR, RC], "rn" int32 [NR], "nruns"} — initial_state's
+    arrays in either package."""
     return {name: _to_tensor(arrays[name], shape, dtype, name, device)
             for name, (shape, dtype) in state_shapes(cfg).items()}
 
 
 def state_to_numpy(state: Dict[str, Tensor]) -> Dict[str, np.ndarray]:
-    """Inverse of state_from_numpy: hkeys back to uint32."""
-    return {
-        "hkeys": state["hkeys"].cpu().numpy().astype(np.uint32),
-        "hvers": state["hvers"].cpu().numpy(),
-        "n": np.int32(int(state["n"])),
-    }
+    """Inverse of state_from_numpy: key planes back to uint32."""
+    out = {}
+    for name, t in state.items():
+        a = t.cpu().numpy()
+        out[name] = a.astype(np.uint32) if name in ("hkeys", "rkeys") else a
+    return out
 
 
 def initial_state(cfg: KernelConfig, version_rel: int = 0, first_key: bytes = b"",
                   device="cpu") -> Dict[str, Tensor]:
     """Fresh boundary table whose single interval [first_key, +inf) carries
-    version_rel."""
-    resolved_history_structure(cfg)
+    version_rel; under the tiered structure, empty run planes (all-ones
+    keys, NEG versions)."""
     hkeys = np.zeros((cfg.capacity, cfg.lanes), np.uint32)
     hkeys[0] = keypack.pack_key(first_key, cfg.key_words)
     hvers = np.full((cfg.capacity,), NEG_VERSION, np.int32)
     hvers[0] = version_rel
-    return state_from_numpy(cfg, {"hkeys": hkeys, "hvers": hvers, "n": 1}, device)
+    arrays = {"hkeys": hkeys, "hvers": hvers, "n": 1}
+    if is_tiered(cfg):
+        NR, RC = cfg.run_slots, cfg.run_rows
+        arrays.update(rkeys=np.full((NR, RC, cfg.lanes), U32_ALL, np.uint32),
+                      rvers=np.full((NR, RC), NEG_VERSION, np.int32),
+                      rn=np.zeros((NR,), np.int32), nruns=0)
+    return state_from_numpy(cfg, arrays, device)
+
+
+def history_run_snapshot(cfg: KernelConfig, state: Dict, since_runs: int = 0) -> Dict[str, object]:
+    """Host copy of the ACTIVE run planes only, the O(delta) export: the
+    runs appended since the caller's watermark `since_runs` (the nruns of
+    its last snapshot). A merge resets nruns to 0 or 1, so nruns <
+    since_runs in the result tells the caller a compaction killed its
+    watermark and it must resync. Returns {"structure", "nruns", "runs":
+    [(keys uint32 [rn_j, K], vers int32 [rn_j]), ...]}, rows alternating
+    (interval-begin, version) / (interval-end, NEG gap). `state` holds
+    tensors or arrays."""
+    structure = resolved_history_structure(cfg)
+    if structure != "tiered":
+        return {"structure": structure, "nruns": 0, "runs": []}
+
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, Tensor) else np.asarray(x)
+
+    nruns = int(host(state["nruns"]))
+    rn = host(state["rn"])
+    lo = min(max(int(since_runs), 0), nruns)
+    runs = []
+    for j in range(lo, nruns):
+        rows = int(rn[j])
+        runs.append((host(state["rkeys"][j, :rows]).astype(np.uint32),
+                     host(state["rvers"][j, :rows])))
+    return {"structure": structure, "nruns": nruns, "runs": runs}
+
+
+def run_intervals(snapshot: Dict[str, object]):
+    """Decode a history_run_snapshot into (begin_row, end_row, version)
+    packed-key interval triples, oldest run first: even rows open a
+    committed-write union range at their version, odd rows close it."""
+    for keys, vers in snapshot["runs"]:
+        for i in range(0, keys.shape[0] - 1, 2):
+            yield keys[i], keys[i + 1], int(vers[i])
 
 
 def build_batch_arrays(

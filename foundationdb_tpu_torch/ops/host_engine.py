@@ -32,6 +32,7 @@ history-vs-intra-batch classification cannot change any verdict.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -45,6 +46,7 @@ from ..core.types import Key, TransactionCommitResult, Version, is_point_range a
 from ..native import fastpack
 from . import conflict_kernel as ck
 from . import fixpoint_cuda
+from . import graph_if
 from . import keypack
 from .conflict_kernel import KernelConfig, build_batch_arrays
 from .oracle import VersionIntervalMap
@@ -333,6 +335,9 @@ class EnginePerf:
     scan_dispatches: Dict[int, int] = field(default_factory=dict)
     #: transactions by final verdict: committed / conflicts / too_old
     verdicts: Dict[str, int] = field(default_factory=dict)
+    #: tiered steps that merged the run stack into the base table (each
+    #: step's "merged" flag, read where its statuses are)
+    merges: int = 0
 
     def record_verdicts(self, status) -> None:
         """Fold one chunk's statuses into the verdict counters."""
@@ -472,6 +477,44 @@ class RoutedConflictEngineBase:
 
     def _reset_device_state(self, version_rel: int) -> None:
         raise NotImplementedError
+
+    def _device_states_for_snapshot(self):
+        """Per-shard device state dicts for history_run_snapshots; None
+        when this engine family keeps no host-readable state handle."""
+        return None
+
+    # -- history structure ---------------------------------------------------
+    @property
+    def history_structure(self) -> str:
+        """The resolved history structure ("monolithic" | "tiered")."""
+        return ck.resolved_history_structure(self.cfg)
+
+    def history_stats_snapshot(self) -> Dict[str, Any]:
+        """Tiered-history accounting as the JAX engine reports it: the
+        structure and run geometry, and the run/merge counters, which the
+        JAX engine takes from the heat aggregate and so reads 0 with heat
+        off — as they always read here (merges counted by the serving path
+        are perf.merges)."""
+        tiered = self.history_structure == "tiered"
+        return {"structure": self.history_structure,
+                "run_slots": self.cfg.run_slots if tiered else 0,
+                "run_rows": self.cfg.run_rows if tiered else 0,
+                "appends": 0, "merges": 0, "runs_live": 0, "run_rows_live": 0}
+
+    def history_run_snapshots(self, since_runs: Optional[Sequence[int]] = None):
+        """Per-shard tiered run snapshots (ck.history_run_snapshot), the
+        O(delta) export: `since_runs` is the per-shard run watermark of the
+        previous snapshot; a snapshot whose nruns fell below it means a
+        merge compacted the stack and the consumer must resync. None for
+        monolithic engines."""
+        if self.history_structure != "tiered":
+            return None
+        states = self._device_states_for_snapshot()
+        if states is None:
+            return None
+        return [ck.history_run_snapshot(self.cfg, st,
+                                        since_runs=0 if since_runs is None else int(since_runs[s]))
+                for s, st in enumerate(states)]
 
     # -- shared implementation ---------------------------------------------
     def clear(self, version: Version) -> None:
@@ -972,8 +1015,12 @@ class _Program:
     "does the last chunk carry gc > 0" (JAX's lax.cond on the device
     scalar; only a batch's last chunk carries its GC horizon). The graphs
     end by copying the new table into the engine's static state buffers,
-    which every bucket shares: the table has the same shape in all. On the
-    CPU the program runs resolve_step_scan eagerly on the same buffers."""
+    which every bucket shares: the table has the same shape in all. Under
+    the tiered structure each step's lazy merge is a conditional IF node
+    (ck.run_if, graph_if) whose body replays only when the run stack is
+    full; its body is captured on the engine's body stream into its body
+    pool; the program also writes each step's `merged` flag [C]. On the CPU
+    the program runs resolve_step_scan eagerly on the same buffers."""
 
     def __init__(self, engine: "TorchConflictEngine", bucket: KernelConfig, C: int):
         dev = engine.device
@@ -983,6 +1030,8 @@ class _Program:
                        for name, (shape, dtype) in input_shapes(bucket).items()}
         self.status = torch.zeros((C, bucket.max_txns), dtype=torch.int32, device=dev)
         self.overflow = torch.zeros((C,), dtype=torch.bool, device=dev)
+        self.merged = (torch.zeros((C,), dtype=torch.bool, device=dev)
+                       if ck.is_tiered(bucket) else None)
         #: chunk slots whose range rows a general-router chunk wrote
         self.cold_dirty = [False] * C
         self.graphs: Dict[bool, "torch.cuda.CUDAGraph"] = {}
@@ -999,34 +1048,59 @@ class _Program:
         return {name: (v.to(torch.int64) & _KEY_MASK) if name in KEY_FIELDS else v
                 for name, v in self.inputs.items()}
 
-    def _body(self, state: Dict[str, torch.Tensor], gc_last: bool) -> None:
-        new_state, out = ck.resolve_step_scan(self.bucket, state, self.batches(), gc_last)
+    def _body(self, state: Dict[str, torch.Tensor], gc_last: bool,
+              batches: Optional[Dict[str, torch.Tensor]] = None) -> None:
+        new_state, out = ck.resolve_step_scan(
+            self.bucket, state, self.batches() if batches is None else batches, gc_last)
         for k, v in state.items():
             v.copy_(new_state[k])
         self.status.copy_(out["status"])
         self.overflow.copy_(out["overflow"])
+        if self.merged is not None:
+            self.merged.copy_(out["merged"])
+
+    def _merge_warm_batches(self) -> Dict[str, torch.Tensor]:
+        """The static inputs with one committed point write in chunk 0, so
+        that a step on a full run stack takes the merge branch."""
+        b = {k: v.clone() for k, v in self.batches().items()}
+        b["t_ok"][0, 0] = True
+        b["t_too_old"][0, 0] = False
+        b["wp_valid"][0, 0] = True
+        b["wp_txn"][0, 0] = 0
+        return b
 
     def _capture(self, gc_last: bool) -> None:
         """Capture one variant. An eager run on a scratch copy of the table
         comes first, on the capture stream: it does what must not happen
         under capture (the fixpoint's one-time cluster occupancy query,
-        library handles). A capture that fails raises; nothing falls back
-        to the eager step."""
+        library handles, a kernel's first load). Under the tiered structure
+        it runs both sides of the merge branch: once as the table stands
+        and once on a full run stack with a write-bearing chunk, since the
+        IF node's body is captured whatever its predicate. A capture that
+        fails raises; nothing falls back to the eager step."""
         eng = self.engine
         stream = eng.capture_stream
         stream.wait_stream(torch.cuda.current_stream(eng.device))
         with torch.cuda.stream(stream):
             scratch = {k: v.clone() for k, v in eng.state.items()}
             self._body(scratch, gc_last)
+            if self.merged is not None:
+                scratch["nruns"].fill_(self.bucket.run_slots)
+                self._body(scratch, gc_last, self._merge_warm_batches())
         torch.cuda.current_stream(eng.device).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         before = fixpoint_cuda.FIXPOINT.launches
-        with torch.cuda.graph(graph, pool=eng.graph_pool, stream=stream,
-                              capture_error_mode="relaxed"):
+        if_before = graph_if.GRAPH_IF.nodes
+        with graph_if.bodies(eng.if_stream, eng.if_pool), \
+                torch.cuda.graph(graph, pool=eng.graph_pool, stream=stream,
+                                 capture_error_mode="relaxed"):
             self._body(eng.state, gc_last)
         launches = fixpoint_cuda.FIXPOINT.launches - before
         if launches != self.C:
             raise RuntimeError(f"captured {launches} fixpoint launches in a {self.C}-step graph")
+        if_nodes = graph_if.GRAPH_IF.nodes - if_before
+        if if_nodes != (self.C if self.merged is not None else 0):
+            raise RuntimeError(f"captured {if_nodes} merge IF nodes in a {self.C}-step graph")
         self.launches = launches
         self.graphs[gc_last] = graph
         eng.perf.captures += 1
@@ -1072,8 +1146,12 @@ class TorchConflictEngine(RoutedConflictEngineBase):
 
     def __init__(self, cfg: KernelConfig = KernelConfig(), initial_version: Version = 0,
                  device=None, ladder: Optional[Sequence[int]] = None,
-                 scan_sizes: Sequence[int] = (2, 4, 8), arena: bool = True):
+                 scan_sizes: Sequence[int] = (2, 4, 8), arena: bool = True,
+                 history_structure: Optional[str] = None):
         device = _default_device(device)
+        if history_structure is not None:
+            # the explicit argument wins over the config's structure
+            cfg = dataclasses.replace(cfg, history_structure=history_structure)
         super().__init__(cfg, KeyShardMap([]), ladder=ladder, scan_sizes=scan_sizes,
                          arena=arena, pin_memory=device.type == "cuda")
         self.device = device
@@ -1085,6 +1163,10 @@ class TorchConflictEngine(RoutedConflictEngineBase):
             #: are copied out before the next replay
             self.graph_pool = torch.cuda.graph_pool_handle()
             self.capture_stream = torch.cuda.Stream(device)
+            #: where the tiered merge's IF-node bodies are captured, and the
+            #: private pool their temporaries live in (graph_if)
+            self.if_stream = torch.cuda.Stream(device)
+            self.if_pool = torch.cuda.graph_pool_handle()
 
     def _set_state(self, new: Dict[str, torch.Tensor]) -> None:
         for k, v in self.state.items():
@@ -1093,12 +1175,16 @@ class TorchConflictEngine(RoutedConflictEngineBase):
     def _reset_device_state(self, version_rel: int) -> None:
         self._set_state(ck.initial_state(self.cfg, version_rel=version_rel, device=self.device))
 
+    def _device_states_for_snapshot(self):
+        return [self.state]
+
     def load_state(self, state_np: Dict[str, np.ndarray], base: Version,
                    oldest_version: Version, tier_map=None) -> None:
         """Adopt another engine's interval table mid-stream: numpy
-        {"hkeys", "hvers", "n"} (base-relative versions), its version base
-        and GC horizon, and optionally its host long-key tier (any object
-        with `keys` / `vers` lists)."""
+        {"hkeys", "hvers", "n"} (base-relative versions), with the run
+        planes {"rkeys", "rvers", "rn", "nruns"} under the tiered
+        structure, its version base and GC horizon, and optionally its host
+        long-key tier (any object with `keys` / `vers` lists)."""
         self._set_state(ck.state_from_numpy(self.cfg, state_np, self.device))
         self.base = base
         self.oldest_version = oldest_version
@@ -1123,11 +1209,17 @@ class TorchConflictEngine(RoutedConflictEngineBase):
         prog.run(gcs[-1] > 0)
         if self.device.type == "cpu":
             status, overflow = prog.status.numpy().copy(), bool(prog.overflow.any())
+            if prog.merged is not None:
+                self.perf.merges += int(prog.merged.sum())
             return lambda: (status, overflow)
         status = torch.empty(prog.status.shape, dtype=torch.int32, pin_memory=True)
         flags = torch.empty(prog.overflow.shape, dtype=torch.bool, pin_memory=True)
         status.copy_(prog.status, non_blocking=True)
         flags.copy_(prog.overflow, non_blocking=True)
+        merged = None
+        if prog.merged is not None:
+            merged = torch.empty(prog.merged.shape, dtype=torch.bool, pin_memory=True)
+            merged.copy_(prog.merged, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
         keep = (per_chunks, packs)
@@ -1135,6 +1227,8 @@ class TorchConflictEngine(RoutedConflictEngineBase):
         def force() -> Tuple[np.ndarray, bool]:
             done.synchronize()
             _ = keep            # the host buffers live until the copies ran
+            if merged is not None:
+                self.perf.merges += int(merged.numpy().sum())
             return status.numpy(), bool(flags.numpy().any())
 
         return force
@@ -1156,9 +1250,11 @@ class TorchConflictEngine(RoutedConflictEngineBase):
     def _run_apply(self, ctx, per_shard, committed: np.ndarray) -> Tuple[np.ndarray, bool]:
         cm = torch.from_numpy(np.ascontiguousarray(committed)).to(self.device)
         batch = ctx["batch"]
-        new_state, overflow = ck.apply_step(self.cfg, self.state, batch, cm, ctx["wpos"],
-                                            gc_branch=int(per_shard[0]["gc"]) > 0)
+        new_state, overflow, _, merged = ck._apply_writes(
+            self.cfg, self.state, batch, cm, ctx["wpos"], gc_branch=int(per_shard[0]["gc"]) > 0)
         self._set_state(new_state)
+        if merged is not None:
+            self.perf.merges += int(merged)
         status = ck.status_of(batch["t_too_old"], cm)
         return status.cpu().numpy(), bool(overflow)
 

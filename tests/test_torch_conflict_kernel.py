@@ -265,8 +265,8 @@ def test_bucket_arithmetic_and_properties():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        tck.resolved_history_structure(port_cfg(dataclasses.replace(SMALL, history_structure="tiered")))
+    with pytest.raises(ValueError):
+        tck.resolved_history_structure(port_cfg(dataclasses.replace(SMALL, history_structure="lsm")))
     with pytest.raises(ValueError):
         tck.resolved_history_search(port_cfg(dataclasses.replace(SMALL, history_search="nope")))
     heat = port_cfg(dataclasses.replace(SMALL, heat_buckets=8))

@@ -1,6 +1,7 @@
 """The port's CUDA fixpoint kernel on the card, against its plain version,
 and the engine's serving path there: captured (bucket, C) graphs against
-the eager step, no captures after warmup(), the static table under
+the eager step (monolithic and tiered history: the tiered merge is a
+conditional node), no captures after warmup(), the static table under
 load_state and clear(), and a dispatch with no host sync.
 
 Every test here needs an NVIDIA card and skips without one. The file
@@ -13,6 +14,7 @@ only the port's dependencies:
 All quantities are integers: every comparison is exact.
 """
 import ctypes
+import dataclasses
 import random
 
 import numpy as np
@@ -42,15 +44,16 @@ def card():
     return torch.device("cuda")
 
 
-def synth_batch(rng, cfg, now_rel):
-    """Every row class filled, rows grouped by ascending txn."""
+def synth_batch(rng, cfg, now_rel, pool=120):
+    """Every row class filled, rows grouped by ascending txn, keys from a
+    pool of `pool` keys."""
     T = cfg.max_txns
     ntx = rng.randrange(2, T + 1)
     rows = {k: [] for k in ("rpk", "rps", "rpt", "rb", "re", "rs", "rt",
                             "wpk", "wpt", "wb", "we", "wt")}
 
     def key():
-        return b"%03d" % rng.randrange(120)
+        return (b"%03d" if pool <= 1000 else b"%07d") % rng.randrange(pool)
 
     for t in range(ntx):
         snap = now_rel - rng.randrange(1, 40)
@@ -333,65 +336,164 @@ def point_batches(seed, sizes, pool=600, lag=400, old_frac=0.05):
 
 
 @pytest.mark.cuda
-def test_graph_replay_equals_eager_step(card):
-    """Every (bucket, C) program, both GC variants: a replay gives the
-    statuses, overflow flags and table of resolve_step_scan run eagerly on
-    the card from the same table and inputs."""
-    eng = TorchConflictEngine(LADDER_CFG, ladder=LADDER, scan_sizes=SCANS).warmup()
-    rng = random.Random(21)
-    now = 100
-    for (t, C), prog in sorted(eng._programs.items()):
-        for gc_last in (False, True, False):
-            now += 50
-            for c in range(C):
-                arrays = synth_batch(rng, prog.bucket, now)
-                arrays["gc"] = np.asarray(now - 120 if gc_last and c == C - 1 else 0, np.int32)
-                prog.load(c, arrays, None)
-            before = {k: v.clone() for k, v in eng.state.items()}
-            want_state, want = ck.resolve_step_scan(prog.bucket, before, prog.batches(), gc_last)
-            launches = fc.FIXPOINT.graph_launches
-            prog.run(gc_last)
-            torch.cuda.synchronize()
-            assert fc.FIXPOINT.graph_launches - launches == C
-            assert torch.equal(prog.status, want["status"]), (t, C, gc_last)
-            assert torch.equal(prog.overflow, want["overflow"]), (t, C, gc_last)
-            for k in eng.state:
-                assert torch.equal(eng.state[k], want_state[k]), (t, C, gc_last, k)
-            if gc_last:
-                now -= 120          # versions rebase onto the horizon
-    assert eng.perf.captures == 2 * len(eng._programs)
+def test_if_node_runs_its_body_only_when_its_predicate_holds(card):
+    """A captured graph with an IF node (graph_if): replays with the
+    predicate false leave the body's output as it was; with it true the
+    body (a sort, a scan, a copy into a buffer made before the node) runs;
+    work after the node sees the body's result."""
+    from foundationdb_tpu_torch.ops import graph_if
+
+    x = torch.randint(0, 1000, (100_000,), device=card)
+    out = torch.zeros_like(x)
+    after = torch.zeros_like(x)
+    pred = torch.zeros((), dtype=torch.bool, device=card)
+
+    def body():
+        out.copy_(torch.cummax(torch.sort(x, stable=True).values, 0).values + 1)
+
+    body()
+    torch.cuda.synchronize()
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    nodes = graph_if.GRAPH_IF.nodes
+    with graph_if.bodies(torch.cuda.Stream(), torch.cuda.graph_pool_handle()), \
+            torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
+        with graph_if.if_node(pred):
+            body()
+        after.copy_(out * 2)
+    assert graph_if.GRAPH_IF.nodes == nodes + 1
+    want = torch.cummax(torch.sort(x, stable=True).values, 0).values + 1
+    for flag in (False, True, False, True):
+        out.zero_()
+        pred.fill_(flag)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want if flag else torch.zeros_like(x)), flag
+        assert torch.equal(after, 2 * out), flag
+    with pytest.raises(RuntimeError, match="bodies"):
+        with graph_if.if_node(pred):
+            pass
+
+
+#: the same shapes under the tiered structure, two run slots: merges come
+#: every other write-bearing chunk, so they fall inside multi-chunk replays
+TIERED_LADDER_CFG = dataclasses.replace(LADDER_CFG, history_structure="tiered", history_runs=2)
+STRUCTURES = {"monolithic": LADDER_CFG, "tiered": TIERED_LADDER_CFG}
+
+
+def replay_vs_eager(prog, eng, gc_last):
+    """Replay `prog` on the engine's table and run resolve_step_scan eagerly
+    on the card from a copy of the same table and inputs: statuses,
+    overflow and merge flags and the whole table (run planes included) must
+    be equal. Returns the eager outputs."""
+    before = {k: v.clone() for k, v in eng.state.items()}
+    want_state, want = ck.resolve_step_scan(prog.bucket, before, prog.batches(), gc_last)
+    launches = fc.FIXPOINT.graph_launches
+    prog.run(gc_last)
+    torch.cuda.synchronize()
+    where = (prog.bucket.max_txns, prog.C, gc_last)
+    assert fc.FIXPOINT.graph_launches - launches == prog.C
+    assert torch.equal(prog.status, want["status"]), where
+    assert torch.equal(prog.overflow, want["overflow"]), where
+    if prog.merged is not None:
+        assert torch.equal(prog.merged, want["merged"]), where
+    for k in eng.state:
+        assert torch.equal(eng.state[k], want_state[k]), (where, k)
+    return want
 
 
 @pytest.mark.cuda
-def test_no_captures_after_warmup(card):
+@pytest.mark.parametrize("structure", sorted(STRUCTURES))
+def test_graph_replay_equals_eager_step(card, structure):
+    """Every (bucket, C) program, both GC variants: a replay gives the
+    statuses, overflow flags and table of resolve_step_scan run eagerly on
+    the card from the same table and inputs. Tiered: some chunks are read
+    only, and merges fall inside replays, past their first chunk."""
+    eng = TorchConflictEngine(STRUCTURES[structure], ladder=LADDER, scan_sizes=SCANS).warmup()
+    rng = random.Random(21)
+    now, mid_scan_merges, read_only = 100, 0, 0
+    for (t, C), prog in sorted(eng._programs.items()):
+        for r, gc_last in enumerate((False, True, False)):
+            now += 50
+            for c in range(C):
+                arrays = synth_batch(rng, prog.bucket, now)
+                if (r + c) % 3 == 2:
+                    arrays["wp_valid"][:] = False
+                    arrays["w_valid"][:] = False
+                    read_only += 1
+                arrays["gc"] = np.asarray(now - 120 if gc_last and c == C - 1 else 0, np.int32)
+                prog.load(c, arrays, None)
+            want = replay_vs_eager(prog, eng, gc_last)
+            if "merged" in want:
+                mid_scan_merges += int(want["merged"][1:].any())
+            if gc_last:
+                now -= 120          # versions rebase onto the horizon
+    assert eng.perf.captures == 2 * len(eng._programs)
+    assert read_only > 0
+    assert (mid_scan_merges > 0) == (structure == "tiered")
+
+
+@pytest.mark.cuda
+def test_tiered_replay_through_an_overflowing_merge(card):
+    """A tiered 2-chunk program on a 512-row table fed point writes of
+    distinct keys (no range clears, which would shrink the table) until a
+    merge overflows: replay and eager step agree on the flag and on the
+    truncated table."""
+    cfg = dataclasses.replace(CONFIGS[0], history_structure="tiered", history_runs=2)
+    eng = TorchConflictEngine(cfg, scan_sizes=(2,)).warmup()
+    prog = eng._programs[(cfg.max_txns, 2)]
+    rng = random.Random(13)
+    now = 100
+    for _ in range(40):
+        now += 50
+        for c in range(2):
+            arrays = synth_batch(rng, cfg, now, pool=10**6)
+            arrays["w_valid"][:] = False
+            prog.load(c, arrays, None)
+        want = replay_vs_eager(prog, eng, False)
+        if bool(want["overflow"].any()):
+            assert bool(want["merged"][want["overflow"]].all())
+            return
+    pytest.fail("no merge overflowed the table")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("structure", sorted(STRUCTURES))
+def test_no_captures_after_warmup(card, structure):
     """Steady traffic over every bucket and scan size, range batches
-    included, captures nothing after warmup(); verdicts equal the oracle's."""
-    eng = TorchConflictEngine(LADDER_CFG, ladder=LADDER, scan_sizes=SCANS).warmup()
+    included, captures nothing after warmup(); verdicts equal the oracle's.
+    Tiered: merges happen, all inside replays (no host read of the merge
+    predicate)."""
+    eng = TorchConflictEngine(STRUCTURES[structure], ladder=LADDER, scan_sizes=SCANS).warmup()
     captured = eng.perf.captures
     assert captured == 2 * 3 * 3
     ora = toracle.OracleConflictEngine()
     batches = point_batches(3, [20, 40, 70, 250, 600, 1700, 30, 900])
     batches[5][0][7].read_conflict_ranges.append(KeyRange(b"p00010", b"p00090"))
+    host_reads = ck.MERGE.host_reads
     for b, (txns, now, oldest) in enumerate(batches):
         assert [int(v) for v in eng.resolve(txns, now, oldest)] == \
             [int(v) for v in ora.resolve(txns, now, oldest)], b
     assert eng.perf.captures == captured
     assert all(v > 0 for v in eng.perf.bucket_hits.values())
     assert all(eng.perf.scan_dispatches.get(c, 0) > 0 for c in (1, 2, 4))
+    assert ck.MERGE.host_reads == host_reads
+    assert (eng.perf.merges > 0) == (structure == "tiered")
 
 
 @pytest.mark.cuda
-def test_load_state_and_clear_then_graph_resolves(card):
-    """The table's static buffers take load_state and clear(): graph
-    resolves after either give the oracle's (and the CPU engine's)
-    verdicts."""
+@pytest.mark.parametrize("structure", sorted(STRUCTURES))
+def test_load_state_and_clear_then_graph_resolves(card, structure):
+    """The table's static buffers (run planes included) take load_state
+    and clear(): graph resolves after either give the oracle's (and the
+    CPU engine's) verdicts."""
+    cfg = STRUCTURES[structure]
     batches = point_batches(8, [120, 300, 700, 60, 400, 900, 250, 500])
-    cpu = TorchConflictEngine(LADDER_CFG, device="cpu", ladder=LADDER, scan_sizes=SCANS)
+    cpu = TorchConflictEngine(cfg, device="cpu", ladder=LADDER, scan_sizes=SCANS)
     ora = toracle.OracleConflictEngine()
     for txns, now, oldest in batches[:4]:
         cpu.resolve(txns, now, oldest)
         ora.resolve(txns, now, oldest)
-    gpu = TorchConflictEngine(LADDER_CFG, ladder=LADDER, scan_sizes=SCANS).warmup()
+    gpu = TorchConflictEngine(cfg, ladder=LADDER, scan_sizes=SCANS).warmup()
     gpu.resolve(*batches[-1])            # a table the load must replace
     gpu.load_state(ck.state_to_numpy(cpu.state), cpu.base, cpu.oldest_version, cpu.tier_map)
     for b, (txns, now, oldest) in enumerate(batches[4:]):
@@ -410,10 +512,11 @@ def test_load_state_and_clear_then_graph_resolves(card):
 
 
 @pytest.mark.cuda
-def test_columnar_dispatch_makes_no_host_sync(card):
+@pytest.mark.parametrize("structure", sorted(STRUCTURES))
+def test_columnar_dispatch_makes_no_host_sync(card, structure):
     """Pack, copy in, replay, copy out: no synchronizing call between the
-    host and the card until force()."""
-    eng = TorchConflictEngine(LADDER_CFG, ladder=LADDER, scan_sizes=SCANS).warmup()
+    host and the card until force(), the tiered merge branch included."""
+    eng = TorchConflictEngine(STRUCTURES[structure], ladder=LADDER, scan_sizes=SCANS).warmup()
     ora = toracle.OracleConflictEngine()
     for txns, now, oldest in point_batches(4, [70, 900, 200, 1500]):
         plan = eng.columnar_pack(txns, now, oldest)
