@@ -43,35 +43,54 @@ toolkit. The script
      schedule: equal statuses on every batch; ms per batch, txn/s, device
      busy share and launches per replay of both;
   7. columnar engine phase: TorchConflictEngine() with the bucket ladder
-     (512, 1024, 2048) and scans (2, 4, 8), warmed up (graph memory read
-     before and after), on point-only traffic of 200 to 20000 txns a batch,
-     two batches of them read-only, through columnar_pack /
-     columnar_dispatch / force, the dispatch under
-     torch.cuda.set_sync_debug_mode("error"); verdicts equal the oracle's
-     and the general router's on every batch, every bucket and scan size
-     serves, nothing is captured after warmup(); host-pack, dispatch and
-     force ms per batch, txn/s, and each layer's time apart;
+     (512, 1024, 2048) and scans (2, 4, 8), at the default keyspace heat
+     (64 buckets), warmed up (graph memory read before and after), on
+     point-only traffic of 200 to 20000 txns a batch, two batches of them
+     read-only, through columnar_pack / columnar_dispatch / force, the
+     dispatch under torch.cuda.set_sync_debug_mode("error"); verdicts equal
+     the oracle's, the general router's and a CPU engine's on every batch,
+     and heat_snapshot() equals the CPU engine's; every bucket and scan
+     size serves, nothing is captured after warmup(); host-pack, dispatch
+     and force ms per batch, txn/s, and each layer's time apart, the bytes
+     one chunk copies back among them. Then the same with heat_buckets=0,
+     held to the heat-on verdicts: kernel ms and kernels per one-chunk
+     replay with heat and without, at each bucket;
   8. tiered columnar engine phase: the same with history_structure=
      "tiered" (8 run slots, the lazy merge an IF node in every captured
      step); verdicts equal the card's monolithic engine's, the CPU tiered
      engine's and the oracle's on every batch; merges must run inside
      replays at least twice, with no host read of the merge predicate; the
      captured IF nodes are counted; program kernel ms with and without a
-     merge, and the merge alone. Then both engines serve the traffic again,
-     in turns (monolithic, tiered), for txn/s and per-layer ms;
+     merge, and the merge alone; heat_snapshot() and
+     history_stats_snapshot() equal the CPU tiered engine's, and the heat
+     aggregate counts the merges the serving path counted;
+  8b. device loop phases: DeviceLoopEngine() (one program per bucket, a
+     CUDA graph WHILE node over the filled prefix of a 4-chunk queue slot;
+     tiered: the merge's IF node nested in the WHILE body), monolithic then
+     tiered, at the default heat, warmed up (2 graphs per bucket, WHILE and
+     IF nodes counted, graph memory); the same traffic, dispatch under sync
+     debug "error", verdicts equal the oracle's and the columnar card
+     engine's, heat snapshot (and tiered history stats) equal to the
+     columnar engine's; no blocking sync; slots filled to 1 and to 4; the
+     card's trace shows one fixpoint kernel per filled chunk of a top-
+     bucket replay at fill 1 and 4; enqueue and decode host ms. Then every
+     engine serves the traffic twice more, in turns (monolithic, heat off,
+     tiered, loop, tiered loop), for txn/s and per-layer ms;
   9. tiered general-router phase: the engine phase's traffic (byte keys,
      ranges, long keys) through a tiered engine on the card; verdicts equal
      the monolithic card engine's, the CPU tiered engine's and the
      oracle's;
   10. pipeline phase: the traffic through ResolverPipeline at depth 1, 2 and
      3, packing inline and on a one-thread executor: verdicts equal serial
-     resolve(); txn/s per depth; then the tiered engine at depth 1-3.
+     resolve(); txn/s per depth; then the tiered engine and the loop engine
+     at depth 1-3 (no blocking sync).
 
 Each path's kernel launches are counted from 0 just before it and read
 just after (a captured graph's fixpoint launches are counted at each
-replay: FIXPOINT.graph_launches); a path that launched none fails. The
-graph-step and columnar phases also read a replay's fixpoint kernels from
-the card's trace (torch.profiler): C per C-step graph, or they fail.
+replay: FIXPOINT.graph_launches, n for a loop replay at fill n); a path
+that launched none fails. The graph-step, columnar and loop phases also
+read a replay's fixpoint kernels from the card's trace (torch.profiler):
+C per C-step graph and n per loop replay at fill n, or they fail.
 
 It prints a `kernels` JSON line, the card line, and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero with no
@@ -668,7 +687,7 @@ def graph_step_phase(ck, fc, he, cfg, dev, rng, units: int):
             b["rp_snap"] = torch.full_like(b["rp_snap"], max(now - T // 2, 0))
             b["r_snap"] = torch.full_like(b["r_snap"], max(now - T // 2, 0))
             rows.append(b)
-        inputs = {k: torch.stack([ck._u32_to_i32(b[k]) if k in he.KEY_FIELDS else b[k]
+        inputs = {k: torch.stack([ck._u32_to_i32(b[k]) if k in ck.KEY_FIELDS else b[k]
                                   for b in rows]) for k in prog.inputs}
         sched.append((rows, inputs, gc > 0))
         now = now + T - gc
@@ -795,39 +814,53 @@ def columnar_traffic(rng, sizes, read_only):
     return out
 
 
-def columnar_engine_phase(ck, fc, he, cfg, batches, structure, references):
-    """TorchConflictEngine() on the card with the bucket ladder and chunk
-    scans and the given history structure, warmed up; every point-only
-    batch through columnar_pack / columnar_dispatch / force (the dispatch
-    under sync debug mode "error": a synchronizing call there fails the
-    phase); verdicts against each of `references`, [(name, fn(b, txns,
-    now, oldest) -> verdicts)], on every batch. Tiered: warmup() captures
-    one IF node per step, merges run inside replays (at least twice) and
-    the merge predicate is never read on the host."""
+def warmed(eng):
+    """warmup() `eng` on an emptied cache: (seconds, memory reserved before
+    and after, IF nodes and WHILE nodes captured)."""
     import torch
 
     from foundationdb_tpu_torch.ops import graph_if
 
-    eng = he.TorchConflictEngine(cfg, ladder=LADDER, scan_sizes=SCANS,
-                                 history_structure=structure)
-    cfg = eng.cfg
-    tiered = eng.history_structure == "tiered"
     torch.cuda.synchronize()
     torch.cuda.empty_cache()            # what earlier phases left cached
     mem0 = torch.cuda.memory_reserved()
-    nodes0 = graph_if.GRAPH_IF.nodes
+    ifs, whiles = graph_if.GRAPH_IF.nodes, graph_if.GRAPH_IF.while_nodes
     t0 = time.perf_counter()
     eng.warmup()
     torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-    mem1 = torch.cuda.memory_reserved()
+    return {"warmup_s": time.perf_counter() - t0, "memory_reserved_before_warmup": mem0,
+            "memory_reserved_after_warmup": torch.cuda.memory_reserved(),
+            "if_nodes": graph_if.GRAPH_IF.nodes - ifs,
+            "while_nodes": graph_if.GRAPH_IF.while_nodes - whiles}
+
+
+def serve(ck, fc, eng, batches, label, references):
+    """Every point-only batch through columnar_pack / columnar_dispatch /
+    force, the dispatch under sync debug mode "error" (a synchronizing call
+    there fails the phase); verdicts against each of `references`, [(name,
+    fn(b, txns, now, oldest) -> verdicts)], on every batch. Fails on a
+    capture after warmup, a path without kernel launches or with the plain
+    fixpoint on CUDA tensors, or a host read of the merge or loop
+    condition. Returns (verdicts per batch, totals)."""
+    import torch
+
     captures = eng.perf.captures
-    n_graphs = len(eng.buckets) * (1 + len(SCANS)) * 2
-    check(captures == n_graphs, f"warmup captured {captures} graphs, expected {n_graphs}")
-    if_nodes = graph_if.GRAPH_IF.nodes - nodes0
-    want_nodes = 2 * len(eng.buckets) * (1 + sum(SCANS)) if tiered else 0
-    check(if_nodes == want_nodes, f"warmup captured {if_nodes} IF nodes, expected {want_nodes}")
-    host_reads = ck.MERGE.host_reads
+    host_reads = (ck.MERGE.host_reads, ck.LOOP.host_reads)
+    # the host's share of heat: the aggregator's merges (a "c" layout
+    # merges chunk by chunk through the same method: time the outer call)
+    merge_heat, heat_s, depth = eng._merge_heat, [0.0], [0]
+
+    def timed_merge(*a, **k):
+        depth[0] += 1
+        t0 = time.perf_counter()
+        try:
+            merge_heat(*a, **k)
+        finally:
+            depth[0] -= 1
+        if depth[0] == 0:
+            heat_s[0] += time.perf_counter() - t0
+
+    eng._merge_heat = timed_merge
     pack_s = dispatch_s = force_s = 0.0
     launches = plain = 0
     serial, counts = [], [0, 0, 0]
@@ -841,7 +874,7 @@ def columnar_engine_phase(ck, fc, he, cfg, batches, structure, references):
         try:
             force = eng.columnar_dispatch(plan)
         except RuntimeError as e:
-            fail(f"batch {b}: the {structure} columnar dispatch synchronized with the card: {e}")
+            fail(f"batch {b}: the {label} dispatch synchronized with the card: {e}")
         finally:
             torch.cuda.set_sync_debug_mode("default")
         t2 = time.perf_counter()
@@ -852,23 +885,70 @@ def columnar_engine_phase(ck, fc, he, cfg, batches, structure, references):
         pack_s, dispatch_s, force_s = pack_s + t1 - t0, dispatch_s + t2 - t1, force_s + t3 - t2
         for name, ref in references:
             want = ref(b, txns, now, oldest)
-            check(got == want, f"{structure} columnar batch {b}: verdicts differ from {name} at "
+            check(got == want, f"{label} batch {b}: verdicts differ from {name} at "
                   f"{sum(g != w for g, w in zip(got, want))} of {len(txns)} txns")
         serial.append(got)
         for v in got:
             counts[v] += 1
-    check(eng.perf.captures == captures, f"the {structure} columnar engine captured after warmup()")
-    check(launches > 0 and plain == 0, f"{structure} columnar path: {launches} kernel launches, "
+    eng._merge_heat = merge_heat
+    check(eng.perf.captures == captures, f"the {label} engine captured after warmup()")
+    check(launches > 0 and plain == 0, f"{label} path: {launches} kernel launches, "
           f"{plain} plain fixpoints on CUDA tensors")
-    check(ck.MERGE.host_reads == host_reads,
-          f"the {structure} columnar path read the merge predicate on the host")
-    merges = eng.perf.merges
-    check(not tiered or merges >= 2, f"only {merges} merges ran inside tiered replays")
+    check((ck.MERGE.host_reads, ck.LOOP.host_reads) == host_reads,
+          f"the {label} path read a merge or loop condition on the host")
     check(all(v > 0 for v in eng.perf.bucket_hits.values()),
           f"a bucket went unused: {eng.perf.bucket_hits}")
+    check(min(counts) > 0, f"verdict mix lacks a class: {counts}")
+    tiered = eng.history_structure == "tiered"
+    merges = eng.perf.merges
+    check(not tiered or merges >= 2, f"only {merges} merges ran inside tiered replays")
+    if eng.heat is not None:
+        # the heat aggregate's run accounting counts the merges the serving
+        # path counted, with no sync of its own
+        stats = eng.history_stats_snapshot()
+        check(stats["merges"] == merges, f"the heat aggregate counted {stats['merges']} "
+              f"merges, the {label} path {merges}")
+    n, txns_total = len(batches), sum(len(t) for t, _, _ in batches)
+    return serial, {
+        "batches": n, "txns": txns_total, "mismatches": 0, "launches": launches,
+        "conflict": counts[0], "too_old": counts[1], "committed": counts[2], "merges": merges,
+        "bucket_hits": dict(eng.perf.bucket_hits),
+        "pack_ms_per_batch": pack_s / n * 1e3, "dispatch_ms_per_batch": dispatch_s / n * 1e3,
+        "force_ms_per_batch": force_s / n * 1e3, "heat_merge_ms_per_batch": heat_s[0] / n * 1e3,
+        "txn_per_s": txns_total / (pack_s + dispatch_s + force_s),
+        "sizes": [len(t) for t, _, _ in batches]}
+
+
+def d2h_chunk_bytes(outputs):
+    """Bytes one chunk's outputs copy back to the host: row 0 of every
+    chunk-stacked output, a 0-d output whole."""
+    return sum(int(t[0].nbytes) if t.dim() else int(t.nbytes) for t in outputs)
+
+
+def columnar_engine_phase(ck, fc, he, cfg, batches, structure, references, heat_buckets=None):
+    """TorchConflictEngine() on the card with the bucket ladder and chunk
+    scans, the given history structure and heat buckets (None: the default,
+    64), warmed up; every point-only batch through serve(). Tiered:
+    warmup() captures one IF node per step, merges run inside replays (at
+    least twice) and the merge predicate is never read on the host."""
+    import torch
+
+    eng = he.TorchConflictEngine(cfg, ladder=LADDER, scan_sizes=SCANS,
+                                 history_structure=structure, heat_buckets=heat_buckets)
+    cfg = eng.cfg
+    tiered = eng.history_structure == "tiered"
+    warm = warmed(eng)
+    captures = eng.perf.captures
+    n_graphs = len(eng.buckets) * (1 + len(SCANS)) * 2
+    check(captures == n_graphs, f"warmup captured {captures} graphs, expected {n_graphs}")
+    want_nodes = 2 * len(eng.buckets) * (1 + sum(SCANS)) if tiered else 0
+    check(warm["if_nodes"] == want_nodes and warm["while_nodes"] == 0,
+          f"warmup captured {warm['if_nodes']} IF nodes and {warm['while_nodes']} WHILE nodes, "
+          f"expected {want_nodes} and 0")
+    label = f"{structure} columnar (heat {cfg.heat_buckets})"
+    serial, served = serve(ck, fc, eng, batches, label, references)
     check(all(eng.perf.scan_dispatches.get(c, 0) > 0 for c in (1,) + SCANS),
           f"a scan size went unused: {eng.perf.scan_dispatches}")
-    check(min(counts) > 0, f"verdict mix lacks a class: {counts}")
     # the layers apart: each program's kernel time per replay (profiler:
     # the host cannot queue replays ahead of the card, so spin-queued CUDA
     # events do not apply; on the last inputs it was given, without GC),
@@ -892,6 +972,10 @@ def columnar_engine_phase(ck, fc, he, cfg, batches, structure, references):
             launch_ms[f"{key[0]}x{key[1]}"] = [(t1 - t0) * 1e3, (t2 - t1) * 1e3]
             torch.cuda.synchronize()
     top = eng._programs[(cfg.max_txns, 1)]
+    outs = [top.status, top.overflow, *top.heat.values()]
+    if top.merged is not None:
+        outs.append(top.merged)
+    d2h_bytes = d2h_chunk_bytes(outs)
     bufs, lease = eng.arena.lease(cfg)
     h2d_ms = device_ms(lambda: top.load(0, bufs, lease.pack), 20)
     h2d_bytes = sum(t.nbytes for t in lease.pack.tensors.values())
@@ -902,28 +986,117 @@ def columnar_engine_phase(ck, fc, he, cfg, batches, structure, references):
         load_host_s.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     lease.release()
-    n, txns_total = len(batches), sum(len(t) for t, _, _ in batches)
-    out = {
-        "structure": eng.history_structure,
+    out = dict(served, **warm)
+    out.update({
+        "structure": eng.history_structure, "heat_buckets": cfg.heat_buckets,
         "program_device_ms": program_ms, "program_kernels": program_kernels,
         "program_launch_host_ms": launch_ms,
         "h2d_chunk_ms": h2d_ms,
         "h2d_chunk_bytes": h2d_bytes, "h2d_chunk_copies": len(he.HOT_FIELDS),
         "h2d_chunk_host_ms": statistics.median(load_host_s) * 1e3,
-        "batches": n, "txns": txns_total, "mismatches": 0, "launches": launches,
-        "conflict": counts[0], "too_old": counts[1], "committed": counts[2],
-        "captures": captures, "if_nodes": if_nodes, "merges": merges, "warmup_s": warm_s,
-        "memory_reserved_before_warmup": mem0, "memory_reserved_after_warmup": mem1,
-        "bucket_hits": eng.perf.bucket_hits, "scan_dispatches": eng.perf.scan_dispatches,
+        "d2h_chunk_bytes": d2h_bytes,
+        "captures": captures, "scan_dispatches": dict(eng.perf.scan_dispatches),
         "arena_misses": eng.arena.misses,
-        "pack_ms_per_batch": pack_s / n * 1e3, "dispatch_ms_per_batch": dispatch_s / n * 1e3,
-        "force_ms_per_batch": force_s / n * 1e3,
-        "txn_per_s": txns_total / (pack_s + dispatch_s + force_s),
-        "sizes": [len(t) for t, _, _ in batches],
-    }
+    })
     if tiered:
         out.update(merge_costs(ck, cfg, eng, batches[-1]))
     return eng, serial, out
+
+
+def loop_engine_phase(ck, fc, dl, cfg, batches, structure, references):
+    """DeviceLoopEngine() on the card with the bucket ladder, the given
+    history structure and the default heat, warmed up: 2 graphs per bucket,
+    each with one WHILE node (and under the tiered structure 2 IF nodes,
+    one nested in the WHILE body); every point-only batch through serve(),
+    no blocking sync. Then the top bucket's program alone: the card's trace
+    must show one fixpoint kernel per filled chunk of a replay, at fill 1
+    and fill Q; kernel ms per replay at each fill."""
+    import torch
+
+    eng = dl.DeviceLoopEngine(cfg, ladder=LADDER, history_structure=structure)
+    cfg = eng.cfg
+    tiered = eng.history_structure == "tiered"
+    Q = eng.queue_slots
+    warm = warmed(eng)
+    n_b = len(eng.buckets)
+    check(eng.perf.captures == 2 * n_b, f"the loop warmup captured {eng.perf.captures} graphs, "
+          f"expected {2 * n_b}")
+    want_ifs = 4 * n_b if tiered else 0
+    check(warm["while_nodes"] == 2 * n_b and warm["if_nodes"] == want_ifs,
+          f"the loop warmup captured {warm['while_nodes']} WHILE nodes and {warm['if_nodes']} "
+          f"IF nodes, expected {2 * n_b} and {want_ifs}")
+    label = f"{structure} device loop"
+    fills = []
+    dispatch = eng._dispatch_unit
+
+    def recording(bucket, per_chunks, packs=None):
+        fills.append(len(per_chunks))
+        return dispatch(bucket, per_chunks, packs)
+
+    eng._dispatch_unit = recording
+    stats0 = dict(eng.loop_stats)
+    serial, served = serve(ck, fc, eng, batches, label, references)
+    eng._dispatch_unit = dispatch
+    stats = {k: eng.loop_stats[k] - stats0[k] for k in stats0}
+    check(stats["blocking_syncs"] == 0, f"the {label} drained with {stats['blocking_syncs']} "
+          "blocking syncs")
+    check(set(fills) >= {1, Q}, f"the {label} never filled a slot to 1 and to {Q}: {fills}")
+    top = eng._programs[(cfg.max_txns, -1)]
+    replay_ms, replay_kernels = {}, {}
+    for n in (1, Q):
+        def run():
+            top.n_chunks.fill_(n)
+            top.graphs[False].replay()
+        pw = traced_replays(run, 2, n, f"the {label} top program at fill {n}")
+        replay_ms[n], replay_kernels[n] = pw["device_ms"], pw["kernels"]
+    # host ms of a replay on an idle card, then of relaunching it at once
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    top.graphs[False].replay()
+    t1 = time.perf_counter()
+    top.graphs[False].replay()
+    t2 = time.perf_counter()
+    torch.cuda.synchronize()
+    launch_ms = [(t1 - t0) * 1e3, (t2 - t1) * 1e3]
+    outs = [top.out["commit_bits"], top.out["too_old_bits"], top.out["overflow"],
+            *top.out.get("heat", {}).values()]
+    if "merged" in top.out:
+        outs.append(top.out["merged"])
+    n = len(batches)
+    out = dict(served, **warm)
+    out.update({
+        "structure": eng.history_structure, "heat_buckets": cfg.heat_buckets,
+        "queue_slots": Q, "captures": eng.perf.captures, "fills": fills,
+        "units": stats["units"], "drained_nonblocking": stats["drained_nonblocking"],
+        "forced_waits": stats["forced_waits"], "blocking_syncs": stats["blocking_syncs"],
+        "enqueue_ms_per_batch": stats["enqueue_ms"] / n, "decode_ms_per_batch": stats["decode_ms"] / n,
+        "wait_ms_per_batch": stats["wait_ms"] / n,
+        "top_replay_device_ms": replay_ms, "top_replay_kernels": replay_kernels,
+        "top_launch_host_ms": launch_ms, "d2h_chunk_bytes": d2h_chunk_bytes(outs),
+    })
+    return eng, serial, out
+
+
+def loop_report(card, lp, references, seconds):
+    print(f"{lp['structure']} device loop phase [{card}]: {lp['txns']} point-only txns in "
+          f"{lp['batches']} batches match {references}: {lp['committed']} committed / "
+          f"{lp['conflict']} conflict / {lp['too_old']} too old; buckets {lp['bucket_hits']}, "
+          f"{lp['units']} slots, fills {sorted(set(lp['fills']))} (Q={lp['queue_slots']}); "
+          f"{lp['captures']} graphs captured in warmup ({lp['warmup_s']:.2f} s) with "
+          f"{lp['while_nodes']} WHILE and {lp['if_nodes']} IF nodes, none after; memory reserved "
+          f"{lp['memory_reserved_before_warmup']} -> {lp['memory_reserved_after_warmup']} B; "
+          f"pack {lp['pack_ms_per_batch']:.4f} dispatch {lp['dispatch_ms_per_batch']:.4f} (enqueue "
+          f"{lp['enqueue_ms_per_batch']:.4f}) force {lp['force_ms_per_batch']:.4f} (decode "
+          f"{lp['decode_ms_per_batch']:.4f} incl. heat merge {lp['heat_merge_ms_per_batch']:.4f}, "
+          f"wait {lp['wait_ms_per_batch']:.4f}) ms/batch, "
+          f"{lp['txn_per_s']:.0f} txn/s; drains: {lp['drained_nonblocking']} non-blocking, "
+          f"{lp['forced_waits']} forced waits, {lp['blocking_syncs']} blocking syncs; "
+          f"{lp['launches']} kernel launches; top program replay "
+          f"{ {k: round(v, 4) for k, v in lp['top_replay_device_ms'].items()} } ms and "
+          f"{ {k: round(v, 1) for k, v in lp['top_replay_kernels'].items()} } kernels by fill, "
+          f"host ms to launch it on an idle card / to relaunch it at once "
+          f"{[round(x, 4) for x in lp['top_launch_host_ms']]}; "
+          f"{lp['d2h_chunk_bytes']} B back per chunk ({seconds:.1f} s)", flush=True)
 
 
 def merge_costs(ck, cfg, eng, batch):
@@ -982,7 +1155,8 @@ def columnar_report(card, colp, references, seconds):
           f"captured in warmup ({colp['warmup_s']:.2f} s), none after; memory reserved "
           f"{colp['memory_reserved_before_warmup']} -> {colp['memory_reserved_after_warmup']} B; "
           f"pack {colp['pack_ms_per_batch']:.4f} dispatch {colp['dispatch_ms_per_batch']:.4f} force "
-          f"{colp['force_ms_per_batch']:.4f} ms/batch, {colp['txn_per_s']:.0f} txn/s; "
+          f"{colp['force_ms_per_batch']:.4f} (heat merge {colp['heat_merge_ms_per_batch']:.4f}) "
+          f"ms/batch, {colp['txn_per_s']:.0f} txn/s; "
           f"{colp['launches']} kernel launches; arena misses {colp['arena_misses']} "
           f"({seconds:.1f} s)", flush=True)
     print(f"  columnar layers [{card}]: program kernel ms per replay "
@@ -1005,6 +1179,7 @@ def columnar_timing(eng, batches, serial):
     eng.clear(0)
     torch.cuda.synchronize()
     captures, merges = eng.perf.captures, eng.perf.merges
+    loop0 = dict(getattr(eng, "loop_stats", {}))
     pack_s = dispatch_s = force_s = 0.0
     for b, (txns, now, oldest) in enumerate(batches):
         t0 = time.perf_counter()
@@ -1019,10 +1194,16 @@ def columnar_timing(eng, batches, serial):
               "differ from the first pass")
     check(eng.perf.captures == captures, "a timing pass captured")
     n = len(batches)
-    return {"pack_ms_per_batch": pack_s / n * 1e3, "dispatch_ms_per_batch": dispatch_s / n * 1e3,
-            "force_ms_per_batch": force_s / n * 1e3,
-            "txn_per_s": sum(len(t) for t, _, _ in batches) / (pack_s + dispatch_s + force_s),
-            "merges": eng.perf.merges - merges}
+    out = {"pack_ms_per_batch": pack_s / n * 1e3, "dispatch_ms_per_batch": dispatch_s / n * 1e3,
+           "force_ms_per_batch": force_s / n * 1e3,
+           "txn_per_s": sum(len(t) for t, _, _ in batches) / (pack_s + dispatch_s + force_s),
+           "merges": eng.perf.merges - merges}
+    if loop0:
+        stats = {k: eng.loop_stats[k] - loop0[k] for k in loop0}
+        check(stats["blocking_syncs"] == 0, "a loop timing pass made a blocking sync")
+        out.update(enqueue_ms_per_batch=stats["enqueue_ms"] / n,
+                   decode_ms_per_batch=stats["decode_ms"] / n)
+    return out
 
 
 def pipeline_phase(fc, pl, eng, batches, serial, runs=PIPELINE_RUNS, executors=(0, 1)):
@@ -1081,6 +1262,7 @@ def main(argv=None) -> int:
     try:
         from foundationdb_tpu_torch.native import build
         from foundationdb_tpu_torch.ops import conflict_kernel as ck
+        from foundationdb_tpu_torch.ops import device_loop as dl
         from foundationdb_tpu_torch.ops import fixpoint_cuda as fc
         from foundationdb_tpu_torch.ops import host_engine as he
         from foundationdb_tpu_torch.ops import oracle as oracle_mod
@@ -1197,13 +1379,42 @@ def main(argv=None) -> int:
     router = he.TorchConflictEngine(engine_cfg)
     router._resolve_columnar = lambda *a: None
     router.warmup(scan_sizes=())
+    # the same ladder on the CPU: the same chunks, so the same heat
+    # aggregates merge in the same order
+    cpu_mono = he.TorchConflictEngine(engine_cfg, device="cpu", ladder=LADDER, scan_sizes=SCANS)
     eng, serial, colp = columnar_engine_phase(ck, fc, he, engine_cfg, batches, "monolithic", [
         ("the oracle", oracle_ref),
         ("the general router", lambda b, txns, now, oldest: [
-            int(v) for v in router.resolve(txns, now, oldest)])])
-    del router
+            int(v) for v in router.resolve(txns, now, oldest)]),
+        ("the CPU engine", lambda b, txns, now, oldest: [
+            int(v) for v in cpu_mono.resolve(txns, now, oldest)])])
+    check(eng.cfg.heat_buckets == 64, f"the default engine runs {eng.cfg.heat_buckets} heat buckets")
+    heat_snap = eng.heat_snapshot()
+    check(heat_snap == cpu_mono.heat_snapshot(),
+          "the card engine's heat snapshot differs from the CPU engine's")
+    check(heat_snap["hot_ranges"] and heat_snap["split_points"],
+          "the heat snapshot holds no hot range or split point")
+    colp["heat_snapshot"] = {k: heat_snap[k] for k in ("batches", "occupancy", "verdicts",
+                                                       "concentration", "split_points")}
+    del router, cpu_mono
     results["columnar_engine_phase"] = colp
-    columnar_report(card, colp, "the oracle and the general router", time.perf_counter() - t0)
+    columnar_report(card, colp, "the oracle, the general router and the CPU engine (heat "
+                    "snapshot too)", time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    eng0, serial0, colp0 = columnar_engine_phase(ck, fc, he, engine_cfg, batches, "monolithic", [
+        ("the heat-on card engine", lambda b, *_: serial[b])], heat_buckets=0)
+    check(eng0.heat is None and eng0.heat_snapshot() is None, "heat_buckets=0 left heat on")
+    results["columnar_engine_heat_off_phase"] = colp0
+    columnar_report(card, colp0, "the heat-on card engine", time.perf_counter() - t0)
+    print(f"  heat per one-chunk replay [{card}]: kernel ms on/off "
+          + ", ".join(f"{k} {colp['program_device_ms'][k]:.4f}/{colp0['program_device_ms'][k]:.4f}"
+                      for k in colp['program_device_ms'])
+          + "; kernels on/off "
+          + ", ".join(f"{k} {colp['program_kernels'][k]:.0f}/{colp0['program_kernels'][k]:.0f}"
+                      for k in colp['program_kernels'])
+          + f"; bytes back per top-bucket chunk {colp['d2h_chunk_bytes']}/{colp0['d2h_chunk_bytes']}",
+          flush=True)
 
     t0 = time.perf_counter()
     cpu_tiered = he.TorchConflictEngine(engine_cfg, device="cpu", ladder=LADDER, scan_sizes=SCANS,
@@ -1213,6 +1424,11 @@ def main(argv=None) -> int:
         ("the monolithic card engine", lambda b, *_: serial[b]),
         ("the CPU tiered engine", lambda b, txns, now, oldest: [
             int(v) for v in cpu_tiered.resolve(txns, now, oldest)])])
+    check(teng.heat_snapshot() == cpu_tiered.heat_snapshot(),
+          "the tiered card engine's heat snapshot differs from the CPU tiered engine's")
+    check(teng.history_stats_snapshot() == cpu_tiered.history_stats_snapshot(),
+          "the tiered card engine's history stats differ from the CPU tiered engine's")
+    tcol["history_stats"] = teng.history_stats_snapshot()
     del cpu_tiered
     results["tiered_columnar_engine_phase"] = tcol
     columnar_report(card, tcol, "the oracle, the monolithic card engine and the CPU tiered "
@@ -1224,20 +1440,49 @@ def main(argv=None) -> int:
           f"{tcol['top_program_merge_kernels']:.0f} kernels merging; _merge_runs alone "
           f"({tcol['merge_rows']} run rows) {tcol['merge_ms']:.4f} ms", flush=True)
 
-    # both engines again, in turns: monolithic, tiered (their first passes
-    # ran in the same order above)
+    # the device loop, both structures: verdicts and heat against the
+    # columnar card engines' first passes
     t0 = time.perf_counter()
-    turns = {"monolithic": [colp], "tiered": [tcol]}
-    for label, e, sv in (("monolithic", eng, serial), ("tiered", teng, tserial)):
-        turns[label].append(columnar_timing(e, batches, sv))
-    results["columnar_turns"] = {k: [{f: r[f] for f in ("pack_ms_per_batch",
-                                                           "dispatch_ms_per_batch",
-                                                           "force_ms_per_batch", "txn_per_s")}
-                                     for r in v] for k, v in turns.items()}
+    leng, lserial, lp = loop_engine_phase(ck, fc, dl, engine_cfg, batches, "monolithic", [
+        ("the oracle", oracle_ref), ("the columnar card engine", lambda b, *_: serial[b])])
+    check(leng.heat_snapshot() == eng.heat_snapshot(),
+          "the loop engine's heat snapshot differs from the columnar card engine's")
+    results["device_loop_phase"] = lp
+    loop_report(card, lp, "the oracle and the columnar card engine (heat snapshot too)",
+                time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    tleng, tlserial, tlp = loop_engine_phase(ck, fc, dl, engine_cfg, batches, "tiered", [
+        ("the oracle", oracle_ref), ("the tiered columnar card engine", lambda b, *_: tserial[b])])
+    check(tleng.heat_snapshot() == teng.heat_snapshot(),
+          "the tiered loop engine's heat snapshot differs from the tiered columnar engine's")
+    check(tleng.history_stats_snapshot() == teng.history_stats_snapshot(),
+          "the tiered loop engine's history stats differ from the tiered columnar engine's")
+    results["tiered_device_loop_phase"] = tlp
+    loop_report(card, tlp, "the oracle and the tiered columnar card engine (heat snapshot and "
+                "history stats too)", time.perf_counter() - t0)
+
+    # every engine again, twice, in turns (their first passes ran in this
+    # order above)
+    t0 = time.perf_counter()
+    engines = (("monolithic", eng, serial), ("monolithic_heat_off", eng0, serial0),
+               ("tiered", teng, tserial), ("device_loop", leng, lserial),
+               ("tiered_device_loop", tleng, tlserial))
+    turns = {"monolithic": [colp], "monolithic_heat_off": [colp0], "tiered": [tcol],
+             "device_loop": [lp], "tiered_device_loop": [tlp]}
+    for _ in range(2):
+        for label, e, sv in engines:
+            turns[label].append(columnar_timing(e, batches, sv))
+    fields = ("pack_ms_per_batch", "dispatch_ms_per_batch", "force_ms_per_batch", "txn_per_s",
+              "enqueue_ms_per_batch", "decode_ms_per_batch")
+    results["columnar_turns"] = {k: [{f: r[f] for f in fields if f in r} for r in v]
+                                 for k, v in turns.items()}
     for label, runs in results["columnar_turns"].items():
         print(f"  columnar turns, {label} [{card}]: " + "; ".join(
             f"pack {r['pack_ms_per_batch']:.4f} dispatch {r['dispatch_ms_per_batch']:.4f} force "
-            f"{r['force_ms_per_batch']:.4f} ms/batch, {r['txn_per_s']:.0f} txn/s" for r in runs)
+            f"{r['force_ms_per_batch']:.4f} ms/batch"
+            + (f" (enqueue {r['enqueue_ms_per_batch']:.4f}, decode {r['decode_ms_per_batch']:.4f})"
+               if "enqueue_ms_per_batch" in r else "")
+            + f", {r['txn_per_s']:.0f} txn/s" for r in runs)
             + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
@@ -1265,13 +1510,27 @@ def main(argv=None) -> int:
           f"resolve(): " + ", ".join(f"{k} " + " / ".join(f"{x:.0f}" for x in v["txn_per_s"])
                                      + " txn/s" for k, v in tpp.items() if k != "launches")
           + f"; {tpp['launches']} kernel launches ({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    drains0 = dict(leng.loop_stats)
+    lpp = pipeline_phase(fc, pl, leng, batches, lserial, runs=1, executors=(0,))
+    check(leng.loop_stats["blocking_syncs"] == 0, "the loop pipeline made a blocking sync")
+    lpp["drains"] = {k: leng.loop_stats[k] - drains0[k]
+                     for k in ("units", "drained_nonblocking", "forced_waits", "blocking_syncs")}
+    results["device_loop_pipeline_phase"] = lpp
+    print(f"device loop pipeline phase [{card}]: depth 1-3, inline packing, all equal serial "
+          f"resolve(): " + ", ".join(f"{k} " + " / ".join(f"{x:.0f}" for x in v["txn_per_s"])
+                                     + " txn/s" for k, v in lpp.items()
+                                     if k not in ("launches", "drains"))
+          + f"; {lpp['launches']} kernel launches; drains {lpp['drains']} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     kernels = {"kernels": [{
         "name": "commit_fixpoint",
         "route": "cuda",
         "source": "foundationdb_tpu_torch/csrc/fixpoint.cu",
         "replaces": "foundationdb_tpu/ops/fixpoint_pallas.py:336",
-        "launches": sum(r["launches"] for r in (ep, gp, colp, pp, tep, tcol, tpp)),
+        "launches": sum(r["launches"] for r in (ep, gp, colp, colp0, pp, tep, tcol, tpp, lp, tlp,
+                                                lpp)),
         "launches_by_path": {"engine_general_router_graph": ep["graph_launches"],
                              "engine_general_router_eager": ep["eager_launches"],
                              "graph_step": gp["launches"], "columnar_engine": colp["launches"],
@@ -1279,7 +1538,11 @@ def main(argv=None) -> int:
                              "tiered_engine_general_router_graph": tep["graph_launches"],
                              "tiered_engine_general_router_eager": tep["eager_launches"],
                              "tiered_columnar_engine": tcol["launches"],
-                             "tiered_pipeline": tpp["launches"]},
+                             "tiered_pipeline": tpp["launches"],
+                             "columnar_engine_heat_off": colp0["launches"],
+                             "device_loop": lp["launches"],
+                             "tiered_device_loop": tlp["launches"],
+                             "device_loop_pipeline": lpp["launches"]},
         "mismatches": 0,
         "max_abs_err": 0,
         "ms": kp["kernel_ms"],

@@ -13,6 +13,18 @@ from typing import List, Optional, Sequence, Tuple
 from .types import Key
 
 
+def _fmt_key(key: bytes) -> str:
+    """Render a boundary key for humans/JSON: printable ASCII as text,
+    anything else as 0x-hex."""
+    try:
+        s = key.decode()
+        if s.isascii() and s.isprintable():
+            return s
+    except UnicodeDecodeError:
+        pass
+    return "0x" + key.hex()
+
+
 class KeyShardMap:
     """Static partition of the keyspace into S contiguous spans.
 

@@ -1,7 +1,7 @@
 """Batched conflict detection in PyTorch — the resolver's conflict step.
 
 Port of ``foundationdb_tpu/ops/conflict_kernel.py`` (monolithic and tiered
-history, heat off). The step is the same fixed-shape program:
+history, keyspace heat). The step is the same fixed-shape program:
 
   local_phases        reads vs history (phase 1) + intra-batch overlap
                       edges (phase 2), in ``fused_sort`` or ``bsearch`` mode;
@@ -13,8 +13,15 @@ history, heat off). The step is the same fixed-shape program:
                       merge + GC/rebase (monolithic) or the run append,
                       elementwise GC rebase and lazy run merge (tiered)
   status_of           per-transaction verdict codes
+  heat_of             the per-batch keyspace-heat aggregate (cfg.heat_buckets
+                      > 0): a read/write/conflict histogram over boundary
+                      keys sampled from the table, verdict counts and the
+                      first-witness abort attribution
   resolve_step_scan   C same-shape batches as one program, threading the
                       table through (the engine captures it as a CUDA graph)
+  resolve_server_loop the filled prefix of a Q-chunk queue slot as one
+                      program whose chunk count is a device scalar (the
+                      loop engine captures it with a CUDA graph WHILE node)
 
 Every output equals the JAX function's element for element, padding rows
 included (tests/test_torch_conflict_kernel.py).
@@ -45,7 +52,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -68,9 +75,8 @@ Tensor = torch.Tensor
 class KernelConfig:
     """The JAX package's KernelConfig without its ``fixpoint`` switch: the
     port dispatches the fixpoint on the tensors' device (CPU -> plain
-    version, CUDA -> kernel), never on a config string. The heat and tiered
-    fields stay so a JAX-built config converts field for field; this slice
-    runs heat off and the monolithic table only."""
+    version, CUDA -> kernel), never on a config string. Every other field
+    converts from a JAX-built config field for field."""
 
     key_words: int = 4          # exact-compare width = 4*key_words bytes
     capacity: int = 1 << 16     # H: max boundaries in the interval table
@@ -213,13 +219,10 @@ def is_tiered(cfg: KernelConfig) -> bool:
 
 
 def check_supported(cfg: KernelConfig) -> None:
-    """Raise on a config this slice does not run: an unknown search mode or
-    structure, a tiered geometry the JAX package rejects, or heat."""
+    """Raise on a config the port does not run: an unknown search mode or
+    structure, or a tiered geometry the JAX package rejects."""
     resolved_history_search(cfg)
     resolved_history_structure(cfg)
-    if cfg.heat_buckets:
-        raise NotImplementedError(
-            "heat_buckets > 0 is not ported to foundationdb_tpu_torch yet")
 
 
 # ---------------------------------------------------------------------------
@@ -656,6 +659,18 @@ def local_phases(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict):
         "gid_rp": _i32(gid_rp),
         "gid_wp": _i32(gid_wp),
     }
+    if cfg.heat_buckets > 0:
+        # the heat aggregate's history-witness context (heat_of): which read
+        # rows hit history, at what stored version; the fixpoint reads edges
+        # by key and ignores these
+        edges["heat_hhit_p"] = hit_p
+        edges["heat_hver_p"] = vmax_p
+        if Rr > 0:
+            edges["heat_hhit_r"] = hit_rg
+            edges["heat_hver_r"] = rmax
+        else:
+            edges["heat_hhit_r"] = torch.zeros((0,), dtype=torch.bool, device=dev)
+            edges["heat_hver_r"] = torch.zeros((0,), dtype=torch.int32, device=dev)
     return hist_hits, edges, wpos
 
 
@@ -998,17 +1013,21 @@ def _merge_runs(cfg: KernelConfig, hkeys: Tensor, hvers: Tensor, n: Tensor,
     return (out[:H, :K], _i32(out[:H, K]), _i32(m_n), m_n > H, _i32(total - m_n))
 
 
-class MergeBranch:
-    """Host reads of the tiered step's one device-dependent branch (is the
-    run stack full when a run must append?) made on the card outside a
-    CUDA graph capture: each one is a sync. Under capture the branch is an
-    IF node (graph_if.GRAPH_IF.nodes counts them)."""
+class HostReads:
+    """Host reads of a device-dependent branch made on the card outside a
+    CUDA graph capture: each one is a sync. Under capture the branch is a
+    conditional node (graph_if.GRAPH_IF counts them)."""
 
     def __init__(self):
         self.host_reads = 0
 
 
-MERGE = MergeBranch()
+#: reads of the tiered step's merge predicate (is the run stack full when a
+#: run must append?) — an IF node under capture
+MERGE = HostReads()
+#: reads of the server loop's condition (another chunk to run?) — a WHILE
+#: node under capture
+LOOP = HostReads()
 
 
 def run_if(pred: Tensor, body) -> None:
@@ -1027,6 +1046,29 @@ def run_if(pred: Tensor, body) -> None:
         MERGE.host_reads += 1
     if bool(pred):
         body()
+
+
+def run_while(cond, body) -> None:
+    """while cond(): body(), where cond() returns a 0-d bool tensor: on the
+    CPU a host loop; on the card under CUDA graph capture a conditional
+    WHILE node whose body replays as long as the condition the body sets
+    last holds (graph_if; the body must write its results into tensors that
+    exist before the node, and cond() reads only such tensors); on the card
+    outside a capture a host loop that reads the condition, a sync each
+    time, counted in LOOP.host_reads."""
+    pred = cond()
+    if pred.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        with graph_if.while_node(pred) as again:
+            body()
+            again(cond())
+        return
+    while True:
+        if pred.device.type == "cuda":
+            LOOP.host_reads += 1
+        if not bool(pred):
+            return
+        body()
+        pred = cond()
 
 
 def _tiered_apply(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
@@ -1122,19 +1164,157 @@ def status_of(t_too_old: Tensor, committed: Tensor) -> Tensor:
                     int(TransactionCommitResult.CONFLICT))).to(torch.int32)
 
 
+# ---------------------------------------------------------------------------
+# keyspace heat
+# ---------------------------------------------------------------------------
+
+#: lanes of the heat aggregate's per-bucket histogram (heat_of)
+HEAT_HIST_LANES = 3          # 0: read rows, 1: write rows, 2: conflict rows
+#: lanes of the heat aggregate's scalar counts vector
+HEAT_COUNT_LANES = 4         # 0: committed, 1: conflicts, 2: too_old, 3: gc_reclaimed
+
+
+def _heat_bounds(cfg: KernelConfig, hkeys: Tensor, n: Tensor) -> Tensor:
+    """B boundary keys sampled at equally spaced POSITIONS of the sorted
+    valid table prefix hkeys[0:n]: the bucket delimiters of the heat
+    histogram. Bucket i covers [bounds[i], bounds[i+1]) (the last bucket
+    extends to +inf; keys below bounds[0] fold into bucket 0)."""
+    B = cfg.heat_buckets
+    pos = (_arange(B, hkeys.device) * torch.clamp(n.to(torch.int64), min=1)) // B
+    # an overflowing apply leaves n > H: the JAX gather clamps, so does _take
+    return _take(hkeys, pos)                                 # [B, K]
+
+
+def _heat_bucket_of(cfg: KernelConfig, bounds: Tensor, q: Tensor) -> Tensor:
+    """Bucket index of every query key row q[i] under `bounds`: the last
+    boundary <= q (clamped to 0 below bounds[0]), a branchless binary
+    search of B.bit_length() rounds in lockstep."""
+    B = cfg.heat_buckets
+    lo = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+    hi = torch.full_like(lo, B)
+    for _ in range(max(1, B.bit_length())):
+        active = lo < hi
+        mid = (lo + hi) >> 1
+        # go right iff bounds[mid] <= q (upper-bound discipline)
+        go_right = ~_key_less(q, bounds[torch.clamp(mid, max=B - 1)])
+        lo = torch.where(active & go_right, mid + 1, lo)
+        hi = torch.where(active & ~go_right, mid, hi)
+    return torch.clamp(lo - 1, min=0)
+
+
+def heat_of(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict, committed: Tensor,
+            edges: Dict[str, Tensor], reclaimed: Tensor) -> Dict[str, Tensor]:
+    """The per-batch keyspace-heat aggregate, computed on the device from
+    values the verdict path already produced, so it changes no verdict:
+
+      bounds     int64 [B, K]  sampled bucket-boundary keys (uint32 words)
+      hist       int32 [B, 3]  read / write / conflict-attributed rows
+      counts     int32 [4]     committed, conflicts, too_old, gc_reclaimed
+      occupancy  int32 []      boundary-table rows after this batch
+      wit_ver    int32 [T]     first-witness conflicting-write version
+                               (history hit: the stored version that beat
+                               the snapshot; intra-batch: `now`); NEG_VERSION
+                               where the txn did not conflict
+      wit_bucket int32 [T]     the witness read row's bucket; -1 where none
+
+    plus, under the tiered structure, `runs` (the run-stack depth) and
+    `run_rows` (valid rows in live runs), int32 []. `state` is the
+    post-apply table; every leaf is a tensor of its own (none aliases the
+    state, which the tiered apply updates in place)."""
+    B, T = cfg.heat_buckets, cfg.max_txns
+    Rp, Rr = cfg.rp, cfg.max_reads
+    dev = committed.device
+    bounds = _heat_bounds(cfg, state["hkeys"], state["n"])
+    conflicted = batch["t_ok"] & ~committed
+    counts = _i32(torch.stack([committed.sum(), conflicted.sum(), batch["t_too_old"].sum(),
+                               reclaimed.to(torch.int64)]))
+
+    # one packed bucket search serves every row class (range rows bin by
+    # their begin key)
+    qkeys = torch.cat([batch["rpb"], batch["rb"], batch["wpb"], batch["wb"]])
+    bk = _heat_bucket_of(cfg, bounds, qkeys)
+    rbk, wbk = bk[:Rp + Rr], bk[Rp + Rr:]
+    rvalid = torch.cat([batch["rp_valid"], batch["r_valid"]])
+    wvalid = torch.cat([batch["wp_valid"], batch["w_valid"]])
+    r_txn_all = torch.cat([batch["rp_txn"], batch["r_txn"]]).long()
+    r_conflicted = _take(conflicted, r_txn_all)
+    crow = rvalid & r_conflicted                             # conflict rows
+    # a [B+1, 3] histogram whose row B is the dustbin of JAX's mode="drop"
+    hist = torch.zeros((B + 1) * HEAT_HIST_LANES, dtype=torch.int32, device=dev)
+    for lane, (valid, bkt) in enumerate(((rvalid, rbk), (wvalid, wbk), (crow, rbk))):
+        idx = torch.where(valid, bkt, B) * HEAT_HIST_LANES + lane
+        hist.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+    hist = hist.reshape(B + 1, HEAT_HIST_LANES)[:B]
+
+    # first-witness abort attribution: each conflicted txn's first (lowest
+    # index) read row that was hit, by history or by an earlier committed
+    # write in this batch (witness version `now`)
+    ihit_p, ihit_r = _blocked_rows(cfg, edges, batch, committed)
+    hhit_p, hver_p = edges["heat_hhit_p"], edges["heat_hver_p"]
+    hhit_r, hver_r = edges["heat_hhit_r"], edges["heat_hver_r"]
+    now = batch["now"]
+    act = torch.cat([batch["rp_valid"] & (hhit_p | ihit_p),
+                     batch["r_valid"] & (hhit_r | ihit_r)]) & r_conflicted
+    wver = torch.cat([torch.where(hhit_p, hver_p, now), torch.where(hhit_r, hver_r, now)])
+    R = Rp + Rr
+    first = torch.full((T + 1,), R, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, _drop(torch.where(act, r_txn_all, T), T), _arange(R, dev),
+                          "amin", include_self=True)
+    first = first[:T]
+    has = first < R
+    fc = torch.clamp(first, max=R - 1)
+    out = {"bounds": bounds, "hist": hist, "counts": counts,
+           "occupancy": state["n"].clone(),
+           "wit_ver": torch.where(has, wver[fc], NEG_VERSION).to(torch.int32),
+           "wit_bucket": _i32(torch.where(has, rbk[fc], -1))}
+    if is_tiered(cfg):
+        live = _arange(cfg.run_slots, dev) < state["nruns"].to(torch.int64)
+        out["runs"] = state["nruns"].clone()
+        out["run_rows"] = _i32(torch.where(live, state["rn"], 0).sum())
+    return out
+
+
+def heat_shapes(cfg: KernelConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Shapes and dtypes of one batch's heat aggregate (the port of
+    heat_struct); {} when heat is off."""
+    if cfg.heat_buckets <= 0:
+        return {}
+    B, K, T = cfg.heat_buckets, cfg.lanes, cfg.max_txns
+    i32 = torch.int32
+    out = {
+        "bounds": ((B, K), torch.int64),
+        "hist": ((B, HEAT_HIST_LANES), i32),
+        "counts": ((HEAT_COUNT_LANES,), i32),
+        "occupancy": ((), i32),
+        "wit_ver": ((T,), i32),
+        "wit_bucket": ((T,), i32),
+    }
+    if is_tiered(cfg):
+        out["runs"] = ((), i32)
+        out["run_rows"] = ((), i32)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the steps
+# ---------------------------------------------------------------------------
+
 def resolve_step(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
                  gc_branch: bool):
     """One resolver batch: (state, batch) -> (state', {"status", "overflow",
     "n"}, plus "merged" under the tiered structure: whether this step merged
-    the run stack). `gc_branch`: whether batch["gc"] > 0."""
+    the run stack, and "heat" (heat_of) with cfg.heat_buckets > 0).
+    `gc_branch`: whether batch["gc"] > 0."""
     hist_hits, edges, wpos = local_phases(cfg, state, batch)
     committed = _fixpoint(cfg, batch["t_ok"], hist_hits, edges, batch)
-    new_state, overflow, _, merged = _apply_writes(cfg, state, batch, committed, wpos,
-                                                   gc_branch)
+    new_state, overflow, reclaimed, merged = _apply_writes(cfg, state, batch, committed, wpos,
+                                                           gc_branch)
     out = {"status": status_of(batch["t_too_old"], committed),
            "overflow": overflow, "n": new_state["n"]}
     if merged is not None:
         out["merged"] = merged
+    if cfg.heat_buckets > 0:
+        out["heat"] = heat_of(cfg, new_state, batch, committed, edges, reclaimed)
     return new_state, out
 
 
@@ -1146,14 +1326,112 @@ def resolve_step_scan(cfg: KernelConfig, state: Dict[str, Tensor], batches: Dict
     resolve_steps. `gc_last`: whether the LAST chunk carries gc > 0;
     earlier chunks take the no-GC branch (only a batch's last chunk carries
     its GC horizon). Under the tiered structure the outputs gain "merged"
-    [C]."""
+    [C]; with heat on, "heat" holds the per-chunk aggregates stacked [C,
+    ...]."""
     C = batches["t_ok"].shape[0]
     outs = []
     for c in range(C):
         state, out = resolve_step(cfg, state, {k: v[c] for k, v in batches.items()},
                                   gc_last and c == C - 1)
         outs.append(out)
-    return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0] if k != "n"}
+    stacked = {k: torch.stack([o[k] for o in outs]) for k in outs[0] if k not in ("n", "heat")}
+    if "heat" in outs[0]:
+        stacked["heat"] = {k: torch.stack([o["heat"][k] for o in outs]) for k in outs[0]["heat"]}
+    return state, stacked
+
+
+#: the batch fields that hold packed keys: the step computes on them as
+#: int64 words; a program's static inputs may hold them as the int32 bits
+#: of their uint32 words (resolve_server_loop widens a selected chunk)
+KEY_FIELDS = frozenset(("rpb", "wpb", "rb", "re", "wb", "we"))
+
+
+def status_words(cfg: KernelConfig) -> int:
+    """32-bit words per verdict bitmap lane: the server loop emits
+    committed / too-old bitmaps [Q, status_words] instead of [Q, T]
+    statuses (device_loop.decode_status_bits decodes them)."""
+    return (cfg.max_txns + 31) // 32
+
+
+def server_outputs(cfg: KernelConfig, q: int, device) -> Dict:
+    """Zeroed output buffers of resolve_server_loop for a Q-chunk slot:
+    "commit_bits" / "too_old_bits" int32 [Q, status_words] (the uint32 bits
+    of JAX's words), "overflow" bool [], "merged" bool [Q] under the tiered
+    structure, and "heat" {leaf: [Q, ...]} with heat on."""
+    TW = status_words(cfg)
+    out = {"commit_bits": torch.zeros((q, TW), dtype=torch.int32, device=device),
+           "too_old_bits": torch.zeros((q, TW), dtype=torch.int32, device=device),
+           "overflow": torch.zeros((), dtype=torch.bool, device=device)}
+    if is_tiered(cfg):
+        out["merged"] = torch.zeros((q,), dtype=torch.bool, device=device)
+    heat = heat_shapes(cfg)
+    if heat:
+        out["heat"] = {k: torch.zeros((q,) + shape, dtype=dtype, device=device)
+                       for k, (shape, dtype) in heat.items()}
+    return out
+
+
+def resolve_server_loop(cfg: KernelConfig, state: Dict[str, Tensor], batches: Dict,
+                        n_chunks: Tensor, gc_last: bool, out: Optional[Dict] = None):
+    """The device-resident server step: the filled prefix of a Q-chunk
+    queue slot (leaves [Q, ...]) under one loop whose chunk count
+    `n_chunks` (0-d int, >= 1) is a device value, so ONE program per bucket
+    serves every fill level 1..Q. Chunks 0 .. n-2 take the no-GC step in a
+    run_while loop (a CUDA graph WHILE node under capture) over a 0-d
+    device counter that selects each chunk (index_select); chunk n-1, the
+    only one that may carry the GC horizon, follows with the host's
+    `gc_last` branch. Loop order is fill order, so the table evolves as
+    under n serial resolve_steps.
+
+    Updates `state`'s tensors in place and writes `out` (server_outputs;
+    zeroed first, so rows past the prefix read 0): the committed and
+    too-old bitmaps of each chunk, the OR of the overflows, the tiered
+    merge flags and the heat planes. Key fields given as int32 hold uint32
+    bits and widen after selection. Returns (state, out)."""
+    Q = batches["t_ok"].shape[0]
+    dev = batches["t_ok"].device
+    TW = status_words(cfg)
+    if out is None:
+        out = server_outputs(cfg, Q, dev)
+    for v in list(out.values()) + list(out.get("heat", {}).values()):
+        if isinstance(v, Tensor):
+            v.zero_()
+    committed_code = int(TransactionCommitResult.COMMITTED)
+    too_old_code = int(TransactionCommitResult.TOO_OLD)
+    i = torch.zeros((), dtype=torch.int64, device=dev)
+    last = torch.clamp(n_chunks.to(torch.int64) - 1, min=0)
+
+    def chunk(idx: Tensor) -> Dict[str, Tensor]:
+        sel = idx.reshape(1)
+        b = {}
+        for name, v in batches.items():
+            x = v.index_select(0, sel)[0]
+            if name in KEY_FIELDS and x.dtype == torch.int32:
+                x = x.to(torch.int64) & U32_ALL
+            b[name] = x
+        return b
+
+    def step(idx: Tensor, gc_branch: bool) -> None:
+        sel = idx.reshape(1)
+        new_state, o = resolve_step(cfg, state, chunk(idx), gc_branch)
+        for k, v in state.items():
+            if new_state[k] is not v:
+                v.copy_(new_state[k])
+        out["commit_bits"].index_copy_(0, sel, _pack_bits(o["status"] == committed_code, TW)[None])
+        out["too_old_bits"].index_copy_(0, sel, _pack_bits(o["status"] == too_old_code, TW)[None])
+        out["overflow"].logical_or_(o["overflow"])
+        if "merged" in out:
+            out["merged"].index_copy_(0, sel, o["merged"].reshape(1))
+        for k, acc in out.get("heat", {}).items():
+            acc.index_copy_(0, sel, o["heat"][k].to(acc.dtype)[None])
+
+    def body() -> None:
+        step(i, False)
+        i.add_(1)
+
+    run_while(lambda: i < last, body)
+    step(last, gc_last)
+    return state, out
 
 
 # ---------------------------------------------------------------------------

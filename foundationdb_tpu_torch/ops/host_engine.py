@@ -21,6 +21,10 @@ path the JAX engine takes first:
                      of the JAX engine's AOT-compiled programs
   columnar_dispatch  copies in, replays, copies the verdicts out — all
                      stream-ordered, no host sync; force() waits on an event
+  keyspace heat      with cfg.heat_buckets > 0 (the default: 64) every step
+                     emits a heat aggregate (conflict_kernel.heat_of), copied
+                     out beside the verdicts and merged into the engine's
+                     KeyRangeHeatAggregator (core/heatmap.py) at force()
 
 ``resolve()`` tries the columnar path first and takes the general router
 when any range is not a short-key point row.
@@ -40,7 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core import error, wire
+from ..core import error, heatmap, wire
 from ..core.keyshard import KeyShardMap
 from ..core.types import Key, TransactionCommitResult, Version, is_point_range as _is_point
 from ..native import fastpack
@@ -115,8 +119,6 @@ HOT_FIELDS = ("t_ok", "t_too_old", "now", "gc", "rp_valid", "wp_valid",
               "rp_snap", "rp_txn", "wp_txn", "rpb", "wpb")
 #: ... and the range-row fields, all zero on the columnar path
 COLD_FIELDS = ("r_valid", "w_valid", "r_snap", "r_txn", "w_txn", "rb", "re", "wb", "we")
-#: the key fields: uint32 words, which the step computes on as int64
-KEY_FIELDS = frozenset(("rpb", "wpb", "rb", "re", "wb", "we"))
 _KEY_MASK = 0xFFFFFFFF
 
 
@@ -125,7 +127,7 @@ def input_shapes(cfg: KernelConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dt
     step's (ck.batch_shapes), except that keys travel as the int32 bits of
     their uint32 words (half the int64 the step computes in) and widen
     inside the program."""
-    return {name: (tuple(shape), torch.int32 if name in KEY_FIELDS else dtype)
+    return {name: (tuple(shape), torch.int32 if name in ck.KEY_FIELDS else dtype)
             for name, (shape, dtype) in ck.batch_shapes(cfg).items()}
 
 
@@ -136,7 +138,7 @@ def host_tensors(cfg: KernelConfig, arrays: Dict[str, np.ndarray]) -> Dict[str, 
     out = {}
     for name, (shape, _) in input_shapes(cfg).items():
         a = np.asarray(arrays[name])
-        if name in KEY_FIELDS:
+        if name in ck.KEY_FIELDS:
             a = np.ascontiguousarray(a, np.uint32).view(np.int32)
         out[name] = torch.from_numpy(np.ascontiguousarray(a).reshape(shape))
     return out
@@ -154,7 +156,7 @@ class PackSet:
         self.pinned = pin
         self.tensors = {name: torch.zeros(shapes[name][0], dtype=shapes[name][1], pin_memory=pin)
                         for name in HOT_FIELDS}
-        self.arrays = {name: t.numpy().view(np.uint32) if name in KEY_FIELDS else t.numpy()
+        self.arrays = {name: t.numpy().view(np.uint32) if name in ck.KEY_FIELDS else t.numpy()
                        for name, t in self.tensors.items()}
 
 
@@ -375,6 +377,12 @@ class RoutedConflictEngineBase:
                  arena: bool = True, pin_memory: bool = False):
         ck.check_supported(cfg)
         self.cfg = cfg
+        #: the keyspace-heat aggregator (None with heat off); every step's
+        #: aggregate merges into it when its unit is forced
+        self.heat = heatmap.aggregator_for(cfg)
+        #: batch version that heat attribution samples carry: the version
+        #: of the chunk being dispatched (None outside a dispatch)
+        self._heat_version: Optional[Version] = None
         self.shards = shards
         self.n_shards = shards.n_shards
         self.base: Version = 0
@@ -492,14 +500,63 @@ class RoutedConflictEngineBase:
     def history_stats_snapshot(self) -> Dict[str, Any]:
         """Tiered-history accounting as the JAX engine reports it: the
         structure and run geometry, and the run/merge counters, which the
-        JAX engine takes from the heat aggregate and so reads 0 with heat
-        off — as they always read here (merges counted by the serving path
-        are perf.merges)."""
+        heat aggregator derives from each step's `runs` leaf, so they cost
+        no sync; with heat off they read 0 (the serving path's own merge
+        count is perf.merges)."""
         tiered = self.history_structure == "tiered"
-        return {"structure": self.history_structure,
-                "run_slots": self.cfg.run_slots if tiered else 0,
-                "run_rows": self.cfg.run_rows if tiered else 0,
-                "appends": 0, "merges": 0, "runs_live": 0, "run_rows_live": 0}
+        out = {"structure": self.history_structure,
+               "run_slots": self.cfg.run_slots if tiered else 0,
+               "run_rows": self.cfg.run_rows if tiered else 0,
+               "appends": 0, "merges": 0, "runs_live": 0, "run_rows_live": 0}
+        if self.heat is not None:
+            out.update(self.heat.history_snapshot())
+        return out
+
+    # -- keyspace heat ---------------------------------------------------------
+    @staticmethod
+    def _resolve_heat(cfg: KernelConfig, requested: Optional[int]) -> KernelConfig:
+        """Fold the heat-bucket request into the config the ladder is built
+        from. Precedence: the explicit argument, then a nonzero
+        cfg.heat_buckets, then heatmap.DEFAULT_HEAT_BUCKETS (the JAX
+        package's `resolver_heat_buckets` knob default). bucket() clones
+        carry the count into every program."""
+        b = requested
+        if b is None:
+            b = cfg.heat_buckets or heatmap.DEFAULT_HEAT_BUCKETS
+        b = int(b)
+        if b < 0:
+            raise ValueError(f"heat_buckets must be >= 0, got {b}")
+        return cfg if b == cfg.heat_buckets else dataclasses.replace(cfg, heat_buckets=b)
+
+    def heat_snapshot(self, top_n: int = 8, brief: bool = False):
+        """The keyspace-heat / occupancy fragment (heatmap.KeyRangeHeat-
+        Aggregator.snapshot); None when heat is off."""
+        if self.heat is None:
+            return None
+        return self.heat.snapshot(top_n=top_n, brief=brief)
+
+    def _merge_heat(self, heat_host, version=None, base=None, layout: str = "") -> None:
+        """Merge a forced heat subtree into the aggregator. `layout` names
+        the leaves' leading axes: "" one chunk (resolve_step), "c" [C, ...]
+        chunks (a scan or a loop slot's prefix), each a distinct set of
+        transactions merged in order. The shard layouts of the JAX engine
+        ("s", "cs", "sc") belong to the sharded engines, which the port
+        does not have yet, and raise as an unknown layout does. `base` is
+        the version base the batch was packed against (witness versions
+        are base-relative); default: the current base."""
+        if self.heat is None or heat_host is None:
+            return
+        if base is None:
+            base = self.base
+        if layout == "":
+            self.heat.merge({k: np.asarray(v) for k, v in heat_host.items()},
+                            base=base, version=version)
+        elif layout == "c":
+            for c in range(np.asarray(heat_host["bounds"]).shape[0]):
+                self._merge_heat({k: np.asarray(v)[c] for k, v in heat_host.items()},
+                                 version, base, "")
+        else:
+            raise ValueError(f"unknown heat layout {layout!r}")
 
     def history_run_snapshots(self, since_runs: Optional[Sequence[int]] = None):
         """Per-shard tiered run snapshots (ck.history_run_snapshot), the
@@ -770,6 +827,9 @@ class RoutedConflictEngineBase:
         overflowing chunk); overflow is a fatal capacity error in both
         cases."""
         chunks = plan["chunks"]
+        #: the batch version heat attribution carries: each unit captures
+        #: it at dispatch
+        self._heat_version = plan.get("now")
         #: (unit_force, [n_txns per chunk], [leases per chunk])
         outs: List[Tuple[Callable, List[int], List[Optional[ArenaLease]]]] = []
         i = 0
@@ -787,6 +847,7 @@ class RoutedConflictEngineBase:
                 self.perf.scan_dispatches[c] = self.perf.scan_dispatches.get(c, 0) + 1
                 outs.append((unit, [ch[1] for ch in sub], [ch[3] for ch in sub]))
             i = j
+        self._heat_version = None
         new_oldest = plan["new_oldest"]
         if new_oldest > self.oldest_version:
             self.tier_map.gc(new_oldest)
@@ -819,6 +880,7 @@ class RoutedConflictEngineBase:
         n = len(routed)
         if n > cfg.max_txns:
             raise ValueError(f"chunk of {n} txns exceeds max_txns={cfg.max_txns}")
+        self._heat_version = now
 
         too_old = np.zeros((cfg.max_txns,), bool)
         t_ok = np.zeros((cfg.max_txns,), bool)
@@ -1019,8 +1081,10 @@ class _Program:
     the tiered structure each step's lazy merge is a conditional IF node
     (ck.run_if, graph_if) whose body replays only when the run stack is
     full; its body is captured on the engine's body stream into its body
-    pool; the program also writes each step's `merged` flag [C]. On the CPU
-    the program runs resolve_step_scan eagerly on the same buffers."""
+    pool; the program also writes each step's `merged` flag [C]. With heat
+    on it writes each step's heat aggregate into static [C, ...] buffers
+    (`heat`, ck.heat_shapes). On the CPU the program runs resolve_step_scan
+    eagerly on the same buffers."""
 
     def __init__(self, engine: "TorchConflictEngine", bucket: KernelConfig, C: int):
         dev = engine.device
@@ -1032,6 +1096,8 @@ class _Program:
         self.overflow = torch.zeros((C,), dtype=torch.bool, device=dev)
         self.merged = (torch.zeros((C,), dtype=torch.bool, device=dev)
                        if ck.is_tiered(bucket) else None)
+        self.heat = {k: torch.zeros((C,) + shape, dtype=dtype, device=dev)
+                     for k, (shape, dtype) in ck.heat_shapes(bucket).items()}
         #: chunk slots whose range rows a general-router chunk wrote
         self.cold_dirty = [False] * C
         self.graphs: Dict[bool, "torch.cuda.CUDAGraph"] = {}
@@ -1045,7 +1111,7 @@ class _Program:
         """The step's batch dict, leaves [C, ...], over the static inputs:
         the tensors themselves, except the keys, which widen to int64 by
         zero extension (inside a captured graph, at every replay)."""
-        return {name: (v.to(torch.int64) & _KEY_MASK) if name in KEY_FIELDS else v
+        return {name: (v.to(torch.int64) & _KEY_MASK) if name in ck.KEY_FIELDS else v
                 for name, v in self.inputs.items()}
 
     def _body(self, state: Dict[str, torch.Tensor], gc_last: bool,
@@ -1058,6 +1124,8 @@ class _Program:
         self.overflow.copy_(out["overflow"])
         if self.merged is not None:
             self.merged.copy_(out["merged"])
+        for k, v in self.heat.items():
+            v.copy_(out["heat"][k])
 
     def _merge_warm_batches(self) -> Dict[str, torch.Tensor]:
         """The static inputs with one committed point write in chunk 0, so
@@ -1091,7 +1159,7 @@ class _Program:
         graph = torch.cuda.CUDAGraph()
         before = fixpoint_cuda.FIXPOINT.launches
         if_before = graph_if.GRAPH_IF.nodes
-        with graph_if.bodies(eng.if_stream, eng.if_pool), \
+        with graph_if.bodies(eng.body_levels[:1]), \
                 torch.cuda.graph(graph, pool=eng.graph_pool, stream=stream,
                                  capture_error_mode="relaxed"):
             self._body(eng.state, gc_last)
@@ -1147,11 +1215,13 @@ class TorchConflictEngine(RoutedConflictEngineBase):
     def __init__(self, cfg: KernelConfig = KernelConfig(), initial_version: Version = 0,
                  device=None, ladder: Optional[Sequence[int]] = None,
                  scan_sizes: Sequence[int] = (2, 4, 8), arena: bool = True,
-                 history_structure: Optional[str] = None):
+                 history_structure: Optional[str] = None,
+                 heat_buckets: Optional[int] = None):
         device = _default_device(device)
         if history_structure is not None:
             # the explicit argument wins over the config's structure
             cfg = dataclasses.replace(cfg, history_structure=history_structure)
+        cfg = self._resolve_heat(cfg, heat_buckets)
         super().__init__(cfg, KeyShardMap([]), ladder=ladder, scan_sizes=scan_sizes,
                          arena=arena, pin_memory=device.type == "cuda")
         self.device = device
@@ -1163,10 +1233,12 @@ class TorchConflictEngine(RoutedConflictEngineBase):
             #: are copied out before the next replay
             self.graph_pool = torch.cuda.graph_pool_handle()
             self.capture_stream = torch.cuda.Stream(device)
-            #: where the tiered merge's IF-node bodies are captured, and the
-            #: private pool their temporaries live in (graph_if)
-            self.if_stream = torch.cuda.Stream(device)
-            self.if_pool = torch.cuda.graph_pool_handle()
+            #: where conditional-node bodies are captured, one (stream,
+            #: private pool) per nesting level (graph_if): the tiered merge's
+            #: IF node at level 0 in a step program; in the loop engine's
+            #: programs the WHILE body at level 0 and the IF node in it at 1
+            self.body_levels = [(torch.cuda.Stream(device), torch.cuda.graph_pool_handle())
+                                for _ in range(2)]
 
     def _set_state(self, new: Dict[str, torch.Tensor]) -> None:
         for k, v in self.state.items():
@@ -1207,29 +1279,41 @@ class TorchConflictEngine(RoutedConflictEngineBase):
         for c, (arrays,) in enumerate(per_chunks):
             prog.load(c, arrays, packs[c] if packs else None)
         prog.run(gcs[-1] > 0)
+        heat_base, heat_version = self.base, self._heat_version
         if self.device.type == "cpu":
-            status, overflow = prog.status.numpy().copy(), bool(prog.overflow.any())
+            result = (prog.status.numpy().copy(), bool(prog.overflow.any()),
+                      {k: v.numpy().copy() for k, v in prog.heat.items()})
             if prog.merged is not None:
                 self.perf.merges += int(prog.merged.sum())
-            return lambda: (status, overflow)
-        status = torch.empty(prog.status.shape, dtype=torch.int32, pin_memory=True)
-        flags = torch.empty(prog.overflow.shape, dtype=torch.bool, pin_memory=True)
-        status.copy_(prog.status, non_blocking=True)
-        flags.copy_(prog.overflow, non_blocking=True)
-        merged = None
-        if prog.merged is not None:
-            merged = torch.empty(prog.merged.shape, dtype=torch.bool, pin_memory=True)
-            merged.copy_(prog.merged, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        keep = (per_chunks, packs)
+
+            def read():
+                return result
+        else:
+            # every output to pinned host memory, behind one event
+            outs = {"status": prog.status, "overflow": prog.overflow, **prog.heat}
+            if prog.merged is not None:
+                outs["merged"] = prog.merged
+            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    for k, v in outs.items()}
+            for k, v in outs.items():
+                host[k].copy_(v, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            keep = (per_chunks, packs)
+
+            def read():
+                done.synchronize()
+                _ = keep        # the host buffers live until the copies ran
+                if "merged" in host:
+                    self.perf.merges += int(host["merged"].numpy().sum())
+                return (host["status"].numpy(), bool(host["overflow"].numpy().any()),
+                        {k: host[k].numpy() for k in prog.heat})
 
         def force() -> Tuple[np.ndarray, bool]:
-            done.synchronize()
-            _ = keep            # the host buffers live until the copies ran
-            if merged is not None:
-                self.perf.merges += int(merged.numpy().sum())
-            return status.numpy(), bool(flags.numpy().any())
+            status, overflow, heat = read()
+            if heat:
+                self._merge_heat(heat, version=heat_version, base=heat_base, layout="c")
+            return status, overflow
 
         return force
 
@@ -1259,12 +1343,18 @@ class TorchConflictEngine(RoutedConflictEngineBase):
         return status.cpu().numpy(), bool(overflow)
 
 
-ENGINE_MODES = ("torch",)
+#: the engine-mode router: "torch" (single card, step dispatch) and
+#: "device_loop" (single card, the device-resident server loop;
+#: ops/device_loop.py)
+ENGINE_MODES = ("torch", "device_loop")
 
 
 def make_engine(mode: str, cfg: KernelConfig, **kw):
-    """Registry entry point: build the engine family `mode` names. The port
-    has the single-card engine only."""
+    """Registry entry point: build the engine family `mode` names."""
     if mode == "torch":
         return TorchConflictEngine(cfg, **kw)
+    if mode == "device_loop":
+        from .device_loop import DeviceLoopEngine
+
+        return DeviceLoopEngine(cfg, **kw)
     raise ValueError(f"unknown engine mode {mode!r}; expected one of {ENGINE_MODES}")

@@ -164,7 +164,8 @@ def test_wire_pass1_rejects_what_the_router_must_take(odd):
 
 def test_ladder_helpers_match_jax():
     jeng = jhe.JaxConflictEngine(CFG, ladder=list(LADDER), scan_sizes=SCANS, heat_buckets=0)
-    teng = TorchConflictEngine(port_cfg(CFG), device="cpu", ladder=LADDER, scan_sizes=SCANS)
+    teng = TorchConflictEngine(port_cfg(CFG), device="cpu", ladder=LADDER, scan_sizes=SCANS,
+                               heat_buckets=0)
     assert [port_cfg(b) for b in jeng.buckets] == teng.buckets
     for n in range(0, 40):
         assert teng._split_run(n) == jeng._split_run(n), n
@@ -172,7 +173,7 @@ def test_ladder_helpers_match_jax():
     for _ in range(300):
         args = (rng.randrange(1, 129), rng.randrange(0, 257), rng.randrange(0, 257))
         assert teng.bucket_for(*args) == port_cfg(jeng.bucket_for(*args)), args
-    single = TorchConflictEngine(port_cfg(CFG), device="cpu")
+    single = TorchConflictEngine(port_cfg(CFG), device="cpu", heat_buckets=0)
     assert single.buckets == [port_cfg(CFG)]
 
 

@@ -269,10 +269,11 @@ def test_unported_options_raise():
         tck.resolved_history_structure(port_cfg(dataclasses.replace(SMALL, history_structure="lsm")))
     with pytest.raises(ValueError):
         tck.resolved_history_search(port_cfg(dataclasses.replace(SMALL, history_search="nope")))
+    # heat is ported: local_phases adds its witness context
     heat = port_cfg(dataclasses.replace(SMALL, heat_buckets=8))
-    with pytest.raises(NotImplementedError):
-        tck.local_phases(heat, tck.initial_state(heat),
-                         tck.batch_from_numpy(heat, synth_batch(random.Random(1), SMALL, 10, 0), "cpu"))
+    _, edges, _ = tck.local_phases(heat, tck.initial_state(heat), tck.batch_from_numpy(
+        heat, synth_batch(random.Random(1), SMALL, 10, 0), "cpu"))
+    assert {"heat_hhit_p", "heat_hver_p", "heat_hhit_r", "heat_hver_r"} <= edges.keys()
 
 
 def test_state_and_batch_round_trip():

@@ -1,8 +1,11 @@
 """The port's CUDA fixpoint kernel on the card, against its plain version,
 and the engine's serving path there: captured (bucket, C) graphs against
 the eager step (monolithic and tiered history: the tiered merge is a
-conditional node), no captures after warmup(), the static table under
-load_state and clear(), and a dispatch with no host sync.
+conditional node; the heat planes too), no captures after warmup(), the
+static table under load_state and clear(), and a dispatch with no host
+sync; then the loop engine's server program (a WHILE node, the tiered
+merge's IF node nested in its body) against the eager loop, its warmup
+and its sync-free dispatch.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither jax nor the JAX package, so it runs on a machine that has
@@ -24,7 +27,9 @@ import torch
 from foundationdb_tpu_torch.core.types import CommitTransaction, KeyRange
 from foundationdb_tpu_torch.ops import conflict_kernel as ck
 from foundationdb_tpu_torch.ops import fixpoint_cuda as fc
+from foundationdb_tpu_torch.ops import graph_if
 from foundationdb_tpu_torch.ops import oracle as toracle
+from foundationdb_tpu_torch.ops.device_loop import DeviceLoopEngine
 from foundationdb_tpu_torch.ops.host_engine import TorchConflictEngine
 
 torch.set_num_threads(1)
@@ -355,7 +360,7 @@ def test_if_node_runs_its_body_only_when_its_predicate_holds(card):
     torch.cuda.synchronize()
     graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
     nodes = graph_if.GRAPH_IF.nodes
-    with graph_if.bodies(torch.cuda.Stream(), torch.cuda.graph_pool_handle()), \
+    with graph_if.bodies([(torch.cuda.Stream(), torch.cuda.graph_pool_handle())]), \
             torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
         with graph_if.if_node(pred):
             body()
@@ -396,6 +401,9 @@ def replay_vs_eager(prog, eng, gc_last):
     assert torch.equal(prog.overflow, want["overflow"]), where
     if prog.merged is not None:
         assert torch.equal(prog.merged, want["merged"]), where
+    assert prog.heat.keys() == want.get("heat", {}).keys()
+    for k in prog.heat:
+        assert torch.equal(prog.heat[k], want["heat"][k]), (where, k)
     for k in eng.state:
         assert torch.equal(eng.state[k], want_state[k]), (where, k)
     return want
@@ -540,3 +548,201 @@ def test_packer_build_raises_without_a_compiler(card, tmp_path, monkeypatch):
     monkeypatch.setattr(shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="no C compiler found"):
         build.load("fastpack")
+
+
+# ---------------------------------------------------------------------------
+# the loop engine: a WHILE node over the filled prefix of a queue slot
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_while_node_runs_its_body_while_its_condition_holds(card):
+    """A captured graph with a WHILE node over a device counter whose bound
+    the replay reads from a device scalar: the body (an index_select, a sort
+    and an index_copy_ into row i of a buffer made before the node) runs
+    exactly n times for n = 0..5, with an IF node nested in the body that
+    runs on odd i only; work after the node sees the body's rows."""
+    Q = 5
+    x = torch.randint(0, 1000, (Q, 4096), device=card)
+    out = torch.zeros_like(x)
+    odd = torch.zeros(Q, dtype=torch.int64, device=card)
+    after = torch.zeros((), dtype=torch.int64, device=card)
+    n = torch.zeros((), dtype=torch.int64, device=card)
+    levels = [(torch.cuda.Stream(), torch.cuda.graph_pool_handle()) for _ in range(2)]
+
+    def program():
+        out.zero_()
+        odd.zero_()
+        i = torch.zeros((), dtype=torch.int64, device=card)
+
+        def body():
+            sel = i.reshape(1)
+            row = torch.sort(x.index_select(0, sel)[0]).values + i
+            out.index_copy_(0, sel, row[None])
+            ck.run_if((i % 2) == 1, lambda: odd.index_fill_(0, sel, 1))
+            i.add_(1)
+
+        ck.run_while(lambda: i < n, body)
+        after.copy_(out.sum())
+
+    program()          # eager on the card: host reads of both conditions
+    torch.cuda.synchronize()
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    whiles, ifs = graph_if.GRAPH_IF.while_nodes, graph_if.GRAPH_IF.nodes
+    with graph_if.bodies(levels), \
+            torch.cuda.graph(graph, stream=stream, capture_error_mode="relaxed"):
+        program()
+    assert graph_if.GRAPH_IF.while_nodes == whiles + 1 and graph_if.GRAPH_IF.nodes == ifs + 1
+    srt = torch.sort(x, dim=1).values + torch.arange(Q, device=card)[:, None]
+    for k in (3, 0, 5, 1, 4):
+        n.fill_(k)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = torch.where(torch.arange(Q, device=card)[:, None] < k, srt, 0)
+        assert torch.equal(out, want), k
+        assert odd.tolist() == [int(j < k and j % 2 == 1) for j in range(Q)], k
+        assert int(after) == int(want.sum()), k
+
+
+#: the loop engine's shapes: T = 256 over a ladder (64, 128), 3-chunk slots
+LOOP_Q = 3
+
+
+def loop_replay_vs_eager(prog, eng, n, gc_last):
+    """Replay the loop program at fill n and run resolve_server_loop eagerly
+    on the card from a copy of the same table and inputs: bitmaps,
+    overflow, merge flags, heat planes and the whole table must be equal.
+    Returns the eager outputs."""
+    before = {k: v.clone() for k, v in eng.state.items()}
+    prog.n_chunks.fill_(n)
+    want_state, want = ck.resolve_server_loop(prog.bucket, before, prog.inputs, prog.n_chunks,
+                                              gc_last)
+    launches = fc.FIXPOINT.graph_launches
+    prog.graphs[gc_last].replay()
+    fc.FIXPOINT.graph_launches += n
+    torch.cuda.synchronize()
+    where = (prog.bucket.max_txns, n, gc_last)
+    assert fc.FIXPOINT.graph_launches - launches == n
+    for k in ("commit_bits", "too_old_bits", "overflow", "merged"):
+        if k in want:
+            assert torch.equal(prog.out[k], want[k]), (where, k)
+    for k in want.get("heat", {}):
+        assert torch.equal(prog.out["heat"][k], want["heat"][k]), (where, k)
+    for k in eng.state:
+        assert torch.equal(eng.state[k], want_state[k]), (where, k)
+    return want
+
+
+def load_loop_inputs(prog, rows):
+    for name, t in prog.inputs.items():
+        for c, arrays in enumerate(rows):
+            a = np.asarray(arrays[name])
+            if name in ck.KEY_FIELDS:
+                a = np.ascontiguousarray(a, np.uint32).view(np.int32)
+            t[c].copy_(torch.from_numpy(np.ascontiguousarray(a).reshape(t[c].shape)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("structure", sorted(STRUCTURES))
+def test_loop_replay_equals_eager_loop(card, structure):
+    """Every bucket's loop program, every fill level 1..Q, both GC
+    variants: a replay equals the eager loop on the card (heat on).
+    Tiered: merges fall inside the WHILE body (past chunk 0)."""
+    eng = DeviceLoopEngine(STRUCTURES[structure], ladder=LADDER, queue_slots=LOOP_Q).warmup()
+    assert eng.cfg.heat_buckets == 64
+    rng = random.Random(31)
+    now, body_merges = 100, 0
+    for key, prog in sorted(eng._programs.items()):
+        for n in range(1, LOOP_Q + 1):
+            for gc_last in (False, True):
+                now += 50
+                rows = []
+                for c in range(LOOP_Q):
+                    arrays = synth_batch(rng, prog.bucket, now)
+                    arrays["gc"] = np.asarray(now - 120 if gc_last and c == n - 1 else 0,
+                                              np.int32)
+                    rows.append(arrays)
+                load_loop_inputs(prog, rows)
+                want = loop_replay_vs_eager(prog, eng, n, gc_last)
+                if "merged" in want:
+                    body_merges += int(want["merged"][:n - 1].any())
+                if gc_last:
+                    now -= 120
+    assert eng.perf.captures == 2 * len(eng._programs) == 6
+    assert (body_merges > 0) == (structure == "tiered")
+
+
+@pytest.mark.cuda
+def test_loop_replay_through_an_overflowing_merge_in_the_body(card):
+    """Tiered loop program on a 512-row table fed distinct point writes
+    until a merge inside the WHILE body overflows: replay and eager loop
+    agree on the flag and the truncated table."""
+    cfg = dataclasses.replace(CONFIGS[0], history_structure="tiered", history_runs=2)
+    eng = DeviceLoopEngine(cfg, queue_slots=LOOP_Q).warmup()
+    prog = eng._programs[(cfg.max_txns, -1)]
+    rng = random.Random(13)
+    now = 100
+    for _ in range(40):
+        now += 50
+        rows = []
+        for c in range(LOOP_Q):
+            arrays = synth_batch(rng, cfg, now, pool=10**6)
+            arrays["w_valid"][:] = False
+            rows.append(arrays)
+        load_loop_inputs(prog, rows)
+        want = loop_replay_vs_eager(prog, eng, LOOP_Q, False)
+        if bool(want["overflow"]) and bool(want["merged"][:LOOP_Q - 1].any()):
+            return
+    pytest.fail("no merge inside the WHILE body overflowed the table")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("structure", sorted(STRUCTURES))
+def test_loop_no_captures_after_warmup(card, structure):
+    """warmup() captures 2 graphs per bucket, each with one WHILE node (and
+    under the tiered structure 2 IF nodes, one nested in the WHILE body);
+    steady traffic over every bucket and fill level, range batches
+    included, captures nothing more and reads no loop or merge condition
+    on the host; verdicts equal the oracle's."""
+    whiles, ifs = graph_if.GRAPH_IF.while_nodes, graph_if.GRAPH_IF.nodes
+    eng = DeviceLoopEngine(STRUCTURES[structure], ladder=LADDER, queue_slots=LOOP_Q).warmup()
+    assert eng.perf.captures == 6 and graph_if.GRAPH_IF.while_nodes - whiles == 6
+    assert graph_if.GRAPH_IF.nodes - ifs == (12 if structure == "tiered" else 0)
+    ora = toracle.OracleConflictEngine()
+    batches = point_batches(3, [20, 40, 70, 250, 600, 1700, 30, 900])
+    batches[5][0][7].read_conflict_ranges.append(KeyRange(b"p00010", b"p00090"))
+    reads = (ck.MERGE.host_reads, ck.LOOP.host_reads)
+    for b, (txns, now, oldest) in enumerate(batches):
+        assert [int(v) for v in eng.resolve(txns, now, oldest)] == \
+            [int(v) for v in ora.resolve(txns, now, oldest)], b
+    assert eng.perf.captures == 6
+    assert (ck.MERGE.host_reads, ck.LOOP.host_reads) == reads
+    assert all(v > 0 for v in eng.perf.bucket_hits.values())
+    assert (eng.perf.merges > 0) == (structure == "tiered")
+    assert eng.loop_stats["blocking_syncs"] == 0
+    snap = eng.heat_snapshot()
+    assert snap["batches"] > 0 and snap["hot_ranges"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("structure", sorted(STRUCTURES))
+def test_loop_dispatch_makes_no_host_sync(card, structure):
+    """Slot fill, copies in, replay, copies of the results to the slot's
+    pinned buffers, the event: no synchronizing call until force(); the
+    heat snapshot equals the step engine's on the CPU."""
+    eng = DeviceLoopEngine(STRUCTURES[structure], ladder=LADDER, queue_slots=LOOP_Q).warmup()
+    cpu = TorchConflictEngine(STRUCTURES[structure], device="cpu", ladder=LADDER)
+    ora = toracle.OracleConflictEngine()
+    for txns, now, oldest in point_batches(4, [70, 900, 200, 1500]):
+        plan = eng.columnar_pack(txns, now, oldest)
+        assert plan is not None
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            force = eng.columnar_dispatch(plan)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = [int(v) for v in ora.resolve(txns, now, oldest)]
+        assert [int(v) for v in force()] == want
+        assert [int(v) for v in cpu.resolve(txns, now, oldest)] == want
+    assert eng.loop_stats["blocking_syncs"] == 0
+    assert eng.heat_snapshot() == cpu.heat_snapshot()
+    assert eng.history_stats_snapshot() == cpu.history_stats_snapshot()

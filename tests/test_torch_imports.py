@@ -49,6 +49,8 @@ def test_subprocess_import_loads_no_jax():
     "foundationdb_tpu_torch.pipeline",
     "foundationdb_tpu_torch.pipeline.resolver_pipeline",
     "foundationdb_tpu_torch.native.fastpack",
+    "foundationdb_tpu_torch.core.heatmap",
+    "foundationdb_tpu_torch.ops.device_loop",
 ])
 def test_serving_path_modules_load_no_jax(module):
     """The columnar path's modules, each imported alone in a fresh process
@@ -82,7 +84,8 @@ def imported_roots(path: Path):
 def test_source_scan_finds_no_jax_import():
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
-    for name in ("core/wire.py", "pipeline/resolver_pipeline.py", "native/fastpack.py"):
+    for name in ("core/wire.py", "pipeline/resolver_pipeline.py", "native/fastpack.py",
+                 "core/heatmap.py", "ops/device_loop.py"):
         assert PKG / name in files, name
     for path in files:
         bad = [r for r in imported_roots(path) if r in FORBIDDEN]
@@ -97,3 +100,8 @@ def test_engine_defaults_to_the_card():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             TorchConflictEngine(cfg)
     assert TorchConflictEngine(cfg, device="cpu").state["hkeys"].device.type == "cpu"
+    from foundationdb_tpu_torch.ops.device_loop import DeviceLoopEngine
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            DeviceLoopEngine(cfg)

@@ -327,14 +327,16 @@ def test_resolve_step_stream_matches_jax(mode, runs, rows):
 
 def three_way(cfg, stream, **kw):
     """The port's tiered engine (CPU), the JAX tiered engine and the oracle
-    over one stream: equal verdicts on every batch."""
-    port = TorchConflictEngine(port_cfg(cfg), device="cpu", **kw)
+    over one stream, both engines with heat off: equal verdicts on every
+    batch and equal history stats after it."""
+    port = TorchConflictEngine(port_cfg(cfg), device="cpu", heat_buckets=0, **kw)
     jeng = JaxConflictEngine(cfg, heat_buckets=0, **kw)
     ora = OracleConflictEngine()
     for b, (txns, now, oldest) in enumerate(stream):
         want = ints(ora.resolve(txns, now, oldest))
         assert ints(port.resolve(txns, now, oldest)) == want, b
         assert ints(jeng.resolve(txns, now, oldest)) == want, b
+    assert port.history_stats_snapshot() == jeng.history_stats_snapshot()
     return port, jeng
 
 
@@ -368,7 +370,8 @@ def test_empty_read_at_minimal_key_regression(mode):
 def test_engine_structure_argument_and_stats():
     """history_structure= wins over the config; the stats rows are JAX's
     with heat off (identity rows, zero counters)."""
-    port = TorchConflictEngine(port_cfg(ESMALL), device="cpu", history_structure="tiered")
+    port = TorchConflictEngine(port_cfg(ESMALL), device="cpu", history_structure="tiered",
+                               heat_buckets=0)
     jeng = JaxConflictEngine(ESMALL, heat_buckets=0, history_structure="tiered")
     assert port.history_structure == jeng.history_structure == "tiered"
     assert port.history_stats_snapshot() == jeng.history_stats_snapshot()
