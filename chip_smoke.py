@@ -84,6 +84,23 @@ toolkit. The script
      3, packing inline and on a one-thread executor: verdicts equal serial
      resolve(); txn/s per depth; then the tiered engine and the loop engine
      at depth 1-3 (no blocking sync).
+  11. telemetry phase: the engines above run with device-time sampling
+     off; fresh ones (columnar and loop, monolithic and tiered) run at
+     sample rate 1.0 with spans on, the dispatch under sync debug "error":
+     verdicts equal the off engines' on every batch, one ledger row per
+     program (two captured graphs each) with its capture ms and peak
+     bytes, one CUDA-event sample and one engine.device_time span per
+     dispatch unit, no blocking sync; the spans' ms per batch beside the
+     phase's clocks, the sampled device ms per chunk beside the profiler's
+     kernel ms; a columnar engine at the default rate (1/16); txn/s of
+     off, default and on in turns, three times; then the columnar and loop
+     engines' sampled intervals against a torch.profiler trace of the same
+     pass: the kernels, copies and idle time inside them, and where the
+     idle time sits;
+  12. scheduled pipeline phase: ResolverPipeline at depth 2 with a
+     BudgetBatcher and a ConflictScheduler built with resolver_sched "on",
+     over skewed traffic (pre-aborts retried at a fresh snapshot): the
+     dispatched journal replays equal through a CPU engine and the oracle.
 
 Each path's kernel launches are counted from 0 just before it and read
 just after (a captured graph's fixpoint launches are counted at each
@@ -928,13 +945,15 @@ def d2h_chunk_bytes(outputs):
 def columnar_engine_phase(ck, fc, he, cfg, batches, structure, references, heat_buckets=None):
     """TorchConflictEngine() on the card with the bucket ladder and chunk
     scans, the given history structure and heat buckets (None: the default,
-    64), warmed up; every point-only batch through serve(). Tiered:
+    64), device-time sampling off, warmed up; every point-only batch
+    through serve(). Tiered:
     warmup() captures one IF node per step, merges run inside replays (at
     least twice) and the merge predicate is never read on the host."""
     import torch
 
     eng = he.TorchConflictEngine(cfg, ladder=LADDER, scan_sizes=SCANS,
-                                 history_structure=structure, heat_buckets=heat_buckets)
+                                 history_structure=structure, heat_buckets=heat_buckets,
+                                 device_time_sample_rate=0.0)
     cfg = eng.cfg
     tiered = eng.history_structure == "tiered"
     warm = warmed(eng)
@@ -1005,7 +1024,8 @@ def columnar_engine_phase(ck, fc, he, cfg, batches, structure, references, heat_
 
 def loop_engine_phase(ck, fc, dl, cfg, batches, structure, references):
     """DeviceLoopEngine() on the card with the bucket ladder, the given
-    history structure and the default heat, warmed up: 2 graphs per bucket,
+    history structure, the default heat and device-time sampling off,
+    warmed up: 2 graphs per bucket,
     each with one WHILE node (and under the tiered structure 2 IF nodes,
     one nested in the WHILE body); every point-only batch through serve(),
     no blocking sync. Then the top bucket's program alone: the card's trace
@@ -1013,7 +1033,8 @@ def loop_engine_phase(ck, fc, dl, cfg, batches, structure, references):
     and fill Q; kernel ms per replay at each fill."""
     import torch
 
-    eng = dl.DeviceLoopEngine(cfg, ladder=LADDER, history_structure=structure)
+    eng = dl.DeviceLoopEngine(cfg, ladder=LADDER, history_structure=structure,
+                              device_time_sample_rate=0.0)
     cfg = eng.cfg
     tiered = eng.history_structure == "tiered"
     Q = eng.queue_slots
@@ -1029,9 +1050,9 @@ def loop_engine_phase(ck, fc, dl, cfg, batches, structure, references):
     fills = []
     dispatch = eng._dispatch_unit
 
-    def recording(bucket, per_chunks, packs=None):
+    def recording(bucket, per_chunks, packs=None, **kw):
         fills.append(len(per_chunks))
-        return dispatch(bucket, per_chunks, packs)
+        return dispatch(bucket, per_chunks, packs, **kw)
 
     eng._dispatch_unit = recording
     stats0 = dict(eng.loop_stats)
@@ -1246,6 +1267,392 @@ def pipeline_phase(fc, pl, eng, batches, serial, runs=PIPELINE_RUNS, executors=(
     check(eng.perf.captures == captures, "the pipeline captured after warmup()")
     out["launches"] = launches
     return out
+
+
+TELEMETRY_TURNS = 3
+#: the telemetry phase's engines: key -> (family, history structure)
+TELEMETRY_ENGINES = {"columnar": ("columnar", "monolithic"),
+                     "tiered_columnar": ("columnar", "tiered"),
+                     "device_loop": ("loop", "monolithic"),
+                     "tiered_device_loop": ("loop", "tiered")}
+#: the telemetry engines whose sampled intervals are held against the
+#: card's trace of the same pass
+TRACED_SAMPLES = ("columnar", "device_loop")
+SCHED_TICKS = 24
+SCHED_ARRIVALS = 300
+SCHED_HOT_KEYS = 64
+
+
+def span_ms_per_batch(spans, versions):
+    """Mean ms per batch of each engine and pipeline span over the batches'
+    trace ids (the batch versions), from the program's own span records."""
+    by = spans.durations_by_trace()
+    names = sorted({s["Name"] for s in spans.spans})
+    return {name: sum(by.get(v, {}).get(name, 0.0) for v in versions) / len(versions) * 1e3
+            for name in names}
+
+
+def ledger_rows(eng):
+    return [{k: r[k] for k in ("bucket", "n_chunks", "kind", "duration_ms", "peak_bytes")}
+            for r in eng.perf_ledger.rows()]
+
+
+def telemetry_engine_phase(ck, fc, he, dl, trace, cfg, batches, family, structure, serial):
+    """A fresh engine of `family` ("columnar" | "loop") and `structure` at
+    device-time sample rate 1.0, warmed up: one perf-ledger row per
+    program, two captured graphs each, every row with its capture ms and a
+    peak-bytes reading. Then the traffic through serve() with spans on:
+    verdicts equal `serial` (the same engine with spans and sampling off)
+    on every batch, every dispatch unit timed with CUDA events (one
+    sample and one engine.device_time span each), no blocking sync on the
+    loop; the engine spans' ms per batch beside serve()'s clocks."""
+    kw = dict(ladder=LADDER, history_structure=structure, device_time_sample_rate=1.0)
+    eng = (he.TorchConflictEngine(cfg, scan_sizes=SCANS, **kw) if family == "columnar"
+           else dl.DeviceLoopEngine(cfg, **kw))
+    label = f"{structure} {family} (spans on, sampling 1.0)"
+    warm = warmed(eng)
+    rows = eng.perf_ledger.rows()
+    check(len(rows) == len(eng._programs) == eng.perf.compiles
+          and eng.perf.captures == 2 * len(rows),
+          f"the {label} ledger holds {len(rows)} rows for {len(eng._programs)} programs and "
+          f"{eng.perf.captures} graphs")
+    check(all(r["kind"] == "warmup" and r["duration_ms"] > 0 and (r["peak_bytes"] or 0) > 0
+              for r in rows), f"a {label} ledger row lacks its capture time or bytes: {rows}")
+    stats0 = dict(getattr(eng, "loop_stats", {}))
+    spans = trace.g_spans
+    spans.clear()
+    spans.enabled = True
+    try:
+        _, served = serve(ck, fc, eng, batches, label, [
+            ("the engine with spans and sampling off", lambda b, *_: serial[b])])
+    finally:
+        spans.enabled = False
+    units = sum(eng.perf.scan_dispatches.values())
+    samples = sum(d["samples"] for d in eng.perf.device_time.values())
+    device_spans = spans.by_name("engine.device_time")
+    check(samples == units == len(device_spans) > 0,
+          f"the {label}: {samples} samples and {len(device_spans)} device_time spans for "
+          f"{units} dispatch units")
+    out = dict(served, **warm)
+    out.update({
+        "units": units, "samples": samples, "captures": eng.perf.captures,
+        "span_ms_per_batch": span_ms_per_batch(spans, [now for _, now, _ in batches]),
+        "sampled_device_ms_per_chunk": {str(b): ms for b, ms in
+                                        eng.perf.device_time_ms_by_bucket().items()},
+        "ledger_rows": ledger_rows(eng),
+        "ledger_peak_bytes_sum": sum(r["peak_bytes"] or 0 for r in rows),
+        "ledger_capture_ms_sum": sum(r["duration_ms"] for r in rows),
+    })
+    spans.clear()
+    if stats0:
+        blocking = eng.loop_stats["blocking_syncs"] - stats0["blocking_syncs"]
+        check(blocking == 0, f"the {label} drained with {blocking} blocking syncs")
+        out["blocking_syncs"] = blocking
+    return eng, out
+
+
+def telemetry_turns(trace, engines, batches, serial):
+    """columnar_timing of each (label, engine, spans on) in turns,
+    TELEMETRY_TURNS times: txn/s and per-batch clocks per label."""
+    turns = {label: [] for label, _, _ in engines}
+    for _ in range(TELEMETRY_TURNS):
+        for label, eng, spans_on in engines:
+            trace.g_spans.enabled = spans_on
+            try:
+                turns[label].append(columnar_timing(eng, batches, serial))
+            finally:
+                trace.g_spans.enabled = False
+                trace.g_spans.clear()
+    return turns
+
+
+def union_us(spans):
+    """Length of the union of [start, end) intervals."""
+    total, lo, hi = 0.0, None, None
+    for s, e in sorted(spans):
+        if hi is None or s > hi:
+            total += 0.0 if hi is None else hi - lo
+            lo, hi = s, e
+        else:
+            hi = max(hi, e)
+    return total + (0.0 if hi is None else hi - lo)
+
+
+def sampled_vs_trace(fc, eng, batches, serial):
+    """What the sampled CUDA events of `eng` (rate 1.0) hold: the traffic
+    once through the engine, then once more under torch.profiler with
+    each batch's dispatch and force in a record_function window. Per
+    batch: the sampled ms (engine.device_time, summed over the batch's
+    units) of both passes, and from the trace the device activity inside
+    the window: kernels, copies, and their union (busy). The traced pass's
+    sampled ms less busy is time the stream sat idle between a unit's
+    start and end events. A trace that lost fixpoint kernels is taken
+    again, 3 traces in all; verdicts equal the first pass's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    tag = "chip_smoke.batch"
+
+    def one_pass():
+        eng.base = eng.oldest_version = 0
+        eng.clear(0)
+        torch.cuda.synchronize()
+        sampled = []
+        for b, (txns, now, oldest) in enumerate(batches):
+            plan = eng.columnar_pack(txns, now, oldest)
+            m0 = sum(d["ms_total"] for d in eng.perf.device_time.values())
+            with record_function(f"{tag}{b}"):
+                got = [int(v) for v in eng.columnar_dispatch(plan)()]
+            check(got == serial[b], f"traced pass, batch {b}: verdicts differ from the first pass")
+            sampled.append(sum(d["ms_total"] for d in eng.perf.device_time.values()) - m0)
+        torch.cuda.synchronize()
+        return sampled
+
+    untraced = one_pass()
+    for attempt in range(1, 4):
+        fc.FIXPOINT.reset_counts()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            traced = one_pass()
+        windows, device = {}, []
+        for e in prof.events():
+            if e.name.startswith(tag):
+                # the window on the host (its device twin is no activity)
+                if e.device_type == DeviceType.CPU:
+                    windows[int(e.name[len(tag):])] = (e.time_range.start, e.time_range.end)
+            elif e.device_type == DeviceType.CUDA:
+                device.append((e.time_range.start, e.time_range.end, e.name))
+        fixpoints = sum(FIXPOINT_KERNEL in n for _, _, n in device)
+        if fixpoints == fc.FIXPOINT.graph_launches:
+            break
+    rows, inside = [], 0
+    for b, (txns, _, _) in enumerate(batches):
+        w0, w1 = windows[b]
+        ev = [(s, e, n) for s, e, n in device if s >= w0 and e <= w1]
+        inside += len(ev)
+        copies = [(s, e) for s, e, n in ev if n.startswith(("Memcpy", "Memset"))]
+        kernels = [(s, e) for s, e, n in ev if not n.startswith(("Memcpy", "Memset"))]
+        spans = [(s, e) for s, e, _ in ev]
+        busy = union_us(spans) / 1e3
+        row = {"txns": len(txns), "sampled_ms": untraced[b], "traced_sampled_ms": traced[b],
+               "kernel_ms": union_us(kernels) / 1e3, "copy_ms": union_us(copies) / 1e3,
+               "busy_ms": busy, "idle_ms": traced[b] - busy,
+               "idle_share": 1 - busy / traced[b] if traced[b] else None}
+        if kernels:
+            # where the idle time sits: before the first kernel (the copies
+            # in and the graph launch), among the kernels, after the last
+            # (the copies out); the rest lies outside the first and last
+            # device operation (issuing the first copy after the start event)
+            d0, d1 = min(s for s, _ in spans), max(e for _, e in spans)
+            k0, k1 = min(s for s, _ in kernels), max(e for _, e in kernels)
+            for name, lo, hi in (("idle_before_kernels_ms", d0, k0),
+                                 ("idle_among_kernels_ms", k0, k1),
+                                 ("idle_after_kernels_ms", k1, d1)):
+                clipped = [(max(s, lo), min(e, hi)) for s, e in spans if e > lo and s < hi]
+                row[name] = (hi - lo - union_us(clipped)) / 1e3
+            row["outside_device_ops_ms"] = traced[b] - (d1 - d0) / 1e3
+        rows.append(row)
+    total = {k: sum(r.get(k, 0.0) for r in rows) for k in (
+        "sampled_ms", "traced_sampled_ms", "kernel_ms", "copy_ms", "busy_ms", "idle_ms",
+        "idle_before_kernels_ms", "idle_among_kernels_ms", "idle_after_kernels_ms",
+        "outside_device_ops_ms")}
+    total["idle_share"] = (total["idle_ms"] / total["traced_sampled_ms"]
+                           if total["traced_sampled_ms"] else None)
+    return {"batches": rows, "total": total, "traces": attempt,
+            "trace_fixpoints": fixpoints, "fixpoint_launches": fc.FIXPOINT.graph_launches,
+            "device_events": len(device), "device_events_outside_windows": len(device) - inside}
+
+
+def skewed_arrivals(rng, n, now):
+    """Point-only arrivals on skewed keys: half read-modify-write one of
+    SCHED_HOT_KEYS hot keys, half read 2 and write 2 of the rest of the
+    pool; snapshots up to 2 batches behind."""
+    from foundationdb_tpu_torch.core.types import CommitTransaction, KeyRange
+
+    lag = rng.integers(0, 2 * VERSION_STEP, size=n)
+    hot = rng.random(n) < 0.5
+    hot_key = rng.integers(0, SCHED_HOT_KEYS, size=n)
+    cold = rng.integers(SCHED_HOT_KEYS, POOL_KEYS, size=(n, 4))
+    out = []
+    for i in range(n):
+        t = CommitTransaction(read_snapshot=int(max(0, now - lag[i])))
+        keys = [b"h/%014d" % hot_key[i]] * 2 if hot[i] else [b"h/%014d" % k for k in cold[i]]
+        for j, k in enumerate(keys):
+            (t.read_conflict_ranges if j < len(keys) // 2 else t.write_conflict_ranges).append(
+                KeyRange(k, k + b"\x00"))
+        out.append(t)
+    return out
+
+
+def scheduled_pipeline_phase(fc, he, pl, knobs, oracle_mod, trace, eng, cfg, rng):
+    """ResolverPipeline at depth 2 over `eng` with a BudgetBatcher over its
+    ladder and a ConflictScheduler built with the `resolver_sched` knob
+    "on" (fed by the engine's heat witnesses), spans on: SCHED_TICKS ticks
+    of skewed arrivals, each tick's select() sized by the batcher's target,
+    pre-aborted txns retried at a fresh snapshot. The dispatched journal
+    replays equal through a CPU engine and the oracle, batch by batch."""
+    from foundationdb_tpu_torch.core.types import CommitTransaction, KeyRange
+
+    knobs.SERVER_KNOBS.set_knob("resolver_sched", "on")
+    try:
+        sched = pl.ConflictScheduler(heat=eng.heat)
+    finally:
+        knobs.SERVER_KNOBS.set_knob("resolver_sched", "")
+    check(sched.enabled, "resolver_sched=on left the scheduler off")
+    batcher = pl.BudgetBatcher([b.max_txns for b in eng.buckets])
+    eng.base = eng.oldest_version = 0
+    eng.clear(0)
+    fc.FIXPOINT.reset_counts()
+    pipe = pl.ResolverPipeline(eng, depth=2, batcher=batcher, conflict_sched=sched)
+    pending, now, journal, handles, caps = [], 10_000, [], [], []
+    trace.g_spans.clear()
+    trace.g_spans.enabled = True
+    t0 = time.perf_counter()
+    try:
+        for _ in range(SCHED_TICKS):
+            now += VERSION_STEP
+            oldest = max(0, now - GC_LAG_BATCHES * VERSION_STEP)
+            pending.extend(skewed_arrivals(rng, SCHED_ARRIVALS, now))
+            caps.append(pipe.suggested_batch_txns())
+            plan = sched.select(pending, caps[-1])
+            retries = []
+            for txn, _ in plan.preaborts:
+                r = CommitTransaction(read_snapshot=now)
+                r.read_conflict_ranges.extend(KeyRange(x.begin, x.end)
+                                              for x in txn.read_conflict_ranges)
+                r.write_conflict_ranges.extend(KeyRange(x.begin, x.end)
+                                               for x in txn.write_conflict_ranges)
+                retries.append(r)
+            pending = plan.remaining + retries
+            if plan.dispatch:
+                journal.append((list(plan.dispatch), now, oldest))
+                handles.append(pipe.submit(plan.dispatch, now, oldest))
+        got = [[int(v) for v in h.result()] for h in handles]
+        wall = time.perf_counter() - t0
+    finally:
+        trace.g_spans.enabled = False
+    launches = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+    check(launches > 0 and fc.FIXPOINT.plain_cuda_calls == 0,
+          f"the scheduled pipeline: {launches} kernel launches")
+    forces = trace.g_spans.by_name("pipeline.force")
+    check(len(forces) == len(journal), f"{len(forces)} pipeline.force spans for "
+          f"{len(journal)} batches")
+    trace.g_spans.clear()
+    cpu = he.TorchConflictEngine(cfg, device="cpu", ladder=LADDER, scan_sizes=SCANS)
+    ora = oracle_mod.OracleConflictEngine()
+    for b, (txns, v, old) in enumerate(journal):
+        want = [int(x) for x in ora.resolve(txns, v, old)]
+        check(got[b] == want, f"scheduled pipeline batch {b}: verdicts differ from the oracle's")
+        check([int(x) for x in cpu.resolve(txns, v, old)] == want,
+              f"scheduled pipeline batch {b}: the CPU engine differs from the oracle")
+    c = sched.counters
+    check(c["preaborts"] + c["laned"] > 0, f"the scheduler neither pre-aborted nor laned: {c}")
+    n = sum(len(t) for t, _, _ in journal)
+    return {"batches": len(journal), "txns": n, "txn_per_s": n / wall, "launches": launches,
+            "caps": sorted(set(caps)), "counters": dict(c),
+            "ewma_ms": {f"{k[0]}:{k[1]}:{k[2]}": v for k, v in batcher.ewma_ms.items()},
+            "target": batcher.target_batch_txns(2), "budget_ms": batcher.budget_ms}
+
+
+def telemetry_phases(ck, fc, he, dl, pl, oracle_mod, card, engine_cfg, batches, rng, phases):
+    """The telemetry phases at full width. `phases` maps each of "columnar",
+    "tiered_columnar", "device_loop", "tiered_device_loop" to the earlier
+    phase's (engine, verdicts per batch, report), that engine with spans
+    and sampling off. Per family and structure: a fresh engine at sample
+    rate 1.0 with spans on (telemetry_engine_phase); the monolithic
+    columnar engine at the default rate; the engines' txn/s in turns
+    (off, default, on); then the scheduled pipeline. Returns (telemetry
+    results, scheduled pipeline results)."""
+    from foundationdb_tpu_torch.core import knobs, perfledger, trace
+
+    tele, pairs = {}, {}
+    device_refs = {key: rep.get("program_device_ms") or {
+        f"{engine_cfg.max_txns}x{k}": v for k, v in rep["top_replay_device_ms"].items()}
+        for key, (_, _, rep) in phases.items()}
+    for key, (family, structure) in TELEMETRY_ENGINES.items():
+        off_eng, sv, off_rep = phases[key]
+        t0 = time.perf_counter()
+        on_eng, tm = telemetry_engine_phase(ck, fc, he, dl, trace, engine_cfg, batches, family,
+                                            structure, sv)
+        pairs[key] = (on_eng, off_eng, sv)
+        tele[key] = tm
+        spans = tm["span_ms_per_batch"]
+        print(f"telemetry phase, {key} [{card}]: spans on + sampling 1.0 match spans and "
+              f"sampling off on all {tm['batches']} batches; {tm['samples']} samples for "
+              f"{tm['units']} dispatch units (CUDA events); {len(tm['ledger_rows'])} ledger rows "
+              f"for {tm['captures']} graphs, capture ms {tm['ledger_capture_ms_sum']:.1f} (warmup "
+              f"{tm['warmup_s']:.2f} s), peak bytes sum {tm['ledger_peak_bytes_sum']} against "
+              f"{tm['memory_reserved_after_warmup'] - tm['memory_reserved_before_warmup']} B "
+              f"reserved by warmup; span ms/batch "
+              f"{ {k: round(v, 4) for k, v in spans.items()} } beside clocks pack "
+              f"{tm['pack_ms_per_batch']:.4f} dispatch {tm['dispatch_ms_per_batch']:.4f} force "
+              f"{tm['force_ms_per_batch']:.4f} (off: {off_rep['pack_ms_per_batch']:.4f} / "
+              f"{off_rep['dispatch_ms_per_batch']:.4f} / {off_rep['force_ms_per_batch']:.4f}); "
+              f"sampled device ms per chunk by bucket {tm['sampled_device_ms_per_chunk']} beside "
+              f"the profiler's kernel ms per replay "
+              f"{ {k: round(v, 4) for k, v in device_refs[key].items()} }"
+              + (f"; {tm['blocking_syncs']} blocking syncs" if "blocking_syncs" in tm else "")
+              + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+        print(f"  ledger rows, {key} [{card}]: " + ", ".join(
+            f"{r['bucket']}x{r['n_chunks']} {r['duration_ms']:.1f} ms {r['peak_bytes']} B"
+            for r in tm["ledger_rows"]), flush=True)
+    # the default sample rate (1/16) on the monolithic columnar engine
+    t0 = time.perf_counter()
+    deng = he.TorchConflictEngine(engine_cfg, ladder=LADDER, scan_sizes=SCANS)
+    dwarm = warmed(deng)
+    _, dserved = serve(ck, fc, deng, batches, "monolithic columnar (default sampling)",
+                       [("spans and sampling off", lambda b, *_: phases["columnar"][1][b])])
+    d_units = sum(deng.perf.scan_dispatches.values())
+    d_samples = sum(d["samples"] for d in deng.perf.device_time.values())
+    check(d_samples == d_units // perfledger.sample_every_from_rate(None),
+          f"the default rate took {d_samples} samples of {d_units} units")
+    tele["default_rate"] = dict(dserved, **dwarm, units=d_units, samples=d_samples)
+    print(f"telemetry phase, columnar at the default sample rate [{card}]: matches spans and "
+          f"sampling off on all {dserved['batches']} batches; {d_samples} samples for {d_units} "
+          f"dispatch units; {dserved['txn_per_s']:.0f} txn/s ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    for key, (on_eng, off_eng, sv) in pairs.items():
+        engines = [("spans off, sampling 0", off_eng, False)]
+        if key == "columnar":
+            engines.append(("spans off, sampling 1/16", deng, False))
+        engines.append(("spans on, sampling 1.0", on_eng, True))
+        tele[key]["turns"] = telemetry_turns(trace, engines, batches, sv)
+        print(f"  telemetry turns, {key} [{card}]: " + "; ".join(
+            f"{label}: " + " / ".join(f"{r['txn_per_s']:.0f}" for r in runs) + " txn/s"
+            for label, runs in tele[key]["turns"].items())
+            + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    for key in TRACED_SAMPLES:
+        t0 = time.perf_counter()
+        svt = tele[key]["sampled_vs_trace"] = sampled_vs_trace(fc, pairs[key][0], batches,
+                                                               pairs[key][2])
+        tot = svt["total"]
+        print(f"  sampled events vs the trace, {key} [{card}]: sampled ms per pass "
+              f"{tot['sampled_ms']:.4f} untraced, {tot['traced_sampled_ms']:.4f} traced; in the "
+              f"traced batches' windows the card ran kernels {tot['kernel_ms']:.4f} ms, copies "
+              f"{tot['copy_ms']:.4f} ms, busy {tot['busy_ms']:.4f} ms: idle "
+              f"{tot['idle_ms']:.4f} ms ({tot['idle_share']:.4f}) inside the sampled intervals: "
+              f"{tot['idle_before_kernels_ms']:.4f} before the first kernel, "
+              f"{tot['idle_among_kernels_ms']:.4f} among the kernels, "
+              f"{tot['idle_after_kernels_ms']:.4f} after the last, "
+              f"{tot['outside_device_ops_ms']:.4f} outside the first and last operation; "
+              f"per batch (txns: sampled untraced / traced / busy / kernels ms) " + ", ".join(
+                  f"{r['txns']}: {r['sampled_ms']:.3f} / {r['traced_sampled_ms']:.3f} / "
+                  f"{r['busy_ms']:.3f} / {r['kernel_ms']:.3f}" for r in svt["batches"])
+              + f"; trace {svt['traces']} of 3, {svt['trace_fixpoints']} of "
+              f"{svt['fixpoint_launches']} fixpoint kernels, {svt['device_events']} device "
+              f"events, {svt['device_events_outside_windows']} outside the windows "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    t0 = time.perf_counter()
+    spp = scheduled_pipeline_phase(fc, he, pl, knobs, oracle_mod, trace, pairs["columnar"][0],
+                                   engine_cfg, rng)
+    print(f"scheduled pipeline phase [{card}]: depth 2, BudgetBatcher (budget "
+          f"{spp['budget_ms']} ms, batch caps {spp['caps']}, target {spp['target']}) and "
+          f"resolver_sched=on over skewed traffic: {spp['txns']} txns in {spp['batches']} "
+          f"batches replay equal through the CPU engine and the oracle; {spp['txn_per_s']:.0f} "
+          f"txn/s; scheduler {spp['counters']}; EWMA ms "
+          f"{ {k: round(v, 4) for k, v in spp['ewma_ms'].items()} }; {spp['launches']} kernel "
+          f"launches ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return tele, spp
 
 
 def main(argv=None) -> int:
@@ -1524,13 +1931,20 @@ def main(argv=None) -> int:
           + f"; {lpp['launches']} kernel launches; drains {lpp['drains']} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    tele, spp = telemetry_phases(ck, fc, he, dl, pl, oracle_mod, card, engine_cfg, batches, rng, {
+        "columnar": (eng, serial, colp), "tiered_columnar": (teng, tserial, tcol),
+        "device_loop": (leng, lserial, lp), "tiered_device_loop": (tleng, tlserial, tlp)})
+    results["telemetry_phase"] = tele
+    results["scheduled_pipeline_phase"] = spp
+
     kernels = {"kernels": [{
         "name": "commit_fixpoint",
         "route": "cuda",
         "source": "foundationdb_tpu_torch/csrc/fixpoint.cu",
         "replaces": "foundationdb_tpu/ops/fixpoint_pallas.py:336",
         "launches": sum(r["launches"] for r in (ep, gp, colp, colp0, pp, tep, tcol, tpp, lp, tlp,
-                                                lpp)),
+                                                lpp, *(tele[k] for k in TELEMETRY_ENGINES),
+                                                tele["default_rate"], spp)),
         "launches_by_path": {"engine_general_router_graph": ep["graph_launches"],
                              "engine_general_router_eager": ep["eager_launches"],
                              "graph_step": gp["launches"], "columnar_engine": colp["launches"],
@@ -1542,7 +1956,14 @@ def main(argv=None) -> int:
                              "columnar_engine_heat_off": colp0["launches"],
                              "device_loop": lp["launches"],
                              "tiered_device_loop": tlp["launches"],
-                             "device_loop_pipeline": lpp["launches"]},
+                             "device_loop_pipeline": lpp["launches"],
+                             "telemetry_columnar": tele["columnar"]["launches"],
+                             "telemetry_tiered_columnar": tele["tiered_columnar"]["launches"],
+                             "telemetry_device_loop": tele["device_loop"]["launches"],
+                             "telemetry_tiered_device_loop":
+                                 tele["tiered_device_loop"]["launches"],
+                             "telemetry_default_rate": tele["default_rate"]["launches"],
+                             "scheduled_pipeline": spp["launches"]},
         "mismatches": 0,
         "max_abs_err": 0,
         "ms": kp["kernel_ms"],

@@ -1,9 +1,10 @@
 """Decaying keyspace-heat aggregator: the host half of the resolver-state
 observability layer.
 
-Port of ``foundationdb_tpu/core/heatmap.py``: the same class and read model;
-the JAX package's knob reads are the module constants below, equal to the
-knob defaults. The device side (`ops/conflict_kernel.heat_of`) emits one small packed
+Port of ``foundationdb_tpu/core/heatmap.py``: the same class, read model
+and knob reads (`resolver_heat_buckets`, `resolver_heat_decay`,
+`resolver_heat_split_shards`, `resolver_heat_split_hysteresis`). The device
+side (`ops/conflict_kernel.heat_of`) emits one small packed
 aggregate per resolved batch — a read/write/conflict histogram over B
 bucket-boundary keys sampled from the interval table, verdict counts,
 table occupancy, GC-reclaimed rows, and a first-witness abort attribution
@@ -39,14 +40,6 @@ import numpy as np
 LANE_READS, LANE_WRITES, LANE_CONFLICTS = 0, 1, 2
 #: counts lanes (ops/conflict_kernel.HEAT_COUNT_LANES)
 C_COMMITTED, C_CONFLICTS, C_TOO_OLD, C_RECLAIMED = 0, 1, 2, 3
-
-#: the JAX package's knob defaults (core/knobs.py): histogram buckets per
-#: step, per-batch decay of the range weights, shards the split points are
-#: proposed for, and the split-point hysteresis
-DEFAULT_HEAT_BUCKETS = 64
-HEAT_DECAY = 0.98
-SPLIT_SHARDS = 8
-SPLIT_HYSTERESIS = 0.05
 
 # the one boundary-key renderer (printable ASCII as text, else 0x-hex),
 # shared with the shard map's report dicts
@@ -470,7 +463,10 @@ class KeyRangeHeatAggregator:
 
     @staticmethod
     def _split_hysteresis() -> float:
-        return SPLIT_HYSTERESIS
+        from .knobs import SERVER_KNOBS
+
+        return float(getattr(SERVER_KNOBS,
+                             "resolver_heat_split_hysteresis", 0.05))
 
     def split_balance(self, shards: Optional[int] = None,
                       splits: Optional[Sequence[bytes]] = None) -> List[float]:
@@ -498,7 +494,9 @@ class KeyRangeHeatAggregator:
 
     @staticmethod
     def default_split_shards() -> int:
-        return SPLIT_SHARDS
+        from .knobs import SERVER_KNOBS
+
+        return int(getattr(SERVER_KNOBS, "resolver_heat_split_shards", 8))
 
     # -- snapshots -----------------------------------------------------------
     def occupancy_frac(self) -> float:
@@ -550,15 +548,26 @@ class KeyRangeHeatAggregator:
         }
 
 
+def heat_buckets_from_knobs() -> int:
+    """The `resolver_heat_buckets` knob: device-side histogram buckets per
+    resolve step; 0 disables the whole layer (no heat outputs in any
+    program, no aggregator, nothing allocated)."""
+    from .knobs import SERVER_KNOBS
+
+    return int(getattr(SERVER_KNOBS, "resolver_heat_buckets", 0) or 0)
+
+
 def aggregator_for(cfg, n_shards: int = 1) -> Optional[KeyRangeHeatAggregator]:
     """Aggregator for an engine's KernelConfig, or None when heat is off.
     `n_shards` scales the capacity gauge: each key-range shard owns a
     capacity-H table, and merge_shards sums their occupancies."""
     if getattr(cfg, "heat_buckets", 0) <= 0:
         return None
+    from .knobs import SERVER_KNOBS
+
     return KeyRangeHeatAggregator(
         key_words=cfg.key_words,
         capacity=cfg.capacity * max(1, n_shards),
         buckets=cfg.heat_buckets,
-        decay=HEAT_DECAY,
+        decay=float(getattr(SERVER_KNOBS, "resolver_heat_decay", 0.98)),
     )

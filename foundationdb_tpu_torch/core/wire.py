@@ -1,10 +1,12 @@
 """Columnar conflict-range wire blocks: the resolver's hot input format.
 
-Port of the conflict-wire part of ``foundationdb_tpu/core/wire.py`` (the
-record codec above it is not needed by the port). Each transaction's
-conflict ranges travel as one compact little-endian block, so the engine's
-columnar path turns a whole batch into device arrays with two native passes
-(``csrc/fastpack.c``) instead of per-range Python objects:
+Port of the conflict-wire part of ``foundationdb_tpu/core/wire.py``, and
+of its record registry (`register_record`, which core/trace.py registers
+its TraceContext with); the record codec itself is not ported yet. Each
+transaction's conflict ranges travel as one compact little-endian block,
+so the engine's columnar path turns a whole batch into device arrays with
+two native passes (``csrc/fastpack.c``) instead of per-range Python
+objects:
 
   [u32 n_read][u32 n_write]
   then n_read read ranges followed by n_write write ranges, each:
@@ -16,8 +18,20 @@ columnar path turns a whole batch into device arrays with two native passes
 from __future__ import annotations
 
 import struct
+from typing import Dict, Type
 
 from .types import is_point_range
+
+#: named records: wire name -> dataclass
+_RECORDS: Dict[str, Type] = {}
+
+
+def register_record(cls: Type, name: str = "") -> Type:
+    """Register a dataclass for named-record encoding (call at module
+    import from the defining module). Field names are the schema."""
+    _RECORDS[name or cls.__name__] = cls
+    return cls
+
 
 _KIND_POINT = 0
 _KIND_RANGE = 1

@@ -33,6 +33,20 @@ drain_loop() blocks until every in-flight slot drained; clear(), the
 split-step long-key path and run snapshots call it first, so a caller never
 reads or resets the table under a program still in flight.
 
+Telemetry: the engine registers its loop gauges with the hub
+(`loop.<label>.*`); a sampled dispatch unit's ticket carries its stamp and,
+on the card, two timing events around its copies and replay (an
+interval on the stream: device work and the time the stream idles while
+the host issues it), and the sample is recorded where the drain finishes
+the ticket (poll() or _finish, once Event.query() is true): no sync of
+its own.
+
+The `resolver_device_loop` knob ("" | "on" | "pallas") selects this engine
+as the default single-card mode (host_engine.default_engine_mode). In the
+JAX package "pallas" also bakes its Pallas fixpoint into the loop bodies;
+the port's loop always runs the CUDA fixpoint on the card, so "on" and
+"pallas" select the same engine.
+
 Exactness: the loop body is resolve_step, and decode_status_bits is the
 same function of (committed, t_too_old) as conflict_kernel.status_of, so
 verdicts equal the step engine's and the oracle's
@@ -47,11 +61,32 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core import telemetry
+from ..core.knobs import SERVER_KNOBS
 from ..core.types import TransactionCommitResult, Version
 from . import conflict_kernel as ck
 from . import fixpoint_cuda, graph_if
 from .conflict_kernel import KernelConfig
 from .host_engine import COLD_FIELDS, HOT_FIELDS, TorchConflictEngine, input_shapes
+
+#: legal values of the `resolver_device_loop` knob: "" (off — step
+#: dispatch), "on" and "pallas" (the loop engine; both run the CUDA
+#: fixpoint on the card)
+DEVICE_LOOP_MODES = ("", "on", "pallas")
+
+
+def device_loop_requested() -> bool:
+    """True iff the `resolver_device_loop` knob asks for the loop engine."""
+    return bool(_loop_knob())
+
+
+def _loop_knob() -> str:
+    raw = str(getattr(SERVER_KNOBS, "resolver_device_loop", "") or "").strip()
+    if raw not in DEVICE_LOOP_MODES:
+        raise ValueError(
+            f"unknown resolver_device_loop mode {raw!r}; expected one of "
+            f"{DEVICE_LOOP_MODES}")
+    return raw
 
 
 def decode_status_bits(commit_words: np.ndarray, too_words: np.ndarray,
@@ -75,14 +110,20 @@ class _LoopTicket:
     """One dispatched queue slot's place in the result ring."""
 
     __slots__ = ("slot", "event", "n_txns", "n_chunks", "heat_base", "heat_version",
-                 "status", "overflow", "done")
+                 "status", "overflow", "done", "sample", "timing")
 
     def __init__(self, slot: "_LoopSlot", event: Optional["torch.cuda.Event"], n_txns: int,
-                 n_chunks: int, heat_base: int = 0, heat_version=None):
+                 n_chunks: int, heat_base: int = 0, heat_version=None, sample=None,
+                 timing=None):
         self.slot = slot
         #: recorded after the copies of the results to the slot's pinned
         #: buffers (None on the CPU, where they are there at once)
         self.event = event
+        #: a sampled unit's stamp (_dispatch_sampled) or None, and on the
+        #: card its (start, end) timing events, recorded before the copies
+        #: in and after the copies out (so done once `event` is)
+        self.sample = sample
+        self.timing = timing
         self.n_txns = n_txns
         self.n_chunks = n_chunks
         self.heat_base = heat_base
@@ -249,13 +290,17 @@ class _LoopProgram:
         self.graphs[gc_last] = graph
         eng.perf.captures += 1
 
-    def launch(self, slot: _LoopSlot, n: int, gc_last: bool) -> Optional["torch.cuda.Event"]:
+    def launch(self, slot: _LoopSlot, n: int, gc_last: bool,
+               timing=None) -> Optional["torch.cuda.Event"]:
         """Run the program on the first n chunks of `slot`, all
         stream-ordered on the card: copies of the slot's rows in (only the
         hot fields when no row < n holds or held range rows), the chunk
         count, the replay, copies of the results to the slot's pinned
-        buffers, and an event, which is returned. On the CPU it all runs at
-        once and None is returned."""
+        buffers, and an event, which is returned; `timing` (start, end)
+        events are recorded before the first copy and after the last. On
+        the CPU it all runs at once and None is returned."""
+        if timing is not None:
+            timing[0].record()
         cold = any(slot.cold[i] or i in self.dirty for i in range(n))
         for name in (self.inputs if cold else HOT_FIELDS):
             self.inputs[name][:n].copy_(slot.inputs[name][:n], non_blocking=True)
@@ -274,6 +319,8 @@ class _LoopProgram:
                 dst.copy_(src, non_blocking=True)
             else:
                 dst[:n].copy_(src[:n], non_blocking=True)
+        if timing is not None:
+            timing[1].record()
         if not self.graphs:
             return None
         done = torch.cuda.Event()
@@ -291,11 +338,14 @@ class DeviceLoopEngine(TorchConflictEngine):
     slots per bucket."""
 
     name = "device_loop"
+    dispatch_mode = "loop"
 
     def __init__(self, cfg: KernelConfig = KernelConfig(), initial_version: Version = 0,
                  device=None, ladder: Optional[Sequence[int]] = None, arena: bool = True,
-                 history_structure: Optional[str] = None, heat_buckets: Optional[int] = None,
-                 queue_slots: int = 4, queue_depth: int = 2, drain_deadline_s: float = 5.0):
+                 history_search: Optional[str] = None, heat_buckets: Optional[int] = None,
+                 device_time_sample_rate: Optional[float] = None,
+                 queue_slots: int = 4, queue_depth: int = 2, drain_deadline_s: float = 5.0,
+                 history_structure: Optional[str] = None):
         #: chunks per queue slot (Q): one program per bucket serves any
         #: fill 1..Q, so Q bounds chunks per dispatch, not the programs
         self.queue_slots = max(1, int(queue_slots))
@@ -310,10 +360,15 @@ class DeviceLoopEngine(TorchConflictEngine):
                            "blocking_syncs": 0, "wait_ms": 0.0,
                            "enqueue_ms": 0.0, "decode_ms": 0.0}
         super().__init__(cfg, initial_version=initial_version, device=device, ladder=ladder,
-                         scan_sizes=(), arena=arena, history_structure=history_structure,
-                         heat_buckets=heat_buckets)
+                         scan_sizes=(), arena=arena, history_search=history_search,
+                         heat_buckets=heat_buckets,
+                         device_time_sample_rate=device_time_sample_rate,
+                         history_structure=history_structure)
         self._pool = LoopSlotPool(queue_depth, self.queue_slots,
                                   pin=self.device.type == "cuda")
+        # the loop's queue/ring gauges: `loop.<label>.*` series beside the
+        # EnginePerf counters the base class registered
+        telemetry.hub().register_loop(self, name=self.name)
 
     # -- telemetry ------------------------------------------------------------
     def ring_depth(self) -> int:
@@ -341,8 +396,11 @@ class DeviceLoopEngine(TorchConflictEngine):
         key = (bucket.max_txns, -1)
         prog = self._programs.get(key)
         if prog is None:
-            prog = self._programs[key] = _LoopProgram(self, bucket, self.queue_slots)
+            prog = self._programs[key] = self._build_and_record(bucket, self.queue_slots)
         return prog
+
+    def _make_program(self, bucket: KernelConfig, n_chunks: int) -> _LoopProgram:
+        return _LoopProgram(self, bucket, n_chunks)
 
     def warmup(self, buckets: Optional[Sequence[KernelConfig]] = None,
                scan_sizes: Optional[Sequence[int]] = None) -> "DeviceLoopEngine":
@@ -362,7 +420,7 @@ class DeviceLoopEngine(TorchConflictEngine):
 
     # -- enqueue / result ring -----------------------------------------------
     def _dispatch_unit(self, bucket: KernelConfig, per_chunks: List[List[Dict[str, np.ndarray]]],
-                       packs=None):
+                       packs=None, sample=None):
         C = len(per_chunks)
         if C > self.queue_slots:
             raise ValueError(f"{C} chunks exceed the {self.queue_slots}-chunk queue slot")
@@ -373,10 +431,13 @@ class DeviceLoopEngine(TorchConflictEngine):
         slot = self._acquire_slot(bucket)
         t_enq = time.perf_counter()
         slot.fill([per[0] for per in per_chunks], packs)
-        event = prog.launch(slot, C, gcs[-1] > 0)
+        timing = None
+        if sample is not None and self.device.type == "cuda":
+            timing = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        event = prog.launch(slot, C, gcs[-1] > 0, timing)
         self.loop_stats["enqueue_ms"] += (time.perf_counter() - t_enq) * 1e3
         ticket = _LoopTicket(slot, event, bucket.max_txns, C, heat_base=self.base,
-                             heat_version=self._heat_version)
+                             heat_version=self._heat_version, sample=sample, timing=timing)
         slot.ticket = ticket
         self._ring.append(ticket)
         self.loop_stats["units"] += 1
@@ -446,6 +507,13 @@ class DeviceLoopEngine(TorchConflictEngine):
             self._merge_heat({k: res[k][:n].numpy() for k in ck.heat_shapes(self.cfg)},
                              version=ticket.heat_version, base=ticket.heat_base, layout="c")
         self.loop_stats["decode_ms"] += (time.perf_counter() - t_dec) * 1e3
+        if ticket.sample is not None:
+            # the ticket's results were ready when this drain decoded them,
+            # so its timing events are done too: reading them adds no sync
+            ms = (ticket.timing[0].elapsed_time(ticket.timing[1])
+                  if ticket.timing is not None else None)
+            self._record_device_sample(ticket.n_txns, ticket.n_chunks, ticket.sample, ms=ms)
+            ticket.sample = ticket.timing = None
         ticket.done = True
         if ticket.slot.ticket is ticket:
             ticket.slot.ticket = None

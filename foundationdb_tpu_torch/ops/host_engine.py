@@ -21,10 +21,26 @@ path the JAX engine takes first:
                      of the JAX engine's AOT-compiled programs
   columnar_dispatch  copies in, replays, copies the verdicts out — all
                      stream-ordered, no host sync; force() waits on an event
-  keyspace heat      with cfg.heat_buckets > 0 (the default: 64) every step
-                     emits a heat aggregate (conflict_kernel.heat_of), copied
-                     out beside the verdicts and merged into the engine's
+  keyspace heat      with cfg.heat_buckets > 0 (the `resolver_heat_buckets`
+                     knob, default 64) every step emits a heat aggregate
+                     (conflict_kernel.heat_of), copied out beside the
+                     verdicts and merged into the engine's
                      KeyRangeHeatAggregator (core/heatmap.py) at force()
+  observability      EnginePerf counters and its flight-recorder ring, a
+                     perf-ledger row per program build (core/perfledger.py),
+                     sampled device timing (1 dispatch unit in N, knob
+                     `resolver_device_time_sample_rate`: CUDA events around
+                     the unit's copies and replay on the card, read once
+                     the unit is done; the interval holds the stream's
+                     idle time while the host issues the unit, not only
+                     device work), the engine.* spans (core/trace.py),
+                     and the hub registrations (core/telemetry.py)
+
+The ladder, history search mode, history structure and heat buckets come
+from the constructor, else a non-default config, else the knobs
+(`resolver_bucket_ladder`, `resolver_history_search_mode`,
+`resolver_history_structure` / `resolver_history_runs`,
+`resolver_heat_buckets`), in the JAX package's precedence.
 
 ``resolve()`` tries the columnar path first and takes the general router
 when any range is not a short-key point row.
@@ -38,14 +54,18 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import threading
+import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..core import error, heatmap, wire
+from ..core import error, heatmap, perfledger, telemetry, wire
 from ..core.keyshard import KeyShardMap
+from ..core.knobs import SERVER_KNOBS
+from ..core.trace import g_spans, span_event, span_now
 from ..core.types import Key, TransactionCommitResult, Version, is_point_range as _is_point
 from ..native import fastpack
 from . import conflict_kernel as ck
@@ -323,23 +343,77 @@ def wire_chunk_arrays(
     }
 
 
+#: dispatch-ring size of EnginePerf.recent
+DISPATCH_RING_SIZE = 64
+
+
+def _dispatch_ring():
+    return deque(maxlen=DISPATCH_RING_SIZE)
+
+
 @dataclass
 class EnginePerf:
-    """Serving-path counters of a bucketed engine (the JAX EnginePerf's
-    counters this path uses)."""
+    """Serving-path performance counters of a bucketed engine: the JAX
+    EnginePerf's, plus the card's graph and merge counts."""
 
-    #: CUDA graphs captured (the role of the JAX engine's `compiles`); after
-    #: warmup() this must NOT grow in steady state; 0 on the CPU
+    #: programs built (one per (bucket, chunk-count) shape ever dispatched;
+    #: the loop engine: one per bucket); after warmup() this must NOT grow
+    #: in steady state
+    compiles: int = 0
+    #: CUDA graphs captured (two per program on the card); 0 on the CPU
     captures: int = 0
     #: chunks dispatched per bucket T (columnar path)
     bucket_hits: Dict[int, int] = field(default_factory=dict)
     #: dispatches per chunk-scan length (1 = single-chunk program)
     scan_dispatches: Dict[int, int] = field(default_factory=dict)
+    #: resolved history-search mode per bucket T, picked at ladder build
+    search_modes: Dict[int, str] = field(default_factory=dict)
+    #: chunks dispatched per history-search mode
+    search_mode_hits: Dict[str, int] = field(default_factory=dict)
+    #: chunks dispatched per dispatch mode ("step" | "loop")
+    dispatch_mode_hits: Dict[str, int] = field(default_factory=dict)
     #: transactions by final verdict: committed / conflicts / too_old
     verdicts: Dict[str, int] = field(default_factory=dict)
+    #: sampled device timing per bucket T: {T: {samples, chunks, ms_total}};
+    #: on the card a sample is the unit's interval on the stream (its
+    #: copies and kernels, and the time the stream idles while the host
+    #: issues them), on the CPU the dispatch-to-force wall interval
+    device_time: Dict[int, Dict[str, float]] = field(default_factory=dict)
+    warmup_ms: float = 0.0
+    warmed: bool = False
     #: tiered steps that merged the run stack into the base table (each
     #: step's "merged" flag, read where its statuses are)
     merges: int = 0
+    #: flight recorder: a bounded ring of recent dispatch units — bucket,
+    #: scan length, txns covered, and the force wall ms once forced
+    recent: "deque" = field(default_factory=_dispatch_ring)
+
+    def record_dispatch(self, bucket: int, scan: int, txns: int) -> dict:
+        rec = {"bucket": bucket, "scan": scan, "txns": txns, "force_ms": None}
+        self.recent.append(rec)
+        return rec
+
+    def record_search_mode(self, bucket: int, chunks: int) -> None:
+        mode = self.search_modes.get(bucket, "fused_sort")
+        self.search_mode_hits[mode] = self.search_mode_hits.get(mode, 0) + chunks
+
+    def record_dispatch_mode(self, mode: str, chunks: int) -> None:
+        self.dispatch_mode_hits[mode] = self.dispatch_mode_hits.get(mode, 0) + chunks
+
+    def record_device_time(self, bucket: int, ms: float, chunks: int = 1) -> None:
+        """Fold one SAMPLED dispatch unit's measured time, covering `chunks`
+        chunks, into the per-bucket accumulators: on the card the unit's
+        device interval from its first copy in to its last copy out (CUDA
+        events), on the CPU its enqueue->ready wall interval."""
+        d = self.device_time.setdefault(bucket, {"samples": 0, "chunks": 0, "ms_total": 0.0})
+        d["samples"] += 1
+        d["chunks"] += chunks
+        d["ms_total"] += float(ms)
+
+    def device_time_ms_by_bucket(self) -> Dict[int, float]:
+        """Mean measured per-CHUNK ms per bucket over every sample."""
+        return {b: round(d["ms_total"] / d["chunks"], 4)
+                for b, d in self.device_time.items() if d["chunks"]}
 
     def record_verdicts(self, status) -> None:
         """Fold one chunk's statuses into the verdict counters."""
@@ -352,6 +426,37 @@ class EnginePerf:
         v["committed"] = v.get("committed", 0) + committed
         v["too_old"] = v.get("too_old", 0) + too_old
         v["conflicts"] = v.get("conflicts", 0) + int(arr.size) - committed - too_old
+
+    def as_dict(self) -> dict:
+        return {
+            "compiles": self.compiles,
+            "captures": self.captures,
+            "bucket_hits": {str(k): v for k, v in sorted(self.bucket_hits.items())},
+            "scan_dispatches": {str(k): v for k, v in sorted(self.scan_dispatches.items())},
+            "search_modes": {str(k): v for k, v in sorted(self.search_modes.items())},
+            "search_mode_hits": dict(sorted(self.search_mode_hits.items())),
+            "dispatch_mode_hits": dict(sorted(self.dispatch_mode_hits.items())),
+            "verdicts": dict(sorted(self.verdicts.items())),
+            "device_time_ms": {str(b): v for b, v in
+                               sorted(self.device_time_ms_by_bucket().items())},
+            "device_time_samples": {str(b): d["samples"]
+                                    for b, d in sorted(self.device_time.items())},
+            "warmup_ms": round(self.warmup_ms, 1),
+            "warmed": self.warmed,
+            "merges": self.merges,
+            "recent_dispatches": len(self.recent),
+        }
+
+
+def ladder_from_knob() -> Optional[List[int]]:
+    """Parse the `resolver_bucket_ladder` knob ("512,1024,2048") into bucket
+    sizes; empty/unset means single-bucket. Entries are NOT validated here:
+    an engine keeps only the sizes below its own top shape, while a size
+    that fits but breaks the %32 layout fails loudly in bucket()."""
+    raw = str(getattr(SERVER_KNOBS, "resolver_bucket_ladder", "") or "").strip()
+    if not raw:
+        return None
+    return [int(tok) for tok in raw.replace(" ", "").split(",") if tok]
 
 
 class RoutedConflictEngineBase:
@@ -367,19 +472,32 @@ class RoutedConflictEngineBase:
     shares the one capacity-sized table, so a chunk runs on the smallest
     bucket whose batch-side shapes fit. Consecutive same-bucket chunks fuse
     into one program of C steps for C in `scan_sizes`; warmup() builds
-    every (bucket, C) program up front."""
+    every (bucket, C) program up front.
+
+    `device_time_sample_rate` (None: the `resolver_device_time_sample_rate`
+    knob) times every round(1/rate)-th dispatch unit; 0 times none."""
 
     name = "routed"
+    #: how columnar_dispatch hands chunks to the device: "step" runs a
+    #: program per dispatch unit and force() waits on its outputs; "loop"
+    #: (ops/device_loop.py) enqueues onto the device loop and force()
+    #: drains its result ring. Telemetry (dispatch_mode_hits), the
+    #: BudgetBatcher's EWMA keys and the span names key off it.
+    dispatch_mode = "step"
 
     def __init__(self, cfg: KernelConfig, shards: KeyShardMap,
                  ladder: Optional[Sequence[int]] = None,
                  scan_sizes: Sequence[int] = (2, 4, 8),
-                 arena: bool = True, pin_memory: bool = False):
+                 arena: bool = True, pin_memory: bool = False,
+                 history_search: Optional[str] = None,
+                 heat_buckets: Optional[int] = None,
+                 device_time_sample_rate: Optional[float] = None,
+                 history_structure: Optional[str] = None):
+        cfg = self._resolve_history_search(cfg, history_search)
+        cfg = self._resolve_history_structure(cfg, history_structure)
+        cfg = self._resolve_heat(cfg, heat_buckets)
         ck.check_supported(cfg)
         self.cfg = cfg
-        #: the keyspace-heat aggregator (None with heat off); every step's
-        #: aggregate merges into it when its unit is forced
-        self.heat = heatmap.aggregator_for(cfg)
         #: batch version that heat attribution samples carry: the version
         #: of the chunk being dispatched (None outside a dispatch)
         self._heat_version: Optional[Version] = None
@@ -392,13 +510,38 @@ class RoutedConflictEngineBase:
         #: short-key-only workloads never touch it
         self.tier_map = VersionIntervalMap(0)
         self._tier_has_writes = False
-        sizes = sorted({t for t in (ladder or ()) if t < cfg.max_txns})
+        if ladder is None:
+            ladder = ladder_from_knob() or []
+        # only sizes below this engine's top shape apply (ladder_from_knob)
+        sizes = sorted({t for t in ladder if t < cfg.max_txns})
         self.buckets: List[KernelConfig] = [cfg.bucket(t) for t in sizes] + [cfg]
         self._scan_sizes = tuple(sorted({int(c) for c in scan_sizes if c > 1}))
         #: (bucket_T, n_chunks) -> program (engine-specific handle)
         self._programs: Dict[Tuple[int, int], Any] = {}
-        self.perf = EnginePerf(bucket_hits={b.max_txns: 0 for b in self.buckets})
+        self.perf = EnginePerf(
+            bucket_hits={b.max_txns: 0 for b in self.buckets},
+            search_modes={b.max_txns: ck.resolved_history_search(b) for b in self.buckets})
+        #: one row per program build; "warmup" vs "steady" by the flag
+        #: warmup() holds
+        self.perf_ledger = perfledger.PerfLedger()
+        self._warming = False
+        #: sampled device timing: deterministic 1-in-N dispatch-unit
+        #: cadence, no rng; 0 = off
+        self._sample_every = perfledger.sample_every_from_rate(device_time_sample_rate)
+        self._dispatch_seq = 0
         self.arena: Optional[HostPackArena] = HostPackArena(pin=pin_memory) if arena else None
+        #: the keyspace-heat aggregator (None with heat off); every step's
+        #: aggregate merges into it when its unit is forced
+        self.heat = heatmap.aggregator_for(cfg)
+        hub = telemetry.hub()
+        hub.register_engine_perf(self.perf, name=self.name)
+        hub.register_perf_ledger(self.perf_ledger, name=self.name)
+        if self.heat is not None:
+            hub.register_heat(self.heat, name=self.name)
+        if self.history_structure == "tiered":
+            # registered only when the structure is live, so a monolithic
+            # engine's exposition carries no history series
+            hub.register_history(self, name=self.name)
 
     # -- bucket ladder / programs -------------------------------------------
     def bucket_for(self, n_txns: int, n_reads: int, n_writes: int) -> KernelConfig:
@@ -413,8 +556,31 @@ class RoutedConflictEngineBase:
         key = (bucket.max_txns, n_chunks)
         prog = self._programs.get(key)
         if prog is None:
-            prog = self._programs[key] = self._make_program(bucket, n_chunks)
+            prog = self._programs[key] = self._build_and_record(bucket, n_chunks)
         return prog
+
+    def _build_and_record(self, bucket: KernelConfig, n_chunks: int):
+        """Build one program, bump the compile counter, and file the build
+        in the perf ledger: its duration (on the card: the captures) and
+        peak device bytes, keyed (bucket, search mode, dispatch mode),
+        "warmup" inside warmup() and "steady" otherwise."""
+        search_mode = self.perf.search_modes.get(
+            bucket.max_txns, ck.resolved_history_search(bucket))
+        t0 = time.perf_counter()
+        prog, peak = self._measured_build(lambda: self._make_program(bucket, n_chunks))
+        self.perf.compiles += 1
+        self.perf_ledger.record_compile(
+            engine=self.name, bucket=bucket.max_txns, n_chunks=n_chunks,
+            search_mode=search_mode, dispatch_mode=self.dispatch_mode,
+            kind="warmup" if self._warming else "steady",
+            duration_ms=(time.perf_counter() - t0) * 1e3,
+            analysis=perfledger.analyze_program(peak))
+        return prog
+
+    def _measured_build(self, build: Callable[[], Any]) -> Tuple[Any, Optional[int]]:
+        """Run build() -> (program, its peak device bytes, or None where
+        there is no device-memory reading)."""
+        return build(), None
 
     def _make_program(self, bucket: KernelConfig, n_chunks: int):
         """Build the program for `n_chunks` stacked chunks at `bucket`
@@ -426,11 +592,18 @@ class RoutedConflictEngineBase:
         """Build every (bucket, scan-size) program the serving path can
         dispatch, and fill the pack arena, so that steady state captures
         nothing. Idempotent; returns self for chaining."""
-        for b in (buckets if buckets is not None else self.buckets):
-            for c in (1,) + tuple(scan_sizes if scan_sizes is not None else self._scan_sizes):
-                self._program(b, c)
-            if self.arena is not None and self.arena.pin:
-                self.arena.prefill(b)
+        t0 = time.perf_counter()
+        self._warming = True
+        try:
+            for b in (buckets if buckets is not None else self.buckets):
+                for c in (1,) + tuple(scan_sizes if scan_sizes is not None else self._scan_sizes):
+                    self._program(b, c)
+                if self.arena is not None and self.arena.pin:
+                    self.arena.prefill(b)
+        finally:
+            self._warming = False
+        self.perf.warmup_ms += (time.perf_counter() - t0) * 1e3
+        self.perf.warmed = True
         return self
 
     def ensure_warm(self, used_only: bool = True) -> None:
@@ -456,13 +629,15 @@ class RoutedConflictEngineBase:
 
     # -- subclass interface -------------------------------------------------
     def _dispatch_unit(self, bucket: KernelConfig, per_chunks: List[List[Dict[str, np.ndarray]]],
-                       packs: Optional[List[Optional[PackSet]]] = None):
+                       packs: Optional[List[Optional[PackSet]]] = None, sample=None):
         """Dispatch C = len(per_chunks) same-bucket chunks as ONE program
         with no host sync. `packs` gives each chunk's pack set when its
-        arrays live in one (the columnar path). Returns force() ->
-        (status [C, T] np.ndarray, overflow bool), which blocks on the
-        device. The chunks' host buffers must stay untouched until force()
-        ran (columnar_dispatch releases leases inside force())."""
+        arrays live in one (the columnar path). `sample` is the stamp of a
+        sampled unit (_dispatch_sampled), or None: a sampled unit calls
+        _record_device_sample once its outputs are on the host. Returns
+        force() -> (status [C, T] np.ndarray, overflow bool), which blocks
+        on the device. The chunks' host buffers must stay untouched until
+        force() ran (columnar_dispatch releases leases inside force())."""
         raise NotImplementedError
 
     def _run_step(self, per_shard: List[Dict[str, np.ndarray]]) -> Tuple[np.ndarray, bool]:
@@ -470,6 +645,50 @@ class RoutedConflictEngineBase:
         shape (no host tier involved)."""
         status, overflow = self._dispatch_unit(self.cfg, [per_shard])()
         return status[0], overflow
+
+    # -- sampled device timing ----------------------------------------------
+    def _sample_next_dispatch(self) -> bool:
+        """Deterministic 1-in-N sampling decision for the next dispatch
+        unit (counter based — no rng)."""
+        if not self._sample_every:
+            return False
+        self._dispatch_seq += 1
+        return self._dispatch_seq % self._sample_every == 0
+
+    def _sampled_unit(self, bucket: KernelConfig, per_chunks, packs=None):
+        """_dispatch_unit, with the sampled fraction of units timed."""
+        if not self._sample_next_dispatch():
+            return self._dispatch_unit(bucket, per_chunks, packs)
+        return self._dispatch_sampled(bucket, per_chunks, packs)
+
+    def _dispatch_sampled(self, bucket: KernelConfig, per_chunks, packs=None):
+        """Stamp the enqueue (wall clock, span clock, batch version) and
+        dispatch the unit with it; the unit records the sample where its
+        outputs land: a step unit in force(), a loop ticket where the
+        drain finishes it. On the card the time is the unit's CUDA-event
+        interval on the stream: its copies in, replay and copies out, and
+        the time the stream idles between them while the host issues
+        them (a sampled unit behind an idle stream waits on its own
+        host's launches); on the CPU the wall interval from this
+        stamp."""
+        stamp = (time.perf_counter(), span_now() if g_spans.enabled else 0.0,
+                 self._heat_version)
+        return self._dispatch_unit(bucket, per_chunks, packs, sample=stamp)
+
+    def _record_device_sample(self, bucket_txns: int, chunks: int, sample,
+                              ms: Optional[float] = None) -> None:
+        """File one sampled unit: `ms` as measured on the card, or (None)
+        the wall interval since the stamp; with spans on, also as an
+        `engine.device_time` span on the device track."""
+        t0_wall, t0_span, version = sample
+        if ms is None:
+            ms = (time.perf_counter() - t0_wall) * 1e3
+        self.perf.record_device_time(bucket_txns, ms, chunks=chunks)
+        if g_spans.enabled:
+            span_event("engine.device_time", version, t0_span, span_now(),
+                       device_ms=round(ms, 4), bucket=bucket_txns,
+                       chunks=chunks, track="device",
+                       parent="resolver.queue_wait")
 
     def _run_detect(self, per_shard: List[Dict[str, np.ndarray]]):
         """Phases 1-2; returns an opaque device context for _run_fix/_run_apply."""
@@ -491,7 +710,61 @@ class RoutedConflictEngineBase:
         when this engine family keeps no host-readable state handle."""
         return None
 
-    # -- history structure ---------------------------------------------------
+    # -- history search mode and structure ----------------------------------
+    @staticmethod
+    def _resolve_history_search(cfg: KernelConfig, requested: Optional[str]) -> KernelConfig:
+        """Fold the mode request into the config the ladder is built from.
+        Precedence: explicit constructor argument > a non-auto
+        cfg.history_search > the `resolver_history_search_mode` knob. The
+        result may still be "auto": each bucket then picks its mode."""
+        mode = requested
+        if mode is None:
+            mode = cfg.history_search
+        if mode == "auto":
+            mode = str(getattr(SERVER_KNOBS, "resolver_history_search_mode",
+                               "auto") or "auto").strip()
+        if mode not in ck.HISTORY_SEARCH_MODES:
+            raise ValueError(
+                f"unknown history search mode {mode!r}; expected one of "
+                f"{ck.HISTORY_SEARCH_MODES}")
+        if mode == cfg.history_search:
+            return cfg
+        return dataclasses.replace(cfg, history_search=mode)
+
+    def history_search_modes(self) -> Dict[int, str]:
+        """Resolved history-search mode per ladder bucket {T: mode} — what
+        BudgetBatcher keys its per-(bucket, mode) EWMAs by."""
+        return dict(self.perf.search_modes)
+
+    @staticmethod
+    def _resolve_history_structure(cfg: KernelConfig,
+                                   requested: Optional[str]) -> KernelConfig:
+        """Fold the history-structure request into the config the ladder
+        is built from. Precedence: explicit constructor argument > a
+        non-default cfg.history_structure > the
+        `resolver_history_structure` knob; under the tiered structure a
+        non-default cfg.history_runs wins over the `resolver_history_runs`
+        knob. bucket() clones carry both into every program."""
+        structure = requested
+        if structure is None:
+            structure = cfg.history_structure
+            if structure == "monolithic":
+                structure = str(getattr(SERVER_KNOBS, "resolver_history_structure",
+                                        "monolithic") or "monolithic").strip()
+        if structure not in ck.HISTORY_STRUCTURES:
+            raise ValueError(
+                f"unknown history_structure {structure!r}; expected one of "
+                f"{ck.HISTORY_STRUCTURES}")
+        runs = cfg.history_runs
+        if structure == "tiered" and runs == KernelConfig.history_runs:
+            runs = int(getattr(SERVER_KNOBS, "resolver_history_runs", runs) or runs)
+        if structure == cfg.history_structure and runs == cfg.history_runs:
+            ck.resolved_history_structure(cfg)  # validate run geometry
+            return cfg
+        cfg = dataclasses.replace(cfg, history_structure=structure, history_runs=runs)
+        ck.resolved_history_structure(cfg)
+        return cfg
+
     @property
     def history_structure(self) -> str:
         """The resolved history structure ("monolithic" | "tiered")."""
@@ -517,15 +790,14 @@ class RoutedConflictEngineBase:
     def _resolve_heat(cfg: KernelConfig, requested: Optional[int]) -> KernelConfig:
         """Fold the heat-bucket request into the config the ladder is built
         from. Precedence: the explicit argument, then a nonzero
-        cfg.heat_buckets, then heatmap.DEFAULT_HEAT_BUCKETS (the JAX
-        package's `resolver_heat_buckets` knob default). bucket() clones
-        carry the count into every program."""
+        cfg.heat_buckets, then the `resolver_heat_buckets` knob. bucket()
+        clones carry the count into every program."""
         b = requested
         if b is None:
-            b = cfg.heat_buckets or heatmap.DEFAULT_HEAT_BUCKETS
+            b = cfg.heat_buckets or heatmap.heat_buckets_from_knobs()
         b = int(b)
         if b < 0:
-            raise ValueError(f"heat_buckets must be >= 0, got {b}")
+            raise ValueError(f"resolver_heat_buckets must be >= 0, got {b}")
         return cfg if b == cfg.heat_buckets else dataclasses.replace(cfg, heat_buckets=b)
 
     def heat_snapshot(self, top_n: int = 8, brief: bool = False):
@@ -755,6 +1027,7 @@ class RoutedConflictEngineBase:
         ntx = len(transactions)
         if ntx == 0 or self.n_shards != 1:
             return None                 # the sharded passes are a later slice
+        t_pack = span_now() if g_spans.enabled else 0.0
         blocks = []
         for tr in transactions:
             info = getattr(tr, "conflict_wire_info", None)
@@ -808,6 +1081,11 @@ class RoutedConflictEngineBase:
                                      now_rel, gc_rel, bufs=bufs)]
             chunks.append((per, j - i, bucket, lease, pack))
             i = j
+        if g_spans.enabled:
+            # the host-pack segment, keyed by the batch's commit version
+            # like every other commit-path span
+            span_event("engine.host_pack", now, t_pack, span_now(), txns=ntx,
+                       parent="resolver.queue_wait")
         return {"chunks": chunks, "new_oldest": new_oldest, "now": now,
                 "chunk_buckets": [c[2].max_txns for c in chunks]}
 
@@ -827,11 +1105,13 @@ class RoutedConflictEngineBase:
         overflowing chunk); overflow is a fatal capacity error in both
         cases."""
         chunks = plan["chunks"]
+        loop_mode = self.dispatch_mode == "loop"
         #: the batch version heat attribution carries: each unit captures
         #: it at dispatch
         self._heat_version = plan.get("now")
-        #: (unit_force, [n_txns per chunk], [leases per chunk])
-        outs: List[Tuple[Callable, List[int], List[Optional[ArenaLease]]]] = []
+        t_enq = span_now() if g_spans.enabled else 0.0
+        #: (unit_force, [n_txns per chunk], [leases per chunk], flight record)
+        outs: List[Tuple[Callable, List[int], List[Optional[ArenaLease]], dict]] = []
         i = 0
         while i < len(chunks):
             bucket = chunks[i][2]
@@ -841,13 +1121,22 @@ class RoutedConflictEngineBase:
             run = chunks[i:j]
             self.perf.bucket_hits[bucket.max_txns] = (
                 self.perf.bucket_hits.get(bucket.max_txns, 0) + len(run))
+            self.perf.record_search_mode(bucket.max_txns, len(run))
+            self.perf.record_dispatch_mode(self.dispatch_mode, len(run))
             for c in self._split_run(len(run)):
                 sub, run = run[:c], run[c:]
-                unit = self._dispatch_unit(bucket, [ch[0] for ch in sub], [ch[4] for ch in sub])
+                unit = self._sampled_unit(bucket, [ch[0] for ch in sub], [ch[4] for ch in sub])
                 self.perf.scan_dispatches[c] = self.perf.scan_dispatches.get(c, 0) + 1
-                outs.append((unit, [ch[1] for ch in sub], [ch[3] for ch in sub]))
+                rec = self.perf.record_dispatch(bucket.max_txns, c, sum(ch[1] for ch in sub))
+                outs.append((unit, [ch[1] for ch in sub], [ch[3] for ch in sub], rec))
             i = j
         self._heat_version = None
+        version = plan.get("now")
+        if g_spans.enabled and loop_mode:
+            # the loop engine's dispatch only filled queue slots and
+            # enqueued their programs: the queue_enqueue segment
+            span_event("engine.queue_enqueue", version, t_enq, span_now(),
+                       units=len(outs), parent="resolver.queue_wait")
         new_oldest = plan["new_oldest"]
         if new_oldest > self.oldest_version:
             self.tier_map.gc(new_oldest)
@@ -856,9 +1145,13 @@ class RoutedConflictEngineBase:
         capacity = self.cfg.capacity
 
         def force() -> List[TransactionCommitResult]:
+            t_force = span_now() if g_spans.enabled else 0.0
             results: List[TransactionCommitResult] = []
-            for unit, ns, leases in outs:
+            for unit, ns, leases, rec in outs:
+                t_unit = time.perf_counter()
                 status, overflow = unit()
+                # the flight record completes when the unit's outputs land
+                rec["force_ms"] = round((time.perf_counter() - t_unit) * 1e3, 4)
                 if overflow:
                     raise error.conflict_capacity_exceeded(
                         f"a shard's boundary table needs > {capacity} rows")
@@ -869,6 +1162,19 @@ class RoutedConflictEngineBase:
                 for lease in leases:
                     if lease is not None:
                         lease.release()
+            if g_spans.enabled:
+                # the readback segment: a step engine waits on its units'
+                # events here, a loop engine drains its result ring and
+                # attaches its loop_stats snapshot; the heat brief rides
+                # along, so a slow batch's trace says whether the keyspace
+                # was hot. Host values only: no device read.
+                extra = {}
+                if loop_mode:
+                    extra["loop_stats"] = self.loop_stats_snapshot()
+                if self.heat is not None:
+                    extra["heat"] = self.heat.brief()
+                span_event("engine.result_drain" if loop_mode else "engine.force",
+                           version, t_force, span_now(), units=len(outs), **extra)
             return results
 
         return force
@@ -880,6 +1186,10 @@ class RoutedConflictEngineBase:
         n = len(routed)
         if n > cfg.max_txns:
             raise ValueError(f"chunk of {n} txns exceeds max_txns={cfg.max_txns}")
+        # general-router chunks always run the top shape; count their mode
+        # picks so the telemetry counters cover this path too
+        self.perf.record_search_mode(cfg.max_txns, 1)
+        self.perf.record_dispatch_mode(self.dispatch_mode, 1)
         self._heat_version = now
 
         too_old = np.zeros((cfg.max_txns,), bool)
@@ -1215,17 +1525,18 @@ class TorchConflictEngine(RoutedConflictEngineBase):
     def __init__(self, cfg: KernelConfig = KernelConfig(), initial_version: Version = 0,
                  device=None, ladder: Optional[Sequence[int]] = None,
                  scan_sizes: Sequence[int] = (2, 4, 8), arena: bool = True,
-                 history_structure: Optional[str] = None,
-                 heat_buckets: Optional[int] = None):
+                 history_search: Optional[str] = None,
+                 heat_buckets: Optional[int] = None,
+                 device_time_sample_rate: Optional[float] = None,
+                 history_structure: Optional[str] = None):
         device = _default_device(device)
-        if history_structure is not None:
-            # the explicit argument wins over the config's structure
-            cfg = dataclasses.replace(cfg, history_structure=history_structure)
-        cfg = self._resolve_heat(cfg, heat_buckets)
-        super().__init__(cfg, KeyShardMap([]), ladder=ladder, scan_sizes=scan_sizes,
-                         arena=arena, pin_memory=device.type == "cuda")
         self.device = device
-        self.state = ck.initial_state(cfg, version_rel=initial_version, device=device)
+        super().__init__(cfg, KeyShardMap([]), ladder=ladder, scan_sizes=scan_sizes,
+                         arena=arena, pin_memory=device.type == "cuda",
+                         history_search=history_search, heat_buckets=heat_buckets,
+                         device_time_sample_rate=device_time_sample_rate,
+                         history_structure=history_structure)
+        self.state = ck.initial_state(self.cfg, version_rel=initial_version, device=device)
         self.tier_map = VersionIntervalMap(initial_version)
         if device.type == "cuda":
             #: one memory pool for every graph: replays are serialized on
@@ -1269,13 +1580,37 @@ class TorchConflictEngine(RoutedConflictEngineBase):
     def _make_program(self, bucket: KernelConfig, n_chunks: int) -> _Program:
         return _Program(self, bucket, n_chunks)
 
+    def _measured_build(self, build):
+        """On the card: the peak device memory allocated during the build
+        (static buffers, the warm run's scratch table, the captures'
+        temporaries) above what was allocated when it began. Reading the
+        allocator's counters is host bookkeeping: no sync. The reading
+        resets the process's peak counter (torch.cuda.max_memory_allocated)
+        at every build, and the allocator cannot restore it: a caller that
+        reads that counter over a window holding a build (a warmup, or a
+        steady-state build) gets the peak since the build began."""
+        if self.device.type != "cuda":
+            return build(), None
+        before = torch.cuda.memory_allocated(self.device)
+        torch.cuda.reset_peak_memory_stats(self.device)
+        prog = build()
+        return prog, torch.cuda.max_memory_allocated(self.device) - before
+
     def _dispatch_unit(self, bucket: KernelConfig, per_chunks: List[List[Dict[str, np.ndarray]]],
-                       packs: Optional[List[Optional[PackSet]]] = None):
+                       packs: Optional[List[Optional[PackSet]]] = None, sample=None):
         C = len(per_chunks)
         gcs = [int(per[0]["gc"]) for per in per_chunks]
         if any(gcs[:-1]):
             raise ValueError("only the last chunk of a dispatch unit may carry a GC horizon")
         prog = self._program(bucket, C)
+        timing = None
+        if sample is not None and self.device.type == "cuda":
+            # a sampled unit on the card: its stream interval from before
+            # its first copy in to after its last copy out (device work and
+            # the stream's idle time while this thread issues it), read
+            # once the unit is done
+            timing = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            timing[0].record()
         for c, (arrays,) in enumerate(per_chunks):
             prog.load(c, arrays, packs[c] if packs else None)
         prog.run(gcs[-1] > 0)
@@ -1287,6 +1622,8 @@ class TorchConflictEngine(RoutedConflictEngineBase):
                 self.perf.merges += int(prog.merged.sum())
 
             def read():
+                if sample is not None:
+                    self._record_device_sample(bucket.max_txns, C, sample)
                 return result
         else:
             # every output to pinned host memory, behind one event
@@ -1297,6 +1634,8 @@ class TorchConflictEngine(RoutedConflictEngineBase):
                     for k, v in outs.items()}
             for k, v in outs.items():
                 host[k].copy_(v, non_blocking=True)
+            if timing is not None:
+                timing[1].record()
             done = torch.cuda.Event()
             done.record()
             keep = (per_chunks, packs)
@@ -1304,6 +1643,9 @@ class TorchConflictEngine(RoutedConflictEngineBase):
             def read():
                 done.synchronize()
                 _ = keep        # the host buffers live until the copies ran
+                if timing is not None:
+                    self._record_device_sample(bucket.max_txns, C, sample,
+                                               ms=timing[0].elapsed_time(timing[1]))
                 if "merged" in host:
                     self.perf.merges += int(host["merged"].numpy().sum())
                 return (host["status"].numpy(), bool(host["overflow"].numpy().any()),
@@ -1347,6 +1689,14 @@ class TorchConflictEngine(RoutedConflictEngineBase):
 #: "device_loop" (single card, the device-resident server loop;
 #: ops/device_loop.py)
 ENGINE_MODES = ("torch", "device_loop")
+
+
+def default_engine_mode() -> str:
+    """The single-card mode the `resolver_device_loop` knob selects:
+    "device_loop" when the knob is set, else "torch" (step dispatch)."""
+    from .device_loop import device_loop_requested
+
+    return "device_loop" if device_loop_requested() else "torch"
 
 
 def make_engine(mode: str, cfg: KernelConfig, **kw):

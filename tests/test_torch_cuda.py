@@ -5,7 +5,10 @@ conditional node; the heat planes too), no captures after warmup(), the
 static table under load_state and clear(), and a dispatch with no host
 sync; then the loop engine's server program (a WHILE node, the tiered
 merge's IF node nested in its body) against the eager loop, its warmup
-and its sync-free dispatch.
+and its sync-free dispatch; then the telemetry: every unit timed with
+CUDA events at sample rate 1.0 and spans on with no host sync, one
+perf-ledger row per captured program, the loop's samples landing through
+poll(), and a conflict-scheduled stream on the loop engine.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither jax nor the JAX package, so it runs on a machine that has
@@ -746,3 +749,150 @@ def test_loop_dispatch_makes_no_host_sync(card, structure):
     assert eng.loop_stats["blocking_syncs"] == 0
     assert eng.heat_snapshot() == cpu.heat_snapshot()
     assert eng.history_stats_snapshot() == cpu.history_stats_snapshot()
+
+
+# ---------------------------------------------------------------------------
+# telemetry on the card: sampled device timing, the perf ledger, spans, the
+# conflict scheduler
+# ---------------------------------------------------------------------------
+
+def engine_of(family, structure, **kw):
+    if family == "torch":
+        return TorchConflictEngine(STRUCTURES[structure], ladder=LADDER, scan_sizes=SCANS, **kw)
+    return DeviceLoopEngine(STRUCTURES[structure], ladder=LADDER, queue_slots=LOOP_Q, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["torch", "device_loop"])
+@pytest.mark.parametrize("structure", sorted(STRUCTURES))
+def test_sampled_timing_and_spans_make_no_host_sync(card, family, structure):
+    """At sample rate 1.0 with spans on, every dispatch unit is timed with
+    CUDA events and the dispatch still makes no synchronizing call; the
+    verdicts equal the oracle's and an engine's with both off; no blocking
+    sync on the loop."""
+    from foundationdb_tpu_torch.core import telemetry
+    from foundationdb_tpu_torch.core.trace import g_spans
+
+    telemetry.reset()
+    eng = engine_of(family, structure, device_time_sample_rate=1.0).warmup()
+    quiet = engine_of(family, structure, device_time_sample_rate=0.0).warmup()
+    ora = toracle.OracleConflictEngine()
+    g_spans.clear()
+    g_spans.enabled = True
+    try:
+        for txns, now, oldest in point_batches(5, [70, 900, 200, 1500, 40]):
+            plan = eng.columnar_pack(txns, now, oldest)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                force = eng.columnar_dispatch(plan)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            got = [int(v) for v in force()]
+            g_spans.enabled = False
+            assert got == [int(v) for v in quiet.resolve(txns, now, oldest)]
+            g_spans.enabled = True
+            assert got == [int(v) for v in ora.resolve(txns, now, oldest)]
+    finally:
+        g_spans.enabled = False
+    units = sum(eng.perf.scan_dispatches.values())
+    assert sum(d["samples"] for d in eng.perf.device_time.values()) == units > 0
+    assert all(d["ms_total"] > 0 for d in eng.perf.device_time.values())
+    names = {s["Name"] for s in g_spans.spans}
+    assert {"engine.host_pack", "engine.device_time"} <= names
+    assert len(g_spans.by_name("engine.device_time")) == units
+    assert all(s["device_ms"] > 0 for s in g_spans.by_name("engine.device_time"))
+    g_spans.clear()
+    if family == "device_loop":
+        assert eng.loop_stats["blocking_syncs"] == 0
+        assert "engine.result_drain" in names and "engine.queue_enqueue" in names
+    telemetry.hub().sync()
+    assert "fdbtpu_engine" in telemetry.hub().prometheus_text()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["torch", "device_loop"])
+@pytest.mark.parametrize("structure", sorted(STRUCTURES))
+def test_ledger_row_per_captured_program(card, family, structure):
+    """warmup() files one perf-ledger row per program (two captured graphs
+    each), kind "warmup", with its capture time and a peak device-memory
+    reading; nothing is filed in steady state."""
+    eng = engine_of(family, structure).warmup()
+    rows = eng.perf_ledger.rows()
+    assert len(rows) == len(eng._programs) == eng.perf.compiles
+    assert eng.perf.captures == 2 * len(rows)
+    assert all(r["kind"] == "warmup" and r["duration_ms"] > 0 and r["peak_bytes"] > 0
+               and r["flops"] is None for r in rows)
+    assert eng.perf_ledger.snapshot()["peak_bytes"] == max(r["peak_bytes"] for r in rows)
+    for txns, now, oldest in point_batches(6, [70, 900, 200]):
+        eng.resolve(txns, now, oldest)
+    assert len(eng.perf_ledger.rows()) == len(rows) and eng.perf.warmed
+
+
+@pytest.mark.cuda
+def test_loop_samples_land_through_poll(card):
+    """A sampled loop unit's time is read where poll() finishes its ticket
+    (Event.query() true), before anything forces the batch."""
+    import time
+
+    eng = DeviceLoopEngine(LADDER_CFG, ladder=LADDER, queue_slots=LOOP_Q,
+                           device_time_sample_rate=1.0).warmup()
+    txns, now, oldest = point_batches(7, [900])[0]
+    force = eng.columnar_dispatch(eng.columnar_pack(txns, now, oldest))
+    units = eng.loop_stats["units"]
+    deadline = time.monotonic() + 30
+    while eng.ring_depth() and time.monotonic() < deadline:
+        eng.poll()
+        time.sleep(1e-3)
+    assert eng.ring_depth() == 0
+    assert sum(d["samples"] for d in eng.perf.device_time.values()) == units > 0
+    assert eng.loop_stats["forced_waits"] == eng.loop_stats["blocking_syncs"] == 0
+    assert [int(v) for v in force()] == [
+        int(v) for v in toracle.OracleConflictEngine().resolve(txns, now, oldest)]
+
+
+@pytest.mark.cuda
+def test_scheduled_stream_on_the_loop_engine(card):
+    """A contended stream scheduled by the ConflictScheduler (pre-aborts,
+    lanes) through the loop engine on the card: verdicts equal the oracle's
+    batch by batch, no blocking sync."""
+    from foundationdb_tpu_torch.core.rng import DeterministicRandom
+    from foundationdb_tpu_torch.pipeline.scheduler import ConflictScheduler, SchedConfig
+
+    cfg = ck.KernelConfig(key_words=2, capacity=4096, max_reads=128, max_writes=128,
+                          max_txns=32)
+    eng = DeviceLoopEngine(cfg).warmup()
+    ora = toracle.OracleConflictEngine()
+    sched = ConflictScheduler(SchedConfig(enabled=True, probe_interval=8))
+    rng = DeterministicRandom(11)
+    hot = [b"h%02d" % i for i in range(3)]
+
+    def txn(snap, k, write=True):
+        t = CommitTransaction(read_snapshot=snap)
+        t.read_conflict_ranges.append(KeyRange(k, k + b"\x00"))
+        if write:
+            t.write_conflict_ranges.append(KeyRange(k, k + b"\x00"))
+        return t
+
+    pending, version = [], 1000
+    for _ in range(25):
+        version += 8
+        for _ in range(12):
+            snap = version - rng.random_int(0, 30)
+            if rng.random01() < 0.7:
+                pending.append(txn(snap, hot[rng.random_int(0, 3)]))
+            else:
+                pending.append(txn(snap, b"cold%04d" % rng.random_int(0, 512),
+                                   rng.random01() < 0.5))
+        plan = sched.select(pending, 16)
+        # a pre-aborted txn retries at a fresh snapshot
+        pending = plan.remaining + [txn(version, t.read_conflict_ranges[0].begin,
+                                        bool(t.write_conflict_ranges))
+                                    for t, _ in plan.preaborts]
+        if plan.dispatch:
+            oldest = max(0, version - 400)
+            want = [int(v) for v in ora.resolve(plan.dispatch, version, oldest)]
+            assert [int(v) for v in eng.resolve(plan.dispatch, version, oldest)] == want
+            sched.observe_batch(plan.dispatch, want, version)
+    eng.drain_loop()
+    assert eng.loop_stats["blocking_syncs"] == 0
+    assert sched.counters["preaborts"] > 0 and sched.counters["laned"] > 0

@@ -148,9 +148,9 @@ def fills_seen(eng):
     seen = []
     dispatch = eng._dispatch_unit
 
-    def recording(bucket, per_chunks, packs=None):
+    def recording(bucket, per_chunks, packs=None, **kw):
         seen.append(len(per_chunks))
-        return dispatch(bucket, per_chunks, packs)
+        return dispatch(bucket, per_chunks, packs, **kw)
 
     eng._dispatch_unit = recording
     return seen
@@ -276,8 +276,8 @@ def test_drain_accounting_kinds():
     events = iter([_SlowEvent(3), _SlowEvent(10**9), _SlowEvent(1)])
     launch = tdl._LoopProgram.launch
 
-    def slow(self, slot, n, gc_last):
-        launch(self, slot, n, gc_last)
+    def slow(self, slot, n, gc_last, timing=None):
+        launch(self, slot, n, gc_last, timing)
         return next(events)
 
     tdl._LoopProgram.launch = slow

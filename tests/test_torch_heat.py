@@ -175,12 +175,20 @@ def test_scan_stacks_heat_like_jax(structure, gc_last):
 # ---------------------------------------------------------------------------
 
 def test_aggregator_constants_equal_the_knob_defaults():
+    """The port reads the heat settings from its own knob registry, as the
+    JAX package reads its: the same four knobs, the same defaults."""
     from foundationdb_tpu.core.knobs import SERVER_KNOBS
+    from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS as TSERVER_KNOBS
 
-    assert theatmap.DEFAULT_HEAT_BUCKETS == SERVER_KNOBS.resolver_heat_buckets == 64
-    assert theatmap.HEAT_DECAY == SERVER_KNOBS.resolver_heat_decay
-    assert theatmap.SPLIT_SHARDS == SERVER_KNOBS.resolver_heat_split_shards
-    assert theatmap.SPLIT_HYSTERESIS == SERVER_KNOBS.resolver_heat_split_hysteresis
+    assert theatmap.heat_buckets_from_knobs() == jheatmap.heat_buckets_from_knobs() == 64
+    tagg = theatmap.aggregator_for(port_cfg(heat_cfg("monolithic")))
+    jagg = jheatmap.aggregator_for(heat_cfg("monolithic"))
+    assert tagg.decay == jagg.decay == TSERVER_KNOBS.resolver_heat_decay \
+        == SERVER_KNOBS.resolver_heat_decay
+    assert tagg.default_split_shards() == jagg.default_split_shards() \
+        == SERVER_KNOBS.resolver_heat_split_shards
+    assert tagg._split_hysteresis() == jagg._split_hysteresis() \
+        == SERVER_KNOBS.resolver_heat_split_hysteresis
     assert theatmap.aggregator_for(port_cfg(SMALL)) is None
 
 

@@ -51,6 +51,11 @@ def test_subprocess_import_loads_no_jax():
     "foundationdb_tpu_torch.native.fastpack",
     "foundationdb_tpu_torch.core.heatmap",
     "foundationdb_tpu_torch.ops.device_loop",
+    "foundationdb_tpu_torch.core.knobs",
+    "foundationdb_tpu_torch.core.trace",
+    "foundationdb_tpu_torch.core.telemetry",
+    "foundationdb_tpu_torch.core.perfledger",
+    "foundationdb_tpu_torch.pipeline.scheduler",
 ])
 def test_serving_path_modules_load_no_jax(module):
     """The columnar path's modules, each imported alone in a fresh process
@@ -85,7 +90,9 @@ def test_source_scan_finds_no_jax_import():
     files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
     for name in ("core/wire.py", "pipeline/resolver_pipeline.py", "native/fastpack.py",
-                 "core/heatmap.py", "ops/device_loop.py"):
+                 "core/heatmap.py", "ops/device_loop.py", "core/rng.py", "core/knobs.py",
+                 "core/buggify.py", "core/trace.py", "core/stats.py", "core/tdmetric.py",
+                 "core/perfledger.py", "core/telemetry.py", "pipeline/scheduler.py"):
         assert PKG / name in files, name
     for path in files:
         bad = [r for r in imported_roots(path) if r in FORBIDDEN]

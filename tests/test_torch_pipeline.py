@@ -157,7 +157,3 @@ def test_pipeline_drain_and_unsupported_options():
     assert pipe.in_flight == 0 and all(h.is_done for h in handles)
     with pytest.raises(ValueError):
         ResolverPipeline(engine(), depth=0)
-    with pytest.raises(NotImplementedError):
-        ResolverPipeline(engine(), batcher=object())
-    with pytest.raises(NotImplementedError):
-        ResolverPipeline(engine(), conflict_sched=object())
