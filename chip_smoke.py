@@ -101,6 +101,22 @@ toolkit. The script
      BudgetBatcher and a ConflictScheduler built with resolver_sched "on",
      over skewed traffic (pre-aborts retried at a fresh snapshot): the
      dispatched journal replays equal through a CPU engine and the oracle.
+  13. resolver role phase: the port's Resolver role (server/resolver.py) in
+     the port's simulator (sim/), buggify on, over the warmed engines above,
+     on the columnar traffic with versions MAX_WRITE_TRANSACTION_LIFE_VERSIONS
+     // GC_LAG_BATCHES apart (the role sets its own horizon, 4 batches
+     behind): a proxy process sends every batch over the simulated network,
+     chained by prev_version, every 4th twice. Serially, pipelined at depth
+     1-3 (the service fed the card's own pack clock and sampled device ms
+     per bucket), the loop engine at depth 2, a kill at batch 4 with a
+     second role (gen2, over the heat-off engine) serving every later
+     version, and depth 2 again with the same seed. Each run journals to a
+     BlackboxJournal; its journal is read back and replayed through the
+     oracle in worker processes, and every reply must equal the replay;
+     duplicates come from the replay window; the same-seed runs give equal
+     replies, journal bytes and scheduler steps; dispatches run under sync
+     debug "error" and the loop role makes no blocking sync. Virtual reply
+     latency p50 / p99, wall txn/s through the role and of the bare engine.
 
 Each path's kernel launches are counted from 0 just before it and read
 just after (a captured graph's fixpoint launches are counted at each
@@ -119,6 +135,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -796,11 +813,11 @@ def graph_step_phase(ck, fc, he, cfg, dev, rng, units: int):
     }
 
 
-def columnar_traffic(rng, sizes, read_only):
+def columnar_traffic(rng, sizes, read_only, step=VERSION_STEP):
     """Point-only CommitTransactions (bench.py:46-49): 2 point reads and 2
     point writes per txn over one hot pool of POOL_KEYS 16-byte keys, with
     batches of `read_only` ({position: txns}) holding the reads alone.
-    Versions advance VERSION_STEP a batch; the GC horizon trails by
+    Versions advance `step` a batch; the GC horizon trails by
     GC_LAG_BATCHES batches, and ~3% of snapshots lie behind it (too old).
     Each txn's wire block is encoded here, as a client encodes its commit
     request once: the timed pack is the resolver's."""
@@ -811,12 +828,12 @@ def columnar_traffic(rng, sizes, read_only):
         plan.insert(pos, (read_only[pos], True))
     out, now = [], 10_000
     for b, (n, reads_only) in enumerate(plan):
-        now += VERSION_STEP
-        oldest = max(0, now - GC_LAG_BATCHES * VERSION_STEP)
-        lag = rng.integers(1, 2 * VERSION_STEP, size=n)
+        now += step
+        oldest = max(0, now - GC_LAG_BATCHES * step)
+        lag = rng.integers(1, 2 * step, size=n)
         old = rng.random(n) < 0.03
-        lag[old] = rng.integers((GC_LAG_BATCHES + 1) * VERSION_STEP,
-                                (GC_LAG_BATCHES + 2) * VERSION_STEP, size=int(old.sum()))
+        lag[old] = rng.integers((GC_LAG_BATCHES + 1) * step,
+                                (GC_LAG_BATCHES + 2) * step, size=int(old.sum()))
         keys = rng.integers(0, POOL_KEYS, size=(n, 4))
         txns = []
         for i in range(n):
@@ -1655,6 +1672,494 @@ def telemetry_phases(ck, fc, he, dl, pl, oracle_mod, card, engine_cfg, batches, 
     return tele, spp
 
 
+# ---------------------------------------------------------------------------
+# the resolver role inside the port's simulator
+# ---------------------------------------------------------------------------
+
+#: the role phase: the batch whose reply triggers the kill, the pipelined
+#: depths, and the virtual seconds each run is given (the role's counter
+#: logger never ends, so a run ends at this time)
+ROLE_KILL_AT = 4
+ROLE_DEPTHS = (1, 2, 3)
+ROLE_RUN_UNTIL = 60.0
+#: worker processes that read the role runs' journals back and replay them
+#: through the oracle after the last run (host Python, ~35 s for the whole
+#: traffic)
+ROLE_REPLAY_WORKERS = 4
+#: one journal segment holds a whole run (~15 MB): nothing rotates away
+ROLE_JOURNAL_SEGMENT_BYTES = 1 << 30
+
+
+def role_version_step() -> int:
+    """Versions advance MAX_WRITE_TRANSACTION_LIFE_VERSIONS // GC_LAG_BATCHES
+    a batch, so the horizon the role sets itself (version -
+    MAX_WRITE_TRANSACTION_LIFE_VERSIONS) trails by GC_LAG_BATCHES batches,
+    as versioned() does."""
+    from foundationdb_tpu_torch.core.types import MAX_WRITE_TRANSACTION_LIFE_VERSIONS
+
+    return MAX_WRITE_TRANSACTION_LIFE_VERSIONS // GC_LAG_BATCHES
+
+
+def nearest_rank(xs, q: float) -> float:
+    s = sorted(xs)
+    return s[max(0, math.ceil(q * len(s)) - 1)]
+
+
+def drive_role(fc, engine, batches, journal_dir, label, *, pipeline=None, kill_at=None,
+               engine2=None, seed=SEED):
+    """One run of the port's resolver role in the port's simulator.
+
+    Simulator(seed) (buggify on) holds a proxy process and a resolver
+    process; the role serves `engine` on the serial path (pipeline=None) or
+    through the pipelined service (a PipelineConfig). The proxy sends each
+    batch as a ResolveTransactionBatchRequest over sim.net.request to the
+    role's RESOLVE_TOKEN endpoint, chained by prev_version, every 4th batch
+    twice (a retried delivery). A BlackboxJournal in `journal_dir`, one
+    segment large enough for the run, records what the role resolved (with
+    buggify on, it may shed a record: a short write it accounts for in
+    `shed_events`; its ring keeps every record). With `kill_at`, the
+    resolver process is killed once the proxy holds batch `kill_at`'s
+    reply, with later batches in flight, and a second role (token suffix
+    "gen2", over `engine2`, its chain restarted at the kill point) serves
+    every later version. Every dispatch runs under sync debug "error".
+    Returns the run's record: the accepted reply per version, the role
+    generation that gave it and its virtual latency; the (virtual time,
+    task name) of every step the scheduler queued; the journal's batch
+    records as its ring holds them and its durability accounting; the wall
+    seconds of the run, of the engines' resolve() calls and of the
+    journal's batch records; the fixpoint launches."""
+    import torch
+
+    from foundationdb_tpu_torch.core import blackbox, buggify, error
+    from foundationdb_tpu_torch.server.messages import ResolveTransactionBatchRequest
+    from foundationdb_tpu_torch.server.resolver import Resolver
+    from foundationdb_tpu_torch.sim.loop import TaskPriority, delay, set_scheduler
+    from foundationdb_tpu_torch.sim.network import Endpoint
+    from foundationdb_tpu_torch.sim.simulator import Simulator
+
+    sim = Simulator(seed)
+    sched = sim.sched
+    tasks = []
+    schedule_step = sched._schedule_step
+
+    def logged_step(task, fut, priority):
+        tasks.append((sched.time, task.name))
+        schedule_step(task, fut, priority)
+
+    sched._schedule_step = logged_step
+    clocks = {"engine_s": 0.0, "journal_s": 0.0, "sample_s": 0.0, "dispatches": 0}
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                clocks[key] += time.perf_counter() - t0
+        return run
+
+    def instrument(eng):
+        dispatch = eng.columnar_dispatch
+
+        def guarded_dispatch(plan):
+            clocks["dispatches"] += 1
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return dispatch(plan)
+            except RuntimeError as e:
+                fail(f"{label}: a dispatch synchronized with the card: {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        eng.resolve, eng.columnar_dispatch = timed(eng.resolve, "engine_s"), guarded_dispatch
+
+    def role(proc, eng, **kw):
+        r = Resolver(proc, eng, pipeline=pipeline, **kw)
+        r._sample_rows = timed(r._sample_rows, "sample_s")
+        return r
+
+    record_batch = blackbox.record_batch
+    engines = [e for e in (engine, engine2) if e is not None]
+    for e in engines:
+        instrument(e)
+    blackbox.record_batch = timed(record_batch, "journal_s")
+    journal = blackbox.install(blackbox.BlackboxJournal(
+        str(journal_dir), fresh=True, segment_bytes=ROLE_JOURNAL_SEGMENT_BYTES))
+    proxy = sim.new_process("proxy")
+    rproc = sim.new_process("resolver")
+    roles = [role(rproc, engine, start_version=0)]
+    endpoints = [Endpoint(rproc.address, roles[0].token)]
+    replies, answered_by, latency = {}, {}, {}
+    kill_version = batches[kill_at][1] if kill_at is not None else None
+    depth = pipeline.depth if pipeline is not None else 1
+
+    def request(i):
+        txns, version, _ = batches[i]
+        prev = batches[i - 1][1] if i else 0
+        return ResolveTransactionBatchRequest(prev_version=prev, version=version,
+                                              last_received_version=prev, transactions=txns)
+
+    async def send(gen, i):
+        version, t0 = batches[i][1], sched.time
+        try:
+            reply = await sim.net.request(proxy.address, endpoints[gen], request(i))
+        except error.FDBError:
+            return      # the role died with the request in flight: gen2 answers it
+        if version not in replies:
+            replies[version] = list(reply.committed)
+            answered_by[version] = gen
+            latency[version] = sched.time - t0
+
+    def spawn_send(gen, i):
+        sched.spawn(send(gen, i), TaskPriority.PROXY_COMMIT, name=f"proxy.send{gen}")
+
+    async def feeder():
+        gen = 0
+        for i in range(len(batches)):
+            if buggify.buggify():
+                await delay(sched.rng.random01() * 0.01, TaskPriority.PROXY_COMMIT)
+            spawn_send(gen, i)
+            if i % 4 == 3:
+                spawn_send(gen, i)
+            if gen == 0 and kill_version is not None and i >= kill_at + depth:
+                while kill_version not in replies:
+                    await delay(0.005, TaskPriority.PROXY_COMMIT)
+                sim.kill_process(rproc)
+                for v in [v for v in replies if v > kill_version]:
+                    del replies[v], answered_by[v], latency[v]
+                rproc2 = sim.new_process("resolver2")
+                roles.append(role(rproc2, engine2, start_version=kill_version,
+                                  token_suffix="gen2"))
+                endpoints.append(Endpoint(rproc2.address, roles[1].token))
+                gen = 1
+                for j in range(kill_at + 1, i + 1):
+                    spawn_send(gen, j)
+
+    fc.FIXPOINT.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        sched.spawn(feeder(), TaskPriority.PROXY_COMMIT, name="proxy.feeder")
+        sim.run(until=ROLE_RUN_UNTIL)
+        wall = time.perf_counter() - t0
+    finally:
+        set_scheduler(None)
+        buggify.disable()
+        summary = journal.summary()
+        ring = [(ev.proc, ev.payload) for ev in journal.events() if ev.kind == "batch"]
+        blackbox.uninstall()
+        blackbox.record_batch = record_batch
+        for e in engines:
+            del e.resolve, e.columnar_dispatch
+    launches = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+    check(launches > 0 and fc.FIXPOINT.plain_cuda_calls == 0,
+          f"{label}: {launches} kernel launches, {fc.FIXPOINT.plain_cuda_calls} plain "
+          "fixpoints on CUDA tensors")
+    check(set(replies) == {v for _, v, _ in batches},
+          f"{label}: {len(replies)} of {len(batches)} versions answered")
+    return {"label": label, "roles": roles, "replies": replies, "answered_by": answered_by,
+            "latency": latency, "tasks": tasks, "wall_s": wall, "launches": launches,
+            "journal_dir": str(journal_dir), "kill_version": kill_version,
+            "journal": {"batches": ring, "shed_events": summary["shed_events"],
+                        "durability_gap": summary["durability_gap"]}, **clocks}
+
+
+def role_sequences(run):
+    """Each role process's journaled (version, new_oldest) sequence, from
+    the journal's ring."""
+    out = {}
+    for proc, b in run["journal"]["batches"]:
+        out.setdefault(proc, []).append((b.version, b.new_oldest))
+    return {proc: tuple(seq) for proc, seq in out.items()}
+
+
+def journal_read_back(journal_dir, ring):
+    """Read a role run's journal back from disk (read_journal): each role
+    process's (version, new_oldest, verdicts) sequence, in order, and the
+    versions whose record on disk holds other transactions than the
+    journal's ring (`ring`, [(proc, BBBatch)]) for that process and
+    version. Returns ({proc: sequence on disk}, {proc: [version, ...]})."""
+    from foundationdb_tpu_torch.core import blackbox
+
+    ring_txns = {(proc, b.version): b.txns for proc, b in ring}
+    disk, differ = {}, {}
+    for ev in blackbox.read_journal(journal_dir):
+        if ev.kind == "batch":
+            b = ev.payload
+            disk.setdefault(ev.proc, []).append((b.version, b.new_oldest, list(b.verdicts)))
+            if list(b.txns) != list(ring_txns.get((ev.proc, b.version), ())):
+                differ.setdefault(ev.proc, []).append(b.version)
+    return disk, differ
+
+
+def oracle_replay(seq):
+    """One role process's journaled batches ([BBBatch], from the journal's
+    ring) through a fresh OracleConflictEngine: ({(version, new_oldest),
+    ...}, the oracle's verdicts per batch). Host Python only, quadratic in
+    a batch's transactions."""
+    from foundationdb_tpu_torch.ops.oracle import OracleConflictEngine
+
+    oracle = OracleConflictEngine()
+    return (tuple((b.version, b.new_oldest) for b in seq),
+            [[int(x) for x in oracle.resolve(list(b.txns), b.version, b.new_oldest)]
+             for b in seq])
+
+
+def replay_jobs(runs):
+    """The distinct journaled sequences of `runs` to replay, longest first:
+    [[BBBatch, ...], ...], one per role process whose (version, new_oldest)
+    sequence is not a prefix of one already listed."""
+    seqs = []
+    for run in runs:
+        by_proc = {}
+        for proc, b in run["journal"]["batches"]:
+            by_proc.setdefault(proc, []).append(b)
+        seqs += by_proc.values()
+    jobs, keys = [], []
+    for seq in sorted(seqs, key=len, reverse=True):
+        key = tuple((b.version, b.new_oldest) for b in seq)
+        if not any(k[:len(key)] == key for k in keys):
+            jobs.append(seq)
+            keys.append(key)
+    return jobs
+
+
+def check_role_run(run, disk, replays):
+    """Hold a role run to the oracle replay of its journal. The journal's
+    ring gives each role's (txns, version, new_oldest, verdicts) sequence;
+    `replays` maps each replayed (version, new_oldest) sequence to its
+    oracle verdicts (a prefix of a replayed sequence reads its verdicts off
+    it); `disk` is the journal read back from disk. Each role resolved each
+    version at most once, counts as many resolved batches as it journaled,
+    and journaled the oracle's verdicts; the disk holds the ring's records
+    in order less exactly the ones the journal reports shed; every accepted
+    reply equals the replay of the generation that gave it. After a kill,
+    gen2 resolved every later version exactly once and gave every later
+    reply. Returns the mismatches (0, or the run fails), the first role's
+    horizon by version and the records shed."""
+    label = run["label"]
+    resolved, shed = [], 0
+    sequences = role_sequences(run)
+    for gen, role in enumerate(run["roles"]):
+        key = sequences.get(role.proc.address, ())
+        check(len({v for v, _ in key}) == len(key), f"{label}: role {gen} resolved a version twice")
+        n = role.stats.counter("batches_resolved").value
+        check(n == len(key), f"{label}: role {gen} counts {n} resolved batches, its journal "
+              f"{len(key)}")
+        hit = next((k for k in replays if k[:len(key)] == key), None)
+        check(hit is not None, f"{label}: role {gen}'s sequence was never replayed")
+        want = dict(zip((v for v, _ in key), replays[hit]))
+        check(all(list(b.verdicts) == want[b.version] for p, b in run["journal"]["batches"]
+                  if p == role.proc.address),
+              f"{label}: role {gen}'s journaled verdicts differ from the oracle replay")
+        on_disk = disk.get(role.proc.address, [])
+        kept = {v for v, _, _ in on_disk}
+        check([(v, old) for v, old, _ in on_disk] == [(v, old) for v, old in key if v in kept]
+              and all(verdicts == want[v] for v, _, verdicts in on_disk),
+              f"{label}: role {gen}'s journal on disk differs from its ring")
+        shed += len(key) - len(on_disk)
+        resolved.append(want)
+    check(shed == run["journal"]["shed_events"] and run["journal"]["durability_gap"] == (shed > 0),
+          f"{label}: {shed} records missing from disk, the journal reports "
+          f"{run['journal']['shed_events']} shed")
+    mismatches = sum(got != resolved[run["answered_by"][v]].get(v)
+                     for v, got in run["replies"].items())
+    check(mismatches == 0, f"{label}: {mismatches} replies differ from the oracle replay of the "
+          "role's journal")
+    kill = run["kill_version"]
+    if kill is not None:
+        later = sorted(v for v in run["replies"] if v > kill)
+        check(len(resolved) == 2 and sorted(resolved[1]) == later
+              and all(run["answered_by"][v] == 1 for v in later),
+              f"{label}: the versions after the kill point were not each answered once by gen2")
+    else:
+        check(len(resolved) == 1 and sorted(resolved[0]) == sorted(run["replies"]),
+              f"{label}: the role did not resolve every version once")
+    horizons = dict(sequences.get(run["roles"][0].proc.address, ()))
+    return mismatches, horizons, shed
+
+
+def replay_and_check(run):
+    """journal_read_back, oracle_replay and check_role_run in this
+    process."""
+    disk, differ = journal_read_back(run["journal_dir"], run["journal"]["batches"])
+    check(not differ, f"{run['label']}: the journal on disk holds other transactions than "
+          f"its ring at versions {differ}")
+    return check_role_run(run, disk, dict(map(oracle_replay, replay_jobs([run]))))
+
+
+def journal_bytes(directory):
+    return [p.read_bytes() for p in sorted(Path(directory).glob("bbox-*.seg"))]
+
+
+def bare_engine_txn_per_s(engine, batches, horizons, replies):
+    """The same engine on the same traffic with no role around it: serial
+    resolve() at the versions and horizons (`horizons`, by version) the role
+    used, from an emptied table; verdicts equal the role's replies."""
+    import torch
+
+    engine.base = engine.oldest_version = 0
+    engine.clear(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for txns, version, _ in batches:
+        got = [int(v) for v in engine.resolve(txns, version, horizons[version])]
+        check(got == replies[version], f"the bare engine at version {version} differs from "
+              "the role's reply")
+    return sum(len(t) for t, _, _ in batches) / (time.perf_counter() - t0)
+
+
+def resolver_role_phase(fc, pl, card, engines, clocks, rng):
+    """The resolver role (server/resolver.py) over the port's warmed engines
+    in the port's simulator (drive_role) on the columnar traffic with its
+    versions MAX_WRITE_TRANSACTION_LIFE_VERSIONS // GC_LAG_BATCHES apart:
+    serially, pipelined at depth 1-3, the loop engine at depth 2, a kill
+    and restart at depth 2, and depth 2 again with the same seed. The
+    pipelined service runs on the card's own figures: `clocks` gives the
+    columnar and loop phases' pack ms per txn and the telemetry phase's
+    sampled device ms per bucket (and the loop's enqueue and decode ms).
+    Engines are cleared to version 0 between runs, with no capture. After
+    each run without a kill, its engine resolves the traffic bare, at the
+    role's horizons, for its wall txn/s without the role under the same
+    host load. After the last run, ROLE_REPLAY_WORKERS worker processes
+    read each run's journal back from disk (its records' transactions
+    equal to the ring's) and replay each distinct (version, new_oldest)
+    sequence through the oracle once; every run holds to the replay
+    (check_role_run). The loop role makes no blocking sync; the second
+    depth-2 run gives the same replies, journal bytes and scheduler steps
+    as the first."""
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    import torch
+
+    from foundationdb_tpu_torch.core.types import MAX_WRITE_TRANSACTION_LIFE_VERSIONS as life
+
+    eng, leng, eng2 = engines["columnar"], engines["device_loop"], engines["gen2"]
+    batches = columnar_traffic(rng, COLUMNAR_SIZES, READ_ONLY, step=role_version_step())
+    txns_total = sum(len(t) for t, _, _ in batches)
+
+    def config(depth, key="columnar", **kw):
+        return pl.PipelineConfig(depth=depth, pack_ms_per_txn=clocks[key]["pack_ms_per_txn"],
+                                 device_ms_by_bucket=clocks[key]["device_ms_by_bucket"], **kw)
+
+    def cleared(*engs):
+        for e in engs:
+            if e is not None:
+                e.base = e.oldest_version = 0
+                e.clear(0)
+        torch.cuda.synchronize()
+
+    runs = [("serial", "resolver_role_serial", eng, {}),
+            *((f"depth{d}", "resolver_role_pipelined", eng, {"pipeline": config(d)})
+              for d in ROLE_DEPTHS),
+            ("device_loop_depth2", "resolver_role_device_loop", leng, {"pipeline": config(
+                2, "device_loop", dispatch_mode="device_loop",
+                queue_enqueue_ms=clocks["device_loop"]["queue_enqueue_ms"],
+                result_drain_ms=clocks["device_loop"]["result_drain_ms"])}),
+            ("restart_depth2", "resolver_role_restart", eng,
+             {"pipeline": config(2), "kill_at": ROLE_KILL_AT, "engine2": eng2}),
+            ("depth2_same_seed", "resolver_role_pipelined", eng, {"pipeline": config(2)})]
+    captures = [e.perf.captures for e in (eng, leng, eng2)]
+    out, launches, bare, served = {"runs": {}}, {}, {}, []
+    with tempfile.TemporaryDirectory(prefix="role-journals-") as tmp:
+        for label, path, engine, kw in runs:
+            t0 = time.perf_counter()
+            cleared(engine, kw.get("engine2"))
+            stats0 = dict(getattr(engine, "loop_stats", {}))
+            run = drive_role(fc, engine, batches, Path(tmp) / label, f"resolver role, {label}",
+                             **kw)
+            if stats0:
+                blocking = engine.loop_stats["blocking_syncs"] - stats0["blocking_syncs"]
+                check(blocking == 0, f"the loop role made {blocking} blocking syncs")
+                run["blocking_syncs"] = blocking
+            if kw.get("kill_at") is None:
+                # the same engine bare right after its role run, under the
+                # same host load (after a kill, gen2's table starts empty,
+                # so the bare pass could not reproduce its replies: the
+                # restart run reads the engine's latest bare pass)
+                horizons = dict(role_sequences(run)[run["roles"][0].proc.address])
+                bare[id(engine)] = bare_engine_txn_per_s(engine, batches, horizons,
+                                                         run["replies"])
+            run["bare_txn_per_s"] = bare[id(engine)]
+            run["seconds"] = time.perf_counter() - t0
+            launches[path] = launches.get(path, 0) + run["launches"]
+            served.append((label, engine, kw, run))
+        # the oracle replays and the read-backs run after the last timed run,
+        # so no worker shares the host with a role or a bare pass
+        t0 = time.perf_counter()
+        with ProcessPoolExecutor(ROLE_REPLAY_WORKERS, mp_context=get_context("spawn")) as pool:
+            replaying = [pool.submit(oracle_replay, seq) for seq in replay_jobs(
+                [run for *_, run in served])]
+            reading = [pool.submit(journal_read_back, run["journal_dir"],
+                                   run["journal"]["batches"]) for *_, run in served]
+            replays = dict(f.result() for f in replaying)
+            read_back = [f.result() for f in reading]
+        replay_s = time.perf_counter() - t0
+        for (label, engine, kw, run), (disk, differ) in zip(served, read_back):
+            check(not differ, f"resolver role, {label}: the journal on disk holds other "
+                  f"transactions than its ring at versions {differ}")
+            mismatches, horizons, shed = check_role_run(run, disk, replays)
+            lat = list(run["latency"].values())
+            rec = {"txns": txns_total, "batches": len(batches),
+                   "duplicates": sum(1 for i in range(len(batches)) if i % 4 == 3),
+                   "mismatches": mismatches, "launches": run["launches"],
+                   "virtual_p50_ms": nearest_rank(lat, 0.50) * 1e3,
+                   "virtual_p99_ms": nearest_rank(lat, 0.99) * 1e3,
+                   "wall_s": run["wall_s"], "engine_s": run["engine_s"],
+                   "journal_s": run["journal_s"], "key_sample_s": run["sample_s"],
+                   "dispatches": run["dispatches"],
+                   "tightened_horizons": sum(old != max(0, v - life)
+                                             for v, old in horizons.items()),
+                   "wall_txn_per_s": txns_total / run["wall_s"],
+                   "bare_engine_txn_per_s": run["bare_txn_per_s"],
+                   "scheduler_steps": len(run["tasks"]), "journal_shed": shed,
+                   "journal_records_read_back": sum(map(len, disk.values())),
+                   "blocking_syncs": run.get("blocking_syncs"),
+                   "answered_by_gen2": sum(run["answered_by"].values())}
+            out["runs"][label] = rec
+            rest_ms = (run["wall_s"] - run["engine_s"] - run["journal_s"]
+                       - run["sample_s"]) / len(batches) * 1e3
+            print(f"resolver role, {label} [{card}]: {rec['txns']} txns in {rec['batches']} "
+                  f"batches, {rec['duplicates']} delivered twice, {mismatches} mismatches against "
+                  f"the oracle replay of its journal"
+                  + (f" ({rec['answered_by_gen2']} versions answered by gen2)"
+                     if kw.get("kill_at") is not None else "")
+                  + f"; virtual reply latency p50 {rec['virtual_p50_ms']:.4f} ms p99 "
+                  f"{rec['virtual_p99_ms']:.4f} ms; wall {rec['wall_txn_per_s']:.0f} txn/s through "
+                  f"the role (engine {run['engine_s'] * 1e3:.1f} ms, journal "
+                  f"{run['journal_s'] * 1e3:.1f} ms, the role's key sample "
+                  f"{run['sample_s'] * 1e3:.1f} ms, the rest {rest_ms:.3f} ms a batch), bare "
+                  f"engine {rec['bare_engine_txn_per_s']:.0f} txn/s"
+                  + (" (its pass after the previous run)" if kw.get("kill_at") is not None
+                     else " (its pass right after this run)")
+                  + f"; {rec['scheduler_steps']} scheduler steps; {run['dispatches']} dispatches "
+                  "under sync debug \"error\""
+                  + (f", {run['blocking_syncs']} blocking syncs" if "blocking_syncs" in run else "")
+                  + f"; {run['launches']} fixpoint launches; buggify shed {shed} journal records "
+                  f"and tightened {rec['tightened_horizons']} horizons; "
+                  f"{rec['journal_records_read_back']} records read back from disk, their "
+                  f"transactions equal to the ring's ({run['seconds']:.1f} s)", flush=True)
+        first = next(run for label, *_, run in served if label == "depth2")
+        again = next(run for label, *_, run in served if label == "depth2_same_seed")
+        same = {"replies": again["replies"] == first["replies"],
+                "scheduler_steps": again["tasks"] == first["tasks"],
+                "journal_bytes": journal_bytes(again["journal_dir"])
+                == journal_bytes(first["journal_dir"])}
+        check(all(same.values()), f"the same seed ran differently: {same}")
+        out["seed_replay"] = dict(same, steps=len(again["tasks"]),
+                                  bytes=sum(map(len, journal_bytes(again["journal_dir"]))))
+    print(f"  seed replay [{card}]: depth 2 twice with seed {SEED}: equal replies, "
+          f"{out['seed_replay']['steps']} equal (virtual time, task) scheduler steps, "
+          f"{out['seed_replay']['bytes']} equal journal bytes; {len(replays)} oracle replays "
+          f"and {len(served)} read-backs in {ROLE_REPLAY_WORKERS} workers after the last run "
+          f"({replay_s:.1f} s)", flush=True)
+    check([e.perf.captures for e in (eng, leng, eng2)] == captures,
+          "an engine captured in the role phase")
+    out.update(launches=launches, oracle_replays=len(replays), replay_wait_s=replay_s)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -1937,6 +2442,26 @@ def main(argv=None) -> int:
     results["telemetry_phase"] = tele
     results["scheduled_pipeline_phase"] = spp
 
+    # the resolver role in the simulator, its pipelined service fed the
+    # card's own pack clocks and sampled device ms per bucket
+    def sampled(key):
+        return {int(b): ms for b, ms in tele[key]["sampled_device_ms_per_chunk"].items()}
+
+    clocks = {"columnar": {"pack_ms_per_txn": colp["pack_ms_per_batch"] * colp["batches"]
+                           / colp["txns"], "device_ms_by_bucket": sampled("columnar")},
+              "device_loop": {"pack_ms_per_txn": lp["pack_ms_per_batch"] * lp["batches"]
+                              / lp["txns"], "device_ms_by_bucket": sampled("device_loop"),
+                              "queue_enqueue_ms": lp["enqueue_ms_per_batch"],
+                              "result_drain_ms": lp["decode_ms_per_batch"]}}
+    t0 = time.perf_counter()
+    role = resolver_role_phase(fc, pl, card, {"columnar": eng, "device_loop": leng, "gen2": eng0},
+                               clocks, rng)
+    role["clocks"] = clocks
+    results["resolver_role_phase"] = role
+    print(f"resolver role phase [{card}]: {len(role['runs'])} runs, {role['oracle_replays']} "
+          f"oracle replays, launches {role['launches']} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
     kernels = {"kernels": [{
         "name": "commit_fixpoint",
         "route": "cuda",
@@ -1944,7 +2469,8 @@ def main(argv=None) -> int:
         "replaces": "foundationdb_tpu/ops/fixpoint_pallas.py:336",
         "launches": sum(r["launches"] for r in (ep, gp, colp, colp0, pp, tep, tcol, tpp, lp, tlp,
                                                 lpp, *(tele[k] for k in TELEMETRY_ENGINES),
-                                                tele["default_rate"], spp)),
+                                                tele["default_rate"], spp))
+                    + sum(role["launches"].values()),
         "launches_by_path": {"engine_general_router_graph": ep["graph_launches"],
                              "engine_general_router_eager": ep["eager_launches"],
                              "graph_step": gp["launches"], "columnar_engine": colp["launches"],
@@ -1963,7 +2489,7 @@ def main(argv=None) -> int:
                              "telemetry_tiered_device_loop":
                                  tele["tiered_device_loop"]["launches"],
                              "telemetry_default_rate": tele["default_rate"]["launches"],
-                             "scheduled_pipeline": spp["launches"]},
+                             "scheduled_pipeline": spp["launches"], **role["launches"]},
         "mismatches": 0,
         "max_abs_err": 0,
         "ms": kp["kernel_ms"],

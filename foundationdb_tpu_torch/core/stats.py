@@ -1,8 +1,7 @@
 """Counters: per-role operational metrics with periodic trace emission.
 
-Port of ``foundationdb_tpu/core/stats.py``. The periodic logger actor
-(`run_logger`) waits on the simulator's clock, and the port has no
-simulator yet: it raises instead of running on another clock.
+Port of ``foundationdb_tpu/core/stats.py``; the periodic logger actor
+(`run_logger`) waits on the port's simulator clock (`sim.loop.delay`).
 
 Analog of flow/Stats.h (Counter, CounterCollection, traceCounters): roles
 register named counters in a collection; a recurring actor emits one
@@ -69,9 +68,9 @@ class CounterCollection:
         ev.log()
 
     async def run_logger(self, interval: float = 5.0):
-        """Periodic traceCounters actor; spawn on the owning process. It
-        needs the simulator's `delay`, which is not ported yet: it raises,
-        never falls back to another clock."""
-        raise NotImplementedError(
-            "CounterCollection.run_logger needs the simulator (sim.loop.delay), "
-            "which foundationdb_tpu_torch has not ported yet")
+        """Periodic traceCounters actor; spawn on the owning process."""
+        from ..sim.loop import delay
+
+        while True:
+            await delay(interval)
+            self.trace(interval)

@@ -39,9 +39,12 @@ def _engine_state_bytes(engine) -> Optional[int]:
     through a ResilientEngine's wrapped device when supervised. None when
     the engine keeps no array state (the serial oracle).
     server/resolver.py uses the same helper for its engine_health
-    fragment."""
-    dev = getattr(engine, "device", engine)
-    st = getattr(dev, "state", None)
+    fragment. A port engine's own `device` is its torch.device, so the
+    engine's state is read first and the wrapped device's only without
+    one."""
+    st = getattr(engine, "state", None)
+    if st is None:
+        st = getattr(getattr(engine, "device", None), "state", None)
     if not isinstance(st, dict):
         return None
     try:

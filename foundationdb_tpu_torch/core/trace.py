@@ -1,9 +1,9 @@
 """Structured event tracing.
 
 Port of ``foundationdb_tpu/core/trace.py``: events, spans, the span
-collector and the distributed trace context. `span_now()` keeps the
-simulator hook of the JAX package, but the port has no simulator yet, so
-it reads the wall clock (`time.perf_counter()`).
+collector and the distributed trace context. `span_now()` reads the port's
+simulator clock (`sim.loop`) while a scheduler is active, and the wall
+clock (`time.perf_counter()`) otherwise.
 
 Analog of the reference's TraceEvent system (flow/Trace.h, flow/Trace.cpp):
 structured events with typed details, severity gating, and machine-readable
@@ -159,15 +159,16 @@ class TraceEvent:
 # attribute check and allocate nothing (span() returns a shared null object
 # — tests/test_trace_spans.py pins this).
 
-#: the simulator's loop module (its `_current` scheduler carries the
-#: virtual clock). The port has no simulator yet, so this stays None and
-#: span_now() reads the wall clock; a ported sim installs its module here.
 _loop_mod = None
 
 
 def span_now() -> float:
     """Virtual time under an active sim scheduler, wall time otherwise."""
-    s = _loop_mod._current if _loop_mod is not None else None
+    global _loop_mod
+    if _loop_mod is None:
+        from ..sim import loop as _loop
+        _loop_mod = _loop
+    s = _loop_mod._current
     return s.time if s is not None else time.perf_counter()
 
 

@@ -896,3 +896,55 @@ def test_scheduled_stream_on_the_loop_engine(card):
     eng.drain_loop()
     assert eng.loop_stats["blocking_syncs"] == 0
     assert sched.counters["preaborts"] > 0 and sched.counters["laned"] > 0
+
+
+ROLE_CFG = ck.KernelConfig(key_words=4, capacity=16384, max_txns=256, max_reads=16,
+                           max_writes=16, max_point_reads=512, max_point_writes=512)
+
+
+def role_on_card(tmp_path, engine, depth, **pipeline_kw):
+    """chip_smoke's drive_role at a small size: the proxy sends
+    each batch over the simulated network to the role over `engine` on the
+    card, every 4th twice; the role's journal is read back and replayed
+    through the oracle, and every reply must equal the replay."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from foundationdb_tpu_torch import pipeline as pl
+
+    batches = cs.columnar_traffic(np.random.default_rng(7), [20, 60, 300, 120, 700], {3: 90},
+                                  step=cs.role_version_step())
+    pipeline = None if depth is None else pl.PipelineConfig(
+        depth=depth, pack_ms_per_txn=0.001,
+        device_ms_by_bucket={32: 1.0, 64: 1.5, 128: 2.0, 256: 3.0}, **pipeline_kw)
+    run = cs.drive_role(fc, engine, batches, tmp_path / "journal", "card role",
+                        pipeline=pipeline)
+    mismatches, _, _ = cs.replay_and_check(run)
+    return run, mismatches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [None, 2], ids=["serial", "depth2"])
+def test_resolver_role_on_the_card_matches_the_oracle_replay(card, tmp_path, depth):
+    """The resolver role in the port's simulator over TorchConflictEngine on
+    the card, serially and pipelined at depth 2: 0 replies off the oracle
+    replay of its journal, the fixpoint kernel launched, every dispatch
+    free of host syncs (sync debug "error"), nothing captured after
+    warmup()."""
+    eng = TorchConflictEngine(ROLE_CFG, ladder=(32, 64, 128), scan_sizes=(2, 4),
+                              device_time_sample_rate=0.0).warmup()
+    captures = eng.perf.captures
+    run, mismatches = role_on_card(tmp_path, eng, depth)
+    assert mismatches == 0 and run["launches"] > 0 and run["dispatches"] >= 6
+    assert eng.perf.captures == captures
+
+
+@pytest.mark.cuda
+def test_loop_resolver_role_on_the_card_makes_no_blocking_sync(card, tmp_path):
+    """The loop engine behind the service's device_loop mode at depth 2: the
+    oracle replay's verdicts, no blocking sync."""
+    eng = DeviceLoopEngine(ROLE_CFG, ladder=(32, 64, 128), device_time_sample_rate=0.0).warmup()
+    run, mismatches = role_on_card(tmp_path, eng, 2, dispatch_mode="device_loop",
+                                   queue_enqueue_ms=0.2, result_drain_ms=0.1)
+    assert mismatches == 0 and run["launches"] > 0
+    assert eng.loop_stats["blocking_syncs"] == 0

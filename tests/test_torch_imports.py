@@ -1,5 +1,6 @@
 """foundationdb_tpu_torch and chip_smoke.py import neither jax nor anything
-of the JAX package, and the engine runs on the card unless told otherwise.
+of the JAX package, not even through a module name in a string, and the
+engine runs on the card unless told otherwise.
 
 tests/conftest.py imports jax into this process, so the import check runs
 in a fresh subprocess.
@@ -56,6 +57,11 @@ def test_subprocess_import_loads_no_jax():
     "foundationdb_tpu_torch.core.telemetry",
     "foundationdb_tpu_torch.core.perfledger",
     "foundationdb_tpu_torch.pipeline.scheduler",
+    "foundationdb_tpu_torch.sim.simulator",
+    "foundationdb_tpu_torch.core.blackbox",
+    "foundationdb_tpu_torch.server.resolver",
+    "foundationdb_tpu_torch.pipeline.service",
+    "foundationdb_tpu_torch.fault",
 ])
 def test_serving_path_modules_load_no_jax(module):
     """The columnar path's modules, each imported alone in a fresh process
@@ -92,11 +98,44 @@ def test_source_scan_finds_no_jax_import():
     for name in ("core/wire.py", "pipeline/resolver_pipeline.py", "native/fastpack.py",
                  "core/heatmap.py", "ops/device_loop.py", "core/rng.py", "core/knobs.py",
                  "core/buggify.py", "core/trace.py", "core/stats.py", "core/tdmetric.py",
-                 "core/perfledger.py", "core/telemetry.py", "pipeline/scheduler.py"):
+                 "core/perfledger.py", "core/telemetry.py", "pipeline/scheduler.py",
+                 "core/error.py", "core/types.py", "core/blackbox.py", "sim/loop.py",
+                 "sim/actors.py", "sim/failmon.py", "sim/network.py", "sim/disk.py",
+                 "sim/validation.py", "sim/system_monitor.py", "sim/simulator.py",
+                 "fault/__init__.py", "server/messages.py", "server/resolver.py",
+                 "pipeline/service.py"):
         assert PKG / name in files, name
     for path in files:
         bad = [r for r in imported_roots(path) if r in FORBIDDEN]
         assert not bad, (path, bad)
+
+
+def named_modules(path: Path):
+    """String literals that name a module of the JAX package or jax itself:
+    what importlib or __import__ would load at run time, out of sight of an
+    import scan (a string starting "foundationdb_tpu." but not
+    "foundationdb_tpu_torch.")."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            v = node.value.strip()
+            if v in FORBIDDEN or v.startswith(("foundationdb_tpu.", "jax.", "jaxlib.")):
+                yield v
+
+
+def test_source_scan_finds_no_jax_module_name():
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for path in files:
+        bad = list(named_modules(path))
+        assert not bad, (path, bad)
+
+
+def test_module_name_scan_flags_a_jax_package_string(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text('import importlib\n'
+                     'MODS = ("foundationdb_tpu.core.types", "foundationdb_tpu_torch.core.types")\n'
+                     'importlib.import_module("jax")\n')
+    assert list(named_modules(probe)) == ["foundationdb_tpu.core.types", "jax"]
 
 
 def test_engine_defaults_to_the_card():

@@ -11,17 +11,18 @@ the JAX package's.
     the file sink, disabled spans allocating nothing, process names and
     export, enabled spans), run on both modules with equal results;
   * tdmetric: the unit cases of tests/test_tdmetric.py on both modules
-    (its logger cases need the simulator and the database, which the port
-    has not ported);
-  * stats: counters and their trace event on both; the port's run_logger
-    raises (it needs the simulator).
+    (its logger cases need the database, which the port has not ported);
+  * stats: counters and their trace event on both, and the periodic
+    logger's events under each package's simulator;
+  * span_now(): the wall clock without a scheduler, each simulator's
+    virtual time inside one.
 
 Every compared value is an integer, a string or a float computed the same
 way: tolerance 0. Excluded: span Begin/End stamps (wall clock; each case
 compares names, trace ids and details only).
 """
-import asyncio
 import io
+import time
 
 import pytest
 
@@ -280,13 +281,37 @@ def test_trace_cases_equal(case):
 
 
 def test_span_now_reads_the_wall_clock_without_a_simulator():
-    """The port has no simulator: span_now() is time.perf_counter()."""
+    """With no active scheduler span_now() is time.perf_counter(); inside a
+    port simulation it is the scheduler's virtual time, equal to the JAX
+    package's span_now() inside the JAX simulation at the same step."""
     import time
 
-    assert ttrace._loop_mod is None
+    from torch_sim_world import BOTH, PORT, clean_world
+
+    clean_world()
     t0 = time.perf_counter()
     now = ttrace.span_now()
     assert t0 <= now <= time.perf_counter()
+    seen = []
+    try:
+        for P in BOTH:
+            sim = P.simulator.Simulator(5)
+            stamps = []
+
+            async def actor(P=P, sim=sim, stamps=stamps):
+                for i in range(4):
+                    await P.loop.delay(0.25 * (i + 1) + sim.sched.rng.random01())
+                    stamps.append((sim.sched.time, P.trace.span_now()))
+
+            sim.run_until(sim.sched.spawn(actor()))
+            seen.append(stamps)
+            clean_world()
+    finally:
+        clean_world()
+    assert seen[0] == seen[1]
+    assert all(t == s for t, s in seen[0]) and seen[0][-1][0] > 2.5
+    t0 = time.perf_counter()
+    assert PORT.loop._current is None and t0 <= ttrace.span_now() <= time.perf_counter()
 
 
 # ---------------------------------------------------------------------------
@@ -372,8 +397,42 @@ def stats_case(st, td, tr):
             cc.counter("txns").rate_since_last(0.0))
 
 
+def logger_events(P):
+    """CounterCollection.run_logger under package P's simulator, the trace
+    clock set to the simulation's: the `ResolverMetrics` events it logs."""
+    sim = P.simulator.Simulator(9)
+    P.trace.set_time_source(lambda: sim.sched.time)
+    n0 = len(P.trace.g_trace.events)
+    try:
+        cc = P.stats.CounterCollection("Resolver", id="r1")
+
+        async def work():
+            for i in range(5):
+                cc.add("batches")
+                cc.add("txns", 10 * i)
+                await P.loop.delay(1.5 + sim.sched.rng.random01())
+
+        sim.sched.spawn(cc.run_logger(2.0))
+        sim.sched.spawn(work())
+        sim.run(until=9.0)
+        return [e for e in P.trace.g_trace.events[n0:] if e["Type"] == "ResolverMetrics"]
+    finally:
+        del P.trace.g_trace.events[n0:]
+        P.trace.set_time_source(time.monotonic)
+
+
 def test_stats_equal_and_logger_needs_the_simulator():
+    """Counters and their trace event equal the JAX package's; the periodic
+    logger runs on each package's simulator clock and logs equal
+    `*Metrics` events (times, values, rates)."""
+    from torch_sim_world import JAX, PORT, clean_world
+
     assert stats_case(tstats, ttdmetric, ttrace) == stats_case(jstats, jtdmetric, jtrace)
-    cc = tstats.CounterCollection("Resolver")
-    with pytest.raises(NotImplementedError, match="simulator"):
-        asyncio.run(cc.run_logger(0.01))
+    clean_world()
+    try:
+        got, want = logger_events(PORT), logger_events(JAX)
+    finally:
+        clean_world()
+    assert got == want
+    assert [e["Time"] for e in got] == [2.0, 4.0, 6.0, 8.0]
+    assert got[-1]["batches"] == 5 and got[-1]["txns"] == 100
