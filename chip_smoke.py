@@ -117,6 +117,33 @@ toolkit. The script
      replies, journal bytes and scheduler steps; dispatches run under sync
      debug "error" and the loop role makes no blocking sync. Virtual reply
      latency p50 / p99, wall txn/s through the role and of the bare engine.
+  14. supervised role phase: the role at depth 2 over
+     ResilientEngine(FaultInjectingEngine(the columnar card engine)), on
+     the columnar generator at 200-2048 txns a batch (36 batches): the bare
+     role first, then (a) fault-free, buggify off, probe_rate 1.0: HEALTHY,
+     0 faults, 0 probe mismatches, 0 oracle batches; (b) exceptions, hangs,
+     stragglers and outages: SUSPECT -> HEALTHY and FAILED -> PROBATION ->
+     HEALTHY visited; (c) flips at probe_rate 1.0: QUARANTINED. Every reply
+     equals the oracle replay of its journal; the dispatch faults are the
+     injector's and the buggify sites', none the card's; no dispatch
+     synchronizes; a rewarm captures nothing. Transitions, stats, rewarm
+     ms, launches, wall txn/s beside the bare role's.
+  15. crash recovery phase: two spawn-context children over one directory.
+     A: a journal that fsyncs every record, a program cache, snapshots,
+     a supervised card engine warmed up; serves 9 batches and is killed
+     with SIGKILL once the last is durable. B (with the cache) and B' (on a
+     copy, without) boot cold, recover() and serve the rest: complete,
+     covered, 0 mismatches, verdicts equal to the oracle's over the whole
+     stream; the journal holds snapshot and recovery events. The blackout
+     beside resolver_recovery_budget_ms, the clock from process start to
+     the first served batch by part, the captures, the caches' summaries.
+  16. reshard phase: an ElasticResolverGroup of supervised tiered card
+     engines (a spare prewarmed) in the simulator; the ReshardController
+     splits the hot span and later merges it back, each under concurrent
+     load, over skewed traffic (64 hot keys): every verdict equals one
+     serial oracle's; run_slice since a watermark equals shadow_slice after
+     coalesce. Each blackout beside reshard_blackout_budget_ms, the batch
+     paths, launches per slot, device memory.
 
 Each path's kernel launches are counted from 0 just before it and read
 just after (a captured graph's fixpoint launches are counted at each
@@ -136,6 +163,7 @@ import argparse
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -1706,7 +1734,7 @@ def nearest_rank(xs, q: float) -> float:
 
 
 def drive_role(fc, engine, batches, journal_dir, label, *, pipeline=None, kill_at=None,
-               engine2=None, seed=SEED):
+               engine2=None, seed=SEED, supervise=None, buggify_on=True):
     """One run of the port's resolver role in the port's simulator.
 
     Simulator(seed) (buggify on) holds a proxy process and a resolver
@@ -1721,13 +1749,20 @@ def drive_role(fc, engine, batches, journal_dir, label, *, pipeline=None, kill_a
     resolver process is killed once the proxy holds batch `kill_at`'s
     reply, with later batches in flight, and a second role (token suffix
     "gen2", over `engine2`, its chain restarted at the kill point) serves
-    every later version. Every dispatch runs under sync debug "error".
+    every later version. Every dispatch runs under sync debug "error"; a
+    dispatch that synchronizes raises, and the run fails after it ends
+    (whatever caught the error on the way). With `supervise`, a callable
+    taking the card engine, the role serves what it returns (built once
+    the simulator exists: a ResilientEngine draws its seed from the
+    simulation's stream) and the card engine under it is the one
+    instrumented; `buggify_on=False` turns buggify off for the run.
     Returns the run's record: the accepted reply per version, the role
     generation that gave it and its virtual latency; the (virtual time,
     task name) of every step the scheduler queued; the journal's batch
     records as its ring holds them and its durability accounting; the wall
     seconds of the run, of the engines' resolve() calls and of the
-    journal's batch records; the fixpoint launches."""
+    journal's batch records; the fixpoint launches; the supervised stack
+    (`stack`, or None)."""
     import torch
 
     from foundationdb_tpu_torch.core import blackbox, buggify, error
@@ -1738,6 +1773,9 @@ def drive_role(fc, engine, batches, journal_dir, label, *, pipeline=None, kill_a
     from foundationdb_tpu_torch.sim.simulator import Simulator
 
     sim = Simulator(seed)
+    if not buggify_on:
+        buggify.disable()
+    stack = supervise(engine) if supervise is not None else None
     sched = sim.sched
     tasks = []
     schedule_step = sched._schedule_step
@@ -1748,6 +1786,7 @@ def drive_role(fc, engine, batches, journal_dir, label, *, pipeline=None, kill_a
 
     sched._schedule_step = logged_step
     clocks = {"engine_s": 0.0, "journal_s": 0.0, "sample_s": 0.0, "dispatches": 0}
+    sync_errors = []
 
     def timed(fn, key):
         def run(*a, **k):
@@ -1767,7 +1806,8 @@ def drive_role(fc, engine, batches, journal_dir, label, *, pipeline=None, kill_a
             try:
                 return dispatch(plan)
             except RuntimeError as e:
-                fail(f"{label}: a dispatch synchronized with the card: {e}")
+                sync_errors.append(str(e))
+                raise
             finally:
                 torch.cuda.set_sync_debug_mode("default")
 
@@ -1787,7 +1827,7 @@ def drive_role(fc, engine, batches, journal_dir, label, *, pipeline=None, kill_a
         str(journal_dir), fresh=True, segment_bytes=ROLE_JOURNAL_SEGMENT_BYTES))
     proxy = sim.new_process("proxy")
     rproc = sim.new_process("resolver")
-    roles = [role(rproc, engine, start_version=0)]
+    roles = [role(rproc, stack if stack is not None else engine, start_version=0)]
     endpoints = [Endpoint(rproc.address, roles[0].token)]
     replies, answered_by, latency = {}, {}, {}
     kill_version = batches[kill_at][1] if kill_at is not None else None
@@ -1850,6 +1890,8 @@ def drive_role(fc, engine, batches, journal_dir, label, *, pipeline=None, kill_a
         blackbox.record_batch = record_batch
         for e in engines:
             del e.resolve, e.columnar_dispatch
+    check(not sync_errors, f"{label}: {len(sync_errors)} dispatches synchronized with the "
+          f"card: {sync_errors[:1]}")
     launches = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
     check(launches > 0 and fc.FIXPOINT.plain_cuda_calls == 0,
           f"{label}: {launches} kernel launches, {fc.FIXPOINT.plain_cuda_calls} plain "
@@ -1858,7 +1900,7 @@ def drive_role(fc, engine, batches, journal_dir, label, *, pipeline=None, kill_a
           f"{label}: {len(replies)} of {len(batches)} versions answered")
     return {"label": label, "roles": roles, "replies": replies, "answered_by": answered_by,
             "latency": latency, "tasks": tasks, "wall_s": wall, "launches": launches,
-            "journal_dir": str(journal_dir), "kill_version": kill_version,
+            "journal_dir": str(journal_dir), "kill_version": kill_version, "stack": stack,
             "journal": {"batches": ring, "shed_events": summary["shed_events"],
                         "durability_gap": summary["durability_gap"]}, **clocks}
 
@@ -2157,6 +2199,722 @@ def resolver_role_phase(fc, pl, card, engines, clocks, rng):
     check([e.perf.captures for e in (eng, leng, eng2)] == captures,
           "an engine captured in the role phase")
     out.update(launches=launches, oracle_replays=len(replays), replay_wait_s=replay_s)
+    return out
+
+
+#: the supervised runs' traffic: the columnar generator at the ladder's
+#: sizes (200-2048 txns a batch), three times over. The failover oracle and
+#: the probe are quadratic host Python (~25 s for one 20000-txn batch), and
+#: a rewarm puts a version's committed writes in one synthetic transaction,
+#: which may hold at most wp = 4096 point writes: a 2048-txn batch's fit
+SUPERVISED_SIZES = [200, 512, 1024, 2048, 300, 900, 1800, 256, 700, 1500, 2048, 400] * 3
+#: the supervisor of the fault runs: tests/test_fault_tolerance.py's CFG
+#: (the knobs' defaults would take 4-batch failover and probation windows)
+SUPERVISOR = dict(dispatch_timeout=0.2, retry_budget=2, retry_backoff=0.02,
+                  probation_batches=2, failover_min_batches=2)
+#: the three supervised runs: fault rates, probe rate, buggify. A straggler
+#: waits at most 1.5 x slow_seconds = 0.15 s, under the 0.2 s watchdog, so
+#: every watchdog fault is an injected hang
+SUPERVISED_RUNS = {
+    "fault_free": (dict(exception=0, hang=0, slow=0, outage=0, flip=0), 1.0, False),
+    "faults": (dict(exception=0.05, hang=0.03, slow=0.1, slow_seconds=0.1, outage=0.03,
+                    outage_seconds=0.2, flip=0), 0.25, True),
+    "flips": (dict(exception=0, hang=0, slow=0, outage=0, flip=0.05), 1.0, True),
+}
+
+
+def supervised_stack(card_engine, rates, probe_rate, log):
+    """ResilientEngine(FaultInjectingEngine(card_engine)) with its dispatch
+    faults sorted by cause (`log["faults"]`: injected exception, watchdog,
+    buggify, other), its health transitions and its rewarms (ms, captures,
+    ok) logged. Built inside the run's simulator."""
+    from foundationdb_tpu_torch.core import error
+    from foundationdb_tpu_torch.fault import (FaultInjectingEngine, FaultRates, ResilienceConfig,
+                                              ResilientEngine)
+
+    inj = FaultInjectingEngine(card_engine, rates=FaultRates(**rates))
+    stack = ResilientEngine(inj, ResilienceConfig(probe_rate=probe_rate, **SUPERVISOR))
+    log.update(faults={"injected": 0, "watchdog": 0, "buggify": 0, "other": 0},
+               transitions=[], rewarms=[], injector=inj)
+    dispatch_once, set_state, rewarm = stack._dispatch_once, stack._set_state, stack._rewarm_device
+
+    async def counted_dispatch(*a):
+        try:
+            return await dispatch_once(*a)
+        except error.FDBError as e:
+            msg = str(e)
+            kind = ("buggify" if "buggify:" in msg else "injected" if "injected dispatch" in msg
+                    else "watchdog" if "dispatch watchdog" in msg else "other")
+            log["faults"][kind] += 1
+            if kind == "other":
+                log.setdefault("other_errors", []).append(msg)
+            raise
+
+    def logged_state(state):
+        if state != stack.state:
+            log["transitions"].append((stack.state, state))
+        set_state(state)
+
+    def timed_rewarm():
+        import torch
+
+        c0, t0, ok = card_engine.perf.captures, time.perf_counter(), False
+        try:
+            rewarm()
+            ok = True
+        finally:
+            if card_engine.device.type == "cuda":
+                torch.cuda.synchronize()
+            log["rewarms"].append(((time.perf_counter() - t0) * 1e3,
+                                   card_engine.perf.captures - c0, ok))
+
+    stack._dispatch_once, stack._set_state, stack._rewarm_device = (counted_dispatch, logged_state,
+                                                                    timed_rewarm)
+    return stack
+
+
+def supervised_role_phase(fc, pl, card, eng, clocks, rng, role_depth2):
+    """The resolver role at depth 2 in the port's simulator over
+    ResilientEngine(FaultInjectingEngine(`eng`)), journal on, on the
+    columnar generator at 200-2048 txns a batch: (a) fault-free with
+    buggify off and probe_rate 1.0 (every batch checked against a
+    shadow-rebuilt oracle): HEALTHY, 0 faults, 0 probe mismatches, 0 oracle
+    batches; (b) exceptions, hangs, stragglers and outages at probe_rate
+    0.25, buggify on: the run visits SUSPECT -> HEALTHY and FAILED ->
+    PROBATION -> HEALTHY; (c) flips at 0.05 with probe_rate 1.0: it ends
+    QUARANTINED. The same traffic through the bare role (no supervisor)
+    runs first, for the wall txn/s beside theirs. Every reply equals the oracle
+    replay of the run's journal; every dispatch fault is one the injector
+    or a buggify site caused (none is a card error), counted by cause;
+    no dispatch synchronizes; a rewarm captures nothing."""
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    import torch
+
+    batches = columnar_traffic(rng, SUPERVISED_SIZES, {}, step=role_version_step())
+    txns_total = sum(len(t) for t, _, _ in batches)
+    pipeline = pl.PipelineConfig(depth=2, pack_ms_per_txn=clocks["pack_ms_per_txn"],
+                                 device_ms_by_bucket=clocks["device_ms_by_bucket"])
+    captures0 = eng.perf.captures
+    served, out = [], {"runs": {}, "batches": len(batches), "txns": txns_total}
+    with tempfile.TemporaryDirectory(prefix="supervised-journals-") as tmp:
+        for label, (rates, probe_rate, bug) in [("bare", (None, 0, True)),
+                                                *SUPERVISED_RUNS.items()]:
+            eng.base = eng.oldest_version = 0
+            eng.clear(0)
+            if eng.device.type == "cuda":
+                torch.cuda.synchronize()
+            log = {}
+            supervise = (None if rates is None
+                         else lambda e, r=rates, p=probe_rate: supervised_stack(e, r, p, log))
+            t0 = time.perf_counter()
+            run = drive_role(fc, eng, batches, Path(tmp) / label, f"supervised role, {label}",
+                             pipeline=pipeline, supervise=supervise, buggify_on=bug)
+            run["seconds"] = time.perf_counter() - t0
+            run["log"] = log
+            served.append((label, run))
+        t0 = time.perf_counter()
+        with ProcessPoolExecutor(ROLE_REPLAY_WORKERS, mp_context=get_context("spawn")) as pool:
+            replaying = [pool.submit(oracle_replay, seq) for seq in replay_jobs(
+                [run for _, run in served])]
+            reading = [pool.submit(journal_read_back, run["journal_dir"],
+                                   run["journal"]["batches"]) for _, run in served]
+            replays = dict(f.result() for f in replaying)
+            read_back = [f.result() for f in reading]
+        replay_s = time.perf_counter() - t0
+        for (label, run), (disk, differ) in zip(served, read_back):
+            check(not differ, f"supervised role, {label}: the journal on disk holds other "
+                  f"transactions than its ring at versions {differ}")
+            mismatches, _, shed = check_role_run(run, disk, replays)
+            rec = {"mismatches": mismatches, "launches": run["launches"],
+                   "wall_s": run["wall_s"], "wall_txn_per_s": txns_total / run["wall_s"],
+                   "engine_s": run["engine_s"], "journal_s": run["journal_s"],
+                   "dispatches": run["dispatches"], "journal_shed": shed,
+                   "seconds": run["seconds"]}
+            stack, log = run["stack"], run["log"]
+            if stack is not None:
+                st = stack.health_stats()
+                inj = log["injector"].injected
+                faults = log["faults"]
+                rewarms = log["rewarms"]
+                rec.update(stats={k: v for k, v in st.items() if k != "device"},
+                           transitions=log["transitions"], faults=faults, injected=dict(inj),
+                           rewarms=len(rewarms), rewarm_failures=sum(not ok for *_, ok in rewarms),
+                           rewarm_ms=[round(ms, 3) for ms, _, _ in rewarms],
+                           rewarm_captures=sum(c for _, c, _ in rewarms))
+                check(faults["other"] == 0, f"supervised role, {label}: {faults['other']} "
+                      f"dispatch faults came from the card itself: {log.get('other_errors')}")
+                check(sum(faults.values()) == st["dispatch_faults"]
+                      and faults["injected"] == inj["exceptions"]
+                      and faults["watchdog"] == inj["hangs"],
+                      f"supervised role, {label}: dispatch_faults {st['dispatch_faults']} is not "
+                      f"the injector's {inj} plus the buggify sites' ({faults})")
+                check(rec["rewarm_captures"] == 0,
+                      f"supervised role, {label}: rewarms captured {rec['rewarm_captures']} graphs")
+                if label == "fault_free":
+                    check(st["state"] == "healthy" and st["dispatch_faults"] == 0
+                          and st["probe_mismatches"] == 0 and st["oracle_batches"] == 0
+                          and st["probes"] == st["batches"],
+                          f"supervised role, fault-free: {st}")
+                elif label == "faults":
+                    arcs = set(log["transitions"])
+                    check({("suspect", "healthy"), ("failed", "probation"),
+                           ("probation", "healthy")} <= arcs and st["probe_mismatches"] == 0,
+                          f"supervised role, faults: transitions {log['transitions']}, {st}")
+                else:
+                    check(st["state"] == "quarantined" and st["probe_mismatches"] >= 1,
+                          f"supervised role, flips: {st}")
+            out["runs"][label] = rec
+            print(f"supervised role, {label} [{card}]: {txns_total} txns in {len(batches)} "
+                  f"batches at depth 2, {mismatches} replies off the oracle replay of its "
+                  f"journal; wall {rec['wall_txn_per_s']:.0f} txn/s (the bare role on the same "
+                  f"traffic {out['runs'].get('bare', {}).get('wall_txn_per_s', float('nan')):.0f}"
+                  f", the role phase's depth-2 run {role_depth2:.0f} on its own traffic); "
+                  f"{run['launches']} fixpoint launches; {run['dispatches']} dispatches under "
+                  f"sync debug \"error\" ({run['seconds']:.1f} s)", flush=True)
+            if stack is not None:
+                print(f"  transitions {rec['transitions']}; stats {rec['stats']}; faults by "
+                      f"cause {rec['faults']} (injector {rec['injected']}); {rec['rewarms']} "
+                      f"rewarms ({rec['rewarm_failures']} failed) {rec['rewarm_ms']} ms, "
+                      f"{rec['rewarm_captures']} captures", flush=True)
+    check(eng.perf.captures == captures0, "the card engine captured in the supervised phase")
+    out.update(replay_wait_s=replay_s, oracle_replays=len(replays),
+               launches={label: rec["launches"] for label, rec in out["runs"].items()})
+    return out
+
+
+#: the crash phase: the columnar generator at the ladder's sizes, 12
+#: batches; child A serves the first CRASH_KILL_AFTER and is killed, child
+#: B recovers and serves the rest. Snapshots every 3 batches' versions
+#: (batches 0, 3 and 6; the two newest kept), so the journal suffix
+#: replayed over the newest snapshot is batches 7 and 8
+CRASH_SIZES = [200, 512, 1024, 2048, 300, 900, 1800, 256, 700, 1500, 2048, 400]
+CRASH_KILL_AFTER = 9
+CRASH_SNAPSHOT_EVERY = 3 * VERSION_STEP
+CRASH_SEED = SEED + 8
+#: seconds a crash child may take to report (a restart recaptures ~10 s)
+CRASH_CHILD_TIMEOUT_S = 600
+
+
+def crash_traffic():
+    import numpy as np
+
+    return columnar_traffic(np.random.default_rng(CRASH_SEED), CRASH_SIZES, {})
+
+
+def crash_child(which, directory, device, t_spawn, conn):
+    """One process of the crash phase (spawn context). "A" (first boot):
+    a BlackboxJournal with fsync_interval=1 in `directory`, a ProgramCache
+    in `directory`/progcache, a supervised columnar engine warmed up, a
+    SnapshotManager; serves the first CRASH_KILL_AFTER batches, reports
+    with the journal still open and waits to be killed. "B" (restart): the
+    same journal and cache, the engine built without warmup, recover(),
+    then the remaining batches. The supervisor runs at probe_rate 0 with
+    no faults injected, so a card error would surface as a dispatch fault
+    and an oracle-served batch: each child holds its supervisor HEALTHY
+    with 0 dispatch faults, 0 failovers and 0 oracle batches (B after the
+    recovery and again after serving), and the fixpoint launched on the
+    card while it served. Each reports its clocks (wall seconds since
+    `t_spawn`, the parent's clock just before start()) over `conn`."""
+    t_enter = time.time()
+    import pickle
+
+    import torch
+
+    from foundationdb_tpu_torch.core import blackbox, buggify, progcache
+    from foundationdb_tpu_torch.fault import (FaultInjectingEngine, FaultRates, ResilienceConfig,
+                                              ResilientEngine, handoff, recovery)
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    from foundationdb_tpu_torch.ops import fixpoint_cuda as fc
+    from foundationdb_tpu_torch.ops.host_engine import TorchConflictEngine
+    from foundationdb_tpu_torch.sim.loop import set_scheduler
+    from foundationdb_tpu_torch.sim.simulator import Simulator
+
+    rep = {"which": which, "imports_s": time.time() - t_enter, "start_s": t_enter - t_spawn}
+    dev = torch.device(device)
+    t0 = time.time()
+    if dev.type == "cuda":
+        torch.zeros(1, device=dev)
+        torch.cuda.synchronize()
+    rep["cuda_init_s"] = time.time() - t0
+    sim = Simulator(CRASH_SEED)
+    buggify.disable()
+    blackbox.install(blackbox.BlackboxJournal(directory, fsync_interval=1, proc=which))
+    cache = progcache.install(progcache.ProgramCache(os.path.join(directory, "progcache")))
+    t0 = time.time()
+    engine = TorchConflictEngine(ck.KernelConfig(), device=dev, ladder=LADDER, scan_sizes=SCANS,
+                                 device_time_sample_rate=0.0)
+    stack = ResilientEngine(
+        FaultInjectingEngine(engine, rates=FaultRates(exception=0, hang=0, slow=0, outage=0,
+                                                      flip=0)),
+        ResilienceConfig(probe_rate=0.0, **SUPERVISOR))
+    rep["build_s"] = time.time() - t0
+    batches = crash_traffic()
+    verdicts = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def healthy(when):
+        st = stack.health_stats()
+        rep.setdefault("health", {})[when] = {k: v for k, v in st.items() if k != "device"}
+        check(st["state"] == "healthy" and st["dispatch_faults"] == 0 and st["failovers"] == 0
+              and st["oracle_batches"] == 0 and st["rewarm_failures"] == 0,
+              f"crash child {which}, {when}: the supervisor left the card ({st})")
+
+    def served_on_card(part, first_clock=None):
+        fc.FIXPOINT.reset_counts()
+        t0 = time.time()
+        sim.sched.run_until(sim.sched.spawn(serve(part, first_clock)), until=1e9)
+        sync()
+        rep["serve_s"] = time.time() - t0
+        rep["launches"] = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+        check(rep["launches"] > 0 and fc.FIXPOINT.plain_cuda_calls == 0,
+              f"crash child {which}: {rep['launches']} kernel launches serving, "
+              f"{fc.FIXPOINT.plain_cuda_calls} plain fixpoints on CUDA tensors")
+        healthy("after serving")
+
+    async def serve(part, first_clock=None):
+        for txns, v, old in part:
+            got = [int(x) for x in await stack.resolve(txns, v, old)]
+            blackbox.record_batch(txns, v, old, got, engine="torch")
+            verdicts[v] = got
+            if mgr is not None:
+                mgr.note_batch(stack, v)
+            if first_clock is not None and "first_batch_s" not in rep:
+                rep["first_batch_s"] = time.time() - t_spawn
+
+    mgr = None
+    if which == "A":
+        t0 = time.time()
+        stack.warmup()
+        sync()
+        rep["warmup_s"] = time.time() - t0
+        rep["warm_captures"] = engine.perf.captures
+        mgr = recovery.SnapshotManager(directory, interval=CRASH_SNAPSHOT_EVERY, proc="A")
+        served_on_card(batches[:CRASH_KILL_AFTER])
+        rep["snapshots"] = {k: v for k, v in mgr.stats.items()}
+        rep["journal_fsyncs"] = blackbox.active().fsyncs
+        prog = next(iter(engine._programs.values()))
+        try:
+            pickle.dumps(prog.graphs[False] if prog.graphs else prog)
+            rep["graph_pickle"] = "pickled"
+        except Exception as e:   # the finding: a captured graph has no serialized form
+            rep["graph_pickle"] = f"{type(e).__name__}: {e}"
+    else:
+        clocks = {"snapshot_load_s": 0.0, "snapshot_replay_s": 0.0, "journal_read_s": 0.0}
+
+        def timed(fn, key):
+            def run(*a, **k):
+                t = time.time()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    clocks[key] += time.time() - t
+            return run
+
+        replay_slice = handoff.replay_slice
+
+        async def timed_replay(*a, **k):
+            t = time.time()
+            try:
+                return await replay_slice(*a, **k)
+            finally:
+                sync()
+                clocks["snapshot_replay_s"] += time.time() - t
+
+        recovery.latest_snapshot = timed(recovery.latest_snapshot, "snapshot_load_s")
+        blackbox_read = recovery.blackbox.read_journal
+        recovery.blackbox.read_journal = timed(blackbox_read, "journal_read_s")
+        handoff.replay_slice = timed_replay
+        fc.FIXPOINT.reset_counts()
+        t0 = time.time()
+        res = sim.sched.run_until(sim.sched.spawn(recovery.recover(stack, directory, proc="B")),
+                                  until=1e9)
+        sync()
+        recovery.blackbox.read_journal = blackbox_read
+        handoff.replay_slice = replay_slice
+        rep["recover_s"] = time.time() - t0
+        rep["recovery"] = res.as_dict()
+        rep["mismatch_detail"] = res.mismatch_detail
+        rep["recovery_clocks"] = clocks
+        rep["recovery_captures"] = engine.perf.captures
+        rep["recovery_builds"] = {k: v for k, v in engine.perf_ledger.compiles.items()}
+        rep["recovery_launches"] = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+        healthy("after recovery")
+        served_on_card(batches[CRASH_KILL_AFTER:], True)
+        rep["captures_after_serving"] = engine.perf.captures
+    set_scheduler(None)
+    rep["verdicts"] = verdicts
+    rep["progcache"] = cache.summary()
+    if which == "A":
+        # the journal stays installed and open: the SIGKILL lands on what
+        # fsync_interval=1 made durable, with no clean close behind it
+        conn.send(rep)
+        time.sleep(3600)
+    blackbox.uninstall()
+    conn.send(rep)
+
+
+def crash_recovery_phase(card):
+    """A kill -9 and a restart on one directory, each process its own
+    (spawn context). Child A boots (warmup), serves CRASH_KILL_AFTER
+    batches with the journal fsyncing every record and snapshots landing,
+    and is killed with SIGKILL, journal open, once its last batch is
+    durable. Child B restarts on the same directory: it builds its engine
+    cold, runs recover() and serves the rest. Both hold their supervisor
+    to the card (crash_child). Checks: complete mode, coverage, 0 verdict
+    mismatches, B's verdicts equal the oracle's over the whole stream,
+    and the journal holds the snapshot and recovery events. Prints the
+    result, the blackout beside the budget, the restart's clock from
+    process start to the first served batch, the captures the recovery
+    made and both children's cache summaries (a port program has no
+    serialized form, so the cache holds nothing: core/progcache.py)."""
+    import signal
+    import tempfile
+    from multiprocessing import get_context
+
+    from foundationdb_tpu_torch.core import blackbox
+    from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS
+    from foundationdb_tpu_torch.ops.oracle import OracleConflictEngine
+
+    ctx = get_context("spawn")
+    budget = float(SERVER_KNOBS.resolver_recovery_budget_ms)
+
+    def child(which, directory):
+        recv, send = ctx.Pipe(duplex=False)
+        t_spawn = time.time()
+        p = ctx.Process(target=crash_child, args=(which, directory, "cuda", t_spawn, send),
+                        daemon=True)
+        p.start()
+        send.close()
+        try:
+            if not recv.poll(CRASH_CHILD_TIMEOUT_S):
+                fail(f"crash phase: child {which} sent nothing in {CRASH_CHILD_TIMEOUT_S} s")
+            rep = recv.recv()
+        except EOFError:
+            fail(f"crash phase: child {which} died (exit code {p.exitcode})")
+        return p, rep
+
+    batches = crash_traffic()
+    oracle = OracleConflictEngine()
+    want = {v: [int(x) for x in oracle.resolve(t, v, o)] for t, v, o in batches}
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="crash-") as tmp:
+        d = os.path.join(tmp, "resolver")
+        a, rep_a = child("A", d)
+        os.kill(a.pid, signal.SIGKILL)
+        a.join(60)
+        check(a.exitcode == -signal.SIGKILL, f"crash phase: child A ended with {a.exitcode}")
+        check(sorted(rep_a["verdicts"]) == sorted(v for _, v, _ in batches[:CRASH_KILL_AFTER])
+              and all(rep_a["verdicts"][v] == want[v] for v in rep_a["verdicts"]),
+              "crash phase: child A's verdicts differ from the oracle's")
+        check(rep_a["snapshots"]["written"] >= 2, f"crash phase: {rep_a['snapshots']}")
+        check(rep_a["journal_fsyncs"] >= CRASH_KILL_AFTER,
+              f"crash phase: child A's journal fsynced {rep_a['journal_fsyncs']} times for "
+              f"{CRASH_KILL_AFTER} batches")
+        out["A"] = {k: v for k, v in rep_a.items() if k != "verdicts"}
+        b, rep = child("B", d)
+        b.join(60)
+        check(b.exitcode == 0, f"crash phase: child B ended with {b.exitcode}")
+        r = rep["recovery"]
+        later = sorted(v for _, v, _ in batches[CRASH_KILL_AFTER:])
+        check(r["mode"] == "complete" and r["coverage_ok"] and r["verdict_mismatches"] == 0
+              and r["error"] is None, f"crash phase, B: recovery {r} "
+              f"{rep['mismatch_detail']}")
+        check(sorted(rep["verdicts"]) == later
+              and all(rep["verdicts"][v] == want[v] for v in later),
+              f"crash phase, B: the restarted child's verdicts differ from the "
+              "uninterrupted oracle's")
+        kinds = {e.kind for e in blackbox.read_journal(d)}
+        check({"snapshot", "recovery", "batch"} <= kinds,
+              f"crash phase, B: the journal holds {sorted(kinds)}")
+        c = rep["recovery_clocks"]
+        replay_ms = (r["blackout_ms"] - r["warm_ms"]
+                     - 1e3 * (c["snapshot_load_s"] + c["snapshot_replay_s"]
+                              + c["journal_read_s"]))
+        rep["breakdown_ms"] = {
+            "start_to_main": rep["start_s"] * 1e3, "imports": rep["imports_s"] * 1e3,
+            "cuda_init": rep["cuda_init_s"] * 1e3, "engine_build": rep["build_s"] * 1e3,
+            "snapshot_load": c["snapshot_load_s"] * 1e3,
+            "snapshot_replay": c["snapshot_replay_s"] * 1e3,
+            "journal_read": c["journal_read_s"] * 1e3, "suffix_replay": replay_ms,
+            "warm": r["warm_ms"], "to_first_batch": rep["first_batch_s"] * 1e3}
+        out["B"] = {k: v for k, v in rep.items() if k != "verdicts"}
+        bd = rep["breakdown_ms"]
+        print(f"crash phase, B [{card}]: recovery {r}; blackout {r['blackout_ms']:.1f} "
+              f"ms against the {budget:.0f} ms budget "
+              f"({'within' if r['blackout_ms'] <= budget else 'over'}); process start to "
+              f"the first served batch {bd['to_first_batch']:.1f} ms = spawn and main module "
+              f"{bd['start_to_main']:.1f} + imports {bd['imports']:.1f} + CUDA init "
+              f"{bd['cuda_init']:.1f} + engine build {bd['engine_build']:.1f} + snapshot load "
+              f"{bd['snapshot_load']:.1f} + snapshot replay {bd['snapshot_replay']:.1f} + "
+              f"journal read {bd['journal_read']:.1f} + suffix replay "
+              f"{bd['suffix_replay']:.1f} + warm {bd['warm']:.1f} + the first batch; "
+              f"{rep['recovery_captures']} graphs captured in the recovery "
+              f"({rep['recovery_builds']} program builds), "
+              f"{rep['captures_after_serving'] - rep['recovery_captures']} after; "
+              f"{rep['recovery_launches']} fixpoint launches in the recovery, "
+              f"{rep['launches']} serving; supervisor {rep['health']}; "
+              f"progcache {rep['progcache']}", flush=True)
+    print(f"crash phase, A [{card}]: first boot warmup {rep_a['warmup_s']:.2f} s "
+          f"({rep_a['warm_captures']} graphs), {CRASH_KILL_AFTER} batches in "
+          f"{rep_a['serve_s']:.2f} s ({rep_a['launches']} fixpoint launches), journal "
+          f"fsyncs {rep_a['journal_fsyncs']}, snapshots {rep_a['snapshots']}, supervisor "
+          f"{rep_a['health']}, killed with SIGKILL, journal open; "
+          f"progcache {rep_a['progcache']}; pickling a captured graph: {rep_a['graph_pickle']}",
+          flush=True)
+    out["budget_ms"] = budget
+    return out
+
+
+#: the reshard phase's traffic: 64 hot keys as the scheduled phase's, set
+#: in the middle of the pool so the split lands among them and a cold
+#: transaction's 4 keys fall on both sides of it (cross-shard batches), in
+#: 15-byte keys so a point write's end key (key + NUL, 16 bytes) fits the
+#: 16-byte packed window and run rows read back exactly (run_slice); the
+#: two-phase sweep over cross-shard batches is quadratic host Python, so
+#: batches hold 200-512 txns
+RESHARD_SIZES = [200, 300, 512]
+RESHARD_BATCHES = (24, 12, 8)
+
+
+def reshard_traffic(rng, n_batches, start_v):
+    from foundationdb_tpu_torch.core.types import CommitTransaction, KeyRange
+
+    out, now = [], start_v
+    for b in range(n_batches):
+        now += VERSION_STEP
+        n = RESHARD_SIZES[b % len(RESHARD_SIZES)]
+        lag = rng.integers(0, 2 * VERSION_STEP, size=n)
+        hot = rng.random(n) < 0.5
+        hot_key = rng.integers(0, SCHED_HOT_KEYS, size=n) + (POOL_KEYS - SCHED_HOT_KEYS) // 2
+        cold = rng.integers(0, POOL_KEYS, size=(n, 4))
+        txns = []
+        for i in range(n):
+            t = CommitTransaction(read_snapshot=int(max(0, now - lag[i])))
+            keys = ([b"r/%013d" % hot_key[i]] * 2 if hot[i]
+                    else [b"r/%013d" % k for k in cold[i]])
+            for j, k in enumerate(keys):
+                (t.read_conflict_ranges if j < len(keys) // 2
+                 else t.write_conflict_ranges).append(KeyRange(k, k + b"\x00"))
+            txns.append(t)
+        out.append((txns, now, max(0, now - GC_LAG_BATCHES * VERSION_STEP)))
+    return out
+
+
+def reshard_phase(fc, card, rng, make_engine):
+    """An ElasticResolverGroup whose engine_factory builds supervised
+    tiered card engines (`make_engine()`), the active slot warmed and one
+    spare prewarmed, in the port's simulator (buggify off). Skewed traffic
+    (64 hot keys) runs until the ReshardController plans a split of the
+    hot span, which it executes (pre-copy, freeze, delta, flip, unfreeze);
+    more traffic over both shards (fast and two-phase batches); then the
+    controller merges the two spans back (a merge plan given to execute():
+    the planner merges only a pair under reshard_merge_share, which two
+    shards never are) onto a recipient built inline, and more traffic.
+    Each op runs while a concurrent task serves two more batches (the
+    pre-copy sees new writes, the frozen delta replays them, and batches
+    touching the moving range wait at the gate through the blackout).
+    Every verdict equals one serial oracle's over the same stream, and
+    each slot's journal replays clean (parity_check). Every supervisor
+    the factory built (active slots, the spare, the inline recipient)
+    ends HEALTHY with 0 dispatch faults, 0 failovers and 0 oracle
+    batches, and the fixpoint launched on the card with no plain
+    fixpoint on a CUDA tensor: no batch was served by the host oracle.
+    Before each op, batch by batch, a donor's run_slice since a watermark
+    taken just before the batch, after coalesce, equals its shadow_slice
+    since the same point (or returns None / resync when a merge fell
+    in the window, printed); each op needs at least one equal comparison
+    of a non-empty slice. Every run_slice the controller makes is logged
+    with the source the round used. Prints each op's blackout beside
+    reshard_blackout_budget_ms, the batch counts, the launches per slot and
+    the device memory."""
+    import torch
+
+    from foundationdb_tpu_torch.core import buggify
+    from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS
+    from foundationdb_tpu_torch.fault import (FaultInjectingEngine, FaultRates, ResilienceConfig,
+                                              ResilientEngine, handoff)
+    from foundationdb_tpu_torch.ops.oracle import OracleConflictEngine
+    from foundationdb_tpu_torch.server import reshard
+    from foundationdb_tpu_torch.sim.loop import set_scheduler
+    from foundationdb_tpu_torch.sim.simulator import Simulator
+
+    cuda = torch.cuda.is_available()
+    budget = float(SERVER_KNOBS.reshard_blackout_budget_ms)
+    launches, stacks, mem = {}, [], {"allocated_max": 0, "reserved_max": 0}
+
+    def note_memory():
+        if cuda:
+            mem["allocated_max"] = max(mem["allocated_max"], torch.cuda.memory_allocated(),
+                                       torch.cuda.max_memory_allocated())
+            mem["reserved_max"] = max(mem["reserved_max"], torch.cuda.memory_reserved())
+
+    def factory():
+        inner = make_engine()
+        sid = len(launches)
+        launches[sid] = 0
+        resolve = inner.resolve
+
+        def counted(*a, **k):
+            n0 = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+            try:
+                return resolve(*a, **k)
+            finally:
+                launches[sid] += fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches - n0
+
+        inner.resolve = counted
+        inj = FaultInjectingEngine(inner, rates=FaultRates(exception=0, hang=0, slow=0,
+                                                           outage=0, flip=0))
+        stacks.append(ResilientEngine(inj, ResilienceConfig(probe_rate=0.0, **SUPERVISOR),
+                                      record_journal=True))
+        return inner, inj, stacks[-1]
+
+    run_slice, rounds = handoff.run_slice, []
+
+    def logged_run_slice(engine, begin, end, since_runs=None, since_epoch=None):
+        got = run_slice(engine, begin, end, since_runs=since_runs, since_epoch=since_epoch)
+        rounds.append("shadow (run_slice None)" if got is None
+                      else "shadow (resync)" if got["resync"]
+                      else f"runs ({len(got['entries'])} entries)")
+        return got
+
+    sim = Simulator(SEED + 14)
+    buggify.disable()
+    fc.FIXPOINT.reset_counts()
+    t0 = time.perf_counter()
+    group = reshard.ElasticResolverGroup(factory)
+    group.warmup()
+    group.prewarm_spares(1)
+    warm_s = time.perf_counter() - t0
+    note_memory()
+    # the controller's clock is the wall clock: a blackout is the host and
+    # card time from freeze to cutover (in virtual time it would read 0)
+    ctl = reshard.ReshardController(group, now_fn=time.perf_counter, min_heat_batches=8)
+    oracle = OracleConflictEngine()
+    start = 10_000
+    phases = []
+    for n in RESHARD_BATCHES:
+        phases.append(reshard_traffic(rng, n, start))
+        start = phases[-1][-1][1]
+    res = {"mismatches": 0, "batches": 0, "slice_checks": []}
+
+    async def serve(part):
+        for txns, v, old in part:
+            got = [int(x) for x in await group.resolve(txns, v, old)]
+            res["mismatches"] += got != [int(x) for x in oracle.resolve(txns, v, old)]
+            res["batches"] += 1
+            note_memory()
+
+    async def slice_check(sids, begin, end, part):
+        """For each batch of `part`: take each donor's run watermark and
+        shadow version, serve the batch, then hold its run_slice since the
+        watermark against its shadow_slice since the version, both
+        coalesced. A merge in the window makes run_slice resync; at least
+        one comparison must be equal and non-empty."""
+        equal = 0
+        for batch in part:
+            marks = {sid: (handoff.run_watermarks(group.slots[sid].engine),
+                           handoff.last_shadow_version(group.slots[sid].engine))
+                     for sid in sids}
+            await serve([batch])
+            for sid, (wm, mv) in marks.items():
+                eng = group.slots[sid].engine
+                got = (None if wm is None
+                       else run_slice(eng, begin, end, since_runs=wm[0], since_epoch=wm[1]))
+                if got is None or got["resync"]:
+                    res["slice_checks"].append((sid, "none" if got is None else "resync"))
+                    continue
+                runs = handoff.coalesce([(v, w) for v, w in got["entries"] if v > mv],
+                                        begin, end)
+                shadow = handoff.coalesce(handoff.shadow_slice(eng, begin, end, min_version=mv),
+                                          begin, end)
+                check(runs == shadow, f"reshard phase: slot {sid}'s run_slice differs from its "
+                      f"shadow_slice after coalesce ({len(runs)} against {len(shadow)} entries)")
+                res["slice_checks"].append((sid, f"equal ({len(runs)} entries)"))
+                equal += len(runs) > 0
+        check(equal > 0, f"reshard phase: no run_slice over [{begin}, {end}) came back equal "
+              f"and non-empty ({res['slice_checks']})")
+
+    async def reshard_under_load(plan, part, key):
+        """Execute `plan` while a concurrent task serves `part`: donors take
+        writes during the pre-copy, and batches touching the frozen range
+        wait at the gate through the blackout."""
+        rounds.clear()
+        handoff.run_slice = logged_run_slice
+        load = sim.sched.spawn(serve(part))
+        try:
+            op = await ctl.execute(plan)
+        finally:
+            handoff.run_slice = run_slice
+        await load
+        check(op is not None and op.state == "done", f"reshard phase: {plan['kind']} {op}")
+        res[key] = list(rounds)
+
+    async def go():
+        p1, p2, p3 = phases
+        await serve(p1[:-6])
+        plan = ctl.plan()
+        check(plan is not None and plan["kind"] == "split", f"reshard phase: plan {plan}")
+        await slice_check([group.active_sids()[0]], plan["key"], None, p1[-6:-2])
+        plan = ctl.plan()
+        check(plan is not None and plan["kind"] == "split", f"reshard phase: plan {plan}")
+        await reshard_under_load(plan, p1[-2:], "split_rounds")
+        await serve(p2[:-6])
+        await slice_check(group.active_sids(), b"", None, p2[-6:-2])
+        await reshard_under_load({"kind": "merge", "span": 0}, p2[-2:], "merge_rounds")
+        await serve(p3)
+
+    t0 = time.perf_counter()
+    try:
+        sim.sched.run_until(sim.sched.spawn(go()), until=1e9)
+    finally:
+        set_scheduler(None)
+        handoff.run_slice = run_slice
+    serve_s = time.perf_counter() - t0
+    checked, parity_mismatches = group.parity_check()
+    check(res["mismatches"] == 0 and parity_mismatches == 0 and checked > 0,
+          f"reshard phase: {res['mismatches']} batches off the serial oracle, "
+          f"{parity_mismatches} of {checked} journal entries off the replay")
+    check(ctl.executed == 2 and ctl.stalled == 0, f"reshard phase: {ctl.snapshot()['ops']}")
+    stats = dict(group.extra_stats)
+    check(stats["fast_batches"] > 0 and stats["two_phase_batches"] > 0,
+          f"reshard phase: batch paths {stats}")
+    health = [{k: v for k, v in st.health_stats().items() if k != "device"} for st in stacks]
+    brief = [(h["state"], h["batches"], h["dispatch_faults"], h["oracle_batches"]) for h in health]
+    check(len(stacks) >= 3 and all(
+        h["state"] == "healthy" and h["dispatch_faults"] == 0 and h["failovers"] == 0
+        and h["oracle_batches"] == 0 and h["rewarm_failures"] == 0 for h in health),
+        f"reshard phase: a supervisor left the card ({health})")
+    check(sum(launches.values()) > 0 and all(launches.values())
+          and fc.FIXPOINT.plain_cuda_calls == 0,
+          f"reshard phase: launches per slot {launches}, {fc.FIXPOINT.plain_cuda_calls} plain "
+          "fixpoints on CUDA tensors")
+    ops = [op.as_dict() for op in ctl.ops]
+    out = {"ops": ops, "batches": res["batches"], "mismatches": res["mismatches"],
+           "parity_checked": checked, "group": stats, "launches_by_slot": dict(launches),
+           "launches": sum(launches.values()), "slice_checks": res["slice_checks"],
+           "split_rounds": res["split_rounds"], "merge_rounds": res["merge_rounds"],
+           "memory": mem, "warm_s": warm_s, "serve_s": serve_s, "budget_ms": budget,
+           "windows": ctl.windows, "supervisors": health}
+    for op in ops:
+        print(f"reshard phase, {op['kind']} [{card}]: [{op['begin']}, {op['end'] or '+inf'}) "
+              f"from slots {op['donor_sids']} to slot {op['recipient_sid']} "
+              f"({'prewarmed' if op['prewarmed'] else 'built inline'}), epoch {op['epoch']} at "
+              f"version {op['flip_version']}; {op['precopied']} batches pre-copied, "
+              f"{op['delta']} in the frozen delta; blackout {op['blackout_ms']:.3f} ms "
+              f"(wall, freeze to cutover) against the {budget:.0f} ms budget", flush=True)
+    print(f"reshard phase [{card}]: {res['batches']} batches equal the serial oracle, "
+          f"{checked} journal entries replay clean; {stats}; launches per slot {launches}; "
+          f"supervisors (state, batches, dispatch faults, oracle batches) {brief}; "
+          f"run_slice checks {res['slice_checks']}; split rounds {res['split_rounds']}, merge "
+          f"rounds {res['merge_rounds']}; device memory allocated max "
+          f"{mem['allocated_max']} B, reserved max {mem['reserved_max']} B; warm "
+          f"{warm_s:.1f} s, served in {serve_s:.1f} s", flush=True)
     return out
 
 
@@ -2462,6 +3220,30 @@ def main(argv=None) -> int:
           f"oracle replays, launches {role['launches']} ({time.perf_counter() - t0:.1f} s)",
           flush=True)
 
+    t0 = time.perf_counter()
+    sup = supervised_role_phase(fc, pl, card, eng, clocks["columnar"], rng,
+                                role["runs"]["depth2"]["wall_txn_per_s"])
+    results["supervised_role_phase"] = sup
+    print(f"supervised role phase [{card}]: {len(sup['runs'])} runs of {sup['batches']} batches, "
+          f"{sup['oracle_replays']} oracle replays, launches {sup['launches']} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    crash = crash_recovery_phase(card)
+    results["crash_recovery_phase"] = crash
+    crash_launches = {k: crash[k]["launches"] + crash[k].get("recovery_launches", 0)
+                      for k in ("A", "B")}
+    print(f"crash recovery phase [{card}]: launches {crash_launches} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    t0 = time.perf_counter()
+    rs = reshard_phase(fc, card, rng, lambda: he.TorchConflictEngine(
+        engine_cfg, ladder=LADDER, scan_sizes=SCANS, history_structure="tiered",
+        device_time_sample_rate=0.0))
+    results["reshard_phase"] = rs
+    print(f"reshard phase [{card}]: {len(rs['ops'])} reshards, {rs['launches']} launches "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
     kernels = {"kernels": [{
         "name": "commit_fixpoint",
         "route": "cuda",
@@ -2470,7 +3252,8 @@ def main(argv=None) -> int:
         "launches": sum(r["launches"] for r in (ep, gp, colp, colp0, pp, tep, tcol, tpp, lp, tlp,
                                                 lpp, *(tele[k] for k in TELEMETRY_ENGINES),
                                                 tele["default_rate"], spp))
-                    + sum(role["launches"].values()),
+                    + sum(role["launches"].values()) + sum(sup["launches"].values())
+                    + sum(crash_launches.values()) + rs["launches"],
         "launches_by_path": {"engine_general_router_graph": ep["graph_launches"],
                              "engine_general_router_eager": ep["eager_launches"],
                              "graph_step": gp["launches"], "columnar_engine": colp["launches"],
@@ -2489,7 +3272,10 @@ def main(argv=None) -> int:
                              "telemetry_tiered_device_loop":
                                  tele["tiered_device_loop"]["launches"],
                              "telemetry_default_rate": tele["default_rate"]["launches"],
-                             "scheduled_pipeline": spp["launches"], **role["launches"]},
+                             "scheduled_pipeline": spp["launches"], **role["launches"],
+                             **{f"supervised_role_{k}": v for k, v in sup["launches"].items()},
+                             **{f"crash_child_{k}": v for k, v in crash_launches.items()},
+                             "reshard": rs["launches"]},
         "mismatches": 0,
         "max_abs_err": 0,
         "ms": kp["kernel_ms"],

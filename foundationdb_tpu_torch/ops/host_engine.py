@@ -62,7 +62,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core import error, heatmap, perfledger, telemetry, wire
+from ..core import error, heatmap, perfledger, progcache, telemetry, wire
 from ..core.keyshard import KeyShardMap
 from ..core.knobs import SERVER_KNOBS
 from ..core.trace import g_spans, span_event, span_now
@@ -559,13 +559,53 @@ class RoutedConflictEngineBase:
             prog = self._programs[key] = self._build_and_record(bucket, n_chunks)
         return prog
 
+    def _progcache_fingerprint(self) -> str:
+        """The sharding-layout half of the progcache key (core/progcache
+        `key(mesh=)`): "" for single-card engines. The device count of
+        the process itself rides `backend_fingerprint()`."""
+        return ""
+
+    def _history_fingerprint(self) -> str:
+        """The history-structure half of the progcache key (core/progcache
+        `key(structure=)`): "" for the monolithic table, "tiered:<runs>x
+        <rows>" when the programs carry the tiered run planes, so a
+        structure or run-geometry flip is a clean miss."""
+        if self.history_structure != "tiered":
+            return ""
+        return f"tiered:{self.cfg.run_slots}x{self.cfg.run_rows}"
+
     def _build_and_record(self, bucket: KernelConfig, n_chunks: int):
         """Build one program, bump the compile counter, and file the build
         in the perf ledger: its duration (on the card: the captures) and
         peak device bytes, keyed (bucket, search mode, dispatch mode),
-        "warmup" inside warmup() and "steady" otherwise."""
+        "warmup" inside warmup() and "steady" otherwise.
+
+        With an on-disk program cache installed (core/progcache.py) the
+        cache is asked first under the same key: a hit returns the loaded
+        program with no build, filed as a progcache hit, never a compile;
+        a fresh build is offered back to the cache (which refuses every
+        port program: a captured graph does not serialize, see progcache)."""
         search_mode = self.perf.search_modes.get(
             bucket.max_txns, ck.resolved_history_search(bucket))
+        cache = progcache.active()
+        key = None
+        if cache is not None:
+            key = cache.key(engine=self.name, bucket=bucket.max_txns, n_chunks=n_chunks,
+                            search_mode=search_mode, dispatch_mode=self.dispatch_mode,
+                            mesh=self._progcache_fingerprint(),
+                            structure=self._history_fingerprint(),
+                            device=getattr(self, "device", None))
+            b0 = cache.stats["hit_bytes"]
+            t0 = time.perf_counter()
+            prog = cache.load(key)
+            if prog is not None:
+                self.perf_ledger.record_progcache(
+                    engine=self.name, bucket=bucket.max_txns, event="hit",
+                    nbytes=cache.stats["hit_bytes"] - b0,
+                    duration_ms=(time.perf_counter() - t0) * 1e3)
+                return prog
+            self.perf_ledger.record_progcache(engine=self.name, bucket=bucket.max_txns,
+                                              event="miss")
         t0 = time.perf_counter()
         prog, peak = self._measured_build(lambda: self._make_program(bucket, n_chunks))
         self.perf.compiles += 1
@@ -575,6 +615,14 @@ class RoutedConflictEngineBase:
             kind="warmup" if self._warming else "steady",
             duration_ms=(time.perf_counter() - t0) * 1e3,
             analysis=perfledger.analyze_program(peak))
+        if cache is not None:
+            b0 = cache.stats["store_bytes"]
+            t0 = time.perf_counter()
+            if cache.store(key, prog):
+                self.perf_ledger.record_progcache(
+                    engine=self.name, bucket=bucket.max_txns, event="store",
+                    nbytes=cache.stats["store_bytes"] - b0,
+                    duration_ms=(time.perf_counter() - t0) * 1e3)
         return prog
 
     def _measured_build(self, build: Callable[[], Any]) -> Tuple[Any, Optional[int]]:

@@ -948,3 +948,132 @@ def test_loop_resolver_role_on_the_card_makes_no_blocking_sync(card, tmp_path):
                                    queue_enqueue_ms=0.2, result_drain_ms=0.1)
     assert mismatches == 0 and run["launches"] > 0
     assert eng.loop_stats["blocking_syncs"] == 0
+
+
+@pytest.mark.cuda
+def test_fault_free_supervised_role_on_the_card(card, tmp_path):
+    """The role over ResilientEngine(FaultInjectingEngine(card engine)) with
+    no faults, buggify off and probe_rate 1.0 (chip_smoke's supervised
+    run (a) at a small size): every reply equals the oracle replay of its
+    journal, every batch is probed and agrees, no dispatch fault, no
+    oracle batch, no host sync in a dispatch, nothing captured."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from foundationdb_tpu_torch import pipeline as pl
+
+    eng = TorchConflictEngine(ROLE_CFG, ladder=(32, 64, 128), scan_sizes=(2, 4),
+                              device_time_sample_rate=0.0).warmup()
+    captures = eng.perf.captures
+    batches = cs.columnar_traffic(np.random.default_rng(9), [20, 60, 200, 120, 250, 90], {},
+                                  step=cs.role_version_step())
+    log = {}
+    run = cs.drive_role(
+        fc, eng, batches, tmp_path / "journal", "supervised card role",
+        pipeline=pl.PipelineConfig(depth=2, pack_ms_per_txn=0.001,
+                                   device_ms_by_bucket={32: 1.0, 64: 1.5, 128: 2.0, 256: 3.0}),
+        supervise=lambda e: cs.supervised_stack(
+            e, dict(exception=0, hang=0, slow=0, outage=0, flip=0), 1.0, log),
+        buggify_on=False)
+    mismatches, _, _ = cs.replay_and_check(run)
+    st = run["stack"].health_stats()
+    assert mismatches == 0 and run["launches"] > 0
+    assert st["state"] == "healthy" and st["dispatch_faults"] == 0
+    assert st["oracle_batches"] == 0 and st["probe_mismatches"] == 0
+    assert st["probes"] == st["batches"] == len(batches)
+    assert sum(log["faults"].values()) == 0 and eng.perf.captures == captures
+
+
+@pytest.mark.cuda
+def test_run_slice_on_the_card_equals_the_cpu_engine(card):
+    """run_slice reads a tiered card engine's run planes back (a copy to
+    the host, outside any dispatch): its entries equal a CPU tiered
+    engine's on the same stream, whole and since a watermark."""
+    from foundationdb_tpu_torch.fault import handoff
+
+    cfg = ck.KernelConfig(key_words=2, capacity=1024, max_reads=64, max_writes=64,
+                          max_txns=32, history_runs=8)
+    engines = [TorchConflictEngine(cfg, device=d, history_structure="tiered")
+               for d in ("cuda", "cpu")]
+    rng = random.Random(71)
+    out = [[], []]
+    v = 0
+    for b in range(6):
+        v += 50
+        txns = []
+        for _ in range(rng.randrange(4, 12)):
+            k, w = b"k/%03d" % rng.randrange(48), b"k/%03d" % rng.randrange(48)
+            txns.append(CommitTransaction(read_snapshot=max(0, v - rng.randrange(1, 80)),
+                                          read_conflict_ranges=[KeyRange(k, k + b"\x00")],
+                                          write_conflict_ranges=[KeyRange(w, w + b"\x00")]))
+        verdicts = [[int(x) for x in e.resolve(txns, v, 0)] for e in engines]
+        assert verdicts[0] == verdicts[1]
+        if b == 2:
+            marks = [handoff.run_watermarks(e) for e in engines]
+    for i, e in enumerate(engines):
+        out[i].append(handoff.run_slice(e, b"k/010", b"k/030"))
+        out[i].append(handoff.run_slice(e, b"", None, since_runs=marks[i][0],
+                                        since_epoch=marks[i][1]))
+    assert out[0] == out[1]
+    assert out[0][0]["entries"] and out[0][1]["entries"] and not out[0][1]["resync"]
+
+
+@pytest.mark.cuda
+def test_recover_into_a_card_engine(card, tmp_path):
+    """A supervised oracle serves with a journal and snapshots; recover()
+    rebuilds a card engine from the directory: complete, 0 mismatches,
+    and it continues the live engine's verdict stream."""
+    from foundationdb_tpu_torch.core import blackbox, buggify
+    from foundationdb_tpu_torch.fault import (FaultInjectingEngine, FaultRates, ResilienceConfig,
+                                              ResilientEngine, recovery)
+    from foundationdb_tpu_torch.sim.loop import set_scheduler
+    from foundationdb_tpu_torch.sim.simulator import Simulator
+
+    rng = random.Random(51)
+
+    def batches(n, v):
+        out = []
+        for _ in range(n):
+            v += rng.randrange(40, 120)
+            txns = []
+            for _ in range(rng.randrange(2, 6)):
+                k = b"r/%03d" % rng.randrange(64)
+                txns.append(CommitTransaction(read_snapshot=max(0, v - rng.randrange(1, 400)),
+                                              read_conflict_ranges=[KeyRange(k, k + b"\x00")],
+                                              write_conflict_ranges=[KeyRange(k, k + b"\x00")]))
+            out.append((txns, v, max(0, v - 2000)))
+        return out
+
+    sim = Simulator(47)
+    buggify.disable()
+    blackbox.install(blackbox.BlackboxJournal(str(tmp_path)))
+    try:
+        live = ResilientEngine(
+            FaultInjectingEngine(toracle.OracleConflictEngine(),
+                                 rates=FaultRates(exception=0, hang=0, slow=0, flip=0, outage=0)),
+            ResilienceConfig(dispatch_timeout=0.5, retry_budget=2, retry_backoff=0.02,
+                             probe_rate=0.0, probation_batches=2, failover_min_batches=2))
+        mgr = recovery.SnapshotManager(str(tmp_path), interval=400)
+        stream = batches(30, 0)
+        probes = batches(8, stream[-1][1])
+        engine = TorchConflictEngine(ck.KernelConfig(key_words=2, capacity=1024, max_reads=64,
+                                                     max_writes=64, max_txns=32), ladder=(32,))
+
+        async def go():
+            for txns, v, old in stream:
+                got = [int(x) for x in await live.resolve(txns, v, old)]
+                blackbox.record_batch(txns, v, old, got, engine="oracle")
+                mgr.note_batch(live, v)
+            res = await recovery.recover(engine, str(tmp_path))
+            pairs = [([int(x) for x in await live.resolve(t, v, o)],
+                      [int(x) for x in engine.resolve(t, v, o)]) for t, v, o in probes]
+            return res, pairs
+
+        res, pairs = sim.sched.run_until(sim.sched.spawn(go()), until=100000)
+    finally:
+        set_scheduler(None)
+        blackbox.uninstall()
+    assert mgr.stats["written"] >= 1
+    assert res.error is None and res.mode == "complete" and res.coverage_ok
+    assert res.verdict_mismatches == 0 and res.replayed_batches > 0
+    assert all(a == b for a, b in pairs)

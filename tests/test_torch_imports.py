@@ -62,6 +62,13 @@ def test_subprocess_import_loads_no_jax():
     "foundationdb_tpu_torch.server.resolver",
     "foundationdb_tpu_torch.pipeline.service",
     "foundationdb_tpu_torch.fault",
+    "foundationdb_tpu_torch.fault.inject",
+    "foundationdb_tpu_torch.fault.resilient",
+    "foundationdb_tpu_torch.fault.handoff",
+    "foundationdb_tpu_torch.fault.recovery",
+    "foundationdb_tpu_torch.core.progcache",
+    "foundationdb_tpu_torch.core.keyshard",
+    "foundationdb_tpu_torch.server.reshard",
 ])
 def test_serving_path_modules_load_no_jax(module):
     """The columnar path's modules, each imported alone in a fresh process
@@ -103,7 +110,9 @@ def test_source_scan_finds_no_jax_import():
                  "sim/actors.py", "sim/failmon.py", "sim/network.py", "sim/disk.py",
                  "sim/validation.py", "sim/system_monitor.py", "sim/simulator.py",
                  "fault/__init__.py", "server/messages.py", "server/resolver.py",
-                 "pipeline/service.py"):
+                 "pipeline/service.py", "fault/inject.py", "fault/resilient.py",
+                 "fault/handoff.py", "fault/recovery.py", "core/progcache.py",
+                 "core/keyshard.py", "server/reshard.py"):
         assert PKG / name in files, name
     for path in files:
         bad = [r for r in imported_roots(path) if r in FORBIDDEN]

@@ -5,7 +5,7 @@ Each scenario is written once against a namespace of one package's modules
 code path in the two packages. `clean_world()` leaves the process-global
 state of both packages as it found it: the current scheduler, buggify, the
 durability oracle, the fault registry, the telemetry hub, spans and the
-installed journal.
+installed journal (and the installed program cache).
 """
 import importlib
 import random
@@ -18,7 +18,12 @@ MODULES = {"buggify": "core.buggify", "error": "core.error", "types": "core.type
            "loop": "sim.loop", "actors": "sim.actors", "network": "sim.network",
            "disk": "sim.disk", "validation": "sim.validation", "simulator": "sim.simulator",
            "fault": "fault", "messages": "server.messages", "resolver": "server.resolver",
-           "pipeline": "pipeline", "oracle": "ops.oracle"}
+           "pipeline": "pipeline", "oracle": "ops.oracle", "inject": "fault.inject",
+           "resilient": "fault.resilient", "handoff": "fault.handoff",
+           "recovery": "fault.recovery", "progcache": "core.progcache",
+           "keyshard": "core.keyshard", "heatmap": "core.heatmap", "knobs": "core.knobs",
+           "rng": "core.rng", "reshard": "server.reshard", "service": "pipeline.service",
+           "resolver_pipeline": "pipeline.resolver_pipeline"}
 
 
 def package(root):
@@ -37,12 +42,14 @@ def clean_world():
         P.loop.set_scheduler(None)
         P.buggify.disable()
         P.blackbox.uninstall()
+        P.progcache.uninstall()
         P.validation.disable()
         P.fault._registry.clear()
         P.fault._recording = False
         P.telemetry.reset()
         P.trace.g_spans.enabled = False
         P.trace.g_spans.clear()
+        P.trace.g_trace.clear()
 
 
 def journal_bytes(directory):
