@@ -144,6 +144,23 @@ toolkit. The script
      serial oracle's; run_slice since a watermark equals shadow_slice after
      coalesce. Each blackout beside reshard_blackout_budget_ms, the batch
      paths, launches per slot, device memory.
+  17. cluster phase: the port's static simulated cluster (master, proxy,
+     tlog, storage servers, ratekeeper, clients; server/cluster.py) with
+     resolvers on the card. run_spec on CycleTestCUDA, CycleTest,
+     Serializability, ConflictRangeCheck, RandomReadWrite and AtomicOps at
+     seeds 1 and 2, every resolver a TorchConflictEngine at the specs'
+     KernelConfig: each run ok and equal to its oracle twin (ok, metrics,
+     virtual time), every card engine's recorded batches equal to a fresh
+     oracle's replay. Then the latency harness (run_latency_under_load,
+     open-loop Poisson arrivals through the whole commit path, 12,000
+     txns a point) with a TorchConflictEngine at the default KernelConfig
+     in the resolver, fed the columnar phase's one-chunk replay ms per
+     bucket and pack ms per txn: depth 1 at bucket 512, depth 2 at 1024
+     and 2048 at 0.97 and 1.0 of T / device_ms, the fastest in-budget
+     depth-2 point again with spans on; each point's result equal to its
+     oracle twin's. The oracle twins run in worker processes after the
+     last card run. Sustained and committed txn/s, virtual p50 / p99
+     against resolver_p99_budget_ms, wall s and wall txn/s, launches.
 
 Each path's kernel launches are counted from 0 just before it and read
 just after (a captured graph's fixpoint launches are counted at each
@@ -2918,6 +2935,280 @@ def reshard_phase(fc, card, rng, make_engine):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the static simulated cluster with card resolvers
+# ---------------------------------------------------------------------------
+
+#: the specs the cluster phase runs with card resolvers, each at every seed
+CLUSTER_SPECS = ("CycleTestCUDA", "CycleTest", "Serializability", "ConflictRangeCheck",
+                 "RandomReadWrite", "AtomicOps")
+CLUSTER_SEEDS = (1, 2)
+#: the latency harness's points (the JAX package's bench.py latency curve,
+#: bench.py:441-520): 12,000 txns each, depth 1 at bucket 512 at 0.85 of
+#: the serial capacity, depth 2 at these (bucket, share of T / device_ms)
+HARNESS_TXNS = 12_000
+HARNESS_SERIAL = (512, 0.85)
+HARNESS_PIPELINED = ((1024, 0.97), (1024, 1.0), (2048, 0.97), (2048, 1.0))
+CLUSTER_WORKERS = 4
+
+
+def clean_port_world():
+    """Reset the port's process-global simulation state: the current
+    scheduler, buggify, the journal, the program cache, the durability
+    oracle, the fault registry, the telemetry hub and spans. A run and its
+    oracle twin start from the same state."""
+    from foundationdb_tpu_torch import fault
+    from foundationdb_tpu_torch.core import blackbox, buggify, progcache, telemetry, trace
+    from foundationdb_tpu_torch.sim import loop, validation
+
+    loop.set_scheduler(None)
+    buggify.disable()
+    blackbox.uninstall()
+    progcache.uninstall()
+    validation.disable()
+    fault._registry.clear()
+    fault._recording = False
+    telemetry.reset()
+    trace.g_spans.enabled = False
+    trace.g_spans.clear()
+    trace.g_trace.clear()
+
+
+def oracle_spec(name, seed):
+    """A spec's oracle twin (run in a worker process): the spec with every
+    resolver on OracleConflictEngine -> its SpecResult as a tuple."""
+    import dataclasses
+
+    from foundationdb_tpu_torch.ops.oracle import OracleConflictEngine
+    from foundationdb_tpu_torch.testing.specs import SPECS
+    from foundationdb_tpu_torch.testing.workload import run_spec
+
+    clean_port_world()
+    spec = SPECS[name]()
+    spec.cluster.engine_factory = OracleConflictEngine
+    return dataclasses.astuple(run_spec(spec, seed))
+
+
+def oracle_point(kw):
+    """A harness point's oracle twin (run in a worker process): its
+    as_dict() with the harness's default engine, the oracle."""
+    from foundationdb_tpu_torch.pipeline.latency_harness import run_latency_under_load
+
+    clean_port_world()
+    return run_latency_under_load(**kw).as_dict()
+
+
+def recording_factory(make, built):
+    """A factory of engines from `make()`, each appended to `built` as a
+    record {"engine", "batches"}: its resolve() (an instance attribute)
+    records (version, new_oldest, transactions, verdicts) per call."""
+
+    def factory():
+        eng = make()
+        rec = {"engine": eng, "batches": []}
+        resolve = eng.resolve
+
+        def recording(txns, now, new_oldest):
+            verdicts = resolve(txns, now, new_oldest)
+            rec["batches"].append((now, new_oldest, list(txns), [int(v) for v in verdicts]))
+            return verdicts
+
+        eng.resolve = recording
+        built.append(rec)
+        return eng
+
+    return factory
+
+
+def replay_mismatches(rec):
+    """Batches of one recorded engine whose verdicts differ from a fresh
+    oracle's over the same (transactions, version, new_oldest) sequence."""
+    from foundationdb_tpu_torch.ops.oracle import OracleConflictEngine
+
+    oracle = OracleConflictEngine()
+    return sum([int(v) for v in oracle.resolve(txns, now, oldest)] != verdicts
+               for now, oldest, txns, verdicts in rec["batches"])
+
+
+def harness_points(device_ms_by_bucket, pack_ms_per_txn, budget):
+    """The harness points' arguments, bench.py's formulas: the serial point
+    at 0.85 of 512 / (device + pack + 0.25 ms), the depth-2 points at their
+    share of the device-paced capacity T / max(0.2, device_ms). Returns
+    {label: run_latency_under_load arguments}."""
+    dm = device_ms_by_bucket
+    common = dict(pack_ms_per_txn=pack_ms_per_txn, n_txns=HARNESS_TXNS,
+                  device_ms_by_bucket=dm, budget_ms=budget)
+    T, util = HARNESS_SERIAL
+    serial_cycle_ms = dm[T] + pack_ms_per_txn * T + 0.25
+    points = {f"depth1_{T}_{util}": dict(common, depth=1, batch_txns=T, device_ms=dm[T],
+                                         offered_txns_per_sec=util * T / (serial_cycle_ms / 1e3))}
+    for T, util in HARNESS_PIPELINED:
+        points[f"depth2_{T}_{util}"] = dict(common, depth=2, batch_txns=T, device_ms=dm[T],
+                                            offered_txns_per_sec=util * T / (max(0.2, dm[T]) / 1e3))
+    return points
+
+
+def cluster_phase(fc, he, card, engine_cfg, device_ms_by_bucket, pack_ms_per_txn):
+    """The port's static simulated cluster (server/cluster.py: master,
+    proxy, tlog, storage servers, ratekeeper, clients) with resolvers on
+    the card, in two parts.
+
+    Specs: run_spec on each of CLUSTER_SPECS at each of CLUSTER_SEEDS with
+    every resolver a TorchConflictEngine on the card at the specs'
+    KernelConfig (make_engine_factory()); each run ends ok and equals its
+    oracle twin (every resolver on OracleConflictEngine) in ok, metrics,
+    seed and virtual time; every card engine's recorded (version,
+    new_oldest, transactions, verdicts) replays through a fresh oracle
+    with 0 mismatches.
+
+    Harness: run_latency_under_load with a TorchConflictEngine at
+    `engine_cfg` with the ladder and scans (sampling off) in the resolver,
+    on the harness's own traffic (2 point reads and 2 point writes over
+    its 8192-key pool), fed the card's figures: `device_ms_by_bucket` (the
+    columnar phase's one-chunk replay ms per bucket) and
+    `pack_ms_per_txn`. The points of harness_points(), then the fastest
+    depth-2 point within resolver_p99_budget_ms (else the one with the
+    lowest p99) once more with spans on, for the attribution. Each
+    point's as_dict() equals its oracle twin's.
+
+    The card runs come first and are timed; the oracle twins run after
+    the last of them in CLUSTER_WORKERS spawn-context worker processes.
+    Each spec and each point is a path: the fixpoint counts are zeroed just
+    before it and read just after, and each path must launch the kernel
+    with no plain fixpoint on a CUDA tensor; every engine built is on the
+    card."""
+    import dataclasses
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    from foundationdb_tpu_torch.pipeline.latency_harness import (p99_budget_ms,
+                                                                  run_latency_under_load)
+    from foundationdb_tpu_torch.testing.specs import SPECS, make_engine_factory
+    from foundationdb_tpu_torch.testing.workload import run_spec
+
+    budget = p99_budget_ms()
+    launches, built_all = {}, []
+    spec_runs = {}
+    for name in CLUSTER_SPECS:
+        fc.FIXPOINT.reset_counts()
+        for seed in CLUSTER_SEEDS:
+            clean_port_world()
+            built = []
+            spec = SPECS[name]()
+            spec.cluster.engine_factory = recording_factory(make_engine_factory(), built)
+            t0 = time.perf_counter()
+            res = run_spec(spec, seed)
+            wall = time.perf_counter() - t0
+            check(res.ok, f"cluster phase: spec {name} seed {seed} failed on the card: "
+                  f"{res.metrics}")
+            spec_runs[(name, seed)] = {
+                "result": dataclasses.astuple(res), "wall_s": wall, "engines": len(built),
+                "batches": sum(len(r["batches"]) for r in built),
+                "txns": sum(len(t) for r in built for _, _, t, _ in r["batches"]),
+                "captures": sum(r["engine"].perf.captures for r in built),
+                "capture_s": sum(sum(r["engine"].perf_ledger.compile_ms.values())
+                                 for r in built) / 1e3,
+                "replay_mismatches": sum(replay_mismatches(r) for r in built)}
+            built_all += built
+        launches[f"cluster_spec_{name}"] = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+        check(launches[f"cluster_spec_{name}"] > 0 and fc.FIXPOINT.plain_cuda_calls == 0,
+              f"cluster phase: spec {name} made {launches[f'cluster_spec_{name}']} fixpoint "
+              f"launches, {fc.FIXPOINT.plain_cuda_calls} plain fixpoints on CUDA tensors")
+
+    def engine():
+        return he.TorchConflictEngine(engine_cfg, ladder=LADDER, scan_sizes=SCANS,
+                                      device_time_sample_rate=0.0)
+
+    def card_point(label, kw):
+        clean_port_world()
+        built = []
+        fc.FIXPOINT.reset_counts()
+        t0 = time.perf_counter()
+        d = run_latency_under_load(engine_factory=recording_factory(engine, built),
+                                   **kw).as_dict()
+        wall = time.perf_counter() - t0
+        launches[f"cluster_harness_{label}"] = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+        check(launches[f"cluster_harness_{label}"] > 0 and fc.FIXPOINT.plain_cuda_calls == 0,
+              f"cluster phase: harness point {label} made "
+              f"{launches[f'cluster_harness_{label}']} fixpoint launches, "
+              f"{fc.FIXPOINT.plain_cuda_calls} plain fixpoints on CUDA tensors")
+        built_all.extend(built)
+        return {"args": kw, "result": d, "wall_s": wall,
+                "wall_txn_per_s": HARNESS_TXNS / wall,
+                "capture_s": sum(sum(r["engine"].perf_ledger.compile_ms.values())
+                                 for r in built) / 1e3,
+                "captures": sum(r["engine"].perf.captures for r in built),
+                "batches": sum(len(r["batches"]) for r in built),
+                "launches": launches[f"cluster_harness_{label}"]}
+
+    points = {}
+    for label, kw in harness_points(device_ms_by_bucket, pack_ms_per_txn, budget).items():
+        points[label] = card_point(label, kw)
+    pipelined = {k: p for k, p in points.items() if p["args"]["depth"] == 2}
+    in_budget = {k: p for k, p in pipelined.items()
+                 if p["result"]["errors"] == 0 and p["result"]["p99_ms"] <= budget}
+    if in_budget:
+        best = max(in_budget, key=lambda k: in_budget[k]["result"]["sustained_txns_per_sec"])
+    else:
+        best = min(pipelined, key=lambda k: pipelined[k]["result"]["p99_ms"])
+    points["spans"] = card_point("spans", dict(points[best]["args"], collect_spans=True))
+    points["spans"]["of"] = best
+    points["spans"]["in_budget"] = bool(in_budget)
+    check(points["spans"]["result"].get("attribution") is not None,
+          "cluster phase: the spans point attributed no commit")
+
+    engines_off_card = [type(r["engine"]).__name__ for r in built_all
+                        if r["engine"].state["hkeys"].device.type != "cuda"]
+    check(not engines_off_card, f"cluster phase: engines off the card: {engines_off_card}")
+
+    # the oracle twins, after the last timed card run
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(CLUSTER_WORKERS, mp_context=get_context("spawn")) as pool:
+        twins_spec = {key: pool.submit(oracle_spec, *key) for key in spec_runs}
+        twins_point = {label: pool.submit(oracle_point, p["args"]) for label, p in points.items()}
+        twins_spec = {key: f.result() for key, f in twins_spec.items()}
+        twins_point = {label: f.result() for label, f in twins_point.items()}
+    twin_s = time.perf_counter() - t0
+    for (name, seed), run in spec_runs.items():
+        check(run["result"] == twins_spec[(name, seed)],
+              f"cluster phase: spec {name} seed {seed} on the card {run['result']} differs from "
+              f"its oracle twin {twins_spec[(name, seed)]}")
+        check(run["replay_mismatches"] == 0,
+              f"cluster phase: spec {name} seed {seed}: {run['replay_mismatches']} recorded "
+              "batches differ from the oracle replay")
+        ok, metrics, _, vt = run["result"]
+        print(f"cluster spec {name} seed {seed} [{card}]: ok, equal to its oracle twin "
+              f"(virtual time {vt:.6f} s, {metrics}); {run['engines']} card resolvers served "
+              f"{run['batches']} batches / {run['txns']} txns, 0 replay mismatches; "
+              f"{run['captures']} graphs captured in {run['capture_s']:.2f} s; wall "
+              f"{run['wall_s']:.2f} s", flush=True)
+    for label, p in points.items():
+        check(p["result"] == twins_point[label],
+              f"cluster phase: harness point {label} on the card {p['result']} differs from its "
+              f"oracle twin {twins_point[label]}")
+        r = p["result"]
+        print(f"cluster harness {label} [{card}]: depth {r['depth']}, bucket {r['batch_txns']}, "
+              f"offered {r['offered_txns_per_sec']:.1f} txn/s: sustained "
+              f"{r['sustained_txns_per_sec']:.1f} txn/s, committed "
+              f"{r['sustained_committed_per_sec']:.1f} txn/s; virtual p50 {r['p50_ms']:.3f} ms "
+              f"p99 {r['p99_ms']:.3f} ms against the {budget} ms budget; {r['committed']} "
+              f"committed / {r['conflicted']} conflicted / {r['errors']} errors, mean fill "
+              f"{r['mean_batch_fill']}; wall {p['wall_s']:.2f} s ({p['wall_txn_per_s']:.0f} "
+              f"txn/s, {p['capture_s']:.2f} s of it capturing {p['captures']} graphs); "
+              f"{p['launches']} fixpoint launches; equal to its oracle twin", flush=True)
+    att = points["spans"]["result"]["attribution"]
+    print(f"  attribution [{card}] of {points['spans']['of']}"
+          f"{'' if points['spans']['in_budget'] else ' (no depth-2 point in budget)'}: "
+          f"{att['n_attributed']} commits, p50 {att['p50']['segments_ms']}, "
+          f"p99 {att['p99']['segments_ms']}", flush=True)
+    print(f"cluster phase oracle twins [{card}]: {len(twins_spec)} spec runs and "
+          f"{len(twins_point)} harness points in {CLUSTER_WORKERS} workers after the last card "
+          f"run ({twin_s:.1f} s)", flush=True)
+    return {"specs": {f"{n}_{s}": r for (n, s), r in spec_runs.items()}, "points": points,
+            "budget_ms": budget, "device_ms_by_bucket": device_ms_by_bucket,
+            "pack_ms_per_txn": pack_ms_per_txn, "twin_s": twin_s, "launches": launches}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every result to this JSON file")
@@ -3244,6 +3535,17 @@ def main(argv=None) -> int:
     print(f"reshard phase [{card}]: {len(rs['ops'])} reshards, {rs['launches']} launches "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    # the static cluster with card resolvers, the harness fed the columnar
+    # phase's one-chunk replay ms per bucket and its pack ms per txn
+    t0 = time.perf_counter()
+    cl = cluster_phase(fc, he, card, engine_cfg, {
+        int(k.split("x")[0]): ms for k, ms in colp["program_device_ms"].items()
+        if k.endswith("x1")}, clocks["columnar"]["pack_ms_per_txn"])
+    results["cluster_phase"] = cl
+    print(f"cluster phase [{card}]: {len(cl['specs'])} spec runs and {len(cl['points'])} harness "
+          f"points equal to their oracle twins, launches {cl['launches']} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
     kernels = {"kernels": [{
         "name": "commit_fixpoint",
         "route": "cuda",
@@ -3253,7 +3555,8 @@ def main(argv=None) -> int:
                                                 lpp, *(tele[k] for k in TELEMETRY_ENGINES),
                                                 tele["default_rate"], spp))
                     + sum(role["launches"].values()) + sum(sup["launches"].values())
-                    + sum(crash_launches.values()) + rs["launches"],
+                    + sum(crash_launches.values()) + rs["launches"]
+                    + sum(cl["launches"].values()),
         "launches_by_path": {"engine_general_router_graph": ep["graph_launches"],
                              "engine_general_router_eager": ep["eager_launches"],
                              "graph_step": gp["launches"], "columnar_engine": colp["launches"],
@@ -3275,7 +3578,7 @@ def main(argv=None) -> int:
                              "scheduled_pipeline": spp["launches"], **role["launches"],
                              **{f"supervised_role_{k}": v for k, v in sup["launches"].items()},
                              **{f"crash_child_{k}": v for k, v in crash_launches.items()},
-                             "reshard": rs["launches"]},
+                             "reshard": rs["launches"], **cl["launches"]},
         "mismatches": 0,
         "max_abs_err": 0,
         "ms": kp["kernel_ms"],

@@ -80,6 +80,7 @@ _LAZY_REGISTRARS = (
     "..core.types",
     # TraceContext — the propagated distributed-tracing context
     "..core.trace",
+    "..server.log_system",
 )
 
 

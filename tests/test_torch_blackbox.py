@@ -58,6 +58,8 @@ def value_for(P, annotation: str, i: int):
         return b"\x00\xffb%d" % i
     if a in ("Tuple", "tuple"):
         return (i, b"t", ("nested", None), frozenset({1, 2}))
+    if a == "Tuple[int, int]":
+        return (i, -7 * i)
     if a == "Dict":
         return {"k": i, 3: [1.5, {b"x"}]}
     if a == "Any":

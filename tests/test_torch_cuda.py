@@ -1077,3 +1077,50 @@ def test_recover_into_a_card_engine(card, tmp_path):
     assert res.error is None and res.mode == "complete" and res.coverage_ok
     assert res.verdict_mismatches == 0 and res.replayed_batches > 0
     assert all(a == b for a, b in pairs)
+
+
+@pytest.mark.cuda
+def test_cycle_spec_with_card_resolvers_equals_the_oracle(card):
+    """CycleTestCUDA with both resolvers on the card equals the same spec
+    and seed with oracle resolvers (ok, metrics, seed, virtual time), and
+    the card ran the fixpoint kernel."""
+    from foundationdb_tpu_torch.testing.specs import SPECS, make_engine_factory
+    from foundationdb_tpu_torch.testing.workload import run_spec
+
+    built = []
+    factory = make_engine_factory()
+
+    def card_engine():
+        built.append(factory())
+        return built[-1]
+
+    spec = SPECS["CycleTestCUDA"]()
+    spec.cluster.engine_factory = card_engine
+    fc.FIXPOINT.reset_counts()
+    res = run_spec(spec, 7)
+    launches = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+    twin = SPECS["CycleTestCUDA"]()
+    twin.cluster.engine_factory = toracle.OracleConflictEngine
+    assert res.ok
+    assert dataclasses.astuple(res) == dataclasses.astuple(run_spec(twin, 7))
+    assert [e.state["hkeys"].device.type for e in built] == ["cuda", "cuda"]
+    assert launches > 0 and fc.FIXPOINT.plain_cuda_calls == 0
+
+
+@pytest.mark.cuda
+def test_harness_point_with_a_card_resolver_equals_the_oracle(card):
+    """One latency-harness point (depth 2, bucket 1024, 3000 txns) with the
+    resolver on the card gives the same result as with the oracle."""
+    from foundationdb_tpu_torch.pipeline.latency_harness import run_latency_under_load
+
+    kw = dict(depth=2, batch_txns=1024, device_ms=0.45, pack_ms_per_txn=0.0006,
+              offered_txns_per_sec=2_000_000.0, n_txns=3000,
+              device_ms_by_bucket={512: 0.3, 1024: 0.45})
+    cfg = ck.KernelConfig(key_words=4, capacity=16384, max_txns=1024, max_point_reads=2048,
+                          max_point_writes=2048, max_reads=64, max_writes=64)
+    fc.FIXPOINT.reset_counts()
+    got = run_latency_under_load(engine_factory=lambda: TorchConflictEngine(
+        cfg, ladder=(512,), device_time_sample_rate=0.0), **kw).as_dict()
+    launches = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+    assert got == run_latency_under_load(**kw).as_dict()
+    assert got["errors"] == 0 and launches > 0 and fc.FIXPOINT.plain_cuda_calls == 0

@@ -69,6 +69,17 @@ def test_subprocess_import_loads_no_jax():
     "foundationdb_tpu_torch.core.progcache",
     "foundationdb_tpu_torch.core.keyshard",
     "foundationdb_tpu_torch.server.reshard",
+    "foundationdb_tpu_torch.core.indexedset",
+    "foundationdb_tpu_torch.core.keyrangemap",
+    "foundationdb_tpu_torch.server.kvstore",
+    "foundationdb_tpu_torch.server.cluster",
+    "foundationdb_tpu_torch.server.proxy",
+    "foundationdb_tpu_torch.server.storage",
+    "foundationdb_tpu_torch.client",
+    "foundationdb_tpu_torch.pipeline.latency_harness",
+    "foundationdb_tpu_torch.testing",
+    "foundationdb_tpu_torch.testing.specs",
+    "foundationdb_tpu_torch.testing.runner",
 ])
 def test_serving_path_modules_load_no_jax(module):
     """The columnar path's modules, each imported alone in a fresh process
@@ -112,7 +123,14 @@ def test_source_scan_finds_no_jax_import():
                  "fault/__init__.py", "server/messages.py", "server/resolver.py",
                  "pipeline/service.py", "fault/inject.py", "fault/resilient.py",
                  "fault/handoff.py", "fault/recovery.py", "core/progcache.py",
-                 "core/keyshard.py", "server/reshard.py"):
+                 "core/keyshard.py", "server/reshard.py", "core/indexedset.py",
+                 "core/keyrangemap.py", "server/system_keys.py", "server/wait_failure.py",
+                 "server/disk_queue.py", "server/kvstore.py", "server/master.py",
+                 "server/tlog.py", "server/log_system.py", "server/storage.py",
+                 "server/ratekeeper.py", "server/proxy.py", "client/database.py",
+                 "client/__init__.py", "server/cluster.py", "pipeline/latency_harness.py",
+                 "testing/workload.py", "testing/workloads.py", "testing/specs.py",
+                 "testing/runner.py", "testing/__init__.py"):
         assert PKG / name in files, name
     for path in files:
         bad = [r for r in imported_roots(path) if r in FORBIDDEN]

@@ -23,7 +23,16 @@ MODULES = {"buggify": "core.buggify", "error": "core.error", "types": "core.type
            "recovery": "fault.recovery", "progcache": "core.progcache",
            "keyshard": "core.keyshard", "heatmap": "core.heatmap", "knobs": "core.knobs",
            "rng": "core.rng", "reshard": "server.reshard", "service": "pipeline.service",
-           "resolver_pipeline": "pipeline.resolver_pipeline"}
+           "resolver_pipeline": "pipeline.resolver_pipeline",
+           "indexedset": "core.indexedset", "keyrangemap": "core.keyrangemap",
+           "disk_queue": "server.disk_queue", "kvstore": "server.kvstore",
+           "system_keys": "server.system_keys", "master": "server.master",
+           "tlog": "server.tlog", "log_system": "server.log_system",
+           "storage": "server.storage", "ratekeeper": "server.ratekeeper",
+           "proxy": "server.proxy", "cluster": "server.cluster",
+           "database": "client.database", "harness": "pipeline.latency_harness",
+           "workload": "testing.workload", "workloads": "testing.workloads",
+           "specs": "testing.specs", "runner": "testing.runner"}
 
 
 def package(root):
