@@ -161,6 +161,28 @@ toolkit. The script
      oracle twin's. The oracle twins run in worker processes after the
      last card run. Sustained and committed txn/s, virtual p50 / p99
      against resolver_p99_budget_ms, wall s and wall txn/s, launches.
+  18. dynamic cluster phase: the port's dynamic simulated cluster
+     (coordinators, leader election, the cluster controller, workers, the
+     master's epoch recovery, data distribution; server/cluster.py
+     DynamicCluster) with every resolver recruited in every generation a
+     card engine. run_spec on each of the 12 dynamic specs at seed 1, four
+     of them also at seed 2, at the specs' KernelConfig (capacity 1024,
+     T=64; DataDistributionAttrition at capacity 4096), each engine
+     supervised as recruitment does (DeviceNemesis: over the fault
+     injector, as its own factory): each run ok and equal to its oracle
+     twin (ok, metrics, virtual time), each supervisor's health counters
+     equal to its twin's, dispatch faults sorted by cause with none from
+     the card, every card call and every supervisor's journal equal to a
+     fresh oracle's replay. Then a recovery run at the bench's
+     KernelConfig: 64 closed-loop clients (2 point reads and 2 point
+     writes over the 8192-key pool) to 3,000 commits, the worker hosting
+     resolver.resolve REBOOT-killed at 30% and the one hosting
+     proxy.commit at 65%, each kill an epoch recovery that recruits fresh
+     card engines: equal to its oracle twin (committed count, the final
+     keyspace, virtual time), 0 durability violations; committed txn/s in
+     virtual and wall time, batches and graphs per generation, virtual and
+     wall ms from each kill to the new epoch's first commit, peak device
+     memory. The twins run in 4 worker processes after the last card run.
 
 Each path's kernel launches are counted from 0 just before it and read
 just after (a captured graph's fixpoint launches are counted at each
@@ -2240,20 +2262,15 @@ SUPERVISED_RUNS = {
 }
 
 
-def supervised_stack(card_engine, rates, probe_rate, log):
-    """ResilientEngine(FaultInjectingEngine(card_engine)) with its dispatch
-    faults sorted by cause (`log["faults"]`: injected exception, watchdog,
-    buggify, other), its health transitions and its rewarms (ms, captures,
-    ok) logged. Built inside the run's simulator."""
+def sort_faults(stack, log):
+    """Count a supervisor's dispatch faults by cause in `log["faults"]`:
+    an injected exception, the watchdog (an injected hang), a buggify site
+    of the supervisor, or other (the card itself); the message of each
+    other fault in `log["other_errors"]`."""
     from foundationdb_tpu_torch.core import error
-    from foundationdb_tpu_torch.fault import (FaultInjectingEngine, FaultRates, ResilienceConfig,
-                                              ResilientEngine)
 
-    inj = FaultInjectingEngine(card_engine, rates=FaultRates(**rates))
-    stack = ResilientEngine(inj, ResilienceConfig(probe_rate=probe_rate, **SUPERVISOR))
-    log.update(faults={"injected": 0, "watchdog": 0, "buggify": 0, "other": 0},
-               transitions=[], rewarms=[], injector=inj)
-    dispatch_once, set_state, rewarm = stack._dispatch_once, stack._set_state, stack._rewarm_device
+    log.setdefault("faults", {"injected": 0, "watchdog": 0, "buggify": 0, "other": 0})
+    dispatch_once = stack._dispatch_once
 
     async def counted_dispatch(*a):
         try:
@@ -2266,6 +2283,24 @@ def supervised_stack(card_engine, rates, probe_rate, log):
             if kind == "other":
                 log.setdefault("other_errors", []).append(msg)
             raise
+
+    stack._dispatch_once = counted_dispatch
+
+
+def supervised_stack(card_engine, rates, probe_rate, log):
+    """ResilientEngine(FaultInjectingEngine(card_engine)) with its dispatch
+    faults sorted by cause (`log["faults"]`: injected exception, watchdog,
+    buggify, other), its health transitions and its rewarms (ms, captures,
+    ok) logged. Built inside the run's simulator."""
+    from foundationdb_tpu_torch.fault import (FaultInjectingEngine, FaultRates, ResilienceConfig,
+                                              ResilientEngine)
+
+    inj = FaultInjectingEngine(card_engine, rates=FaultRates(**rates))
+    stack = ResilientEngine(inj, ResilienceConfig(probe_rate=probe_rate, **SUPERVISOR))
+    log.update(faults={"injected": 0, "watchdog": 0, "buggify": 0, "other": 0},
+               transitions=[], rewarms=[], injector=inj)
+    sort_faults(stack, log)
+    set_state, rewarm = stack._set_state, stack._rewarm_device
 
     def logged_state(state):
         if state != stack.state:
@@ -2285,8 +2320,7 @@ def supervised_stack(card_engine, rates, probe_rate, log):
             log["rewarms"].append(((time.perf_counter() - t0) * 1e3,
                                    card_engine.perf.captures - c0, ok))
 
-    stack._dispatch_once, stack._set_state, stack._rewarm_device = (counted_dispatch, logged_state,
-                                                                    timed_rewarm)
+    stack._set_state, stack._rewarm_device = logged_state, timed_rewarm
     return stack
 
 
@@ -3020,14 +3054,21 @@ def recording_factory(make, built):
     return factory
 
 
-def replay_mismatches(rec):
-    """Batches of one recorded engine whose verdicts differ from a fresh
-    oracle's over the same (transactions, version, new_oldest) sequence."""
+def call_mismatches(calls):
+    """Calls of a recorded sequence whose verdicts differ from a fresh
+    oracle's given the same sequence of resolve() calls, each (version,
+    new_oldest, transactions, verdicts), and clear() calls, each
+    ("clear", version)."""
     from foundationdb_tpu_torch.ops.oracle import OracleConflictEngine
 
-    oracle = OracleConflictEngine()
-    return sum([int(v) for v in oracle.resolve(txns, now, oldest)] != verdicts
-               for now, oldest, txns, verdicts in rec["batches"])
+    oracle, bad = OracleConflictEngine(), 0
+    for call in calls:
+        if call[0] == "clear":
+            oracle.clear(call[1])
+            continue
+        now, oldest, txns, verdicts = call
+        bad += [int(v) for v in oracle.resolve(txns, now, oldest)] != list(verdicts)
+    return bad
 
 
 def harness_points(device_ms_by_bucket, pack_ms_per_txn, budget):
@@ -3108,7 +3149,7 @@ def cluster_phase(fc, he, card, engine_cfg, device_ms_by_bucket, pack_ms_per_txn
                 "captures": sum(r["engine"].perf.captures for r in built),
                 "capture_s": sum(sum(r["engine"].perf_ledger.compile_ms.values())
                                  for r in built) / 1e3,
-                "replay_mismatches": sum(replay_mismatches(r) for r in built)}
+                "replay_mismatches": sum(call_mismatches(r["batches"]) for r in built)}
             built_all += built
         launches[f"cluster_spec_{name}"] = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
         check(launches[f"cluster_spec_{name}"] > 0 and fc.FIXPOINT.plain_cuda_calls == 0,
@@ -3207,6 +3248,487 @@ def cluster_phase(fc, he, card, engine_cfg, device_ms_by_bucket, pack_ms_per_txn
     return {"specs": {f"{n}_{s}": r for (n, s), r in spec_runs.items()}, "points": points,
             "budget_ms": budget, "device_ms_by_bucket": device_ms_by_bucket,
             "pack_ms_per_txn": pack_ms_per_txn, "twin_s": twin_s, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# dynamic cluster phase: coordinators, leader election, the cluster
+# controller, workers, the master's epoch recovery, data distribution;
+# every resolver recruited in every generation a card engine
+# ---------------------------------------------------------------------------
+
+#: the seeds each dynamic spec runs at with card resolvers (every ported
+#: dynamic spec at seed 1; four of them again at seed 2)
+DYNAMIC_SEEDS = {"CycleTestAttrition": (1, 2), "RegionFailover": (1, 2),
+                 "CycleTestRestart": (1, 2), "DeviceNemesis": (1, 2)}
+#: testing/specs.py's _nemesis_engine_factory supervisor
+NEMESIS_SUPERVISOR = dict(dispatch_timeout=0.3, retry_budget=1, retry_backoff=0.05,
+                          probe_rate=0.1, probation_batches=2, failover_min_batches=2)
+#: history rows for the specs whose traffic outgrows the specs' KernelConfig
+#: (capacity 1024): DataDistributionAttrition's bulk load writes 300 keys
+#: inside one MVCC window, which overflows 1024 boundary rows
+#: (conflict_capacity_exceeded) on the card as on the JAX package's engine
+DYNAMIC_CAPACITY = {"DataDistributionAttrition": 4096}
+#: the recovery-under-load run: the cluster's shape, its closed-loop
+#: clients, the committed transactions it runs to, and its kills (the
+#: share of RECOVERY_TXNS committed, the token the victim worker hosts).
+#: The simulated cluster's durable storage applies ~100-130 txn/s of
+#: virtual time; at 128 clients a transaction's two serial reads wait out
+#: a 1-2 s storage lag and its commit falls past the 5 s MVCC window, so
+#: the run stalls in transaction_too_old retries: 64 clients keep it busy
+#: without that
+RECOVERY_CLUSTER = dict(n_workers=6, n_tlogs=2, n_resolvers=2, n_proxies=1, n_storage=2)
+RECOVERY_CLIENTS = 64
+RECOVERY_TXNS = 3_000
+RECOVERY_KILLS = ((0.30, "resolver.resolve"), (0.65, "proxy.commit"))
+RECOVERY_SEED = SEED + 10
+RECOVERY_UNTIL = 600.0
+DYNAMIC_WORKERS = 4
+#: a supervisor's health counters, held equal between a card run and its
+#: oracle twin engine by engine
+HEALTH_KEYS = ("state", "batches", "dispatch_faults", "retries", "failovers", "swap_backs",
+               "rewarm_failures", "oracle_batches", "probes", "probe_mismatches")
+
+
+def supervised_card_factory(make, built, nemesis=False):
+    """A dynamic cluster's engine factory over card engines from `make()`.
+
+    Each call records the card engine's every resolve() and clear() (its
+    instance attributes) in a record {"engine", "calls", "stack",
+    "faults"} appended to `built`, and returns it supervised as the
+    worker's recruitment would (fault.maybe_wrap's ResilientEngine(engine),
+    built here so its faults can be sorted), or with `nemesis` as
+    testing/specs.py's _nemesis_engine_factory does:
+    ResilientEngine(FaultInjectingEngine(engine), its ResilienceConfig).
+    Every supervisor keeps its journal (record_journal=True: the verdicts
+    it emitted per batch, whoever served them), which draws nothing and
+    changes no decision."""
+    from foundationdb_tpu_torch.fault import (FaultInjectingEngine, ResilienceConfig,
+                                              ResilientEngine)
+
+    def factory():
+        eng = make()
+        rec = {"engine": eng, "calls": []}
+        resolve, clear = eng.resolve, eng.clear
+
+        def recording(txns, now, new_oldest):
+            verdicts = resolve(txns, now, new_oldest)
+            rec["calls"].append((now, new_oldest, list(txns), [int(v) for v in verdicts]))
+            return verdicts
+
+        def recording_clear(version):
+            rec["calls"].append(("clear", version))
+            return clear(version)
+
+        eng.resolve, eng.clear = recording, recording_clear
+        if nemesis:
+            stack = ResilientEngine(FaultInjectingEngine(eng),
+                                    ResilienceConfig(**NEMESIS_SUPERVISOR), record_journal=True)
+        else:
+            stack = ResilientEngine(eng, record_journal=True)
+        rec["stack"] = stack
+        sort_faults(stack, rec)
+        built.append(rec)
+        return stack
+
+    return factory
+
+
+def registered_health():
+    """The health counters of every supervisor the run built, in the order
+    it built them (fault.registered_engines())."""
+    from foundationdb_tpu_torch.fault import registered_engines
+
+    return [{k: e.health_stats().get(k, 0) for k in HEALTH_KEYS} for e in registered_engines()]
+
+
+def engine_summary(rec):
+    """One recorded card engine after its run: where its tensors live, its
+    resolves and clears, captures and capture seconds, its supervisor's
+    health and dispatch faults by cause; the replay mismatches of the
+    card's own calls and of the supervisor's journal (the verdicts it
+    emitted, one entry per batch)."""
+    eng, stack = rec["engine"], rec["stack"]
+    st = stack.health_stats()
+    resolves = [c for c in rec["calls"] if c[0] != "clear"]
+    journal = [(now, oldest, list(txns), verdicts)
+               for now, txns, oldest, verdicts in stack.journal]
+    return {"device": eng.state["hkeys"].device.type, "resolves": len(resolves),
+            "clears": len(rec["calls"]) - len(resolves),
+            "txns": sum(len(c[2]) for c in resolves),
+            "largest_batch": max((len(c[2]) for c in resolves), default=0),
+            "first_version": resolves[0][0] if resolves else None,
+            "captures": eng.perf.captures,
+            "capture_s": sum(eng.perf_ledger.compile_ms.values()) / 1e3,
+            "health": {k: st.get(k, 0) for k in HEALTH_KEYS},
+            "faults": dict(rec["faults"]), "other_errors": rec.get("other_errors", []),
+            "mismatches": call_mismatches(rec["calls"]),
+            "journal_batches": len(journal), "journal_mismatches": call_mismatches(journal)}
+
+
+def recoveries():
+    """The last recovery count a master reported to the cluster controller
+    (the MasterRecoveredToCC trace events of the run)."""
+    from foundationdb_tpu_torch.core.trace import g_trace
+
+    return max((e["RecoveryCount"] for e in g_trace.find("MasterRecoveredToCC")), default=0)
+
+
+def oracle_dynamic_spec(name, seed):
+    """A dynamic spec's oracle twin (run in a worker process): the spec with
+    its stock engine factory (the oracle; the injector over the oracle for
+    DeviceNemesis) -> (its SpecResult as a tuple, the health counters of
+    every supervisor it built)."""
+    import dataclasses
+
+    from foundationdb_tpu_torch.testing.specs import SPECS
+    from foundationdb_tpu_torch.testing.workload import run_spec
+
+    clean_port_world()
+    res = dataclasses.astuple(run_spec(SPECS[name](), seed))
+    return res, registered_health()
+
+
+def dynamic_spec_run(fc, name, seed, make):
+    """run_spec on one dynamic spec with every recruited resolver a card
+    engine from `make()`, supervised as the worker or the nemesis factory
+    would; the fixpoint counts zeroed just before it and read just after.
+    Returns the run's result, recoveries, engines, captures, launches,
+    wall seconds and each engine's summary."""
+    import dataclasses
+
+    from foundationdb_tpu_torch.testing.specs import SPECS
+    from foundationdb_tpu_torch.testing.workload import run_spec
+
+    clean_port_world()
+    built = []
+    spec = SPECS[name]()
+    spec.dynamic.engine_factory = supervised_card_factory(make, built,
+                                                          nemesis=name == "DeviceNemesis")
+    fc.FIXPOINT.reset_counts()
+    t0 = time.perf_counter()
+    res = run_spec(spec, seed)
+    wall = time.perf_counter() - t0
+    launches = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+    plain = fc.FIXPOINT.plain_cuda_calls
+    run = {"result": dataclasses.astuple(res), "recoveries": recoveries(), "wall_s": wall,
+           "launches": launches, "plain_cuda_calls": plain,
+           "engines": [engine_summary(r) for r in built]}
+    built.clear()
+    clean_port_world()   # drops the fault registry's engines of every generation
+    return run
+
+
+def check_engines(where, engines, twin_health):
+    """The card engines of one run against the rules: each on the card,
+    its own calls (clears included) and its supervisor's journal equal to
+    a fresh oracle's replay (the journal holds every batch the supervisor
+    answered: all it took but one cancelled by its role's death), no
+    dispatch fault from
+    the card, and every supervisor's health counters (batches, faults,
+    retries, failovers, swap-backs, rewarm failures, oracle batches,
+    probes) equal to the oracle twin's supervisor built at the same point
+    of the run: a failover or an oracle batch is then one the oracle's run
+    took too, from a buggify site or the injector, never the card's."""
+    check(len(engines) == len(twin_health),
+          f"{where}: {len(engines)} card engines, {len(twin_health)} in the oracle twin")
+    for i, (e, want) in enumerate(zip(engines, twin_health)):
+        at = f"{where} engine {i}"
+        check(e["device"] == "cuda", f"{at} is on {e['device']}")
+        check(e["mismatches"] == 0, f"{at}: {e['mismatches']} card calls differ from the oracle "
+              "replay")
+        check(0 <= e["health"]["batches"] - e["journal_batches"] <= 1
+              and e["journal_mismatches"] == 0,
+              f"{at}: the supervisor's journal holds {e['journal_batches']} of "
+              f"{e['health']['batches']} batches, {e['journal_mismatches']} differ from the "
+              "oracle replay")
+        check(e["faults"]["other"] == 0, f"{at}: dispatch faults from the card: "
+              f"{e['other_errors']}")
+        check(e["health"] == want, f"{at}: supervisor health {e['health']} differs from the "
+              f"oracle twin's {want}")
+
+
+def check_dynamic_spec(name, seed, run, twin):
+    """A card spec run against its oracle twin (its SpecResult, the health
+    of its supervisors) and the phase's rules: ok, equal to the twin in ok,
+    metrics, seed and virtual time (a card engine keeps keyspace heat, so
+    DeviceNemesis's flight records each carry a heat snapshot the oracle's
+    lack: its flight_heat_records must equal its flight_records and is the
+    one metric the twin lacks), launches and no plain fixpoint on the
+    card, and check_engines."""
+    (ok, metrics, rseed, vt), twin_health = run["result"], twin[1]
+    check(ok, f"dynamic phase: spec {name} seed {seed} failed on the card: {metrics}")
+    if name == "DeviceNemesis":
+        metrics = dict(metrics)
+        heat = metrics.pop("flight_heat_records", None)
+        check(heat == metrics.get("flight_records"),
+              f"dynamic phase: {name} seed {seed}: {heat} flight records with heat of "
+              f"{metrics.get('flight_records')}")
+    check((ok, metrics, rseed, vt) == tuple(twin[0]),
+          f"dynamic phase: spec {name} seed {seed} on the card {run['result']} differs from its "
+          f"oracle twin {twin[0]}")
+    check(run["launches"] > 0 and run["plain_cuda_calls"] == 0,
+          f"dynamic phase: spec {name} seed {seed} made {run['launches']} fixpoint launches, "
+          f"{run['plain_cuda_calls']} plain fixpoints on CUDA tensors")
+    check_engines(f"dynamic phase: spec {name} seed {seed}", run["engines"], twin_health)
+
+
+def pool_key(i):
+    """Key i of the recovery run's 8192-key pool: 16 bytes, the bench's."""
+    return b"bench/%010d" % i
+
+
+def recovery_run(factory=None):
+    """build_dynamic_cluster at RECOVERY_CLUSTER, resolvers from `factory`
+    (the oracle when None), under RECOVERY_CLIENTS closed-loop clients,
+    each transaction 2 point reads and 2 point writes over the 8192-key
+    pool (keys drawn from the simulator's rng), until RECOVERY_TXNS have
+    committed; REBOOT-kills the worker hosting each of RECOVERY_KILLS's
+    tokens once its share has committed (the first worker with a handler
+    token starting with it, as tests/test_recovery.py finds it). A fresh
+    client then reads the whole pool.
+
+    Returns {"twin": (committed, the final rows, virtual time, durability
+    violations), "health" (registered_health()), "kills", "recoveries",
+    "load_virtual_s", "load_wall_s"}:
+    each kill with its victim and the virtual and wall ms to the first
+    commit of the new epoch (the first commit whose version is over
+    RECOVERY_VERSION_JUMP / 2 past every version acknowledged before the
+    kill: a new epoch's versions start a jump past the recovery version)."""
+    from foundationdb_tpu_torch.core import error
+    from foundationdb_tpu_torch.ops.oracle import OracleConflictEngine
+    from foundationdb_tpu_torch.server.cluster import (DynamicClusterConfig,
+                                                       build_dynamic_cluster)
+    from foundationdb_tpu_torch.server.master import RECOVERY_VERSION_JUMP
+    from foundationdb_tpu_torch.sim import validation
+    from foundationdb_tpu_torch.sim.actors import all_of
+    from foundationdb_tpu_torch.sim.simulator import KillType
+
+    clean_port_world()
+    c = build_dynamic_cluster(seed=RECOVERY_SEED, cfg=DynamicClusterConfig(
+        **RECOVERY_CLUSTER, engine_factory=factory or OracleConflictEngine))
+    sim = c.sim
+    rng = sim.sched.rng
+    state = {"committed": 0, "max_version": 0}
+    kills = []
+    pending = list(RECOVERY_KILLS)
+
+    def worker_hosting(prefix):
+        for p in c.worker_procs:
+            if any(tok.startswith(prefix) for tok in p.handlers):
+                return p
+        return None
+
+    def note_commit(version):
+        state["committed"] += 1
+        for k in kills:
+            if "first_commit_virtual_ms" not in k and version > k["version"] + RECOVERY_VERSION_JUMP // 2:
+                k["first_commit_virtual_ms"] = (sim.sched.time - k["virtual"]) * 1e3
+                k["first_commit_wall_ms"] = (time.perf_counter() - k["wall"]) * 1e3
+                k["first_commit_version"] = version
+        state["max_version"] = max(state["max_version"], version)
+        if pending and state["committed"] >= pending[0][0] * RECOVERY_TXNS:
+            share, prefix = pending.pop(0)
+            victim = worker_hosting(prefix)
+            check(victim is not None, f"recovery run: no live worker hosts {prefix}")
+            kills.append({"share": share, "token": prefix, "victim": victim.address,
+                          "committed": state["committed"], "version": state["max_version"],
+                          "virtual": sim.sched.time, "wall": time.perf_counter()})
+            sim.kill_process(victim, KillType.REBOOT)
+
+    async def client(db, cid):
+        n = 0
+        while state["committed"] < RECOVERY_TXNS:
+            reads = [pool_key(rng.random_int(0, POOL_KEYS)) for _ in range(2)]
+            writes = [pool_key(rng.random_int(0, POOL_KEYS)) for _ in range(2)]
+            tr = db.create_transaction()
+            while True:
+                try:
+                    for k in reads:
+                        await tr.get(k)
+                    for k in writes:
+                        tr.set(k, b"%03d.%05d" % (cid, n))
+                    version = await tr.commit()
+                    break
+                except error.FDBError as e:
+                    await tr.on_error(e)
+            n += 1
+            note_commit(version)
+
+    async def load():
+        t_v, t_w = sim.sched.time, time.perf_counter()
+        await all_of([sim.sched.spawn(client(c.new_client(), i), name=f"client{i}")
+                      for i in range(RECOVERY_CLIENTS)])
+        state["load_virtual_s"] = sim.sched.time - t_v
+        state["load_wall_s"] = time.perf_counter() - t_w
+
+        async def read_all(tr):
+            return await tr.get_range(pool_key(0), pool_key(POOL_KEYS), limit=POOL_KEYS + 1)
+
+        return await c.new_client().run(read_all)
+
+    rows = sim.run_until(sim.sched.spawn(load(), name="recovery-load"), until=RECOVERY_UNTIL)
+    twin = (state["committed"], rows, sim.sched.time, len(validation.violations))
+    out = {"twin": twin, "health": registered_health(), "kills": kills,
+           "recoveries": recoveries(),
+           "load_virtual_s": state["load_virtual_s"], "load_wall_s": state["load_wall_s"]}
+    clean_port_world()
+    return out
+
+
+def oracle_recovery_run():
+    """The recovery run's oracle twin (run in a worker process): its result
+    and the health counters of its supervisors."""
+    out = recovery_run()
+    return out["twin"], out["health"]
+
+
+def generations(engines):
+    """The recorded card engines grouped into generations (the engines of
+    one generation resolve the same versions from the same first one): per
+    generation its engines, batches, mean and largest batch and captures."""
+    gens = {}
+    for e in engines:
+        gens.setdefault(e["first_version"], []).append(e)
+    out = []
+    for first, es in sorted(gens.items(), key=lambda kv: (kv[0] is None, kv[0] or 0)):
+        n = sum(e["resolves"] for e in es)
+        out.append({"first_version": first, "engines": len(es), "batches": n,
+                    "mean_batch": sum(e["txns"] for e in es) / n if n else 0.0,
+                    "largest_batch": max(e["largest_batch"] for e in es),
+                    "captures": sum(e["captures"] for e in es),
+                    "capture_s": sum(e["capture_s"] for e in es)})
+    return out
+
+
+def dynamic_cluster_phase(fc, he, ck, card, recovery_cfg):
+    """The port's dynamic simulated cluster (server/cluster.py
+    DynamicCluster: coordinators, leader election, the cluster controller,
+    workers, the master's epoch recovery, data distribution and resolution
+    balancing) with every resolver recruited in every generation a card
+    engine, in two parts.
+
+    Specs: run_spec on every dynamic spec at its DYNAMIC_SEEDS with
+    spec.dynamic.engine_factory a recording factory over
+    make_engine_factory()'s card engines (the specs' KernelConfig; the
+    capacity of DYNAMIC_CAPACITY where it is named), supervised as
+    recruitment would, or for DeviceNemesis as its nemesis factory does;
+    check_dynamic_spec holds each run.
+
+    Recovery under load: recovery_run with card resolvers at
+    `recovery_cfg` (the bench's KernelConfig, ladder and scans) in every
+    generation, two kills forcing two epoch recoveries that recruit fresh
+    card engines: equal to its oracle twin (committed count, the final
+    keyspace, virtual time), no durability violation, check_engines.
+    Reports committed txn/s in virtual and wall time, batches
+    and captures per generation, each kill's virtual and wall ms to the
+    first commit of the new epoch and the peak device memory.
+
+    The oracle twins run after the last card run in DYNAMIC_WORKERS
+    spawn-context worker processes."""
+    import dataclasses
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    import torch
+
+    from foundationdb_tpu_torch.testing.specs import SPECS, make_engine_factory
+
+    spec_cfg = ck.KernelConfig(key_words=4, capacity=1024, max_reads=256, max_writes=256,
+                               max_txns=64)
+    names = [n for n, make in SPECS.items() if make().dynamic is not None]
+    runs, launches = {}, {}
+    for name in names:
+        make = (make_engine_factory(cfg=dataclasses.replace(spec_cfg,
+                                                            capacity=DYNAMIC_CAPACITY[name]))
+                if name in DYNAMIC_CAPACITY else make_engine_factory())
+        for seed in DYNAMIC_SEEDS.get(name, (1,)):
+            run = dynamic_spec_run(fc, name, seed, make)
+            runs[(name, seed)] = run
+            launches[f"dynamic_spec_{name}_{seed}"] = run["launches"]
+
+    built = []
+    factory = supervised_card_factory(
+        lambda: he.TorchConflictEngine(recovery_cfg, ladder=LADDER, scan_sizes=SCANS,
+                                       device_time_sample_rate=0.0), built)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fc.FIXPOINT.reset_counts()
+    rec = recovery_run(factory)
+    launches["dynamic_recovery"] = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+    rec["plain_cuda_calls"] = fc.FIXPOINT.plain_cuda_calls
+    torch.cuda.synchronize()
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    rec["engines"] = [engine_summary(r) for r in built]
+    built.clear()
+    rec["generations"] = generations(rec["engines"])
+    check(launches["dynamic_recovery"] > 0 and rec["plain_cuda_calls"] == 0,
+          f"dynamic phase: the recovery run made {launches['dynamic_recovery']} fixpoint "
+          f"launches, {rec['plain_cuda_calls']} plain fixpoints on CUDA tensors")
+
+    # the oracle twins, after the last timed card run
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(DYNAMIC_WORKERS, mp_context=get_context("spawn")) as pool:
+        rec_twin = pool.submit(oracle_recovery_run)
+        twins = {key: pool.submit(oracle_dynamic_spec, *key) for key in runs}
+        twins = {key: f.result() for key, f in twins.items()}
+        rec_twin = rec_twin.result()
+    twin_s = time.perf_counter() - t0
+
+    for (name, seed), run in runs.items():
+        check_dynamic_spec(name, seed, run, twins[(name, seed)])
+        es = run["engines"]
+        faults = {k: sum(e["faults"][k] for e in es) for k in ("injected", "watchdog",
+                                                                "buggify", "other")}
+        ok, metrics, _, vt = run["result"]
+        print(f"dynamic spec {name} seed {seed} [{card}]: ok, equal to its oracle twin "
+              f"(virtual time {vt:.6f} s, {metrics}); {run['recoveries']} recoveries; "
+              f"{len(es)} card engines recruited, {sum(e['captures'] for e in es)} graphs "
+              f"captured in {sum(e['capture_s'] for e in es):.2f} s; "
+              f"{sum(e['resolves'] for e in es)} card batches, 0 replay mismatches; "
+              f"dispatch faults by cause {faults}, failovers "
+              f"{sum(e['health']['failovers'] for e in es)}, oracle batches "
+              f"{sum(e['health']['oracle_batches'] for e in es)} (as its twin's); "
+              f"{run['launches']} fixpoint launches; "
+              f"wall {run['wall_s']:.2f} s", flush=True)
+
+    committed, rows, vt, violations = rec["twin"]
+    twin_result, twin_health = rec_twin
+    check(rec["twin"] == tuple(twin_result),
+          f"dynamic phase: the recovery run on the card (committed {committed}, "
+          f"{len(rows)} rows, virtual time {vt}) differs from its oracle twin (committed "
+          f"{twin_result[0]}, {len(twin_result[1])} rows, virtual time {twin_result[2]})")
+    check(violations == 0, f"dynamic phase: the recovery run broke durability {violations} times")
+    check(committed >= RECOVERY_TXNS and len(rows) > 0,
+          f"dynamic phase: the recovery run committed {committed}, read {len(rows)} rows")
+    check(len(rec["kills"]) == len(RECOVERY_KILLS)
+          and all("first_commit_virtual_ms" in k for k in rec["kills"]),
+          f"dynamic phase: the recovery run's kills {rec['kills']} did not all reach a new epoch")
+    check(len(rec["generations"]) >= 1 + len(RECOVERY_KILLS),
+          f"dynamic phase: the recovery run recruited {len(rec['generations'])} generations")
+    check_engines("dynamic phase: recovery run", rec["engines"], twin_health)
+    print(f"dynamic recovery run [{card}]: {committed} committed by {RECOVERY_CLIENTS} "
+          f"closed-loop clients in {rec['load_virtual_s']:.6f} virtual s "
+          f"({committed / rec['load_virtual_s']:.1f} txn/s) and {rec['load_wall_s']:.2f} wall s "
+          f"({committed / rec['load_wall_s']:.1f} txn/s); {rec['recoveries']} recoveries; "
+          f"equal to its oracle twin ({len(rows)} rows, virtual time {vt:.6f} s), 0 durability "
+          f"violations, 0 replay mismatches; peak device memory "
+          f"{rec['max_memory_allocated'] / 2**20:.1f} MiB; {launches['dynamic_recovery']} "
+          f"fixpoint launches", flush=True)
+    for k in rec["kills"]:
+        print(f"  kill of {k['token']} at {k['committed']} committed [{card}]: first commit of "
+              f"the new epoch {k['first_commit_virtual_ms']:.3f} virtual ms and "
+              f"{k['first_commit_wall_ms']:.1f} wall ms later", flush=True)
+    for g in rec["generations"]:
+        print(f"  generation from version {g['first_version']} [{card}]: {g['engines']} card "
+              f"engines, {g['batches']} batches (mean {g['mean_batch']:.1f} txns, largest "
+              f"{g['largest_batch']}), {g['captures']} graphs captured in "
+              f"{g['capture_s']:.2f} s", flush=True)
+    print(f"dynamic phase oracle twins [{card}]: {len(twins)} spec runs and the recovery run in "
+          f"{DYNAMIC_WORKERS} workers after the last card run ({twin_s:.1f} s)", flush=True)
+    rec["twin"] = {"committed": committed, "rows": len(rows), "virtual_time": vt,
+                   "violations": violations}
+    return {"specs": {f"{n}_{s}": r for (n, s), r in runs.items()}, "recovery": rec,
+            "twin_s": twin_s, "launches": launches}
 
 
 def main(argv=None) -> int:
@@ -3546,6 +4068,16 @@ def main(argv=None) -> int:
           f"points equal to their oracle twins, launches {cl['launches']} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    # the dynamic cluster: every resolver recruited in every generation a
+    # card engine, the specs' KernelConfig in the specs, the bench's in
+    # the recovery run
+    t0 = time.perf_counter()
+    dyn = dynamic_cluster_phase(fc, he, ck, card, cfg)
+    results["dynamic_cluster_phase"] = dyn
+    print(f"dynamic cluster phase [{card}]: {len(dyn['specs'])} spec runs and the recovery run "
+          f"equal to their oracle twins, launches {dyn['launches']} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
     kernels = {"kernels": [{
         "name": "commit_fixpoint",
         "route": "cuda",
@@ -3556,7 +4088,7 @@ def main(argv=None) -> int:
                                                 tele["default_rate"], spp))
                     + sum(role["launches"].values()) + sum(sup["launches"].values())
                     + sum(crash_launches.values()) + rs["launches"]
-                    + sum(cl["launches"].values()),
+                    + sum(cl["launches"].values()) + sum(dyn["launches"].values()),
         "launches_by_path": {"engine_general_router_graph": ep["graph_launches"],
                              "engine_general_router_eager": ep["eager_launches"],
                              "graph_step": gp["launches"], "columnar_engine": colp["launches"],
@@ -3578,7 +4110,8 @@ def main(argv=None) -> int:
                              "scheduled_pipeline": spp["launches"], **role["launches"],
                              **{f"supervised_role_{k}": v for k, v in sup["launches"].items()},
                              **{f"crash_child_{k}": v for k, v in crash_launches.items()},
-                             "reshard": rs["launches"], **cl["launches"]},
+                             "reshard": rs["launches"], **cl["launches"],
+                             **dyn["launches"]},
         "mismatches": 0,
         "max_abs_err": 0,
         "ms": kp["kernel_ms"],

@@ -105,18 +105,17 @@ def _map_read_error(e: error.FDBError) -> error.FDBError:
 class Database:
     def __init__(self, net, client_addr: str, proxy_addrs: Optional[List[str]] = None,
                  coordinator_addrs: Optional[List[str]] = None):
-        """Static mode: a fixed list of proxy addresses. The dynamic mode
-        (coordinator addresses, the cluster file, electing the cluster
-        controller) comes with the dynamic cluster, ROADMAP queue 1 item 5."""
-        if coordinator_addrs:
-            raise NotImplementedError(
-                "a coordinator-addressed Database needs the dynamic cluster "
-                "(ROADMAP queue 1 item 5); pass proxy_addrs")
+        """Static mode (fixed proxy_addrs) or dynamic mode: given
+        coordinator addresses — the cluster file — the client elects its
+        view of the cluster controller by majority and fetches the proxy
+        list from it, re-fetching whenever proxies fail (reference:
+        MonitorLeader + openDatabase, NativeAPI/MonitorLeader.actor.cpp)."""
         self.net = net
         self.client_addr = client_addr
         from ..core.keyrangemap import KeyRangeMap as _KRM
 
         self.proxy_addrs = list(proxy_addrs or [])
+        self.coordinator_addrs = list(coordinator_addrs or [])
         # location cache: a coalescing KeyRangeMap (the reference's
         # locationCache KeyRangeMap, NativeAPI.actor.cpp:1028); value =
         # tuple of storage addrs, None = unknown
@@ -133,9 +132,57 @@ class Database:
         return self.proxy_addrs[rng.random_int(0, len(self.proxy_addrs))]
 
     async def _get_proxy(self) -> str:
-        if not self.proxy_addrs:
-            raise error.connection_failed("no proxies")
+        while not self.proxy_addrs:
+            if not self.coordinator_addrs:
+                raise error.connection_failed("no proxies and no coordinators")
+            await self._refresh_proxies()
         return self._proxy()
+
+    def note_proxy_failure(self) -> None:
+        """A proxy request failed at the transport level: in dynamic mode,
+        drop the cached proxy list so the next request re-discovers (the
+        generation may have turned over)."""
+        if self.coordinator_addrs:
+            self.proxy_addrs = []
+
+    async def _refresh_proxies(self) -> None:
+        from ..server.cluster_controller import (
+            CC_OPEN_DATABASE_TOKEN,
+            OpenDatabaseRequest,
+        )
+        from ..server.leader_election import tally_leader_once
+
+        leader = await tally_leader_once(self.net, self.client_addr,
+                                         self.coordinator_addrs)
+        if leader is not None:
+            try:
+                info = await self.net.request(
+                    self.client_addr, Endpoint(leader.address, CC_OPEN_DATABASE_TOKEN),
+                    OpenDatabaseRequest(), TaskPriority.DEFAULT_ENDPOINT, timeout=1.0,
+                )
+            except error.FDBError:
+                info = None
+            if info is not None and info.recovery_state == "fully_recovered" and info.proxy_addrs:
+                self.proxy_addrs = list(info.proxy_addrs)
+                return
+        await delay(0.25)
+
+    async def get_status(self) -> Optional[dict]:
+        """Fetch the cluster status document from the CC (StatusClient)."""
+        from ..server.cluster_controller import CC_STATUS_TOKEN
+        from ..server.leader_election import tally_leader_once
+
+        leader = await tally_leader_once(self.net, self.client_addr,
+                                         self.coordinator_addrs)
+        if leader is None:
+            return None
+        try:
+            return await self.net.request(
+                self.client_addr, Endpoint(leader.address, CC_STATUS_TOKEN),
+                None, TaskPriority.DEFAULT_ENDPOINT, timeout=2.0,
+            )
+        except error.FDBError:
+            return None
 
     def create_transaction(self) -> "Transaction":
         return Transaction(self)
@@ -173,6 +220,8 @@ class Database:
                 timeout=REQUEST_TIMEOUT,
             )
         except error.FDBError as e:
+            if e.code in (_MAYBE_DELIVERED, _CONNECTION_FAILED):
+                self.note_proxy_failure()
             raise _map_read_error(e)
         for rng, addrs in reply.results:
             self._insert_location(rng, addrs)
@@ -334,6 +383,8 @@ class Transaction:
                     timeout=REQUEST_TIMEOUT,
                 )
             except error.FDBError as e:
+                if e.code in (_MAYBE_DELIVERED, _CONNECTION_FAILED):
+                    self.db.note_proxy_failure()
                 raise _map_read_error(e)
             self.read_version = reply.version
         return self.read_version
@@ -693,6 +744,7 @@ class Transaction:
             )
         except error.FDBError as e:
             if e.code in (_MAYBE_DELIVERED, _CONNECTION_FAILED):
+                self.db.note_proxy_failure()
                 # The commit may or may not have happened (reference:
                 # tryCommit maps transport loss to commit_unknown_result).
                 raise error.commit_unknown_result(e.name)
@@ -709,6 +761,12 @@ class Transaction:
         everything else re-raises."""
         if not isinstance(e, error.FDBError) or not e.is_retryable():
             raise e
+        if e.code == error.transaction_too_old("").code:
+            # Defense in depth for generation turnover: a deposed proxy can
+            # keep answering GRV with pre-jump versions that storage has
+            # already forgotten; re-resolve the proxy list so the retry
+            # reaches the live generation.
+            self.db.note_proxy_failure()
         from ..core import buggify
 
         rng = current_scheduler().rng

@@ -80,6 +80,8 @@ _LAZY_REGISTRARS = (
     "..core.types",
     # TraceContext — the propagated distributed-tracing context
     "..core.trace",
+    "..server.coordination",
+    "..server.coordinated_state",
     "..server.log_system",
 )
 

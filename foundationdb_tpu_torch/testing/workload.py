@@ -20,7 +20,7 @@ from typing import Any, Dict, List, Optional, Type
 from ..core import error
 from ..core.rng import DeterministicRandom
 from ..client.database import Database
-from ..server.cluster import Cluster, ClusterConfig
+from ..server.cluster import Cluster, ClusterConfig, DynamicCluster, DynamicClusterConfig
 from ..sim.actors import all_of
 from ..sim.loop import Future, set_scheduler
 from ..sim.simulator import Simulator
@@ -82,9 +82,8 @@ class Spec:
     cluster: ClusterConfig = field(default_factory=ClusterConfig)
     #: when set, the spec runs against a recruitment-era DynamicCluster
     #: (coordinators + workers + recovery) instead of the static assembly —
-    #: required for attrition workloads. The dynamic cluster is not ported
-    #: yet (ROADMAP queue 1 item 5): run_spec refuses such a spec.
-    dynamic: Optional[Any] = None
+    #: required for attrition workloads
+    dynamic: Optional[DynamicClusterConfig] = None
     client_count: int = 1
     timeout: float = 3600.0
     #: BUGGIFY-randomize the knob registries for this run (always reset
@@ -148,11 +147,11 @@ async def quiet_database(cluster, timeout: float = 120.0) -> None:
 
 def run_spec(spec: Spec, seed: int) -> SpecResult:
     """Deterministic: same spec+seed -> same result and metrics."""
-    if spec.dynamic is not None:
-        raise NotImplementedError(
-            f"spec {spec.title!r} needs the dynamic cluster (ROADMAP queue 1 item 5)")
     sim = Simulator(seed, randomize_knobs=spec.randomize_knobs)
-    cluster = Cluster(sim, spec.cluster)
+    if spec.dynamic is not None:
+        cluster = DynamicCluster(sim, spec.dynamic)
+    else:
+        cluster = Cluster(sim, spec.cluster)
     instances: List[TestWorkload] = []
     for cls, options in spec.workloads:
         shared: Dict[str, Any] = {}

@@ -17,9 +17,8 @@ relevant to the resolver north star (SURVEY.md §4.2):
   RandomCloggingWorkload  RandomClogging.actor.cpp — anti-quiescence network
                           fault injector
 
-The workloads that need the dynamic cluster (machine attrition, key moves,
-backup, full reboots, datacenter kills, device-fault validation) come with
-it, ROADMAP queue 1 item 5.
+BackupCorrectnessWorkload is not ported yet: it needs backup/ and the
+bindings it imports.
 """
 from __future__ import annotations
 
@@ -383,6 +382,60 @@ class RandomCloggingWorkload(TestWorkload):
             sim.clog_process(victim, rng.random01() * scale)
 
 
+class MachineAttritionWorkload(TestWorkload):
+    """Anti-quiescence: kill (and reboot) workers hosting transaction roles
+    while the other workloads run — the reference's core correctness
+    strategy (MachineAttrition.actor.cpp). Requires a DynamicCluster, whose
+    recovery machinery the kills exercise; storage-hosting workers are
+    spared until the durability round makes storage restartable."""
+
+    name = "MachineAttrition"
+    anti_quiescence = True
+
+    TXN_TOKENS = ("tlog.commit", "resolver.resolve", "proxy.commit",
+                  "master.getCommitVersion")
+
+    def _safe_victims(self, cluster):
+        """Kill-safety analysis (reference: ISimulator::canKillProcesses,
+        simulator.h:155). With durable tlogs/storage (DiskQueue + snapshot
+        WAL) and REBOOT-only kills, every role host recovers from its own
+        disk, so any worker hosting a role is a safe victim — including all
+        tlog replicas at once (recovery waits for one to reboot and
+        restore). Storage kills are gated by the spare_storage option for
+        specs that want to isolate transaction-subsystem churn."""
+        spare_storage = bool(self.ctx.options.get("spare_storage", False))
+        out = []
+        for p in cluster.worker_procs:
+            if not p.alive:
+                continue
+            hosts_storage = any(t.startswith("storage.") for t in p.handlers)
+            if spare_storage and hosts_storage:
+                continue
+            if hosts_storage or any(t.startswith(self.TXN_TOKENS) for t in p.handlers):
+                out.append(p)
+        return out
+
+    async def start(self, db: Database) -> None:
+        from ..sim.simulator import KillType
+
+        # One killer only (reference MachineAttrition gates on clientId 0):
+        # concurrent independent killers defeat the safety analysis.
+        if self.ctx.client_id != 0:
+            return
+        cluster = self.ctx.cluster
+        sim = cluster.sim
+        rng = self.ctx.rng
+        interval = float(self.ctx.options.get("interval", 8.0))
+        await delay(float(self.ctx.options.get("delay_before", 4.0)))
+        while True:
+            victims = self._safe_victims(cluster)
+            if victims:
+                victim = victims[rng.random_int(0, len(victims))]
+                self.ctx.count("kills")
+                sim.kill_process(victim, KillType.REBOOT)
+            await delay(interval)
+
+
 class WatchesWorkload(TestWorkload):
     """Watch/trigger ping-pong (Watches.actor.cpp): client pairs bounce a
     counter; every bounce is driven by a watch firing with the new value."""
@@ -634,6 +687,74 @@ class ConsistencyCheckWorkload(TestWorkload):
                     self.ctx.count("replica_mismatches")
                     return False
         return True
+
+
+class RandomMoveKeysWorkload(TestWorkload):
+    """Move random shards to random spare workers while other workloads
+    run (RandomMoveKeys.actor.cpp): the shard map is discovered through
+    the `\\xff/keyServers/` system keyspace, and every move must leave the
+    database consistent (the spec's other checkers + ConsistencyCheck
+    prove it)."""
+
+    name = "RandomMoveKeys"
+
+    async def start(self, db: Database) -> None:
+        from ..server import system_keys
+        from ..server.masterserver import MOVE_SHARD_TOKEN, MoveShardRequest
+        from ..sim.loop import TaskPriority
+        from ..sim.network import Endpoint
+
+        if self.ctx.client_id != 0:
+            return
+        cluster = self.ctx.cluster
+        sim = cluster.sim
+        rng = self.ctx.rng
+        moves = int(self.ctx.options.get("moves", 2))
+        interval = float(self.ctx.options.get("interval", 4.0))
+        await delay(float(self.ctx.options.get("delay_before", 3.0)))
+        for _ in range(moves):
+            await delay(interval * (0.5 + rng.random01()))
+            ep = None
+            for p in cluster.worker_procs:
+                for tok in p.handlers:
+                    if tok.startswith(MOVE_SHARD_TOKEN):
+                        ep = Endpoint(p.address, tok)
+            if ep is None:
+                continue
+            # shard map + team sizes from the system keyspace
+            async def read_meta(tr):
+                return await tr.get_range(system_keys.KEY_SERVERS_PREFIX,
+                                          system_keys.KEY_SERVERS_PREFIX + b"\xff")
+            try:
+                rows = await db.run(read_meta)
+            except error.FDBError:
+                continue
+            if not rows:
+                continue
+            key, value = rows[rng.random_int(0, len(rows))]
+            begin = system_keys.shard_begin_of(key)
+            team, _extra = system_keys.decode_key_servers(value)
+            storage_addrs = {
+                p.address for p in cluster.worker_procs
+                if any(t.startswith("storage.getValue") for t in p.handlers)
+            }
+            spare = [p.address for p in cluster.worker_procs
+                     if p.alive and p.address not in storage_addrs]
+            if len(spare) < len(team):
+                continue
+            dests = []
+            pool = list(spare)
+            for _i in range(len(team)):
+                dests.append(pool.pop(rng.random_int(0, len(pool))))
+            try:
+                await sim.net.request(
+                    db.client_addr, ep,
+                    MoveShardRequest(begin=begin, dest_workers=dests),
+                    TaskPriority.MOVE_KEYS, timeout=120.0,
+                )
+                self.ctx.count("moves")
+            except error.FDBError:
+                self.ctx.count("move_failures")
 
 
 class FuzzApiCorrectnessWorkload(TestWorkload):
@@ -1047,3 +1168,154 @@ class ThroughputWorkload(TestWorkload):
                 pass
         self.ctx.count("throughput_txns", done)
         self.ctx.count("txns_per_sec", round(done / (now() - t0), 1))
+
+
+class FullClusterRebootWorkload(TestWorkload):
+    """The restarting-test shape (tests/restarting/ + SaveAndKill.actor.cpp):
+    after `delay_before`, REBOOT-kill EVERY process in the cluster at once —
+    coordinators included. The whole database must re-form from disks alone
+    (coordination registers, tlog queues + spill, the storage LSM engines),
+    and the surrounding workloads' invariants must hold across the gap."""
+
+    name = "FullClusterReboot"
+    anti_quiescence = True
+
+    async def start(self, db: Database) -> None:
+        from ..sim.simulator import KillType
+
+        if self.ctx.client_id != 0:
+            return
+        await delay(float(self.ctx.options.get("delay_before", 6.0)))
+        cluster = self.ctx.cluster
+        sim = cluster.sim
+        for p in getattr(cluster, "coord_procs", []) + cluster.worker_procs:
+            if p.alive:
+                sim.kill_process(p, KillType.REBOOT)
+        self.ctx.count("full_reboots")
+        rounds = int(self.ctx.options.get("rounds", 1))
+        for _ in range(rounds - 1):
+            await delay(float(self.ctx.options.get("interval", 12.0)))
+            for p in getattr(cluster, "coord_procs", []) + cluster.worker_procs:
+                if p.alive:
+                    sim.kill_process(p, KillType.REBOOT)
+            self.ctx.count("full_reboots")
+
+
+class DatacenterKillWorkload(TestWorkload):
+    """Kill EVERY process of one datacenter at once (the multi-region
+    failure the topology exists to survive): coordinators, txn roles, and
+    storage replicas of `dc` all go down; with satellite logs + cross-DC
+    teams + a surviving coordinator majority, the next recovery recruits
+    in the other DC and nothing acknowledged is lost. With `revive` the
+    DC returns later (REBOOT), rejoining as the secondary."""
+
+    name = "DatacenterKill"
+    anti_quiescence = True
+
+    async def start(self, db: Database) -> None:
+        from ..sim.simulator import KillType
+
+        if self.ctx.client_id != 0:
+            return
+        await delay(float(self.ctx.options.get("delay_before", 5.0)))
+        dc = self.ctx.options.get("dc", "dc0")
+        cluster = self.ctx.cluster
+        sim = cluster.sim
+        victims = [p for p in (getattr(cluster, "coord_procs", [])
+                               + cluster.worker_procs)
+                   if p.alive and p.dc_id == dc]
+        for p in victims:
+            sim.kill_process(p, KillType.KILL_INSTANTLY)
+        self.ctx.count("dc_killed", len(victims))
+        revive_after = float(self.ctx.options.get("revive_after", 0.0))
+        if revive_after > 0:
+            await delay(revive_after)
+            for p in victims:
+                sim.revive_process(p)
+            self.ctx.count("dc_revived")
+
+
+class DeviceFaultValidationWorkload(TestWorkload):
+    """Check-phase auditor for the device-nemesis campaign (fault/).
+
+    Every ResilientEngine the simulation created — including engines of
+    generations whose processes have since died — must have emitted a
+    bit-identical verdict stream: its journal replayed through a fresh
+    reference oracle reproduces every abort set exactly, injected
+    exceptions/hangs/slow batches, watchdog retries, CPU-oracle failovers
+    and swap-backs notwithstanding. Health counters are folded into the
+    spec metrics so a multi-seed campaign can assert failover and
+    swap-back coverage."""
+
+    name = "DeviceFaultCheck"
+
+    HEALTH_KEYS = ("failovers", "swap_backs", "retries", "dispatch_faults",
+                   "probes", "probe_mismatches", "oracle_batches",
+                   "rewarm_failures")
+
+    async def check(self, db: Database) -> bool:
+        from ..core.trace import Severity, TraceEvent
+        from ..fault import abort_set_digest, registered_engines
+        from ..ops.oracle import OracleConflictEngine
+
+        ok = True
+        engines = registered_engines()
+        self.ctx.count("engines_checked", len(engines))
+        for eng in engines:
+            st = eng.health_stats()
+            for k in self.HEALTH_KEYS:
+                self.ctx.count(f"engine_{k}", st.get(k, 0))
+            if st.get("probe_mismatches"):
+                # a quarantine means corruption reached the verdict stream
+                # at least once before the probe caught it — SevError, and
+                # the spec fails (flips are off in nemesis defaults; this
+                # arm exists for the corruption-variant runs)
+                ok = False
+            if eng.journal is None:
+                continue
+            # flight recorder (docs/observability.md): the incident ring's
+            # abort-set digests must replay — each recorded dispatch's
+            # digest equals the digest of a clean oracle's verdicts for the
+            # same batch (post-mortem parity without the full journal)
+            flight_by_version = {rec["version"]: rec
+                                 for rec in eng.flight.dump()}
+            self.ctx.count("flight_records", len(flight_by_version))
+            # heat/occupancy snapshots riding the records: replay
+            # tolerates their presence and checks the fields are sane —
+            # a malformed snapshot in an incident dump is itself a bug
+            for rec in flight_by_version.values():
+                heat = rec.get("heat")
+                if heat is None:
+                    continue
+                self.ctx.count("flight_heat_records")
+                frac = heat.get("occupancy_frac", 0.0)
+                if not (0.0 <= frac <= 1.0) or heat.get("conflicts", 0) < 0:
+                    TraceEvent("FlightRecorderHeatMalformed",
+                               severity=Severity.ERROR) \
+                        .detail("Version", rec["version"]) \
+                        .detail("Heat", heat).log()
+                    self.ctx.count("flight_heat_malformed")
+                    ok = False
+            clean = OracleConflictEngine()
+            for version, txns, new_oldest, verdicts in eng.journal:
+                want = clean.resolve(list(txns), version, new_oldest)
+                if list(verdicts) != [int(v) for v in want]:
+                    TraceEvent("DeviceFaultParityMismatch",
+                               severity=Severity.ERROR) \
+                        .detail("Version", version) \
+                        .detail("Got", list(verdicts)) \
+                        .detail("Want", [int(v) for v in want]).log()
+                    self.ctx.count("parity_mismatches")
+                    ok = False
+                    break
+                rec = flight_by_version.get(version)
+                if rec is not None and rec["digest"] != abort_set_digest(want):
+                    TraceEvent("FlightRecorderDigestMismatch",
+                               severity=Severity.ERROR) \
+                        .detail("Version", version) \
+                        .detail("Recorded", rec["digest"]) \
+                        .detail("Replayed", abort_set_digest(want)).log()
+                    self.ctx.count("flight_digest_mismatches")
+                    ok = False
+                    break
+        return ok

@@ -2,10 +2,14 @@
 JAX package's.
 
   * wire: every record the port registers (transactions, ranges,
-    mutations, the trace context, the journal's BB* records) dumps to the
-    same bytes as the JAX package's record of the same name with the same
-    field values, and loads back equal, in both directions; the enum,
-    nested containers and every scalar tag likewise;
+    mutations, the trace context, the journal's BB* records, the
+    coordinators' Generation and the coordinated state's DBCoreState and
+    LogGenerationInfo) dumps to the same bytes as the JAX package's record
+    of the same name with the same field values, and loads back equal, in
+    both directions; the enum, nested containers and every scalar tag
+    likewise; so does the DynamicClusterConfig adapter, and a fresh
+    process decodes a coordinated state from the JAX package's bytes
+    through the lazy registrars;
   * the journal: the same record_* calls give byte-identical segment
     files and equal summaries; segment rotation and retention, a reopened
     journal, and partial-tail recovery (a truncated or torn last frame)
@@ -16,6 +20,10 @@ JAX package's.
 Bytes are compared exactly: tolerance 0.
 """
 import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
 from types import SimpleNamespace
 
 import pytest
@@ -106,6 +114,56 @@ def test_record_bytes_equal_jax(name):
                                 for f in dataclasses.fields(jcls)
                                 if f.default is dataclasses.MISSING
                                 and f.default_factory is dataclasses.MISSING}))
+
+
+def test_dynamic_cluster_config_adapter_bytes_equal_jax():
+    """Every field but the process-local engine factory, under JAX's name."""
+    for kw in ({}, dict(n_coordinators=5, n_workers=10, n_tlogs=3, satellite_logs=1, n_dcs=2,
+                        inter_dc_latency=0.003, storage_replication=2, log_replication_factor=2,
+                        rebalance_min_rows=60, rebalance_interval=2.0,
+                        resolver_pipeline={"depth": 2}, resilient_resolver=False)):
+        t = PORT.cluster.DynamicClusterConfig(**kw, engine_factory=object)
+        j = JAX.cluster.DynamicClusterConfig(**kw)
+        raw = PORT.wire.dumps(t)
+        assert raw == JAX.wire.dumps(j)
+        assert PORT.wire.loads(raw) == PORT.cluster.DynamicClusterConfig(**kw)
+        assert JAX.wire.loads(raw) == j
+    assert {"Generation", "DBCoreState", "LogGenerationInfo"} <= set(PORT.wire._RECORDS)
+
+
+def coordinated_state(P):
+    """A realistic coordinated state: two log generations, the storage
+    tags, resolver splits, an exclusion and a configuration."""
+    ls = P.log_system.LogSystemConfig
+    return P.coordinated_state.DBCoreState(
+        recovery_count=4,
+        generations=(P.coordinated_state.LogGenerationInfo(
+                         ls(gen_id=(3, 11), tlogs=(("1.0.0.2:1", ".3.11.0"),)), 90210),
+                     P.coordinated_state.LogGenerationInfo(
+                         ls(gen_id=(4, 12), tlogs=(("1.0.0.3:1", ".4.12.0"),
+                                                   ("1.0.0.4:1", ".4.12.1")),
+                            replication_factor=2), None)),
+        storage_tags=((0, b"", b"\x80", ("1.0.0.5:1",)),),
+        resolver_splits=(b"\x80",), excluded=("1.0.0.9:1",), conf=((b"logs", b"3"),))
+
+
+def test_coordinated_state_decodes_in_a_fresh_process():
+    """The coordinators' disks hold DBCoreState records: the port decodes
+    the JAX package's bytes in a process that never imported the defining
+    modules (core/wire.py's lazy registrars), and writes the same bytes."""
+    raw = JAX.wire.dumps(coordinated_state(JAX))
+    assert PORT.wire.dumps(coordinated_state(PORT)) == raw
+    root = Path(__file__).resolve().parent.parent
+    code = ("import sys\n"
+            "from foundationdb_tpu_torch.core import wire\n"
+            "st = wire.loads(bytes.fromhex(sys.argv[1]))\n"
+            "print(type(st).__module__, wire.dumps(st).hex())\n")
+    out = subprocess.run([sys.executable, "-c", code, raw.hex()], cwd=root, capture_output=True,
+                         text=True, timeout=120, check=True,
+                         env=dict(os.environ, PYTHONPATH=str(root)))
+    module, back = out.stdout.split()
+    assert module == "foundationdb_tpu_torch.server.coordinated_state"
+    assert bytes.fromhex(back) == raw
 
 
 def test_the_port_registers_what_the_journal_needs():

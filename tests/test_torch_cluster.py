@@ -7,7 +7,8 @@ sees, the virtual time at the end and every storage server's data (its
 versioned store at its latest version, its version and its byte sample)
 must be equal. The card-engine case runs the port's TorchConflictEngine on
 the CPU against JaxConflictEngine at the same KernelConfig. A
-coordinator-addressed Database waits for the dynamic cluster and raises.
+coordinator-addressed Database finds the dynamic cluster's proxies through
+its coordinators.
 
 Every compared value is an int, bytes, a string or a float computed the
 same way in both packages: tolerance 0 (exact equality).
@@ -16,7 +17,7 @@ import struct
 
 import pytest
 
-from torch_sim_world import JAX, PORT, clean_world
+from torch_sim_world import JAX, PORT, both, clean_world, world_state
 
 
 @pytest.fixture(autouse=True)
@@ -45,15 +46,6 @@ def run(c, coro, until=600.0):
     task = c.sim.sched.spawn(coro)
     result = c.sim.run_until(task, until=until)
     return result, c.sim.sched.time, storage_state(c)
-
-
-def both(case, *args):
-    """case(P, *args) on the port, then on JAX; returns both outcomes."""
-    out = []
-    for P in (PORT, JAX):
-        clean_world()
-        out.append(case(P, *args))
-    return out
 
 
 def case_set_and_get(P):
@@ -471,8 +463,27 @@ def test_storage_state_covers_every_replica():
 
 
 def test_coordinator_addressed_database_waits_for_the_dynamic_cluster():
-    c = PORT.cluster.build_cluster(seed=1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        PORT.database.Database(c.sim.net, "client-x", coordinator_addrs=["coord0"])
-    db = PORT.database.Database(c.sim.net, "client-y", [p.address for p in c.proxy_procs])
-    assert db.proxy_addrs == [c.proxy_proc.address]
+    """A Database given only coordinator addresses (the cluster file)
+    elects its view of the cluster controller, waits until the dynamic
+    cluster has recovered and fetches the proxies from it: it commits and
+    reads back, equal to JAX's with the same seed (values, versions,
+    virtual time, disks and trace)."""
+    def case(P):
+        c = P.cluster.build_dynamic_cluster(seed=1)
+        proc = c.sim.new_process("client-x")
+        db = P.database.Database(c.sim.net, proc.address, coordinator_addrs=c.coordinators)
+        assert db.proxy_addrs == []
+
+        async def work():
+            tr = db.create_transaction()
+            tr.set(b"hello", b"world")
+            v = await tr.commit()
+            tr2 = db.create_transaction()
+            return v, await tr2.get(b"hello"), list(db.proxy_addrs)
+
+        out = c.sim.run_until(c.sim.sched.spawn(work()), until=120.0)
+        assert out[1] == b"world" and out[2]
+        return out, world_state(P, c.sim)
+
+    port, jax_ = both(case)
+    assert port == jax_

@@ -8,7 +8,9 @@ merge's IF node nested in its body) against the eager loop, its warmup
 and its sync-free dispatch; then the telemetry: every unit timed with
 CUDA events at sample rate 1.0 and spans on with no host sync, one
 perf-ledger row per captured program, the loop's samples landing through
-poll(), and a conflict-scheduled stream on the loop engine.
+poll(), and a conflict-scheduled stream on the loop engine; the resolver
+role, the supervisor, the simulated clusters (static and dynamic: card
+resolvers recruited in every generation) over card engines.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither jax nor the JAX package, so it runs on a machine that has
@@ -1124,3 +1126,86 @@ def test_harness_point_with_a_card_resolver_equals_the_oracle(card):
     launches = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
     assert got == run_latency_under_load(**kw).as_dict()
     assert got["errors"] == 0 and launches > 0 and fc.FIXPOINT.plain_cuda_calls == 0
+
+
+@pytest.mark.cuda
+def test_dynamic_spec_with_card_resolvers_equals_the_oracle(card):
+    """CycleTestAttrition at seed 1 with every resolver that recruitment
+    builds, in every generation, a card engine (make_engine_factory())
+    equals the same spec and seed with oracle resolvers (ok, metrics,
+    seed, virtual time); the kills recruited fresh card engines and the
+    card ran the fixpoint kernel."""
+    from foundationdb_tpu_torch.testing.specs import SPECS, make_engine_factory
+    from foundationdb_tpu_torch.testing.workload import run_spec
+
+    built = []
+    factory = make_engine_factory()
+
+    def card_engine():
+        built.append(factory())
+        return built[-1]
+
+    spec = SPECS["CycleTestAttrition"]()
+    spec.dynamic.engine_factory = card_engine
+    fc.FIXPOINT.reset_counts()
+    res = run_spec(spec, 1)
+    launches = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+    plain = fc.FIXPOINT.plain_cuda_calls
+    assert res.ok
+    assert dataclasses.astuple(res) == dataclasses.astuple(run_spec(SPECS["CycleTestAttrition"](), 1))
+    assert len(built) > 2 and {e.state["hkeys"].device.type for e in built} == {"cuda"}
+    assert launches > 0 and plain == 0
+
+
+@pytest.mark.cuda
+def test_kill_resolver_mid_run_with_card_resolvers(card):
+    """tests/test_recovery.py's kill of the process hosting resolver.resolve
+    mid-run, with card resolvers: the counter reaches its target through
+    the epoch recovery, the recovery recruited fresh card engines, and
+    those served batches of the new epoch."""
+    from foundationdb_tpu_torch.server.cluster import DynamicClusterConfig, build_dynamic_cluster
+    from foundationdb_tpu_torch.sim.simulator import KillType
+    from foundationdb_tpu_torch.testing.specs import make_engine_factory
+
+    built = []
+    factory = make_engine_factory()
+
+    def card_engine():
+        eng = factory()
+        rec = {"engine": eng, "batches": 0}
+        resolve = eng.resolve
+
+        def counting(*a):
+            rec["batches"] += 1
+            return resolve(*a)
+
+        eng.resolve = counting
+        built.append(rec)
+        return eng
+
+    c = build_dynamic_cluster(seed=37, cfg=DynamicClusterConfig(engine_factory=card_engine))
+    sim, db = c.sim, c.new_client()
+
+    async def work():
+        n = 0
+        while n < 12:
+            async def bump(tr):
+                m = int(await tr.get(b"k") or b"0") + 1
+                tr.set(b"k", str(m).encode())
+                return m
+            n = await db.run(bump)
+        return n
+
+    fc.FIXPOINT.reset_counts()
+    task = sim.sched.spawn(work(), name="w")
+    sim.run(until=10.0)
+    victim = next(p for p in c.worker_procs
+                  if any(t.startswith("resolver.resolve") for t in p.handlers))
+    before = len(built)
+    sim.kill_process(victim, KillType.REBOOT)
+    assert sim.run_until(task, until=240.0) >= 12
+    fresh = built[before:]
+    assert fresh and all(r["batches"] > 0 for r in fresh)
+    assert {r["engine"].state["hkeys"].device.type for r in built} == {"cuda"}
+    assert fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches > 0
+    assert fc.FIXPOINT.plain_cuda_calls == 0

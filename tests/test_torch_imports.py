@@ -80,6 +80,14 @@ def test_subprocess_import_loads_no_jax():
     "foundationdb_tpu_torch.testing",
     "foundationdb_tpu_torch.testing.specs",
     "foundationdb_tpu_torch.testing.runner",
+    "foundationdb_tpu_torch.server.replication_policy",
+    "foundationdb_tpu_torch.server.management",
+    "foundationdb_tpu_torch.server.coordination",
+    "foundationdb_tpu_torch.server.coordinated_state",
+    "foundationdb_tpu_torch.server.leader_election",
+    "foundationdb_tpu_torch.server.worker",
+    "foundationdb_tpu_torch.server.cluster_controller",
+    "foundationdb_tpu_torch.server.masterserver",
 ])
 def test_serving_path_modules_load_no_jax(module):
     """The columnar path's modules, each imported alone in a fresh process
@@ -130,7 +138,11 @@ def test_source_scan_finds_no_jax_import():
                  "server/ratekeeper.py", "server/proxy.py", "client/database.py",
                  "client/__init__.py", "server/cluster.py", "pipeline/latency_harness.py",
                  "testing/workload.py", "testing/workloads.py", "testing/specs.py",
-                 "testing/runner.py", "testing/__init__.py"):
+                 "testing/runner.py", "testing/__init__.py", "server/__init__.py",
+                 "server/replication_policy.py", "server/management.py",
+                 "server/coordination.py", "server/coordinated_state.py",
+                 "server/leader_election.py", "server/worker.py",
+                 "server/cluster_controller.py", "server/masterserver.py"):
         assert PKG / name in files, name
     for path in files:
         bad = [r for r in imported_roots(path) if r in FORBIDDEN]

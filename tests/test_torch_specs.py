@@ -4,9 +4,9 @@ Every spec of the static cluster runs through the port's `run_spec` and
 the JAX package's at seeds 1 and 2: the SpecResults (ok, metrics, seed,
 virtual time) must be equal. `CycleTestCUDA` with the port's engine on
 the CPU (`make_engine_factory(device="cpu")`) must equal JAX's
-CycleTestTPU. The runner CLI lists and runs specs; a spec of the dynamic
-cluster is refused. Knob randomization draws the same values from both
-registries.
+CycleTestTPU. The runner CLI lists and runs specs, those of the dynamic
+cluster too (tests/test_torch_dynamic_specs.py holds each of them against
+JAX's). Knob randomization draws the same values from both registries.
 
 Every compared value is a bool, an int, a string or a float computed the
 same way in both packages: tolerance 0 (exact equality).
@@ -15,11 +15,11 @@ import dataclasses
 
 import pytest
 
-from torch_sim_world import JAX, PORT, clean_world
+from torch_sim_world import JAX, PORT, both, clean_world, sims_built, world_state
 
 #: the port's name of a spec -> the JAX package's
 JAX_NAME = {"CycleTestCUDA": "CycleTestTPU"}
-PORTED = sorted(PORT.specs.SPECS)
+PORTED = sorted(n for n, make in PORT.specs.SPECS.items() if make().dynamic is None)
 
 
 @pytest.fixture(autouse=True)
@@ -86,15 +86,25 @@ def test_make_engine_factory_defaults_to_the_card():
 
 
 def test_dynamic_spec_is_refused():
-    spec = PORT.workload.Spec(title="Dynamic", workloads=[(PORT.workloads.CycleWorkload, {})],
-                              dynamic=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        PORT.workload.run_spec(spec, 1)
+    """A spec of the dynamic cluster is no longer refused: run_spec builds
+    a DynamicCluster and the run equals JAX's, disks and trace included."""
+    def case(P):
+        spec = P.workload.Spec(
+            title="Dynamic", workloads=[(P.workloads.CycleWorkload, {"nodes": 6,
+                                                                    "transactions": 6})],
+            dynamic=P.cluster.DynamicClusterConfig(n_workers=4, n_resolvers=1))
+        with sims_built(P) as sims:
+            res = P.workload.run_spec(spec, 1)
+        return result(res), world_state(P, sims[0])
+
+    port, jax_ = both(case)
+    assert port[0][0], port[0]
+    assert port == jax_
 
 
 def test_runner_cli(capsys):
     assert PORT.runner.main(["--list"]) == 0
-    assert capsys.readouterr().out.split() == PORTED
+    assert capsys.readouterr().out.split() == sorted(PORT.specs.SPECS)
     assert PORT.runner.main(["--spec", "IncrementTest", "--seed", "3"]) == 0
     out = capsys.readouterr().out
     assert "OK  IncrementTest seed=3" in out

@@ -5,8 +5,11 @@ Each scenario is written once against a namespace of one package's modules
 code path in the two packages. `clean_world()` leaves the process-global
 state of both packages as it found it: the current scheduler, buggify, the
 durability oracle, the fault registry, the telemetry hub, spans and the
-installed journal (and the installed program cache).
+installed journal (and the installed program cache), and the knobs.
+`world_state()` is what a simulation leaves behind, compared across the
+packages by the dynamic cluster's tests.
 """
+import contextlib
 import importlib
 import random
 from pathlib import Path
@@ -32,7 +35,13 @@ MODULES = {"buggify": "core.buggify", "error": "core.error", "types": "core.type
            "proxy": "server.proxy", "cluster": "server.cluster",
            "database": "client.database", "harness": "pipeline.latency_harness",
            "workload": "testing.workload", "workloads": "testing.workloads",
-           "specs": "testing.specs", "runner": "testing.runner"}
+           "specs": "testing.specs", "runner": "testing.runner",
+           "replication_policy": "server.replication_policy",
+           "management": "server.management", "coordination": "server.coordination",
+           "coordinated_state": "server.coordinated_state",
+           "leader_election": "server.leader_election", "worker": "server.worker",
+           "cluster_controller": "server.cluster_controller",
+           "masterserver": "server.masterserver"}
 
 
 def package(root):
@@ -59,6 +68,49 @@ def clean_world():
         P.trace.g_spans.enabled = False
         P.trace.g_spans.clear()
         P.trace.g_trace.clear()
+        P.knobs.reset_all()
+
+
+def both(case, *args):
+    """case(P, *args) on the port, then on JAX, each from a clean world."""
+    out = []
+    for P in BOTH:
+        clean_world()
+        out.append(case(P, *args))
+    return out
+
+
+def disk_bytes(sim):
+    """Every SimDisk of a simulation: per address, each file's durable
+    bytes and its pending (un-synced) writes."""
+    return {a: {n: (bytes(f.durable), list(f.pending)) for n, f in sorted(d.files.items())}
+            for a, d in sorted(sim.disks.items())}
+
+
+def world_state(P, sim):
+    """What a simulation leaves behind: its virtual time, the tasks its
+    scheduler ran, its rng's state, every disk's bytes and package P's
+    trace events (their "Time" is the wall clock, so it is dropped)."""
+    events = [{k: v for k, v in e.items() if k != "Time"} for e in P.trace.g_trace.events]
+    return (sim.sched.time, sim.sched.tasks_run, sim.sched.rng._r.getstate(),
+            disk_bytes(sim), events)
+
+
+@contextlib.contextmanager
+def sims_built(P):
+    """Collect every Simulator package P builds inside the block (run_spec
+    builds its own)."""
+    built, init = [], P.simulator.Simulator.__init__
+
+    def recording(self, *a, **kw):
+        init(self, *a, **kw)
+        built.append(self)
+
+    P.simulator.Simulator.__init__ = recording
+    try:
+        yield built
+    finally:
+        P.simulator.Simulator.__init__ = init
 
 
 def journal_bytes(directory):
