@@ -138,7 +138,8 @@ toolkit. The script
      beside resolver_recovery_budget_ms, the clock from process start to
      the first served batch by part, the captures, the caches' summaries.
   16. reshard phase: an ElasticResolverGroup of supervised tiered card
-     engines (a spare prewarmed) in the simulator; the ReshardController
+     engines (no multi-chunk scans: its batches are one chunk each; a
+     spare prewarmed) in the simulator; the ReshardController
      splits the hot span and later merges it back, each under concurrent
      load, over skewed traffic (64 hot keys): every verdict equals one
      serial oracle's; run_slice since a watermark equals shadow_slice after
@@ -158,18 +159,18 @@ toolkit. The script
      bucket and pack ms per txn: depth 1 at bucket 512, depth 2 at 1024
      and 2048 at 0.97 and 1.0 of T / device_ms, the fastest in-budget
      depth-2 point again with spans on; each point's result equal to its
-     oracle twin's. The oracle twins run in worker processes after the
-     last card run. Sustained and committed txn/s, virtual p50 / p99
+     oracle twin's. Sustained and committed txn/s, virtual p50 / p99
      against resolver_p99_budget_ms, wall s and wall txn/s, launches.
   18. dynamic cluster phase: the port's dynamic simulated cluster
      (coordinators, leader election, the cluster controller, workers, the
      master's epoch recovery, data distribution; server/cluster.py
      DynamicCluster) with every resolver recruited in every generation a
-     card engine. run_spec on each of the 12 dynamic specs at seed 1, four
-     of them also at seed 2, at the specs' KernelConfig (capacity 1024,
-     T=64; DataDistributionAttrition at capacity 4096), each engine
-     supervised as recruitment does (DeviceNemesis: over the fault
-     injector, as its own factory): each run ok and equal to its oracle
+     card engine. run_spec on each of the 13 dynamic specs at seed 1, five
+     of them (BackupCorrectness among them: its restore cluster recruits
+     card engines too) also at seed 2, at the specs' KernelConfig
+     (capacity 1024, T=64; DataDistributionAttrition at capacity 4096),
+     each engine supervised as recruitment does (DeviceNemesis: over the
+     fault injector, as its own factory): each run ok and equal to its oracle
      twin (ok, metrics, virtual time), each supervisor's health counters
      equal to its twin's, dispatch faults sorted by cause with none from
      the card, every card call and every supervisor's journal equal to a
@@ -182,7 +183,26 @@ toolkit. The script
      keyspace, virtual time), 0 durability violations; committed txn/s in
      virtual and wall time, batches and graphs per generation, virtual and
      wall ms from each kill to the new epoch's first commit, peak device
-     memory. The twins run in 4 worker processes after the last card run.
+     memory.
+  19. bindings/backup phase: the stack tester's streams 201 and 202
+     (bindings/stacktester.py) through a static cluster with two card
+     resolvers at the specs' KernelConfig: journal and final keyspace
+     byte-equal to the oracle run's, every card call equal to an oracle
+     replay. Then a full-width backup: two dynamic clusters of the
+     recovery run's shape in one simulation with card resolvers at the
+     bench's KernelConfig, the recovery run's 64 clients to 3,000 commits;
+     a BackupAgent starts after 500 commits, snapshots in 8 chunks with 3
+     workers, finishes when the load is done and is restored into the
+     second cluster: the restore equals the source read at the end
+     version, and the run equals its oracle twin (commits, end version,
+     restored rows, virtual time); committed txn/s before and during the
+     backup, snapshot / finish / restore virtual and wall s, rows and log
+     bytes moved, graphs, launches, peak device memory. Then
+     tests/test_dr.py's DR switchover (seed 201) with card resolvers in
+     both clusters: nothing lost, the locked source refuses user commits,
+     equal to its oracle twin.
+  The oracle twins of phases 17-19 run together in 6 worker processes
+  after the last card run of phase 19, the longest first.
 
 Each path's kernel launches are counted from 0 just before it and read
 just after (a captured graph's fixpoint launches are counted at each
@@ -2983,7 +3003,6 @@ CLUSTER_SEEDS = (1, 2)
 HARNESS_TXNS = 12_000
 HARNESS_SERIAL = (512, 0.85)
 HARNESS_PIPELINED = ((1024, 0.97), (1024, 1.0), (2048, 0.97), (2048, 1.0))
-CLUSTER_WORKERS = 4
 
 
 def clean_port_world():
@@ -3112,15 +3131,13 @@ def cluster_phase(fc, he, card, engine_cfg, device_ms_by_bucket, pack_ms_per_txn
     lowest p99) once more with spans on, for the attribution. Each
     point's as_dict() equals its oracle twin's.
 
-    The card runs come first and are timed; the oracle twins run after
-    the last of them in CLUSTER_WORKERS spawn-context worker processes.
-    Each spec and each point is a path: the fixpoint counts are zeroed just
+    The card runs are timed here. The phase returns its oracle twins as
+    jobs for run_twins, which main calls after the last card run of the
+    script, and finish(twins), which holds the card runs to them. Each spec and each point is a path: the fixpoint counts are zeroed just
     before it and read just after, and each path must launch the kernel
     with no plain fixpoint on a CUDA tensor; every engine built is on the
     card."""
     import dataclasses
-    from concurrent.futures import ProcessPoolExecutor
-    from multiprocessing import get_context
 
     from foundationdb_tpu_torch.pipeline.latency_harness import (p99_budget_ms,
                                                                   run_latency_under_load)
@@ -3202,52 +3219,50 @@ def cluster_phase(fc, he, card, engine_cfg, device_ms_by_bucket, pack_ms_per_txn
                         if r["engine"].state["hkeys"].device.type != "cuda"]
     check(not engines_off_card, f"cluster phase: engines off the card: {engines_off_card}")
 
-    # the oracle twins, after the last timed card run
-    t0 = time.perf_counter()
-    with ProcessPoolExecutor(CLUSTER_WORKERS, mp_context=get_context("spawn")) as pool:
-        twins_spec = {key: pool.submit(oracle_spec, *key) for key in spec_runs}
-        twins_point = {label: pool.submit(oracle_point, p["args"]) for label, p in points.items()}
-        twins_spec = {key: f.result() for key, f in twins_spec.items()}
-        twins_point = {label: f.result() for label, f in twins_point.items()}
-    twin_s = time.perf_counter() - t0
-    for (name, seed), run in spec_runs.items():
-        check(run["result"] == twins_spec[(name, seed)],
-              f"cluster phase: spec {name} seed {seed} on the card {run['result']} differs from "
-              f"its oracle twin {twins_spec[(name, seed)]}")
-        check(run["replay_mismatches"] == 0,
-              f"cluster phase: spec {name} seed {seed}: {run['replay_mismatches']} recorded "
-              "batches differ from the oracle replay")
-        ok, metrics, _, vt = run["result"]
-        print(f"cluster spec {name} seed {seed} [{card}]: ok, equal to its oracle twin "
-              f"(virtual time {vt:.6f} s, {metrics}); {run['engines']} card resolvers served "
-              f"{run['batches']} batches / {run['txns']} txns, 0 replay mismatches; "
-              f"{run['captures']} graphs captured in {run['capture_s']:.2f} s; wall "
-              f"{run['wall_s']:.2f} s", flush=True)
-    for label, p in points.items():
-        check(p["result"] == twins_point[label],
-              f"cluster phase: harness point {label} on the card {p['result']} differs from its "
-              f"oracle twin {twins_point[label]}")
-        r = p["result"]
-        print(f"cluster harness {label} [{card}]: depth {r['depth']}, bucket {r['batch_txns']}, "
-              f"offered {r['offered_txns_per_sec']:.1f} txn/s: sustained "
-              f"{r['sustained_txns_per_sec']:.1f} txn/s, committed "
-              f"{r['sustained_committed_per_sec']:.1f} txn/s; virtual p50 {r['p50_ms']:.3f} ms "
-              f"p99 {r['p99_ms']:.3f} ms against the {budget} ms budget; {r['committed']} "
-              f"committed / {r['conflicted']} conflicted / {r['errors']} errors, mean fill "
-              f"{r['mean_batch_fill']}; wall {p['wall_s']:.2f} s ({p['wall_txn_per_s']:.0f} "
-              f"txn/s, {p['capture_s']:.2f} s of it capturing {p['captures']} graphs); "
-              f"{p['launches']} fixpoint launches; equal to its oracle twin", flush=True)
-    att = points["spans"]["result"]["attribution"]
-    print(f"  attribution [{card}] of {points['spans']['of']}"
-          f"{'' if points['spans']['in_budget'] else ' (no depth-2 point in budget)'}: "
-          f"{att['n_attributed']} commits, p50 {att['p50']['segments_ms']}, "
-          f"p99 {att['p99']['segments_ms']}", flush=True)
-    print(f"cluster phase oracle twins [{card}]: {len(twins_spec)} spec runs and "
-          f"{len(twins_point)} harness points in {CLUSTER_WORKERS} workers after the last card "
-          f"run ({twin_s:.1f} s)", flush=True)
-    return {"specs": {f"{n}_{s}": r for (n, s), r in spec_runs.items()}, "points": points,
-            "budget_ms": budget, "device_ms_by_bucket": device_ms_by_bucket,
-            "pack_ms_per_txn": pack_ms_per_txn, "twin_s": twin_s, "launches": launches}
+    jobs = {("cluster_spec", *key): (oracle_spec, *key) for key in spec_runs}
+    jobs.update({("cluster_point", label): (oracle_point, p["args"])
+                 for label, p in points.items()})
+
+    def finish(all_twins):
+        twins_spec = {key: all_twins[("cluster_spec", *key)] for key in spec_runs}
+        twins_point = {label: all_twins[("cluster_point", label)] for label in points}
+        for (name, seed), run in spec_runs.items():
+            check(run["result"] == twins_spec[(name, seed)],
+                  f"cluster phase: spec {name} seed {seed} on the card {run['result']} differs from "
+                  f"its oracle twin {twins_spec[(name, seed)]}")
+            check(run["replay_mismatches"] == 0,
+                  f"cluster phase: spec {name} seed {seed}: {run['replay_mismatches']} recorded "
+                  "batches differ from the oracle replay")
+            ok, metrics, _, vt = run["result"]
+            print(f"cluster spec {name} seed {seed} [{card}]: ok, equal to its oracle twin "
+                  f"(virtual time {vt:.6f} s, {metrics}); {run['engines']} card resolvers served "
+                  f"{run['batches']} batches / {run['txns']} txns, 0 replay mismatches; "
+                  f"{run['captures']} graphs captured in {run['capture_s']:.2f} s; wall "
+                  f"{run['wall_s']:.2f} s", flush=True)
+        for label, p in points.items():
+            check(p["result"] == twins_point[label],
+                  f"cluster phase: harness point {label} on the card {p['result']} differs from its "
+                  f"oracle twin {twins_point[label]}")
+            r = p["result"]
+            print(f"cluster harness {label} [{card}]: depth {r['depth']}, bucket {r['batch_txns']}, "
+                  f"offered {r['offered_txns_per_sec']:.1f} txn/s: sustained "
+                  f"{r['sustained_txns_per_sec']:.1f} txn/s, committed "
+                  f"{r['sustained_committed_per_sec']:.1f} txn/s; virtual p50 {r['p50_ms']:.3f} ms "
+                  f"p99 {r['p99_ms']:.3f} ms against the {budget} ms budget; {r['committed']} "
+                  f"committed / {r['conflicted']} conflicted / {r['errors']} errors, mean fill "
+                  f"{r['mean_batch_fill']}; wall {p['wall_s']:.2f} s ({p['wall_txn_per_s']:.0f} "
+                  f"txn/s, {p['capture_s']:.2f} s of it capturing {p['captures']} graphs); "
+                  f"{p['launches']} fixpoint launches; equal to its oracle twin", flush=True)
+        att = points["spans"]["result"]["attribution"]
+        print(f"  attribution [{card}] of {points['spans']['of']}"
+              f"{'' if points['spans']['in_budget'] else ' (no depth-2 point in budget)'}: "
+              f"{att['n_attributed']} commits, p50 {att['p50']['segments_ms']}, "
+              f"p99 {att['p99']['segments_ms']}", flush=True)
+        return {"specs": {f"{n}_{s}": r for (n, s), r in spec_runs.items()}, "points": points,
+                "budget_ms": budget, "device_ms_by_bucket": device_ms_by_bucket,
+                "pack_ms_per_txn": pack_ms_per_txn, "launches": launches}
+
+    return jobs, finish
 
 
 # ---------------------------------------------------------------------------
@@ -3256,10 +3271,11 @@ def cluster_phase(fc, he, card, engine_cfg, device_ms_by_bucket, pack_ms_per_txn
 # every resolver recruited in every generation a card engine
 # ---------------------------------------------------------------------------
 
-#: the seeds each dynamic spec runs at with card resolvers (every ported
-#: dynamic spec at seed 1; four of them again at seed 2)
+#: the seeds each dynamic spec runs at with card resolvers (every dynamic
+#: spec at seed 1; five of them again at seed 2)
 DYNAMIC_SEEDS = {"CycleTestAttrition": (1, 2), "RegionFailover": (1, 2),
-                 "CycleTestRestart": (1, 2), "DeviceNemesis": (1, 2)}
+                 "CycleTestRestart": (1, 2), "DeviceNemesis": (1, 2),
+                 "BackupCorrectness": (1, 2)}
 #: testing/specs.py's _nemesis_engine_factory supervisor
 NEMESIS_SUPERVISOR = dict(dispatch_timeout=0.3, retry_budget=1, retry_backoff=0.05,
                           probe_rate=0.1, probation_batches=2, failover_min_batches=2)
@@ -3282,7 +3298,6 @@ RECOVERY_TXNS = 3_000
 RECOVERY_KILLS = ((0.30, "resolver.resolve"), (0.65, "proxy.commit"))
 RECOVERY_SEED = SEED + 10
 RECOVERY_UNTIL = 600.0
-DYNAMIC_WORKERS = 4
 #: a supervisor's health counters, held equal between a card run and its
 #: oracle twin engine by engine
 HEALTH_KEYS = ("state", "batches", "dispatch_faults", "retries", "failovers", "swap_backs",
@@ -3477,6 +3492,33 @@ def pool_key(i):
     return b"bench/%010d" % i
 
 
+async def pool_client(db, cid, rng, state, note_commit):
+    """A closed-loop client of the recovery and backup runs: until
+    state["committed"] reaches RECOVERY_TXNS, transactions of 2 point
+    reads and 2 point writes over the 8192-key pool (keys drawn from
+    `rng`), each retried until it commits; note_commit(version) counts
+    each commit."""
+    from foundationdb_tpu_torch.core import error
+
+    n = 0
+    while state["committed"] < RECOVERY_TXNS:
+        reads = [pool_key(rng.random_int(0, POOL_KEYS)) for _ in range(2)]
+        writes = [pool_key(rng.random_int(0, POOL_KEYS)) for _ in range(2)]
+        tr = db.create_transaction()
+        while True:
+            try:
+                for k in reads:
+                    await tr.get(k)
+                for k in writes:
+                    tr.set(k, b"%03d.%05d" % (cid, n))
+                version = await tr.commit()
+                break
+            except error.FDBError as e:
+                await tr.on_error(e)
+        n += 1
+        note_commit(version)
+
+
 def recovery_run(factory=None):
     """build_dynamic_cluster at RECOVERY_CLUSTER, resolvers from `factory`
     (the oracle when None), under RECOVERY_CLIENTS closed-loop clients,
@@ -3494,7 +3536,6 @@ def recovery_run(factory=None):
     commit of the new epoch (the first commit whose version is over
     RECOVERY_VERSION_JUMP / 2 past every version acknowledged before the
     kill: a new epoch's versions start a jump past the recovery version)."""
-    from foundationdb_tpu_torch.core import error
     from foundationdb_tpu_torch.ops.oracle import OracleConflictEngine
     from foundationdb_tpu_torch.server.cluster import (DynamicClusterConfig,
                                                        build_dynamic_cluster)
@@ -3535,28 +3576,10 @@ def recovery_run(factory=None):
                           "virtual": sim.sched.time, "wall": time.perf_counter()})
             sim.kill_process(victim, KillType.REBOOT)
 
-    async def client(db, cid):
-        n = 0
-        while state["committed"] < RECOVERY_TXNS:
-            reads = [pool_key(rng.random_int(0, POOL_KEYS)) for _ in range(2)]
-            writes = [pool_key(rng.random_int(0, POOL_KEYS)) for _ in range(2)]
-            tr = db.create_transaction()
-            while True:
-                try:
-                    for k in reads:
-                        await tr.get(k)
-                    for k in writes:
-                        tr.set(k, b"%03d.%05d" % (cid, n))
-                    version = await tr.commit()
-                    break
-                except error.FDBError as e:
-                    await tr.on_error(e)
-            n += 1
-            note_commit(version)
-
     async def load():
         t_v, t_w = sim.sched.time, time.perf_counter()
-        await all_of([sim.sched.spawn(client(c.new_client(), i), name=f"client{i}")
+        await all_of([sim.sched.spawn(pool_client(c.new_client(), i, rng, state, note_commit),
+                                      name=f"client{i}")
                       for i in range(RECOVERY_CLIENTS)])
         state["load_virtual_s"] = sim.sched.time - t_v
         state["load_wall_s"] = time.perf_counter() - t_w
@@ -3623,11 +3646,9 @@ def dynamic_cluster_phase(fc, he, ck, card, recovery_cfg):
     and captures per generation, each kill's virtual and wall ms to the
     first commit of the new epoch and the peak device memory.
 
-    The oracle twins run after the last card run in DYNAMIC_WORKERS
-    spawn-context worker processes."""
+    Returns the oracle twins as jobs for run_twins (after the last card
+    run of the script) and finish(twins), which holds the runs to them."""
     import dataclasses
-    from concurrent.futures import ProcessPoolExecutor
-    from multiprocessing import get_context
 
     import torch
 
@@ -3665,70 +3686,554 @@ def dynamic_cluster_phase(fc, he, ck, card, recovery_cfg):
           f"dynamic phase: the recovery run made {launches['dynamic_recovery']} fixpoint "
           f"launches, {rec['plain_cuda_calls']} plain fixpoints on CUDA tensors")
 
-    # the oracle twins, after the last timed card run
+    jobs = {("dynamic_recovery",): (oracle_recovery_run,)}
+    jobs.update({("dynamic_spec", *key): (oracle_dynamic_spec, *key) for key in runs})
+
+    def finish(all_twins):
+        rec_twin = all_twins[("dynamic_recovery",)]
+        twins = {key: all_twins[("dynamic_spec", *key)] for key in runs}
+        for (name, seed), run in runs.items():
+            check_dynamic_spec(name, seed, run, twins[(name, seed)])
+            es = run["engines"]
+            faults = {k: sum(e["faults"][k] for e in es) for k in ("injected", "watchdog",
+                                                                    "buggify", "other")}
+            ok, metrics, _, vt = run["result"]
+            print(f"dynamic spec {name} seed {seed} [{card}]: ok, equal to its oracle twin "
+                  f"(virtual time {vt:.6f} s, {metrics}); {run['recoveries']} recoveries; "
+                  f"{len(es)} card engines recruited, {sum(e['captures'] for e in es)} graphs "
+                  f"captured in {sum(e['capture_s'] for e in es):.2f} s; "
+                  f"{sum(e['resolves'] for e in es)} card batches, 0 replay mismatches; "
+                  f"dispatch faults by cause {faults}, failovers "
+                  f"{sum(e['health']['failovers'] for e in es)}, oracle batches "
+                  f"{sum(e['health']['oracle_batches'] for e in es)} (as its twin's); "
+                  f"{run['launches']} fixpoint launches; "
+                  f"wall {run['wall_s']:.2f} s", flush=True)
+
+        committed, rows, vt, violations = rec["twin"]
+        twin_result, twin_health = rec_twin
+        check(rec["twin"] == tuple(twin_result),
+              f"dynamic phase: the recovery run on the card (committed {committed}, "
+              f"{len(rows)} rows, virtual time {vt}) differs from its oracle twin (committed "
+              f"{twin_result[0]}, {len(twin_result[1])} rows, virtual time {twin_result[2]})")
+        check(violations == 0, f"dynamic phase: the recovery run broke durability {violations} times")
+        check(committed >= RECOVERY_TXNS and len(rows) > 0,
+              f"dynamic phase: the recovery run committed {committed}, read {len(rows)} rows")
+        check(len(rec["kills"]) == len(RECOVERY_KILLS)
+              and all("first_commit_virtual_ms" in k for k in rec["kills"]),
+              f"dynamic phase: the recovery run's kills {rec['kills']} did not all reach a new epoch")
+        check(len(rec["generations"]) >= 1 + len(RECOVERY_KILLS),
+              f"dynamic phase: the recovery run recruited {len(rec['generations'])} generations")
+        check_engines("dynamic phase: recovery run", rec["engines"], twin_health)
+        print(f"dynamic recovery run [{card}]: {committed} committed by {RECOVERY_CLIENTS} "
+              f"closed-loop clients in {rec['load_virtual_s']:.6f} virtual s "
+              f"({committed / rec['load_virtual_s']:.1f} txn/s) and {rec['load_wall_s']:.2f} wall s "
+              f"({committed / rec['load_wall_s']:.1f} txn/s); {rec['recoveries']} recoveries; "
+              f"equal to its oracle twin ({len(rows)} rows, virtual time {vt:.6f} s), 0 durability "
+              f"violations, 0 replay mismatches; peak device memory "
+              f"{rec['max_memory_allocated'] / 2**20:.1f} MiB; {launches['dynamic_recovery']} "
+              f"fixpoint launches", flush=True)
+        for k in rec["kills"]:
+            print(f"  kill of {k['token']} at {k['committed']} committed [{card}]: first commit of "
+                  f"the new epoch {k['first_commit_virtual_ms']:.3f} virtual ms and "
+                  f"{k['first_commit_wall_ms']:.1f} wall ms later", flush=True)
+        for g in rec["generations"]:
+            print(f"  generation from version {g['first_version']} [{card}]: {g['engines']} card "
+                  f"engines, {g['batches']} batches (mean {g['mean_batch']:.1f} txns, largest "
+                  f"{g['largest_batch']}), {g['captures']} graphs captured in "
+                  f"{g['capture_s']:.2f} s", flush=True)
+        rec["twin"] = {"committed": committed, "rows": len(rows), "virtual_time": vt,
+                       "violations": violations}
+        return {"specs": {f"{n}_{s}": r for (n, s), r in runs.items()}, "recovery": rec,
+                "launches": launches}
+
+    return jobs, finish
+
+
+# ---------------------------------------------------------------------------
+# bindings, backup and DR: the stack tester through a static cluster, a
+# full-width backup under load restored into a second cluster, and a DR
+# switchover; every resolver in every cluster a card engine
+# ---------------------------------------------------------------------------
+
+#: the stack tester's streams (tests/test_stacktester.py's seeds)
+STACK_SEEDS = (201, 202)
+#: the full-width backup run: two clusters of RECOVERY_CLUSTER's shape in
+#: one simulation under RECOVERY_CLIENTS closed-loop clients, at the
+#: recovery run's seed; the backup starts once BACKUP_START commits have
+#: landed, snapshots in BACKUP_CHUNKS chunks with BACKUP_WORKERS workers,
+#: and finishes once the load reaches RECOVERY_TXNS commits; the load's
+#: rate before the backup is read from commit BACKUP_WARM (past the first
+#: recovery) to BACKUP_START. At seed SEED + 11 the same load stalls the
+#: simulated storage in transaction_too_old retries (~174 virtual s to 500
+#: commits) and the tag claim's commit answers commit_unknown_result, which
+#: the agent's retry then refuses as its own claim (both packages; ROADMAP
+#: standing notes)
+BACKUP_SEED = RECOVERY_SEED
+BACKUP_WARM = 100
+BACKUP_START = 500
+BACKUP_CHUNKS = 8
+BACKUP_WORKERS = 3
+BACKUP_UNTIL = 900.0
+#: tests/test_dr.py's switchover scenario and seed
+DR_SEED = 201
+
+
+def stack_run(seed, factory=None):
+    """stacktester.generate_stream(seed) through build_cluster(ClusterConfig(
+    n_resolvers=2, n_storage=2)) with resolvers from `factory` (the oracle
+    when None): (instructions, commits, aborts, the journal, the final
+    keyspace, virtual time). A commit that raised counts as an abort; the
+    final keyspace read is not counted."""
+    from foundationdb_tpu_torch.bindings.stacktester import final_state, generate_stream, run_stream
+    from foundationdb_tpu_torch.core import error
+    from foundationdb_tpu_torch.ops.oracle import OracleConflictEngine
+    from foundationdb_tpu_torch.server.cluster import ClusterConfig, build_cluster
+
+    clean_port_world()
+    c = build_cluster(seed=seed, cfg=ClusterConfig(n_resolvers=2, n_storage=2,
+                                                   engine_factory=factory or OracleConflictEngine))
+    db = c.new_client()
+    stream = generate_stream(seed)
+    counts = {"commits": 0, "aborts": 0}
+    make = db.create_transaction
+
+    def counted():
+        tr = make()
+        commit = tr.commit
+
+        async def counting():
+            try:
+                version = await commit()
+            except error.FDBError:
+                counts["aborts"] += 1
+                raise
+            counts["commits"] += 1
+            return version
+
+        tr.commit = counting
+        return tr
+
+    async def go():
+        db.create_transaction = counted
+        journal = await run_stream(db, stream)
+        db.create_transaction = make
+        return journal, await final_state(db)
+
+    journal, rows = c.sim.run_until(c.sim.sched.spawn(go(), name="stack"), until=600.0)
+    out = (len(stream), counts["commits"], counts["aborts"], journal, rows, c.sim.sched.time)
+    clean_port_world()
+    return out
+
+
+def backup_run(factory=None):
+    """Two dynamic clusters of RECOVERY_CLUSTER's shape in one simulation,
+    resolvers from `factory` (the oracle when None), and a blob container.
+    RECOVERY_CLIENTS closed-loop clients (2 point reads and 2 point writes
+    over the 8192-key pool, as recovery_run) run until RECOVERY_TXNS have
+    committed; a BackupAgent starts once BACKUP_START have, snapshots
+    (BACKUP_CHUNKS chunks, BACKUP_WORKERS workers) and finishes when the
+    load is done; the source is read at the backup's end version and the
+    backup restored into the second cluster, which is read back.
+
+    Returns {"twin": (committed, end_version, the restored rows, virtual
+    time, durability violations), "source_rows", "vend", "health"
+    (registered_health()), "times" (virtual and wall seconds of the load
+    from commit BACKUP_WARM to the backup's start, of the load from the
+    start to its end, the snapshot, the finish and the restore),
+    "committed_at_start", "committed_during", "snapshot_version",
+    "start_version", "snapshot_bytes", "log_bytes", "objects"}."""
+    from foundationdb_tpu_torch.backup import BackupAgent, BlobContainer
+    from foundationdb_tpu_torch.ops.oracle import OracleConflictEngine
+    from foundationdb_tpu_torch.server.cluster import (DynamicCluster, DynamicClusterConfig,
+                                                       build_dynamic_cluster)
+    from foundationdb_tpu_torch.sim import validation
+    from foundationdb_tpu_torch.sim.actors import all_of
+    from foundationdb_tpu_torch.sim.loop import Promise
+
+    clean_port_world()
+    cfg = DynamicClusterConfig(**RECOVERY_CLUSTER, engine_factory=factory or OracleConflictEngine)
+    src = build_dynamic_cluster(seed=BACKUP_SEED, cfg=cfg)
+    sim = src.sim
+    dst = DynamicCluster(sim, cfg)
+    container = BlobContainer(sim.new_process("blobstore"))
+    rng = sim.sched.rng
+    state = {"committed": 0}
+    times = {}
+    started = Promise()
+
+    def mark(label, t_v, t_w):
+        times[label] = {"virtual_s": sim.sched.time - t_v, "wall_s": time.perf_counter() - t_w}
+
+    def note_commit(_version):
+        state["committed"] += 1
+        if state["committed"] == BACKUP_WARM:
+            state["warm_mark"] = (sim.sched.time, time.perf_counter())
+        if state["committed"] == BACKUP_START:
+            started.send()
+
+    async def read_all(db, version=None):
+        tr = db.create_transaction()
+        if version is not None:
+            tr.read_version = version
+        return await tr.get_range(b"", b"\xff", limit=POOL_KEYS + 1, snapshot=True)
+
+    async def scenario():
+        async def clients():
+            await all_of([sim.sched.spawn(pool_client(src.new_client(), i, rng, state,
+                                                      note_commit), name=f"client{i}")
+                          for i in range(RECOVERY_CLIENTS)])
+
+        load = sim.sched.spawn(clients(), name="load")
+        await started.future
+        state["committed_at_start"] = state["committed"]
+        mark("load_before_backup", *state["warm_mark"])
+        db = src.new_client()
+        agent = BackupAgent(sim, db, container.proc.address)
+        t_v, t_w = sim.sched.time, time.perf_counter()
+        await agent.start_backup()
+        s_v, s_w = sim.sched.time, time.perf_counter()
+        await agent.snapshot(chunks=BACKUP_CHUNKS, workers=BACKUP_WORKERS)
+        mark("snapshot", s_v, s_w)
+        await load
+        mark("load_during_backup", t_v, t_w)
+        state["committed_during"] = state["committed"] - state["committed_at_start"]
+        f_v, f_w = sim.sched.time, time.perf_counter()
+        await agent.finish_backup()
+        mark("finish", f_v, f_w)
+        source = await read_all(db, agent.end_version)
+        r_v, r_w = sim.sched.time, time.perf_counter()
+        vend = await agent.restore(dst.new_client())
+        mark("restore", r_v, r_w)
+        return agent, vend, source, await read_all(dst.new_client())
+
+    agent, vend, source, restored = sim.run_until(sim.sched.spawn(scenario(), name="backup"),
+                                                  until=BACKUP_UNTIL)
+    objects = container._objects
+    out = {"twin": (state["committed"], agent.end_version, restored, sim.sched.time,
+                    len(validation.violations)),
+           "source_rows": source, "vend": vend, "health": registered_health(), "times": times,
+           "committed_at_start": state["committed_at_start"],
+           "committed_during": state["committed_during"],
+           "snapshot_version": agent.snapshot_version, "start_version": agent.start_version,
+           "snapshot_bytes": sum(len(v) for k, v in objects.items() if k.startswith("range/")),
+           "log_bytes": sum(len(v) for k, v in objects.items() if k.startswith("log/")),
+           "objects": len(objects)}
+    clean_port_world()
+    return out
+
+
+def oracle_backup_run():
+    """The backup run's oracle twin (run in a worker process): its twin
+    tuple, source rows and the health counters of its supervisors."""
+    out = backup_run()
+    return out["twin"], out["source_rows"], out["health"]
+
+
+def dr_run(factory=None):
+    """tests/test_dr.py's switchover (seed DR_SEED): a source dynamic
+    cluster at the default DynamicClusterConfig and a destination
+    (n_workers=5, n_tlogs=2, n_resolvers=1, n_storage=2) in one
+    simulation, resolvers from `factory` (the oracle when None) in both. A
+    DRAgent syncs 25 rows in 4 chunks, tails 20 live writes with atomic
+    adds, waits for the destination to catch up, and switches over while
+    10 writers straddle the switchover.
+
+    Returns {"twin": (committed straddlers, locked straddlers, the fence
+    version, the source's rows, the destination's rows, the code a user
+    commit to the locked source drew, virtual time), "health"}."""
+    from foundationdb_tpu_torch.backup.dr import DRAgent
+    from foundationdb_tpu_torch.core import error
+    from foundationdb_tpu_torch.core.types import MutationType
+    from foundationdb_tpu_torch.ops.oracle import OracleConflictEngine
+    from foundationdb_tpu_torch.server.cluster import (DynamicCluster, DynamicClusterConfig,
+                                                       build_dynamic_cluster)
+    from foundationdb_tpu_torch.sim.actors import all_of
+    from foundationdb_tpu_torch.sim.loop import delay, spawn
+
+    clean_port_world()
+    make = factory or OracleConflictEngine
+    ca = build_dynamic_cluster(seed=DR_SEED, cfg=DynamicClusterConfig(engine_factory=make))
+    sim = ca.sim
+    cb = DynamicCluster(sim, DynamicClusterConfig(n_workers=5, n_tlogs=2, n_resolvers=1,
+                                                  n_storage=2, engine_factory=make))
+    db_a, db_b = ca.new_client(), cb.new_client()
+    locked_code = error.database_locked("").code
+
+    async def rows_of(db):
+        async def r(tr):
+            return await tr.get_range(b"", b"\xff", limit=100_000, snapshot=True)
+        return await db.run(r)
+
+    async def scenario():
+        async def seed_rows(tr):
+            for i in range(25):
+                tr.set(b"pre/%03d" % i, b"v%d" % i)
+            tr.set(b"ctr", (0).to_bytes(8, "little"))
+        await db_a.run(seed_rows)
+
+        async def stray(tr):
+            tr.set(b"stray/x", b"1")
+        await db_b.run(stray)
+
+        agent = DRAgent(sim, db_a, db_b)
+        await agent.start(chunks=4)
+        for i in range(20):
+            async def w(tr, i=i):
+                tr.set(b"live/%03d" % i, b"x%d" % i)
+                tr.atomic_op(b"ctr", (1).to_bytes(8, "little"), MutationType.ADD_VALUE)
+            await db_a.run(w)
+            await delay(0.1)
+        tr = db_a.create_transaction()
+        await agent.wait_for(await tr.get_read_version(), timeout=60.0)
+
+        committed, locked = [], []
+
+        async def straddler(i):
+            async def w(tr2):
+                tr2.set(b"straddle/%03d" % i, b"s%d" % i)
+            try:
+                await db_a.run(w)
+                committed.append(i)
+            except error.FDBError as e:
+                if e.code == locked_code:
+                    locked.append(i)
+
+        tasks = [spawn(straddler(i), name=f"straddle{i}") for i in range(10)]
+        await delay(0.05)
+        fence = await agent.switchover()
+        await all_of(tasks)
+
+        async def wa(tr2):
+            tr2.set(b"after/a", b"1")
+        try:
+            await db_a.run(wa)
+            after_a = None
+        except error.FDBError as e:
+            after_a = e.code
+
+        async def wb(tr2):
+            tr2.set(b"after/b", b"1")
+        await db_b.run(wb)
+        return committed, locked, fence, await rows_of(db_a), await rows_of(db_b), after_a
+
+    out = sim.run_until(sim.sched.spawn(scenario(), name="dr"), until=600.0)
+    res = {"twin": out + (sim.sched.time,), "health": registered_health()}
+    clean_port_world()
+    return res
+
+
+def oracle_dr_run():
+    """The DR run's oracle twin (run in a worker process)."""
+    out = dr_run()
+    return out["twin"], out["health"]
+
+
+def check_dr(twin):
+    """tests/test_dr.py's checks of a switchover: every row the source
+    holds is on the destination, each straddler either committed and
+    reached the destination or drew database_locked and did not, the
+    destination's stray key was wiped, the atomic adds landed once each,
+    and the locked source refused a user commit with database_locked."""
+    from foundationdb_tpu_torch.core import error
+
+    committed, locked, _fence, rows_a, rows_b, after_a, _vt = twin
+    b_map = dict(rows_b)
+    lost = [k for k, v in rows_a if b_map.get(k) != v]
+    check(not lost, f"DR: {len(lost)} source rows lost across the switchover: {lost[:4]}")
+    check(all(b_map.get(b"straddle/%03d" % i) == b"s%d" % i for i in committed)
+          and not any(b"straddle/%03d" % i in b_map for i in locked)
+          and len(committed) + len(locked) == 10,
+          f"DR: straddlers committed {committed}, locked {locked}")
+    check(b"stray/x" not in b_map, "DR: the destination's stray key survived")
+    check(b_map.get(b"ctr") == (20).to_bytes(8, "little"), f"DR: ctr is {b_map.get(b'ctr')!r}")
+    check(after_a == error.database_locked("").code,
+          f"DR: a user commit to the locked source drew {after_a}, not database_locked")
+
+
+def bindings_backup_phase(fc, he, card, recovery_cfg):
+    """The bindings, backup and DR (bindings/, backup/) with every resolver
+    of every cluster a card engine, in three parts.
+
+    Stack tester: generate_stream at each of STACK_SEEDS through a static
+    cluster (two resolvers, make_engine_factory()'s card engines at the
+    specs' KernelConfig, each call recorded): the journal and the final
+    keyspace byte-equal to the oracle run's, with the same instructions,
+    commits, aborts and virtual time; every card call equal to a fresh
+    oracle's replay.
+
+    Full-width backup: backup_run with card resolvers at `recovery_cfg`
+    (the bench's KernelConfig, ladder and scans) in both clusters,
+    supervised as recruitment would: the restored keyspace equal to the
+    source read at the end version, the run equal to its oracle twin
+    (commits, end version, restored rows, virtual time), no durability
+    violation, check_engines. Reports committed txn/s in virtual time
+    before and during the backup, snapshot, finish and restore virtual and
+    wall seconds, rows restored, snapshot and log bytes moved, graphs
+    captured, launches and peak device memory.
+
+    DR switchover: dr_run with supervised card resolvers at the specs'
+    KernelConfig in both clusters: check_dr, equal to its oracle twin,
+    check_engines.
+
+    Returns the oracle twins as jobs for run_twins (after the last card
+    run of the script) and finish(twins), which holds the runs to them."""
+
+    import torch
+
+    from foundationdb_tpu_torch.testing.specs import make_engine_factory
+
+    launches, stacks = {}, {}
+    for seed in STACK_SEEDS:
+        built = []
+        fc.FIXPOINT.reset_counts()
+        t0 = time.perf_counter()
+        run = stack_run(seed, recording_factory(make_engine_factory(), built))
+        wall = time.perf_counter() - t0
+        launches[f"stack_{seed}"] = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+        stacks[seed] = {"run": run, "wall_s": wall, "plain_cuda_calls": fc.FIXPOINT.plain_cuda_calls,
+                        "devices": [r["engine"].state["hkeys"].device.type for r in built],
+                        "batches": sum(len(r["batches"]) for r in built),
+                        "captures": sum(r["engine"].perf.captures for r in built),
+                        "mismatches": sum(call_mismatches(r["batches"]) for r in built)}
+        built.clear()
+
+    built = []
+    factory = supervised_card_factory(
+        lambda: he.TorchConflictEngine(recovery_cfg, ladder=LADDER, scan_sizes=SCANS,
+                                       device_time_sample_rate=0.0), built)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fc.FIXPOINT.reset_counts()
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(DYNAMIC_WORKERS, mp_context=get_context("spawn")) as pool:
-        rec_twin = pool.submit(oracle_recovery_run)
-        twins = {key: pool.submit(oracle_dynamic_spec, *key) for key in runs}
-        twins = {key: f.result() for key, f in twins.items()}
-        rec_twin = rec_twin.result()
-    twin_s = time.perf_counter() - t0
+    bk = backup_run(factory)
+    bk["wall_s"] = time.perf_counter() - t0
+    launches["backup_run"] = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+    bk["plain_cuda_calls"] = fc.FIXPOINT.plain_cuda_calls
+    torch.cuda.synchronize()
+    bk["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    bk["engines"] = [engine_summary(r) for r in built]
+    built.clear()
 
-    for (name, seed), run in runs.items():
-        check_dynamic_spec(name, seed, run, twins[(name, seed)])
-        es = run["engines"]
-        faults = {k: sum(e["faults"][k] for e in es) for k in ("injected", "watchdog",
-                                                                "buggify", "other")}
-        ok, metrics, _, vt = run["result"]
-        print(f"dynamic spec {name} seed {seed} [{card}]: ok, equal to its oracle twin "
-              f"(virtual time {vt:.6f} s, {metrics}); {run['recoveries']} recoveries; "
-              f"{len(es)} card engines recruited, {sum(e['captures'] for e in es)} graphs "
-              f"captured in {sum(e['capture_s'] for e in es):.2f} s; "
-              f"{sum(e['resolves'] for e in es)} card batches, 0 replay mismatches; "
-              f"dispatch faults by cause {faults}, failovers "
-              f"{sum(e['health']['failovers'] for e in es)}, oracle batches "
-              f"{sum(e['health']['oracle_batches'] for e in es)} (as its twin's); "
-              f"{run['launches']} fixpoint launches; "
-              f"wall {run['wall_s']:.2f} s", flush=True)
+    built = []
+    fc.FIXPOINT.reset_counts()
+    t0 = time.perf_counter()
+    dr = dr_run(supervised_card_factory(make_engine_factory(), built))
+    dr["wall_s"] = time.perf_counter() - t0
+    launches["dr_switchover"] = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+    dr["plain_cuda_calls"] = fc.FIXPOINT.plain_cuda_calls
+    dr["engines"] = [engine_summary(r) for r in built]
+    built.clear()
+    for label, n in launches.items():
+        check(n > 0, f"bindings/backup phase: {label} made no fixpoint launch")
+    check(all(s["plain_cuda_calls"] == 0 for s in stacks.values())
+          and bk["plain_cuda_calls"] == 0 and dr["plain_cuda_calls"] == 0,
+          "bindings/backup phase: a plain fixpoint ran on CUDA tensors")
 
-    committed, rows, vt, violations = rec["twin"]
-    twin_result, twin_health = rec_twin
-    check(rec["twin"] == tuple(twin_result),
-          f"dynamic phase: the recovery run on the card (committed {committed}, "
-          f"{len(rows)} rows, virtual time {vt}) differs from its oracle twin (committed "
-          f"{twin_result[0]}, {len(twin_result[1])} rows, virtual time {twin_result[2]})")
-    check(violations == 0, f"dynamic phase: the recovery run broke durability {violations} times")
-    check(committed >= RECOVERY_TXNS and len(rows) > 0,
-          f"dynamic phase: the recovery run committed {committed}, read {len(rows)} rows")
-    check(len(rec["kills"]) == len(RECOVERY_KILLS)
-          and all("first_commit_virtual_ms" in k for k in rec["kills"]),
-          f"dynamic phase: the recovery run's kills {rec['kills']} did not all reach a new epoch")
-    check(len(rec["generations"]) >= 1 + len(RECOVERY_KILLS),
-          f"dynamic phase: the recovery run recruited {len(rec['generations'])} generations")
-    check_engines("dynamic phase: recovery run", rec["engines"], twin_health)
-    print(f"dynamic recovery run [{card}]: {committed} committed by {RECOVERY_CLIENTS} "
-          f"closed-loop clients in {rec['load_virtual_s']:.6f} virtual s "
-          f"({committed / rec['load_virtual_s']:.1f} txn/s) and {rec['load_wall_s']:.2f} wall s "
-          f"({committed / rec['load_wall_s']:.1f} txn/s); {rec['recoveries']} recoveries; "
-          f"equal to its oracle twin ({len(rows)} rows, virtual time {vt:.6f} s), 0 durability "
-          f"violations, 0 replay mismatches; peak device memory "
-          f"{rec['max_memory_allocated'] / 2**20:.1f} MiB; {launches['dynamic_recovery']} "
-          f"fixpoint launches", flush=True)
-    for k in rec["kills"]:
-        print(f"  kill of {k['token']} at {k['committed']} committed [{card}]: first commit of "
-              f"the new epoch {k['first_commit_virtual_ms']:.3f} virtual ms and "
-              f"{k['first_commit_wall_ms']:.1f} wall ms later", flush=True)
-    for g in rec["generations"]:
-        print(f"  generation from version {g['first_version']} [{card}]: {g['engines']} card "
-              f"engines, {g['batches']} batches (mean {g['mean_batch']:.1f} txns, largest "
-              f"{g['largest_batch']}), {g['captures']} graphs captured in "
-              f"{g['capture_s']:.2f} s", flush=True)
-    print(f"dynamic phase oracle twins [{card}]: {len(twins)} spec runs and the recovery run in "
-          f"{DYNAMIC_WORKERS} workers after the last card run ({twin_s:.1f} s)", flush=True)
-    rec["twin"] = {"committed": committed, "rows": len(rows), "virtual_time": vt,
-                   "violations": violations}
-    return {"specs": {f"{n}_{s}": r for (n, s), r in runs.items()}, "recovery": rec,
-            "twin_s": twin_s, "launches": launches}
+    jobs = {("backup_run",): (oracle_backup_run,), ("dr_run",): (oracle_dr_run,)}
+    jobs.update({("stack", seed): (stack_run, seed) for seed in STACK_SEEDS})
+
+    def finish(all_twins):
+        bk_twin, dr_twin = all_twins[("backup_run",)], all_twins[("dr_run",)]
+        stack_twins = {seed: all_twins[("stack", seed)] for seed in STACK_SEEDS}
+        for seed, s in stacks.items():
+            n, commits, aborts, journal, rows, vt = s["run"]
+            check(s["run"] == stack_twins[seed],
+                  f"bindings phase: stream {seed} on card resolvers (journal of {len(journal)}, "
+                  f"{len(rows)} rows, {commits} commits, {aborts} aborts, virtual time {vt}) differs "
+                  f"from its oracle twin")
+            check(s["devices"] == ["cuda", "cuda"] and s["mismatches"] == 0 and s["batches"] > 0,
+                  f"bindings phase: stream {seed}: engines on {s['devices']}, {s['mismatches']} of "
+                  f"{s['batches']} card calls differ from the oracle replay")
+            print(f"bindings phase, stack stream {seed} [{card}]: {n} instructions, {commits} "
+                  f"commits, {aborts} aborts, journal of {len(journal)} entries and {len(rows)} "
+                  f"final rows byte-equal to the oracle run's (virtual time {vt:.6f} s); "
+                  f"{s['batches']} card batches, 0 replay mismatches, {s['captures']} graphs "
+                  f"captured; {launches[f'stack_{seed}']} fixpoint launches; wall "
+                  f"{s['wall_s']:.2f} s", flush=True)
+
+        committed, vend, restored, vt, violations = bk["twin"]
+        twin_result, twin_source, twin_health = bk_twin
+        check(restored == bk["source_rows"] and len(restored) > 0,
+              f"backup run: the restore holds {len(restored)} rows, the source at the end version "
+              f"{len(bk['source_rows'])}, or they differ")
+        check(bk["vend"] == vend, f"backup run: restore returned {bk['vend']}, the end version is "
+              f"{vend}")
+        check(bk["twin"] == tuple(twin_result) and bk["source_rows"] == twin_source,
+              f"backup run on the card (committed {committed}, end version {vend}, {len(restored)} "
+              f"rows, virtual time {vt}) differs from its oracle twin (committed {twin_result[0]}, "
+              f"end version {twin_result[1]}, {len(twin_result[2])} rows, virtual time "
+              f"{twin_result[3]})")
+        check(violations == 0, f"backup run: {violations} durability violations")
+        check(committed >= RECOVERY_TXNS, f"backup run: committed {committed}")
+        check_engines("backup run", bk["engines"], twin_health)
+        es = bk["engines"]
+        tm = bk["times"]
+        before = (bk["committed_at_start"] - BACKUP_WARM) / tm["load_before_backup"]["virtual_s"]
+        during = bk["committed_during"] / tm["load_during_backup"]["virtual_s"]
+        bk["txn_per_s_virtual"] = {"before_backup": before, "during_backup": during}
+        print(f"backup run [{card}]: {committed} committed by {RECOVERY_CLIENTS} closed-loop clients "
+              f"across two {RECOVERY_CLUSTER} clusters; {before:.1f} txn/s (virtual) before the "
+              f"backup, {during:.1f} during it ({during / before:.4f}x); snapshot "
+              f"{tm['snapshot']['virtual_s']:.6f} virtual s / {tm['snapshot']['wall_s']:.2f} wall s "
+              f"({BACKUP_CHUNKS} chunks, {BACKUP_WORKERS} workers), finish "
+              f"{tm['finish']['virtual_s']:.6f} / {tm['finish']['wall_s']:.2f}, restore "
+              f"{tm['restore']['virtual_s']:.6f} / {tm['restore']['wall_s']:.2f}; {len(restored)} "
+              f"rows restored equal to the source at end version {vend}; {bk['snapshot_bytes']} "
+              f"snapshot bytes and {bk['log_bytes']} log bytes in {bk['objects']} objects; equal "
+              f"to its oracle twin (virtual time {vt:.6f} s), 0 durability violations, "
+              f"{sum(e['resolves'] for e in es)} card batches in {len(es)} engines, 0 replay "
+              f"mismatches; {sum(e['captures'] for e in es)} graphs captured in "
+              f"{sum(e['capture_s'] for e in es):.2f} s; peak device memory "
+              f"{bk['max_memory_allocated'] / 2**20:.1f} MiB; {launches['backup_run']} fixpoint "
+              f"launches; wall {bk['wall_s']:.2f} s", flush=True)
+
+        check_dr(dr["twin"])
+        twin_result, twin_health = dr_twin
+        check(dr["twin"] == tuple(twin_result),
+              f"DR run on the card {dr['twin'][:3]} (virtual time {dr['twin'][-1]}) differs from its "
+              f"oracle twin {twin_result[:3]} (virtual time {twin_result[-1]})")
+        check_engines("DR run", dr["engines"], twin_health)
+        committed_s, locked_s, fence, rows_a, rows_b, _after, vt = dr["twin"]
+        print(f"DR switchover [{card}]: {len(rows_a)} source rows all on the destination "
+              f"({len(rows_b)} rows), straddlers {len(committed_s)} committed / {len(locked_s)} "
+              f"locked out, fence version {fence}, the locked source refused a user commit with "
+              f"database_locked; equal to its oracle twin (virtual time {vt:.6f} s); "
+              f"{sum(e['resolves'] for e in dr['engines'])} card batches in {len(dr['engines'])} "
+              f"engines, 0 replay mismatches; {launches['dr_switchover']} fixpoint launches; wall "
+              f"{dr['wall_s']:.2f} s", flush=True)
+        bk.pop("health")
+        dr.pop("health")
+        bk["twin"] = {"committed": committed, "end_version": vend, "rows": len(restored),
+                      "virtual_time": vt, "violations": violations}
+        bk.pop("source_rows")
+        dr["twin"] = {"committed": len(committed_s), "locked": len(locked_s), "fence": fence,
+                      "source_rows": len(rows_a), "destination_rows": len(rows_b),
+                      "virtual_time": vt}
+        return {"stacks": {seed: {k: v for k, v in s.items() if k != "run"} | {
+                    "instructions": s["run"][0], "commits": s["run"][1], "aborts": s["run"][2]}
+                           for seed, s in stacks.items()},
+                "backup": bk, "dr": dr, "launches": launches}
+
+    return jobs, finish
+
+
+#: worker processes of the oracle twins of the cluster, dynamic cluster and
+#: bindings/backup phases, which all run after the script's last card run
+TWIN_WORKERS = 6
+
+
+def run_twins(jobs):
+    """Each job {key: (fn, *args)} in TWIN_WORKERS spawn-context worker
+    processes, submitted in the order given (the longest first): returns
+    ({key: fn(*args)}, wall seconds)."""
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import get_context
+
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(TWIN_WORKERS, mp_context=get_context("spawn")) as pool:
+        futures = {key: pool.submit(fn, *args) for key, (fn, *args) in jobs.items()}
+        results = {key: f.result() for key, f in futures.items()}
+    return results, time.perf_counter() - t0
 
 
 def main(argv=None) -> int:
@@ -4050,8 +4555,10 @@ def main(argv=None) -> int:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
+    # its batches (RESHARD_SIZES, at most 512 txns) are one chunk each, so
+    # its engines capture no multi-chunk scan
     rs = reshard_phase(fc, card, rng, lambda: he.TorchConflictEngine(
-        engine_cfg, ladder=LADDER, scan_sizes=SCANS, history_structure="tiered",
+        engine_cfg, ladder=LADDER, scan_sizes=(), history_structure="tiered",
         device_time_sample_rate=0.0))
     results["reshard_phase"] = rs
     print(f"reshard phase [{card}]: {len(rs['ops'])} reshards, {rs['launches']} launches "
@@ -4060,23 +4567,45 @@ def main(argv=None) -> int:
     # the static cluster with card resolvers, the harness fed the columnar
     # phase's one-chunk replay ms per bucket and its pack ms per txn
     t0 = time.perf_counter()
-    cl = cluster_phase(fc, he, card, engine_cfg, {
+    cl_jobs, cl_finish = cluster_phase(fc, he, card, engine_cfg, {
         int(k.split("x")[0]): ms for k, ms in colp["program_device_ms"].items()
         if k.endswith("x1")}, clocks["columnar"]["pack_ms_per_txn"])
-    results["cluster_phase"] = cl
-    print(f"cluster phase [{card}]: {len(cl['specs'])} spec runs and {len(cl['points'])} harness "
-          f"points equal to their oracle twins, launches {cl['launches']} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"cluster phase card runs [{card}] ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # the dynamic cluster: every resolver recruited in every generation a
     # card engine, the specs' KernelConfig in the specs, the bench's in
     # the recovery run
     t0 = time.perf_counter()
-    dyn = dynamic_cluster_phase(fc, he, ck, card, cfg)
+    dyn_jobs, dyn_finish = dynamic_cluster_phase(fc, he, ck, card, cfg)
+    print(f"dynamic cluster phase card runs [{card}] ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    # the bindings, a full-width backup and a DR switchover, every resolver
+    # of every cluster a card engine
+    t0 = time.perf_counter()
+    bb_jobs, bb_finish = bindings_backup_phase(fc, he, card, cfg)
+    print(f"bindings/backup phase card runs [{card}] ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    # the three phases' oracle twins, after the last card run, the longest
+    # (the backup run's and the recovery run's) first
+    twins, twin_s = run_twins({**bb_jobs, **dyn_jobs, **cl_jobs})
+    print(f"oracle twins [{card}]: {len(twins)} runs in {TWIN_WORKERS} workers after the last "
+          f"card run ({twin_s:.1f} s)", flush=True)
+    cl = cl_finish(twins)
+    results["cluster_phase"] = cl
+    print(f"cluster phase [{card}]: {len(cl['specs'])} spec runs and {len(cl['points'])} harness "
+          f"points equal to their oracle twins, launches {cl['launches']}", flush=True)
+    dyn = dyn_finish(twins)
     results["dynamic_cluster_phase"] = dyn
     print(f"dynamic cluster phase [{card}]: {len(dyn['specs'])} spec runs and the recovery run "
-          f"equal to their oracle twins, launches {dyn['launches']} "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+          f"equal to their oracle twins, launches {dyn['launches']}", flush=True)
+    bb = bb_finish(twins)
+    results["bindings_backup_phase"] = bb
+    print(f"bindings/backup phase [{card}]: {len(bb['stacks'])} stack streams, the backup run "
+          f"and the DR switchover equal to their oracle twins, launches {bb['launches']}",
+          flush=True)
+    results["twin_s"] = twin_s
 
     kernels = {"kernels": [{
         "name": "commit_fixpoint",
@@ -4088,7 +4617,8 @@ def main(argv=None) -> int:
                                                 tele["default_rate"], spp))
                     + sum(role["launches"].values()) + sum(sup["launches"].values())
                     + sum(crash_launches.values()) + rs["launches"]
-                    + sum(cl["launches"].values()) + sum(dyn["launches"].values()),
+                    + sum(cl["launches"].values()) + sum(dyn["launches"].values())
+                    + sum(bb["launches"].values()),
         "launches_by_path": {"engine_general_router_graph": ep["graph_launches"],
                              "engine_general_router_eager": ep["eager_launches"],
                              "graph_step": gp["launches"], "columnar_engine": colp["launches"],
@@ -4111,7 +4641,7 @@ def main(argv=None) -> int:
                              **{f"supervised_role_{k}": v for k, v in sup["launches"].items()},
                              **{f"crash_child_{k}": v for k, v in crash_launches.items()},
                              "reshard": rs["launches"], **cl["launches"],
-                             **dyn["launches"]},
+                             **dyn["launches"], **bb["launches"]},
         "mismatches": 0,
         "max_abs_err": 0,
         "ms": kp["kernel_ms"],

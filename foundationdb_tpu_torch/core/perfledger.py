@@ -91,10 +91,11 @@ class PerfLedger:
         self.peak_bytes = 0
         self.flops_total = 0
         self.bytes_accessed_total = 0
-        #: on-disk program-cache accounting (core/progcache.py, not ported
-        #: yet: these stay 0): event counts ("hit"/"miss"/"store") + bytes
-        #: moved + wall ms — kept OUT of `compiles` so a progcache-warm
-        #: engine still reports zero compiles
+        #: on-disk program-cache accounting (core/progcache.py): event
+        #: counts ("hit"/"miss"/"store") + bytes moved + wall ms — kept
+        #: OUT of `compiles` so a progcache-warm engine still reports
+        #: zero compiles (a port build is never stored: a CUDA graph has
+        #: no serialized form, so `store` counts it under errors)
         self.progcache: Dict[str, int] = {}
         self.progcache_bytes = 0
         self.progcache_ms = 0.0

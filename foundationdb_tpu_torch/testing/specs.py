@@ -13,9 +13,9 @@ RandomClogging + Attrition. Run via the CLI:
 CycleTestTPU). The dynamic specs keep the JAX package's engines (the
 oracle; the fault injector over the oracle for DeviceNemesis); set
 `spec.dynamic.engine_factory = make_engine_factory()` to recruit card
-resolvers in every generation. Not ported yet: BackupCorrectness (it needs
-backup/) and the multi-device CycleTestTPU8 / RandomReadWriteTPU8 (ROADMAP
-queue 1).
+resolvers in every generation (BackupCorrectness's restore cluster takes
+the same factory). The multi-device CycleTestTPU8 / RandomReadWriteTPU8
+wait for parallel/ (ROADMAP queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from ..server.cluster import ClusterConfig, DynamicClusterConfig
 from .workload import Spec
 from .workloads import (
     AtomicOpsWorkload,
+    BackupCorrectnessWorkload,
     BulkLoadWorkload,
     ConflictRangeWorkload,
     ConsistencyCheckWorkload,
@@ -310,6 +311,19 @@ SPECS: Dict[str, Callable[[], Spec]] = {
         workloads=[(CycleWorkload, {"nodes": 10, "transactions": 8})],
         cluster=ClusterConfig(n_resolvers=2, n_storage=2, engine_factory=make_engine_factory()),
         client_count=2,
+    ),
+    # fast/BackupCorrectness.txt: a live backup straddles cycle churn and
+    # restores bit-identically into a second cluster
+    "BackupCorrectness": lambda: Spec(
+        title="BackupCorrectness",
+        workloads=[
+            (CycleWorkload, {"nodes": 8, "transactions": 12, "think_time": 0.3}),
+            (BackupCorrectnessWorkload, {"chunks": 4}),
+        ],
+        dynamic=DynamicClusterConfig(n_workers=6, n_tlogs=2, n_resolvers=2,
+                                     n_storage=2),
+        client_count=2,
+        timeout=900.0,
     ),
     # rare/FuzzApiCorrectness.txt: randomized op streams vs the model,
     # with clogging so retry/unknown-result paths actually fire

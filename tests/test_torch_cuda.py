@@ -10,7 +10,8 @@ CUDA events at sample rate 1.0 and spans on with no host sync, one
 perf-ledger row per captured program, the loop's samples landing through
 poll(), and a conflict-scheduled stream on the loop engine; the resolver
 role, the supervisor, the simulated clusters (static and dynamic: card
-resolvers recruited in every generation) over card engines.
+resolvers recruited in every generation), a backup restored onto card
+resolvers and a stack-tester stream, over card engines.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither jax nor the JAX package, so it runs on a machine that has
@@ -1209,3 +1210,60 @@ def test_kill_resolver_mid_run_with_card_resolvers(card):
     assert {r["engine"].state["hkeys"].device.type for r in built} == {"cuda"}
     assert fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches > 0
     assert fc.FIXPOINT.plain_cuda_calls == 0
+
+
+@pytest.mark.cuda
+def test_backup_spec_with_card_resolvers_equals_the_oracle(card):
+    """BackupCorrectness at seed 1 with every resolver recruited in the
+    source cluster and in the restore's destination cluster a card engine
+    (make_engine_factory(); the destination takes the source's factory)
+    equals the same spec and seed with oracle resolvers (ok, metrics,
+    seed, virtual time), and the card ran the fixpoint kernel."""
+    from foundationdb_tpu_torch.testing.specs import SPECS, make_engine_factory
+    from foundationdb_tpu_torch.testing.workload import run_spec
+
+    built = []
+    factory = make_engine_factory()
+
+    def card_engine():
+        built.append(factory())
+        return built[-1]
+
+    spec = SPECS["BackupCorrectness"]()
+    spec.dynamic.engine_factory = card_engine
+    fc.FIXPOINT.reset_counts()
+    res = run_spec(spec, 1)
+    launches = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+    plain = fc.FIXPOINT.plain_cuda_calls
+    n_source = spec.dynamic.n_resolvers
+    assert res.ok and res.metrics.get("backups") == 1
+    assert dataclasses.astuple(res) == dataclasses.astuple(run_spec(SPECS["BackupCorrectness"](), 1))
+    assert len(built) > n_source and {e.state["hkeys"].device.type for e in built} == {"cuda"}
+    assert launches > 0 and plain == 0
+
+
+@pytest.mark.cuda
+def test_stack_stream_with_card_resolvers_equals_the_oracle(card):
+    """tests/test_stacktester.py's conformance at seed 201: the stream run
+    through a static cluster with both resolvers on the card gives the
+    oracle run's journal and final keyspace."""
+    from foundationdb_tpu_torch.bindings.stacktester import final_state, generate_stream, run_stream
+    from foundationdb_tpu_torch.server.cluster import ClusterConfig, build_cluster
+    from foundationdb_tpu_torch.testing.specs import make_engine_factory
+
+    def run_with(engine_factory, stream):
+        c = build_cluster(seed=201, cfg=ClusterConfig(n_resolvers=2, n_storage=2,
+                                                      engine_factory=engine_factory))
+        db = c.new_client()
+
+        async def go():
+            return await run_stream(db, stream), await final_state(db)
+
+        return c.sim.run_until(c.sim.sched.spawn(go(), name="stack"), until=600.0)
+
+    stream = generate_stream(201)
+    fc.FIXPOINT.reset_counts()
+    got = run_with(make_engine_factory(), stream)
+    launches = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+    assert got == run_with(toracle.OracleConflictEngine, stream)
+    assert launches > 0 and fc.FIXPOINT.plain_cuda_calls == 0

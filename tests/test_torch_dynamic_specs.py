@@ -1,10 +1,11 @@
 """The dynamic cluster's specs: the port's run_spec against the JAX package's.
 
-Every ported spec of the dynamic cluster (coordinators, election, the
-cluster controller, workers, the master's epoch recovery, data
-distribution) runs through the port's `run_spec` and the JAX package's at
-seeds 1 and 2 with the specs' own engines: the SpecResults (ok, metrics,
-seed, virtual time) must be equal, and so must what the simulation leaves
+Every spec of the dynamic cluster (coordinators, election, the cluster
+controller, workers, the master's epoch recovery, data distribution, and
+BackupCorrectness's backup and restore into a second cluster) runs through
+the port's `run_spec` and the JAX package's at seeds 1 and 2 with the
+specs' own engines: the SpecResults (ok, metrics, seed, virtual time) must
+be equal, and so must what the simulation leaves
 behind (virtual time, scheduler steps, rng state, every disk's bytes: the
 coordinators' generation registers, the tlogs' queues and spill, the
 storage engines; and the trace events).
@@ -18,9 +19,9 @@ import pytest
 
 from torch_sim_world import JAX, PORT, both, clean_world, sims_built, world_state
 
-#: the JAX package's dynamic specs the port does not run yet: BackupCorrectness
-#: needs backup/ and the bindings it imports
-UNPORTED = {"BackupCorrectness"}
+#: the JAX package's dynamic specs the port does not run yet (none: with
+#: backup/ and the bindings ported, BackupCorrectness runs too)
+UNPORTED = set()
 DYNAMIC = [n for n, make in PORT.specs.SPECS.items() if make().dynamic is not None]
 
 
@@ -34,7 +35,7 @@ def world():
 def test_every_dynamic_spec_but_backup_is_ported():
     jax_dynamic = [n for n, make in JAX.specs.SPECS.items() if make().dynamic is not None]
     assert DYNAMIC == [n for n in jax_dynamic if n not in UNPORTED]
-    assert len(DYNAMIC) == 12
+    assert len(DYNAMIC) == 13 and "BackupCorrectness" in DYNAMIC
 
 
 def run(P, name, seed):

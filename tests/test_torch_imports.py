@@ -88,6 +88,12 @@ def test_subprocess_import_loads_no_jax():
     "foundationdb_tpu_torch.server.worker",
     "foundationdb_tpu_torch.server.cluster_controller",
     "foundationdb_tpu_torch.server.masterserver",
+    "foundationdb_tpu_torch.bindings",
+    "foundationdb_tpu_torch.bindings.directory",
+    "foundationdb_tpu_torch.bindings.stacktester",
+    "foundationdb_tpu_torch.backup",
+    "foundationdb_tpu_torch.backup.http_blob",
+    "foundationdb_tpu_torch.layers",
 ])
 def test_serving_path_modules_load_no_jax(module):
     """The columnar path's modules, each imported alone in a fresh process
@@ -142,7 +148,13 @@ def test_source_scan_finds_no_jax_import():
                  "server/replication_policy.py", "server/management.py",
                  "server/coordination.py", "server/coordinated_state.py",
                  "server/leader_election.py", "server/worker.py",
-                 "server/cluster_controller.py", "server/masterserver.py"):
+                 "server/cluster_controller.py", "server/masterserver.py",
+                 "bindings/__init__.py", "bindings/fdb_tuple.py", "bindings/fdb_api.py",
+                 "bindings/directory.py", "bindings/task_bucket.py",
+                 "bindings/stacktester.py", "layers/__init__.py", "layers/_util.py",
+                 "layers/bulkload.py", "layers/containers.py", "layers/pubsub.py",
+                 "backup/__init__.py", "backup/container.py", "backup/http_blob.py",
+                 "backup/agent.py", "backup/dr.py"):
         assert PKG / name in files, name
     for path in files:
         bad = [r for r in imported_roots(path) if r in FORBIDDEN]

@@ -41,7 +41,13 @@ MODULES = {"buggify": "core.buggify", "error": "core.error", "types": "core.type
            "coordinated_state": "server.coordinated_state",
            "leader_election": "server.leader_election", "worker": "server.worker",
            "cluster_controller": "server.cluster_controller",
-           "masterserver": "server.masterserver"}
+           "masterserver": "server.masterserver", "bindings": "bindings",
+           "fdb_tuple": "bindings.fdb_tuple", "directory": "bindings.directory",
+           "task_bucket": "bindings.task_bucket",
+           "stacktester": "bindings.stacktester", "layers": "layers",
+           "layers_util": "layers._util", "backup": "backup",
+           "blob_container": "backup.container", "backup_agent": "backup.agent",
+           "dr": "backup.dr", "http_blob": "backup.http_blob"}
 
 
 def package(root):
