@@ -153,7 +153,7 @@ toolkit. The script
      KernelConfig: each run ok and equal to its oracle twin (ok, metrics,
      virtual time), every card engine's recorded batches equal to a fresh
      oracle's replay. Then the latency harness (run_latency_under_load,
-     open-loop Poisson arrivals through the whole commit path, 12,000
+     open-loop Poisson arrivals through the whole commit path, 6,000
      txns a point) with a TorchConflictEngine at the default KernelConfig
      in the resolver, fed the columnar phase's one-chunk replay ms per
      bucket and pack ms per txn: depth 1 at bucket 512, depth 2 at 1024
@@ -165,9 +165,9 @@ toolkit. The script
      (coordinators, leader election, the cluster controller, workers, the
      master's epoch recovery, data distribution; server/cluster.py
      DynamicCluster) with every resolver recruited in every generation a
-     card engine. run_spec on each of the 13 dynamic specs at seed 1, five
-     of them (BackupCorrectness among them: its restore cluster recruits
-     card engines too) also at seed 2, at the specs' KernelConfig
+     card engine. run_spec on each of the 13 dynamic specs at seed 1,
+     BackupCorrectness (its restore cluster recruits card engines too)
+     also at seed 2, at the specs' KernelConfig
      (capacity 1024, T=64; DataDistributionAttrition at capacity 4096),
      each engine supervised as recruitment does (DeviceNemesis: over the
      fault injector, as its own factory): each run ok and equal to its oracle
@@ -176,7 +176,7 @@ toolkit. The script
      the card, every card call and every supervisor's journal equal to a
      fresh oracle's replay. Then a recovery run at the bench's
      KernelConfig: 64 closed-loop clients (2 point reads and 2 point
-     writes over the 8192-key pool) to 3,000 commits, the worker hosting
+     writes over the 8192-key pool) to 1,000 commits, the worker hosting
      resolver.resolve REBOOT-killed at 30% and the one hosting
      proxy.commit at 65%, each kill an epoch recovery that recruits fresh
      card engines: equal to its oracle twin (committed count, the final
@@ -190,7 +190,7 @@ toolkit. The script
      byte-equal to the oracle run's, every card call equal to an oracle
      replay. Then a full-width backup: two dynamic clusters of the
      recovery run's shape in one simulation with card resolvers at the
-     bench's KernelConfig, the recovery run's 64 clients to 3,000 commits;
+     bench's KernelConfig, the recovery run's 64 clients to 1,000 commits;
      a BackupAgent starts after 500 commits, snapshots in 8 chunks with 3
      workers, finishes when the load is done and is restored into the
      second cluster: the restore equals the source read at the end
@@ -201,8 +201,29 @@ toolkit. The script
      tests/test_dr.py's DR switchover (seed 201) with card resolvers in
      both clusters: nothing lost, the locked source refuses user commits,
      equal to its oracle twin.
+  20. real phase: the wall-clock cluster (real/cluster.py) of 4 OS-process
+     nodes over 127.0.0.1 TCP, the first three also coordinators, started
+     through real_node_main (a wrapper of real/node.py's main that records
+     every engine its factory builds and reports on SIGTERM), every
+     recruited resolver a TorchConflictEngine at the default KernelConfig:
+     the Cycle ring over 1,000 keys and 1,000 transactions, then the
+     launcher's backup -> wipe -> restore drill through a blobstore://
+     HTTPBlobServer; each held to at least one card resolver, fixpoint
+     launches in each node that recruited one, no plain fixpoint on a
+     CUDA tensor, and every recorded call equal to a fresh oracle's
+     replay. Then real/nemesis.py's fault campaign on the torch and
+     device_loop card modes (seed 11, 8 s; the watchdog, the black-box
+     journal and the trace export on): assert_slos, journal parity 0,
+     every incident explained, the Chrome trace valid, forensics.explain
+     of a resolved version, dispatch faults sorted by cause with none from
+     the card; the crash-restart campaign on a card engine (its child
+     instrumented by crash_child_main): parity across the crash, a
+     complete recovery, the restarted child serving on the card, its
+     blackout against resolver_recovery_budget_ms reported, not gated;
+     the six recipes of the scenario atlas on the torch mode at 3.5 s each:
+     every scorecard row and journal parity 0.
   The oracle twins of phases 17-19 run together in 6 worker processes
-  after the last card run of phase 19, the longest first.
+  after the last card run (phase 20's), the longest first.
 
 Each path's kernel launches are counted from 0 just before it and read
 just after (a captured graph's fixpoint launches are counted at each
@@ -2998,9 +3019,10 @@ CLUSTER_SPECS = ("CycleTestCUDA", "CycleTest", "Serializability", "ConflictRange
                  "RandomReadWrite", "AtomicOps")
 CLUSTER_SEEDS = (1, 2)
 #: the latency harness's points (the JAX package's bench.py latency curve,
-#: bench.py:441-520): 12,000 txns each, depth 1 at bucket 512 at 0.85 of
-#: the serial capacity, depth 2 at these (bucket, share of T / device_ms)
-HARNESS_TXNS = 12_000
+#: bench.py:441-520): 6,000 txns each (a depth cut that makes room for the
+#: real phase), depth 1 at bucket 512 at 0.85 of the serial
+#: capacity, depth 2 at these (bucket, share of T / device_ms)
+HARNESS_TXNS = 6_000
 HARNESS_SERIAL = (512, 0.85)
 HARNESS_PIPELINED = ((1024, 0.97), (1024, 1.0), (2048, 0.97), (2048, 1.0))
 
@@ -3067,6 +3089,33 @@ def recording_factory(make, built):
             return verdicts
 
         eng.resolve = recording
+        built.append(rec)
+        return eng
+
+    return factory
+
+
+def recording_engines(make, built):
+    """A factory of engines from `make()`, each appended to `built` as a
+    record {"engine", "calls"}: its resolve() and clear() (instance
+    attributes) record (version, new_oldest, transactions, verdicts) and
+    ("clear", version) in call order, for call_mismatches."""
+
+    def factory():
+        eng = make()
+        rec = {"engine": eng, "calls": []}
+        resolve, clear = eng.resolve, eng.clear
+
+        def recording(txns, now, new_oldest):
+            verdicts = resolve(txns, now, new_oldest)
+            rec["calls"].append((now, new_oldest, list(txns), [int(v) for v in verdicts]))
+            return verdicts
+
+        def recording_clear(version):
+            rec["calls"].append(("clear", version))
+            return clear(version)
+
+        eng.resolve, eng.clear = recording, recording_clear
         built.append(rec)
         return eng
 
@@ -3272,10 +3321,9 @@ def cluster_phase(fc, he, card, engine_cfg, device_ms_by_bucket, pack_ms_per_txn
 # ---------------------------------------------------------------------------
 
 #: the seeds each dynamic spec runs at with card resolvers (every dynamic
-#: spec at seed 1; five of them again at seed 2)
-DYNAMIC_SEEDS = {"CycleTestAttrition": (1, 2), "RegionFailover": (1, 2),
-                 "CycleTestRestart": (1, 2), "DeviceNemesis": (1, 2),
-                 "BackupCorrectness": (1, 2)}
+#: spec at seed 1; BackupCorrectness again at seed 2; the other seed-2
+#: runs are cut to make room for the real phase)
+DYNAMIC_SEEDS = {"BackupCorrectness": (1, 2)}
 #: testing/specs.py's _nemesis_engine_factory supervisor
 NEMESIS_SUPERVISOR = dict(dispatch_timeout=0.3, retry_budget=1, retry_backoff=0.05,
                           probe_rate=0.1, probation_batches=2, failover_min_batches=2)
@@ -3294,7 +3342,9 @@ DYNAMIC_CAPACITY = {"DataDistributionAttrition": 4096}
 #: without that
 RECOVERY_CLUSTER = dict(n_workers=6, n_tlogs=2, n_resolvers=2, n_proxies=1, n_storage=2)
 RECOVERY_CLIENTS = 64
-RECOVERY_TXNS = 3_000
+#: (a depth cut that makes room for the real phase, in the recovery run
+#: and the backup run alike)
+RECOVERY_TXNS = 1_000
 RECOVERY_KILLS = ((0.30, "resolver.resolve"), (0.65, "proxy.commit"))
 RECOVERY_SEED = SEED + 10
 RECOVERY_UNTIL = 600.0
@@ -3320,21 +3370,12 @@ def supervised_card_factory(make, built, nemesis=False):
     from foundationdb_tpu_torch.fault import (FaultInjectingEngine, ResilienceConfig,
                                               ResilientEngine)
 
+    recorded = []
+    record = recording_engines(make, recorded)
+
     def factory():
-        eng = make()
-        rec = {"engine": eng, "calls": []}
-        resolve, clear = eng.resolve, eng.clear
-
-        def recording(txns, now, new_oldest):
-            verdicts = resolve(txns, now, new_oldest)
-            rec["calls"].append((now, new_oldest, list(txns), [int(v) for v in verdicts]))
-            return verdicts
-
-        def recording_clear(version):
-            rec["calls"].append(("clear", version))
-            return clear(version)
-
-        eng.resolve, eng.clear = recording, recording_clear
+        eng = record()
+        rec = recorded[-1]
         if nemesis:
             stack = ResilientEngine(FaultInjectingEngine(eng),
                                     ResilienceConfig(**NEMESIS_SUPERVISOR), record_journal=True)
@@ -4219,6 +4260,396 @@ def bindings_backup_phase(fc, he, card, recovery_cfg):
 
 #: worker processes of the oracle twins of the cluster, dynamic cluster and
 #: bindings/backup phases, which all run after the script's last card run
+#: the real phase (20): the wall-clock cluster of REAL_PROCS OS-process
+#: nodes over 127.0.0.1 TCP (real/cluster.py), every recruited resolver a
+#: card engine at the node's default KernelConfig; the Cycle ring over
+#: REAL_KEYS keys and REAL_TXNS transactions; then the launcher's backup
+#: drill through a blobstore:// HTTPBlobServer
+REAL_PROCS = 4
+REAL_KEYS = 1000
+REAL_TXNS = 1000
+REAL_LAUNCH_TIMEOUT_S = 420
+#: where a node started by real_node_main writes its report when it takes
+#: SIGTERM (the launcher stops its nodes with terminate())
+REAL_REPORT_ENV = "CHIP_SMOKE_REAL_REPORTS"
+#: the fault campaigns: real/nemesis.py's main() point for the card modes
+#: (seed 11, 8 s), watchdog, journal and trace export on
+REAL_CAMPAIGN_MODES = ("torch", "device_loop")
+REAL_CAMPAIGN_SEED = 11
+REAL_CAMPAIGN_S = 8.0
+REAL_CRASH_SEED = 11
+#: the scenario atlas at a short duration, seed as run_scenario_atlas's
+REAL_SCENARIO_S = 3.5
+REAL_SCENARIO_SEED = 4026
+
+
+def card_counts(fc, engines):
+    """This process's fixpoint counts and its card engines' facts."""
+    return {"launches": fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches,
+            "plain_cuda_calls": fc.FIXPOINT.plain_cuda_calls,
+            "devices": [str(getattr(e, "device", "cpu")) for e in engines],
+            "captures": sum(getattr(getattr(e, "perf", None), "captures", 0) for e in engines)}
+
+
+def real_node_main(argv):
+    """A wall-clock node (real/node.py's main) whose engine factory
+    records every engine it builds (recording_engines); on SIGTERM it
+    writes its report (fixpoint counts, devices, graphs captured, every
+    recorded call) to $CHIP_SMOKE_REAL_REPORTS/node-<port>.pkl and exits."""
+    import pickle
+    import signal
+
+    from foundationdb_tpu_torch.ops import fixpoint_cuda as fc
+    from foundationdb_tpu_torch.real import node
+
+    built = []
+    make = node.make_engine_factory
+
+    def recording(kind, device=None):
+        return recording_engines(make(kind, device), built)
+
+    node.make_engine_factory = recording
+    port = argv[argv.index("--port") + 1]
+    out = Path(os.environ[REAL_REPORT_ENV]) / f"node-{port}.pkl"
+
+    def dump(*_):
+        rep = card_counts(fc, [r["engine"] for r in built])
+        rep["calls"] = [r["calls"] for r in built]
+        tmp = out.with_suffix(".tmp")
+        tmp.write_bytes(pickle.dumps(rep))
+        os.replace(tmp, out)
+        os._exit(0)
+
+    signal.signal(signal.SIGTERM, dump)
+    return node.main(argv)
+
+
+def instrument_chaos_engines(log):
+    """Wrap real/nemesis.make_chaos_engine so every campaign stack built in
+    this process is logged (`log["engines"]`: the inner engines) and its
+    supervisor's dispatch faults are sorted by cause (sort_faults, into
+    `log`)."""
+    from foundationdb_tpu_torch.real import nemesis
+
+    make = nemesis.make_chaos_engine
+    log.setdefault("engines", [])
+    log.setdefault("faults", {"injected": 0, "watchdog": 0, "buggify": 0, "other": 0})
+
+    def logged(*a, **kw):
+        inner, injector, supervised = make(*a, **kw)
+        log["engines"].append(inner)
+        sort_faults(supervised, log)
+        return inner, injector, supervised
+
+    nemesis.make_chaos_engine = logged
+    return make
+
+
+def crash_child_main(report_path, argv):
+    """The crash campaign's recoverable child (real/nemesis.py main
+    --serve-recover) with its engines instrumented: a thread writes this
+    process's fixpoint counts, engines and faults to `report_path`.<pid>
+    every 0.2 s (the first boot dies by SIGKILL) and on SIGTERM."""
+    import signal
+    import threading
+
+    from foundationdb_tpu_torch.ops import fixpoint_cuda as fc
+    from foundationdb_tpu_torch.real import nemesis
+
+    log = {}
+    instrument_chaos_engines(log)
+    out = Path(f"{report_path}.{os.getpid()}")
+
+    def write():
+        rep = card_counts(fc, log["engines"])
+        rep["faults"] = dict(log["faults"])
+        rep["other_errors"] = list(log.get("other_errors", []))
+        tmp = out.with_suffix(".tmp")
+        tmp.write_text(json.dumps(rep))
+        os.replace(tmp, out)
+
+    def every():
+        while True:
+            time.sleep(0.2)
+            write()
+
+    def on_term(*_):
+        write()
+        os._exit(0)
+
+    threading.Thread(target=every, daemon=True).start()
+    signal.signal(signal.SIGTERM, on_term)
+    return nemesis.main(argv)
+
+
+def real_launch(argv, report_dir, timeout):
+    """real/cluster.py's launcher in its own process, its nodes started
+    through real_node_main; returns (exit code, stdout, wall s, the nodes'
+    reports)."""
+    import pickle
+    import tempfile
+
+    root = str(Path(__file__).resolve().parent)
+    node_code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
+                 "sys.exit(chip_smoke.real_node_main(sys.argv[1:]))" % root)
+    code = ("import sys; sys.path.insert(0, %r); "
+            "from foundationdb_tpu_torch.real import cluster; "
+            "sys.exit(cluster.main(%r, node_cmd=[sys.executable, '-c', %r]))"
+            % (root, argv, node_code))
+    env = dict(os.environ, **{REAL_REPORT_ENV: report_dir})
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", code], cwd=root, env=env, capture_output=True,
+                       text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    reports = {p.stem: pickle.loads(p.read_bytes())
+               for p in sorted(Path(report_dir).glob("node-*.pkl"))}
+    return r.returncode, r.stdout + r.stderr, wall, reports
+
+
+def check_real_nodes(label, reports):
+    """Every node reported; each that built engines built them on the card
+    and launched the fixpoint there, never the plain version on a CUDA
+    tensor; every recorded call equals a fresh oracle's replay."""
+    check(len(reports) == REAL_PROCS, f"{label}: {len(reports)} of {REAL_PROCS} nodes reported")
+    card = {k: r for k, r in reports.items() if r["devices"]}
+    check(card, f"{label}: no node recruited a resolver")
+    summary = {"nodes": len(reports), "card_resolvers": 0, "batches": 0, "launches": 0,
+               "captures": 0, "mismatches": 0}
+    for k, r in card.items():
+        check(all(d.startswith("cuda") for d in r["devices"]),
+              f"{label}: {k}'s resolvers ran on {r['devices']}")
+        check(r["launches"] > 0 and r["plain_cuda_calls"] == 0,
+              f"{label}: {k} launched the fixpoint {r['launches']} times on the card, the plain "
+              f"version {r['plain_cuda_calls']} times on CUDA tensors")
+        bad = sum(call_mismatches(calls) for calls in r["calls"])
+        check(bad == 0, f"{label}: {bad} of {k}'s resolve calls differ from the oracle's replay")
+        summary["card_resolvers"] += len(r["devices"])
+        summary["batches"] += sum(1 for calls in r["calls"] for c in calls if c[0] != "clear")
+        summary["launches"] += r["launches"]
+        summary["captures"] += r["captures"]
+    return summary
+
+
+def real_campaign(fc, mode, workdir):
+    """run_campaign at REAL_CAMPAIGN_SEED on card engine mode `mode`, the
+    watchdog, journal and trace export on; held to assert_slos, journal
+    parity, the Chrome trace's schema, an explained incident set and
+    forensics.explain of a resolved version; dispatch faults by cause,
+    none from the card."""
+    from foundationdb_tpu_torch.core import blackbox
+    from foundationdb_tpu_torch.real import nemesis
+    from foundationdb_tpu_torch.tools import forensics, trace_export
+
+    log = {}
+    make = instrument_chaos_engines(log)
+    trace_path = os.path.join(workdir, f"trace_{mode}.json")
+    bb_dir = os.path.join(workdir, f"bb_{mode}")
+    cfg = nemesis.NemesisConfig(seed=REAL_CAMPAIGN_SEED, engine_mode=mode,
+                                duration_s=REAL_CAMPAIGN_S, trace_export=trace_path,
+                                blackbox_dir=bb_dir, watchdog=True)
+    fc.FIXPOINT.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rep = nemesis.run_campaign(cfg)
+    finally:
+        nemesis.make_chaos_engine = make
+    wall = time.perf_counter() - t0
+    counts = card_counts(fc, log["engines"])
+    label = f"campaign {mode}"
+    check(counts["devices"] and all(d.startswith("cuda") for d in counts["devices"]),
+          f"{label}: engines on {counts['devices']}")
+    check(counts["launches"] > 0 and counts["plain_cuda_calls"] == 0,
+          f"{label}: {counts['launches']} fixpoint launches, {counts['plain_cuda_calls']} plain "
+          "fixpoints on CUDA tensors")
+    try:
+        nemesis.assert_slos(rep, cfg)
+    except AssertionError as e:
+        fail(f"{label}: assert_slos: {e}")
+    check(rep.parity_checked > 0 and rep.parity_mismatches == 0,
+          f"{label}: journal parity {rep.parity_mismatches} of {rep.parity_checked}")
+    incidents = rep.incidents or []
+    check(all(i["explained"] for i in incidents), f"{label}: an unexplained incident")
+    with open(trace_path) as f:
+        n_events = trace_export.validate_chrome_trace(json.load(f))
+    events = blackbox.read_journal(bb_dir)
+    versions = [e.payload.version for e in events if e.kind == "batch"]
+    check(versions, f"{label}: the journal holds no batch")
+    info = forensics.explain(events, versions[len(versions) // 2])
+    lines = forensics.render_explain(info)
+    check(lines and info["verdicts"], f"{label}: forensics.explain narrated nothing")
+    faults = log["faults"]
+    check(faults["injected"] >= 1, f"{label}: the device window injected no fault")
+    check(faults["watchdog"] == 0 and faults["other"] == 0,
+          f"{label}: dispatch faults not injected: {faults} {log.get('other_errors')}")
+    return {"wall_s": wall, "p99_outside_ms": rep.p99_outside_ms,
+            "budget_ms": cfg.resolved_budget_ms(), "n_outside": rep.n_outside,
+            "parity_checked": rep.parity_checked, "committed": rep.counts.get("committed"),
+            "engine_stats": rep.engine_stats, "faults": dict(faults),
+            "incidents": len(incidents), "trace_events": n_events,
+            "journal_batches": len(versions), "explained_version": info.get("version"),
+            "engines": len(counts["devices"]), "captures": counts["captures"],
+            "launches": counts["launches"], "chaos_counts": rep.chaos_counts}
+
+
+def real_crash_campaign(workdir):
+    """run_crash_campaign on a card engine, its recoverable child
+    instrumented (crash_child_main): parity across the crash, complete
+    recovery, and the restarted child served on the card; the blackout
+    against resolver_recovery_budget_ms, reported, not gated."""
+    from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS
+    from foundationdb_tpu_torch.real import nemesis
+
+    root = str(Path(__file__).resolve().parent)
+    report_path = os.path.join(workdir, "crash_child")
+    argv_of = nemesis._crash_child_argv
+
+    def instrumented(port, datadir, engine_mode, seed, disk_prob):
+        argv = ["--serve-recover", str(port), "--datadir", datadir, "--child-engine",
+                engine_mode, "--recovery-seed", str(seed), "--disk-prob", str(disk_prob)]
+        code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
+                "sys.exit(chip_smoke.crash_child_main(%r, %r))" % (root, report_path, argv))
+        return [sys.executable, "-c", code]
+
+    nemesis._crash_child_argv = instrumented
+    cfg = nemesis.crash_config(REAL_CRASH_SEED, engine_mode="torch",
+                               datadir=os.path.join(workdir, "crash"))
+    t0 = time.perf_counter()
+    try:
+        rep = nemesis.run_crash_campaign(cfg)
+    finally:
+        nemesis._crash_child_argv = argv_of
+    wall = time.perf_counter() - t0
+    label = "crash campaign"
+    rec = rep.get("recovery") or {}
+    check(rep.get("child_up") and rep.get("child_restarts", 0) >= 1
+          and rep.get("child_pingable_after"), f"{label}: the child did not come back ({rep})")
+    check(rep.get("parity_checked", 0) > 0 and rep.get("parity_mismatches", 1) == 0,
+          f"{label}: parity {rep.get('parity_mismatches')} of {rep.get('parity_checked')}")
+    check(rec.get("mode") == "complete" and rec.get("coverage_ok")
+          and rec.get("verdict_mismatches", 1) == 0, f"{label}: recovery {rec}")
+    check(rep.get("committed_post_restart", 0) > 0, f"{label}: no commit after the restart")
+    children = [json.loads(p.read_text()) for p in sorted(Path(workdir).glob("crash_child.*"))]
+    check(len(children) >= 2, f"{label}: {len(children)} child reports")
+    for i, c in enumerate(children):
+        check(c["devices"] and all(d.startswith("cuda") for d in c["devices"]),
+              f"{label}: child {i}'s engines on {c['devices']}")
+        check(c["launches"] > 0 and c["plain_cuda_calls"] == 0,
+              f"{label}: child {i}: {c['launches']} fixpoint launches, {c['plain_cuda_calls']} "
+              "plain fixpoints on CUDA tensors")
+        check(c["faults"]["watchdog"] == 0 and c["faults"]["other"] == 0,
+              f"{label}: child {i}'s dispatch faults {c['faults']} {c['other_errors']}")
+    return {"wall_s": wall, "blackout_ms": rec.get("blackout_ms"), "warm_ms": rec.get("warm_ms"),
+            "budget_ms": float(SERVER_KNOBS.resolver_recovery_budget_ms),
+            "campaign_budget_ms": cfg.resolved_budget_ms(),
+            "span_blackouts_ms": rep.get("recovery_span_blackouts_ms"),
+            "replayed_batches": rec.get("replayed_batches"),
+            "snapshot_version": rec.get("snapshot_version"),
+            "restart_serve_s": rep.get("restart_serve_s"),
+            "parity_checked": rep.get("parity_checked"),
+            "committed_post_restart": rep.get("committed_post_restart"),
+            "children": children, "launches": sum(c["launches"] for c in children)}
+
+
+def real_scenarios(fc):
+    """The six recipes of the scenario atlas on the card's step engine at
+    REAL_SCENARIO_S each (run_scenario): every scorecard SLO row passes,
+    journal parity 0, every engine on the card."""
+    from foundationdb_tpu_torch.real import nemesis, scenarios
+
+    rows, launches = {}, 0
+    for i, name in enumerate(scenarios.SCENARIOS):
+        log = {}
+        make = instrument_chaos_engines(log)
+        fc.FIXPOINT.reset_counts()
+        t0 = time.perf_counter()
+        try:
+            rep, row = scenarios.run_scenario(name, seed=REAL_SCENARIO_SEED + i * 10,
+                                              engine_mode="torch", duration_s=REAL_SCENARIO_S)
+        finally:
+            nemesis.make_chaos_engine = make
+        counts = card_counts(fc, log["engines"])
+        label = f"scenario {name}"
+        check(counts["devices"] and all(d.startswith("cuda") for d in counts["devices"]),
+              f"{label}: engines on {counts['devices']}")
+        check(counts["launches"] > 0 and counts["plain_cuda_calls"] == 0,
+              f"{label}: {counts['launches']} fixpoint launches, {counts['plain_cuda_calls']} "
+              "plain fixpoints on CUDA tensors")
+        check(row["slo_pass"] == 1, f"{label}: scorecard {row}")
+        check(rep.parity_checked > 0 and rep.parity_mismatches == 0,
+              f"{label}: journal parity {rep.parity_mismatches} of {rep.parity_checked}")
+        check(log["faults"]["watchdog"] == 0 and log["faults"]["other"] == 0,
+              f"{label}: dispatch faults {log['faults']} {log.get('other_errors')}")
+        launches += counts["launches"]
+        rows[name] = {k: row[k] for k in ("p99_ms", "budget_ms", "abort_frac", "throttle_frac",
+                                          "committed", "parity_checked", "reshards_executed")}
+        rows[name].update(wall_s=time.perf_counter() - t0, engines=len(counts["devices"]),
+                          captures=counts["captures"], launches=counts["launches"])
+    return rows, launches
+
+
+def real_phase(fc, card):
+    """The wall-clock cluster and its campaigns on the card: the real
+    cluster's Cycle run and backup drill (card resolvers in OS-process
+    nodes over TCP), the fault campaigns on both card modes, the crash
+    campaign and the scenario atlas. Returns the phase's report, its
+    fixpoint launches by path in "launches"."""
+    import shutil
+    import tempfile
+
+    out = {"launches": {}}
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_real_")
+    try:
+        for label, argv in (
+                ("real_cluster", ["--procs", str(REAL_PROCS), "--keys", str(REAL_KEYS),
+                                  "--txns", str(REAL_TXNS), "--engine", "torch"]),
+                ("real_backup", ["--procs", str(REAL_PROCS), "--backup", "--engine", "torch"])):
+            reports = os.path.join(workdir, label)
+            os.makedirs(reports)
+            rc, text, wall, nodes = real_launch(argv, reports, REAL_LAUNCH_TIMEOUT_S)
+            marker = ("backup->wipe->restore via blobstore verified" if label == "real_backup"
+                      else "REAL CLUSTER OK")
+            check(rc == 0 and marker in text, f"{label}: the launcher failed:\n{text[-3000:]}")
+            s = check_real_nodes(label, nodes)
+            s["wall_s"] = wall
+            out[label] = s
+            out["launches"][label] = s["launches"]
+            print(f"  {label} [{card}]: {REAL_PROCS} nodes over TCP, {s['card_resolvers']} card "
+                  f"resolvers, {s['batches']} batches equal to the oracle's replay, "
+                  f"{s['launches']} fixpoint launches, {s['captures']} graphs; "
+                  f"wall {wall:.1f} s", flush=True)
+        for mode in REAL_CAMPAIGN_MODES:
+            c = real_campaign(fc, mode, workdir)
+            out[f"campaign_{mode}"] = c
+            out["launches"][f"campaign_{mode}"] = c["launches"]
+            print(f"  campaign {mode} [{card}]: p99 outside windows {c['p99_outside_ms']:.3f} ms "
+                  f"against the {c['budget_ms']:.1f} ms budget (n={c['n_outside']}), parity "
+                  f"{c['parity_checked']} batches, {c['committed']} commits, faults "
+                  f"{c['faults']}, failovers {c['engine_stats'].get('failovers')} swap-backs "
+                  f"{c['engine_stats'].get('swap_backs')}, {c['incidents']} incidents (all "
+                  f"explained), {c['trace_events']} trace events, {c['engines']} engines, "
+                  f"{c['captures']} graphs, {c['launches']} launches; wall {c['wall_s']:.1f} s",
+                  flush=True)
+        cr = real_crash_campaign(workdir)
+        out["crash_campaign"] = cr
+        out["launches"]["crash_campaign"] = cr["launches"]
+        print(f"  crash campaign [{card}]: blackout {cr['blackout_ms']} ms (warm {cr['warm_ms']} "
+              f"ms) against resolver_recovery_budget_ms {cr['budget_ms']:.0f} (reported, not "
+              f"gated), {cr['replayed_batches']} batches replayed, parity "
+              f"{cr['parity_checked']} batches, {cr['committed_post_restart']} commits after the "
+              f"restart, {cr['launches']} launches; wall {cr['wall_s']:.1f} s", flush=True)
+        rows, n = real_scenarios(fc)
+        out["scenarios"] = rows
+        out["launches"]["scenarios"] = n
+        for name, row in rows.items():
+            print(f"  scenario {name} [{card}]: p99 {row['p99_ms']} ms against "
+                  f"{row['budget_ms']} ms, abort {row['abort_frac']}, {row['committed']} "
+                  f"commits, parity {row['parity_checked']} batches, {row['engines']} engines, "
+                  f"{row['launches']} launches; wall {row['wall_s']:.1f} s", flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
 TWIN_WORKERS = 6
 
 
@@ -4587,6 +5018,17 @@ def main(argv=None) -> int:
     print(f"bindings/backup phase card runs [{card}] ({time.perf_counter() - t0:.1f} s)",
           flush=True)
 
+    # the wall-clock cluster and its campaigns: card resolvers in OS-process
+    # nodes over TCP, the fault, crash and scenario campaigns on card engines
+    t0 = time.perf_counter()
+    clean_port_world()
+    real = real_phase(fc, card)
+    clean_port_world()
+    real["wall_s"] = time.perf_counter() - t0
+    results["real_phase"] = real
+    print(f"real phase [{card}]: launches {real['launches']} ({real['wall_s']:.1f} s)",
+          flush=True)
+
     # the three phases' oracle twins, after the last card run, the longest
     # (the backup run's and the recovery run's) first
     twins, twin_s = run_twins({**bb_jobs, **dyn_jobs, **cl_jobs})
@@ -4618,7 +5060,7 @@ def main(argv=None) -> int:
                     + sum(role["launches"].values()) + sum(sup["launches"].values())
                     + sum(crash_launches.values()) + rs["launches"]
                     + sum(cl["launches"].values()) + sum(dyn["launches"].values())
-                    + sum(bb["launches"].values()),
+                    + sum(bb["launches"].values()) + sum(real["launches"].values()),
         "launches_by_path": {"engine_general_router_graph": ep["graph_launches"],
                              "engine_general_router_eager": ep["eager_launches"],
                              "graph_step": gp["launches"], "columnar_engine": colp["launches"],
@@ -4641,7 +5083,7 @@ def main(argv=None) -> int:
                              **{f"supervised_role_{k}": v for k, v in sup["launches"].items()},
                              **{f"crash_child_{k}": v for k, v in crash_launches.items()},
                              "reshard": rs["launches"], **cl["launches"],
-                             **dyn["launches"], **bb["launches"]},
+                             **dyn["launches"], **bb["launches"], **real["launches"]},
         "mismatches": 0,
         "max_abs_err": 0,
         "ms": kp["kernel_ms"],

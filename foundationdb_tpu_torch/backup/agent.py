@@ -24,10 +24,7 @@
     version — atomic ops replay as atomic ops exactly once, so the
     restored state equals the source state at end_version exactly.
 
-Port of ``foundationdb_tpu/backup/agent.py``. The blobstore:// container
-(`_HTTPContainer`) needs the wall-clock runtime and its TLS policy
-(`real/runtime.py`, `real/tls.py`), which the port does not have yet:
-constructing it raises NotImplementedError.
+Port of ``foundationdb_tpu/backup/agent.py``.
 """
 from __future__ import annotations
 
@@ -175,20 +172,23 @@ class _HTTPContainer:
     the RealScheduler, whose run loop lives inside an asyncio event
     loop. Deadlines live INSIDE HTTPBlobClient (per attempt, after its
     connection lock) — a wrapper timeout here would count queue wait
-    behind other transfers against each request's wire-time budget.
-
-    Construction raises NotImplementedError until the port has the
-    wall-clock runtime; `_classify` (the status-to-error mapping) needs
-    neither and is held to the reference's by the tests."""
+    behind other transfers against each request's wire-time budget."""
 
     def __init__(self, address: str):
-        # the reference bridges the asyncio client into the scheduler with
-        # real.runtime.aio_to_sim and takes its TLS context from
-        # real.tls.client_context; neither module is in this package yet
-        raise NotImplementedError(
-            f"blobstore://{address}: the blobstore container needs the "
-            "wall-clock runtime and TLS (real/runtime.py, real/tls.py), which "
-            "are not ported to foundationdb_tpu_torch yet")
+        # construction is the lazy-import point: this class only exists
+        # for blobstore:// targets, so the sim path never pays for (or
+        # needs) the real runtime / HTTP modules
+        from .http_blob import MAX_BODY, HTTPBlobClient, io_timeout
+        from ..real.runtime import aio_to_sim
+        from ..real.tls import client_context
+
+        # the blob path inherits the process TLS policy: mutual auth via
+        # the shared CA (the subject DSL stays on the RPC transport)
+        self.client = HTTPBlobClient(address, ssl_context=client_context())
+        self._tasks: set = set()
+        self._aio_to_sim = aio_to_sim
+        self._io_timeout = io_timeout
+        self._max_body = MAX_BODY
 
     def _aio(self, coro):
         """Bridge into a scheduler Future."""

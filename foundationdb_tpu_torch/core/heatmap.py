@@ -372,6 +372,16 @@ class KeyRangeHeatAggregator:
         scored.sort(key=lambda r: -r["share"])
         return scored[:top_n]
 
+    def concentration_defined(self) -> bool:
+        """Whether concentration() has a value: the load split must span
+        at least two ranges and carry load. Below that the index is
+        undefined and concentration() returns 0, which would read as
+        "perfectly even" (a cold device grid puts all early load in one
+        range)."""
+        if len(self._w) < 2:
+            return False
+        return any(float(w[LANE_WRITES] + w[LANE_CONFLICTS]) > 0 for w in self._w.values())
+
     def concentration(self) -> float:
         """Normalized Herfindahl index of the write+conflict load split
         across ranges: 0 = perfectly even, 1 = all load in one range.

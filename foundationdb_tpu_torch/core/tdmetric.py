@@ -1,7 +1,6 @@
 """TDMetric: time-series metrics with on-cluster persistence.
 
-Port of ``foundationdb_tpu/core/tdmetric.py`` (the MetricLogger that
-drains it into the database is not ported yet).
+Port of ``foundationdb_tpu/core/tdmetric.py``.
 
 Re-design of flow/TDMetric.actor.h (1373 LoC) reduced to its load-bearing
 shape: named metrics record (time, value) CHANGES (not samples — a

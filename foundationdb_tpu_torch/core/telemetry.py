@@ -115,17 +115,12 @@ class TelemetryHub:
         self.chaos_events: deque = deque(maxlen=256)
         #: the cluster watchdog (core/watchdog.py): None (default) = the
         #: disabled path — sync() pays ONE attribute check and allocates
-        #: nothing. The watchdog is not ported yet, so the
-        #: `watchdog_enabled` knob raises here instead of leaving it off;
-        #: attach_watchdog() takes any object with evaluate(hub) and
-        #: snapshot().
-        from .knobs import SERVER_KNOBS
+        #: nothing. The `watchdog_enabled` knob auto-attaches a
+        #: default-ruleset engine at hub construction; campaigns attach
+        #: their own via attach_watchdog().
+        from .watchdog import watchdog_from_knobs
 
-        if SERVER_KNOBS.watchdog_enabled:
-            raise NotImplementedError(
-                "the watchdog_enabled knob is set, but the cluster watchdog "
-                "(core/watchdog.py) is not ported to foundationdb_tpu_torch yet")
-        self._watchdog = None
+        self._watchdog = watchdog_from_knobs()
 
     # -- registration --------------------------------------------------------
     def _label(self, kind: str, name: str) -> str:
@@ -477,8 +472,13 @@ class TelemetryHub:
                 int(b["occupancy_frac"] * 1000))
             td.int64(f"heat.{label}.gc_reclaimed").set(
                 agg.gc_reclaimed_total)
-            td.int64(f"heat.{label}.concentration_x1000").set(
-                int(b["concentration"] * 1000))
+            if agg.concentration_defined():
+                # an undefined index is no sample: the watchdog's anomaly
+                # band must not learn a cold grid's 0 as the level (the
+                # JAX hub exports the 0, and the first real level then
+                # reads as a shift)
+                td.int64(f"heat.{label}.concentration_x1000").set(
+                    int(b["concentration"] * 1000))
             td.int64(f"heat.{label}.top_range_share_x1000").set(
                 int(b["top_share"] * 1000))
         for label, bb in self._live(self._blackboxes):

@@ -3,12 +3,15 @@ interface, loaded with ctypes.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc -gencode
 arch=compute_90a,code=sm_90a``, each ``csrc/<name>.c`` (host code) with the
-toolchain's ``cc -O2 -fPIC -shared``, into ``_build/lib<name>-<hash>.so``,
-at first use. The hash covers the source and the flags, so an edited source
-rebuilds and an unchanged one is reused. Sources build in parallel, one
+toolchain's ``cc -O2 -fPIC -shared``, each ``csrc/<name>.cpp`` (host C++)
+with ``c++ -O2 -std=c++17 -fPIC -shared``, into
+``_build/lib<name>-<hash>.so``, at first use. The hash covers the source
+and the flags, so an edited source rebuilds and an unchanged one is
+reused. Sources build in parallel, one
 compiler process each. Nothing here runs at import time; a machine without
 the compiler a source needs raises (nvcc for the kernels, cc for the host
-packer), and nothing falls back to a Python path.
+packer, c++ for the native conflict engine), and nothing falls back to a
+Python path.
 """
 from __future__ import annotations
 
@@ -27,16 +30,20 @@ BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 CC_FLAGS = ("-O2", "-fPIC", "-shared")
+CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared")
 #: host C compilers tried in order
 C_COMPILERS = ("cc", "gcc", "clang")
+#: host C++ compilers tried in order
+CXX_COMPILERS = ("c++", "g++", "clang++")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
 def sources() -> Dict[str, Path]:
-    """{name: path} of every native source the package ships: CUDA (.cu)
-    and host C (.c)."""
-    return {p.stem: p for p in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.c")])}
+    """{name: path} of every native source the package ships: CUDA (.cu),
+    host C (.c) and host C++ (.cpp)."""
+    return {p.stem: p for p in sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.c"),
+                                       *CSRC_DIR.glob("*.cpp")])}
 
 
 def nvcc() -> str:
@@ -69,12 +76,24 @@ def c_compiler() -> str:
         "and needs one")
 
 
+def cxx_compiler() -> str:
+    """Path of the host C++ compiler: the first of CXX_COMPILERS on PATH."""
+    for cxx in CXX_COMPILERS:
+        found = shutil.which(cxx)
+        if found:
+            return found
+    raise RuntimeError(
+        f"no C++ compiler found (tried {', '.join(CXX_COMPILERS)} on PATH): the native "
+        "conflict engine of foundationdb_tpu_torch (csrc/conflict_engine.cpp) is built at "
+        "first use and needs one")
+
+
 def _flags(src: Path):
-    return NVCC_FLAGS if src.suffix == ".cu" else CC_FLAGS
+    return {".cu": NVCC_FLAGS, ".cpp": CXX_FLAGS}.get(src.suffix, CC_FLAGS)
 
 
 def _command(src: Path, out: Path):
-    compiler = nvcc() if src.suffix == ".cu" else c_compiler()
+    compiler = {".cu": nvcc, ".cpp": cxx_compiler}.get(src.suffix, c_compiler)()
     return [compiler, *_flags(src), "-o", str(out), str(src)]
 
 
@@ -123,7 +142,7 @@ def build_log(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, built first if needed."""
+    """The loaded library of csrc/<name>.{cu,c,cpp}, built first if needed."""
     lib = _LOADED.get(name)
     if lib is None:
         build([name])

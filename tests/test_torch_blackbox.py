@@ -20,6 +20,7 @@ JAX package's.
 Bytes are compared exactly: tolerance 0.
 """
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -167,12 +168,25 @@ def test_coordinated_state_decodes_in_a_fresh_process():
 
 
 def test_the_port_registers_what_the_journal_needs():
+    # both transports registered, whichever tests this process ran before
+    assert PORT.transport.PROTOCOL_VERSION == JAX.transport.PROTOCOL_VERSION
     names = set(PORT.wire._RECORDS)
     assert {"CommitTransaction", "KeyRange", "Mutation", "TraceContext"} <= names
-    # the same registry as JAX's: the resolver's messages cross the
-    # simulated network as objects, never as wire records
     assert names <= set(JAX.wire._RECORDS)
-    assert not names & {"ResolveTransactionBatchRequest", "ResolveTransactionBatchReply"}
+    # the resolver's messages cross the simulated network as objects, never
+    # as wire records: in a process that imports the simulated side alone
+    # (real/transport.py, once imported, registers every role message for
+    # its TCP frames, in both packages)
+    root = Path(__file__).resolve().parent.parent
+    code = ("import json\n"
+            "from foundationdb_tpu_torch.core import blackbox, wire\n"
+            "from foundationdb_tpu_torch.server import resolver, messages\n"
+            "print(json.dumps(sorted(wire._RECORDS)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=120, check=True,
+                         env=dict(os.environ, PYTHONPATH=str(root)))
+    sim_names = set(json.loads(out.stdout.strip().splitlines()[-1]))
+    assert not sim_names & {"ResolveTransactionBatchRequest", "ResolveTransactionBatchReply"}
     assert set(PORT.blackbox.BLACKBOX_EVENT_REGISTRY) == set(JAX.blackbox.BLACKBOX_EVENT_REGISTRY)
     for kind, cls in PORT.blackbox.BLACKBOX_EVENT_REGISTRY.items():
         assert cls.__name__ == JAX.blackbox.BLACKBOX_EVENT_REGISTRY[kind].__name__

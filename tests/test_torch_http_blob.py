@@ -11,10 +11,10 @@ container, and a shut-down client's permanent error. Each server binds
 127.0.0.1 at a port it is given by the system (port 0). Each case returns
 what it read back; the port's must equal the JAX package's.
 
-The port's blobstore container needs the wall-clock runtime and its TLS
-(real/), which the port does not have yet: constructing a BackupAgent on a
-blobstore:// address raises NotImplementedError there, and the twin of
-test_backup_agent_blobstore_container_io waits for real/.
+The blobstore container of each package bridges the client into its own
+wall-clock scheduler (real/runtime.py) with its own TLS policy
+(real/tls.py): test_backup_agent_blobstore_container_io's twin drives a
+BackupAgent's container IO on both.
 
 Every compared value is bytes, a bool, an int or a string: tolerance 0
 (exact equality).
@@ -216,7 +216,44 @@ def test_many_small_objects_one_connection_equal():
 
 
 def test_port_blobstore_container_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="real/runtime.py"):
-        PORT.backup.BackupAgent(None, None, "blobstore://127.0.0.1:1")
-    agent = JAX.backup.BackupAgent(None, None, "blobstore://127.0.0.1:1")
-    agent.close()
+    """The port's blobstore container no longer raises: a BackupAgent on a
+    blobstore:// address builds in both packages, each over its own
+    HTTPBlobClient (the name is kept from when the port raised here)."""
+    for P in BOTH:
+        agent = P.backup.BackupAgent(None, None, "blobstore://127.0.0.1:1")
+        assert isinstance(agent._container, P.backup_agent._HTTPContainer)
+        assert isinstance(agent._container.client, P.http_blob.HTTPBlobClient)
+        agent.close()
+
+
+async def case_container_io(P):
+    """tests/test_http_blob.py::test_backup_agent_blobstore_container_io:
+    a BackupAgent on blobstore://host:port puts, gets and lists through
+    HTTPBlobClient, bridged from the cooperative RealScheduler loop."""
+    root = tempfile.mkdtemp(prefix="blob_")
+    srv = P.http_blob.HTTPBlobServer(root)
+    await srv.start()
+    sched = P.runtime.RealScheduler(seed=0)
+    agent = P.backup.BackupAgent(None, None, f"blobstore://127.0.0.1:{srv.port}")
+
+    async def work():
+        await agent._put("range/0001", b"rows")
+        await agent._put("log/0001", b"muts")
+        return [await agent._get("range/0001"), await agent._get("range/none"),
+                await agent._list("range/"), await agent._list("")]
+
+    run = asyncio.ensure_future(sched.run_async())
+    try:
+        got = await asyncio.wait_for(P.runtime.sim_to_aio(sched.spawn(work())), timeout=30.0)
+    finally:
+        sched.shutdown()
+        await asyncio.wait([run])
+        agent.close()
+        await srv.stop()
+    return got, sorted(os.listdir(root))
+
+
+def test_backup_agent_blobstore_container_io_equal():
+    port, jax_ = each_package(case_container_io)
+    assert port == jax_
+    assert port[0] == [b"rows", None, ["range/0001"], ["log/0001", "range/0001"]]

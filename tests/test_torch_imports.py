@@ -94,6 +94,24 @@ def test_subprocess_import_loads_no_jax():
     "foundationdb_tpu_torch.backup",
     "foundationdb_tpu_torch.backup.http_blob",
     "foundationdb_tpu_torch.layers",
+    "foundationdb_tpu_torch.core.watchdog",
+    "foundationdb_tpu_torch.client.metric_logger",
+    "foundationdb_tpu_torch.tools",
+    "foundationdb_tpu_torch.tools.trace_export",
+    "foundationdb_tpu_torch.tools.forensics",
+    "foundationdb_tpu_torch.ops.native_engine",
+    "foundationdb_tpu_torch.real",
+    "foundationdb_tpu_torch.real.transport",
+    "foundationdb_tpu_torch.real.runtime",
+    "foundationdb_tpu_torch.real.tls",
+    "foundationdb_tpu_torch.real.node",
+    "foundationdb_tpu_torch.real.cluster",
+    "foundationdb_tpu_torch.real.monitor",
+    "foundationdb_tpu_torch.real.demo_server",
+    "foundationdb_tpu_torch.real.chaos",
+    "foundationdb_tpu_torch.real.workload",
+    "foundationdb_tpu_torch.real.nemesis",
+    "foundationdb_tpu_torch.real.scenarios",
 ])
 def test_serving_path_modules_load_no_jax(module):
     """The columnar path's modules, each imported alone in a fresh process
@@ -154,10 +172,16 @@ def test_source_scan_finds_no_jax_import():
                  "bindings/stacktester.py", "layers/__init__.py", "layers/_util.py",
                  "layers/bulkload.py", "layers/containers.py", "layers/pubsub.py",
                  "backup/__init__.py", "backup/container.py", "backup/http_blob.py",
-                 "backup/agent.py", "backup/dr.py"):
+                 "backup/agent.py", "backup/dr.py", "core/watchdog.py",
+                 "client/metric_logger.py", "tools/__init__.py", "tools/trace_export.py",
+                 "tools/forensics.py", "ops/native_engine.py", "real/__init__.py",
+                 "real/transport.py", "real/runtime.py", "real/tls.py", "real/node.py",
+                 "real/cluster.py", "real/monitor.py", "real/demo_server.py",
+                 "real/chaos.py", "real/workload.py", "real/nemesis.py",
+                 "real/scenarios.py"):
         assert PKG / name in files, name
     for path in files:
-        bad = [r for r in imported_roots(path) if r in FORBIDDEN]
+        bad = [r for r in imported_roots(path) if r in FORBIDDEN + ("cryptography",)]
         assert not bad, (path, bad)
 
 
@@ -202,3 +226,44 @@ def test_engine_defaults_to_the_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             DeviceLoopEngine(cfg)
+
+
+def spawned_code(path: Path):
+    """The source of every `python -c` program a file builds: string
+    literals (or their %-format templates) that import a package module,
+    as nemesis builds for its demo server and crash children and
+    chip_smoke.py for its real-cluster nodes."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str):
+            v = node.value
+            if "import" in v and "foundationdb_tpu" in v:
+                yield v
+
+
+def test_spawned_programs_name_only_the_port():
+    import re
+
+    found = {}
+    for path in [PKG / "real" / "nemesis.py", ROOT / "chip_smoke.py"]:
+        found[path.name] = list(spawned_code(path))
+        for code in found[path.name]:
+            assert not re.search(r"\bfoundationdb_tpu\b(?!_torch)", code), (path, code)
+            assert "foundationdb_tpu_torch" in code, (path, code)
+            assert "jax" not in code and "cryptography" not in code, (path, code)
+    assert len(found["nemesis.py"]) >= 2 and found["chip_smoke.py"]
+
+
+def test_no_module_loads_cryptography():
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {port_modules()!r}: importlib.import_module(m)\n"
+        "from foundationdb_tpu_torch.real import tls, cluster, nemesis\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert not [m for m in loaded if m.split(".")[0] == "cryptography"]

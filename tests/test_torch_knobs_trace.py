@@ -11,7 +11,7 @@ the JAX package's.
     the file sink, disabled spans allocating nothing, process names and
     export, enabled spans), run on both modules with equal results;
   * tdmetric: the unit cases of tests/test_tdmetric.py on both modules
-    (its logger cases need the database, which the port has not ported);
+    (its logger cases are tests/test_torch_metric_logger.py's);
   * stats: counters and their trace event on both, and the periodic
     logger's events under each package's simulator;
   * span_now(): the wall clock without a scheduler, each simulator's

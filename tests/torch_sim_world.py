@@ -47,12 +47,33 @@ MODULES = {"buggify": "core.buggify", "error": "core.error", "types": "core.type
            "stacktester": "bindings.stacktester", "layers": "layers",
            "layers_util": "layers._util", "backup": "backup",
            "blob_container": "backup.container", "backup_agent": "backup.agent",
-           "dr": "backup.dr", "http_blob": "backup.http_blob"}
+           "dr": "backup.dr", "http_blob": "backup.http_blob",
+           "watchdog": "core.watchdog", "metric_logger": "client.metric_logger",
+           "trace_export": "tools.trace_export", "forensics": "tools.forensics",
+           "native_engine": "ops.native_engine"}
+#: imported at first use: real/transport.py wire-registers every role
+#: message of its package when it is imported, which must not happen while
+#: tests are collected (tests/test_torch_blackbox.py parametrizes over the
+#: registry)
+LAZY_MODULES = {"transport": "real.transport", "runtime": "real.runtime", "tls": "real.tls",
+                "node": "real.node", "real_cluster": "real.cluster", "monitor": "real.monitor",
+                "demo_server": "real.demo_server", "chaos": "real.chaos",
+                "real_workload": "real.workload", "nemesis": "real.nemesis",
+                "scenarios": "real.scenarios"}
+
+
+class Package(SimpleNamespace):
+    def __getattr__(self, key):
+        if key not in LAZY_MODULES:
+            raise AttributeError(key)
+        mod = importlib.import_module(f"{self.name}.{LAZY_MODULES[key]}")
+        setattr(self, key, mod)
+        return mod
 
 
 def package(root):
-    return SimpleNamespace(name=root, **{k: importlib.import_module(f"{root}.{v}")
-                                         for k, v in MODULES.items()})
+    return Package(name=root, **{k: importlib.import_module(f"{root}.{v}")
+                                 for k, v in MODULES.items()})
 
 
 JAX = package("foundationdb_tpu")
