@@ -222,17 +222,39 @@ toolkit. The script
      blackout against resolver_recovery_budget_ms reported, not gated;
      the six recipes of the scenario atlas on the torch mode at 3.5 s each:
      every scorecard row and journal parity 0.
-  The oracle twins of phases 17-19 run together in 6 worker processes
-  after the last card run (phase 20's), the longest first.
+  21. sharded phase (sharded_phase): the fixpoint kernel's stacked entry
+     (S sub-shards in one launch) against its plain version on the
+     stacked step's own inputs at the bench shape with S in {1, 2, 8} (at
+     S = 1 also against the single-table entry) and at the default
+     KernelConfig with S = 8; SubshardedConflictEngine with 8 sub-shards
+     at the bench's KernelConfig (the pool cut into 8 equal spans at heat
+     64, heat 0 and tiered; adversarial splits at heat 64) on the columnar
+     traffic through serve(): verdicts equal the oracle's and the
+     single-table card engine's, the heat snapshots and history stats of
+     the uniform and tiered engines equal CPU twins'; its one-chunk
+     program's device ms and kernels against a single table's at the same
+     config, and txn/s of both in turns; ShardedConflictEngine and
+     MeshShardedConflictEngine (serial and overlapped) with 1, 2 and 4
+     shards on the card: verdicts equal the oracle's, no blocking sync,
+     mesh_stats; a ResolverPipeline at depth 2 over the 4-shard mesh
+     engine; CycleTestTPU8 and RandomReadWriteTPU8 at seed 1 with 8-shard
+     card resolvers, each equal to its oracle twin and every recorded
+     resolve to a fresh oracle's replay; one mesh campaign (2 shards) at
+     the atlas's 3.5 s.
+  The oracle twins of phases 17-19 and 21, and the CPU twins of 21, run
+  together in 6 worker processes after the last card run (phase 21's),
+  the longest first.
 
 Each path's kernel launches are counted from 0 just before it and read
 just after (a captured graph's fixpoint launches are counted at each
-replay: FIXPOINT.graph_launches, n for a loop replay at fill n); a path
-that launched none fails. The graph-step, columnar and loop phases also
-read a replay's fixpoint kernels from the card's trace (torch.profiler):
-C per C-step graph and n per loop replay at fill n, or they fail.
+replay: FIXPOINT.graph_launches, n for a loop replay at fill n; the
+stacked entry's in FIXPOINT_STACKED); a path that launched none fails.
+The graph-step, columnar and loop phases also read a replay's fixpoint
+kernels from the card's trace (torch.profiler): C per C-step graph and n
+per loop replay at fill n, or they fail.
 
-It prints a `kernels` JSON line, the card line, and last
+It prints a `kernels` JSON line (both fixpoint entries), the card line,
+and last
 {"ok": true, "device": {...}}. Any failed check exits non-zero with no
 result line; so does a machine without CUDA, or a directory holding this
 file without the package.
@@ -550,6 +572,113 @@ def replay_phase(ck, fc, cfg, state, batch, repeats: int = 20):
         **fixpoint_bound(cfg, batch, hist, edges, rounds)}
 
 
+def stacked_bound(cfg, batch, rounds: int):
+    """fixpoint_bound for the stacked entry: every sub-shard's valid rows,
+    history hits and flags, t_ok and the output once."""
+    import numpy as np
+
+    S = batch["t_ok"].shape[0]
+    parts = [fixpoint_bound(cfg, {k: v[s] for k, v in batch.items()}, None, None, rounds)
+             for s in range(S)]
+    T = cfg.max_txns
+    in_bytes = sum(p["input_bytes"] for p in parts) - (S - 1) * (2 * T + 4)  # t_ok, committed
+    ops = sum(p["ops"] for p in parts)
+    bytes_ms = in_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / ALU_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "input_bytes": int(in_bytes), "ops": int(np.int64(ops))}
+
+
+def sharded_kernel_phase(ck, fc, cfg, dev, rng, S: int, n_batches: int):
+    """The fixpoint kernel's stacked entry against its plain version on the
+    stacked step's own inputs: S sub-shard tables on the card, each fed
+    its own packed batch over its own hot pool (the sub-shards share the
+    txn space), the stacked phases 1-2, then both fixpoints on the same
+    inputs, batch by batch on evolving tables; at S = 1 also the
+    single-table entry on the same inputs. Times the stacked entry (device
+    ms behind a spin), its call and the plain version."""
+    import torch
+
+    pools = [key_pool(cfg, rng) for _ in range(S)]
+    packed = [[synth_packed(cfg, rng, pools[s]) for s in range(S)] for _ in range(N_DISTINCT)]
+    for per in packed:              # the sub-shards share t_ok / t_too_old
+        for b in per[1:]:
+            b["t_ok"], b["t_too_old"] = per[0]["t_ok"], per[0]["t_too_old"]
+    batches = [ck._stack([ck.batch_from_numpy(cfg, b, dev) for b in per]) for per in packed]
+    state = ck._stack([ck.initial_state(cfg, device=dev) for _ in range(S)])
+
+    def versioned_stack(batch, now, rng=None):
+        T = cfg.max_txns
+        gc = max(now - GC_LAG_BATCHES * T, 0)
+        out = dict(batch, now=torch.full((S,), now, dtype=torch.int32, device=dev),
+                   gc=torch.full((S,), gc, dtype=torch.int32, device=dev), _gc=gc)
+        if rng is None:
+            out["rp_snap"] = torch.full_like(batch["rp_snap"], max(now - T // 2, 0))
+            out["r_snap"] = torch.full_like(batch["r_snap"], max(now - T // 2, 0))
+        else:
+            snap = torch.from_numpy(now - rng.integers(1, 2 * T, size=T)).to(
+                dev, torch.int32).clamp_(min=0)
+            out["rp_snap"] = snap[batch["rp_txn"].long()]
+            out["r_snap"] = snap[batch["r_txn"].long()]
+        return out, now + T - gc
+
+    def strip(b):
+        return {k: v for k, v in b.items() if k != "_gc"}
+
+    now = 1
+    for i in range(GC_LAG_BATCHES + 2):           # warm the tables first
+        batch, now = versioned_stack(batches[i % N_DISTINCT], now)
+        state, _ = ck.resolve_step_stacked(cfg, state, strip(batch), gc_branch(batch))
+    rounds, mixed, hist_hits, single_equal = [], 0, 0, 0
+    last = None
+    for i in range(n_batches):
+        batch, nxt = versioned_stack(batches[i % N_DISTINCT], now, rng)
+        b = strip(batch)
+        hist, edges, wpos = ck.detect_step_stacked(cfg, state, b)
+        got = fc.commit_fixpoint_stacked_kernel(cfg, b["t_ok"][0], hist, edges, b)
+        want = fc.commit_fixpoint_stacked_plain(cfg, b["t_ok"][0], hist, edges, b)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"stacked kernel and plain fixpoint disagree at S={S} on batch {i} at "
+              f"{int((got != want).sum())} of {cfg.max_txns} txns")
+        rounds.append(int(fc.FIXPOINT_STACKED.last_rounds.item()))
+        if S == 1:
+            one = fc.commit_fixpoint_kernel(cfg, b["t_ok"][0], hist[0],
+                                            {k: v[0] for k, v in edges.items()},
+                                            {k: v[0] for k, v in b.items()})
+            torch.cuda.synchronize()
+            check(torch.equal(got, one), f"the stacked entry at S=1 differs from the single-"
+                  f"table entry on batch {i}")
+            check(int(fc.FIXPOINT.last_rounds.item()) == rounds[-1],
+                  "the stacked entry at S=1 took other rounds than the single-table entry")
+            single_equal += 1
+        c = int(got.sum())
+        mixed += 0 < c < cfg.max_txns
+        hist_hits += int((hist.sum(0) > 0).sum())
+        state, overflow = ck.apply_step_stacked(cfg, state, b, got, wpos, gc_branch(batch))
+        check(not bool(overflow), f"table overflow in the stacked kernel phase, batch {i}")
+        now = nxt
+        last = (b, hist, edges)
+    check(mixed == n_batches, f"only {mixed} of {n_batches} stacked batches had an abort mix")
+    check(hist_hits > 0, "no read hit history in the stacked kernel phase")
+    b, hist, edges = last
+    kernel = lambda: fc.commit_fixpoint_stacked_kernel(cfg, b["t_ok"][0], hist, edges, b)  # noqa: E731
+    kernel_ms = device_ms(kernel, 20)
+    call_ms = cuda_ms(kernel, 20)
+    plain_ms = cuda_ms(lambda: fc.commit_fixpoint_stacked_plain(cfg, b["t_ok"][0], hist, edges,
+                                                                b), 1)
+    plan = fc.launch_plan_stacked(cfg, S)
+    return {"S": S, "batches": n_batches, "mismatches": 0, "single_entry_equal": single_equal,
+            "rounds_median": statistics.median(rounds), "rounds_max": max(rounds),
+            "rounds_timed": rounds[-1], "kernel_ms": kernel_ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "wtx_in_smem": plan["wtx_in_smem"],
+            "smem_bytes": plan["smem_bytes"],
+            "scratch_bytes": plan["entry_scratch_bytes"] + plan["point_scratch_bytes"]
+            + plan["wtx_bytes"] + plan["gid_table_bytes"],
+            **stacked_bound(cfg, b, rounds[-1])}
+
+
 def chain_packed(ck, cfg, n: int):
     """A deep chain of n txns over point rows: txn i reads the key txn i-1
     writes. The fixpoint settles one link per round: n rounds in all."""
@@ -758,7 +887,7 @@ def engine_phase(fc, he, oracle_mod, dev, cfg, traffic, oracle_batches: int,
 FIXPOINT_KERNEL = "commit_fixpoint_kernel"
 
 
-def profile_window(run, units: int):
+def profile_window(run, units: int, kernel: str = FIXPOINT_KERNEL):
     """torch.profiler over `units` calls of run(): wall ms per call, device
     kernel ms per call, the device's busy share of the wall time, kernel
     launches per call (kernels replayed from a CUDA graph included), and of
@@ -779,19 +908,19 @@ def profile_window(run, units: int):
         if e.device_type == DeviceType.CUDA:
             busy_us += e.time_range.elapsed_us()
             launches += 1
-            fixpoints += FIXPOINT_KERNEL in e.name
+            fixpoints += kernel in e.name
     return {"wall_ms": wall_us / units / 1e3, "device_ms": busy_us / units / 1e3,
             "device_busy_share": busy_us / wall_us if busy_us else None,
             "kernels": launches / units, "fixpoint_kernels": fixpoints / units}
 
 
-def traced_replays(run, units: int, fixpoints: int, what: str):
+def traced_replays(run, units: int, fixpoints: int, what: str, kernel: str = FIXPOINT_KERNEL):
     """profile_window over `units` calls of a graph replay that must run
-    `fixpoints` fixpoint kernels on the card each. A trace that shows more
-    fails; one that shows fewer is taken again, up to 3 traces in all,
-    since a trace can lose kernel events (see device_ms)."""
+    `fixpoints` fixpoint kernels (named `kernel`) on the card each. A trace
+    that shows more fails; one that shows fewer is taken again, up to 3
+    traces in all, since a trace can lose kernel events (see device_ms)."""
     for attempt in range(1, 4):
-        pw = profile_window(run, units)
+        pw = profile_window(run, units, kernel)
         check(pw["fixpoint_kernels"] <= fixpoints, f"the card ran {pw['fixpoint_kernels']} "
               f"fixpoint kernels per replay of {what}, expected {fixpoints}")
         if pw["fixpoint_kernels"] == fixpoints:
@@ -976,16 +1105,19 @@ def warmed(eng):
             "while_nodes": graph_if.GRAPH_IF.while_nodes - whiles}
 
 
-def serve(ck, fc, eng, batches, label, references):
+def serve(ck, fc, eng, batches, label, references, counter=None):
     """Every point-only batch through columnar_pack / columnar_dispatch /
     force, the dispatch under sync debug mode "error" (a synchronizing call
     there fails the phase); verdicts against each of `references`, [(name,
     fn(b, txns, now, oldest) -> verdicts)], on every batch. Fails on a
     capture after warmup, a path without kernel launches or with the plain
     fixpoint on CUDA tensors, or a host read of the merge or loop
-    condition. Returns (verdicts per batch, totals)."""
+    condition. `counter`: the fixpoint entry the path launches
+    (fc.FIXPOINT, or fc.FIXPOINT_STACKED for the sharded engines). Returns
+    (verdicts per batch, totals)."""
     import torch
 
+    counter = counter or fc.FIXPOINT
     captures = eng.perf.captures
     host_reads = (ck.MERGE.host_reads, ck.LOOP.host_reads)
     # the host's share of heat: the aggregator's merges (a "c" layout
@@ -1007,7 +1139,7 @@ def serve(ck, fc, eng, batches, label, references):
     launches = plain = 0
     serial, counts = [], [0, 0, 0]
     for b, (txns, now, oldest) in enumerate(batches):
-        fc.FIXPOINT.reset_counts()
+        counter.reset_counts()
         t0 = time.perf_counter()
         plan = eng.columnar_pack(txns, now, oldest)
         t1 = time.perf_counter()
@@ -1022,8 +1154,8 @@ def serve(ck, fc, eng, batches, label, references):
         t2 = time.perf_counter()
         got = [int(v) for v in force()]
         t3 = time.perf_counter()
-        launches += fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
-        plain += fc.FIXPOINT.plain_cuda_calls
+        launches += counter.launches + counter.graph_launches
+        plain += counter.plain_cuda_calls
         pack_s, dispatch_s, force_s = pack_s + t1 - t0, dispatch_s + t2 - t1, force_s + t3 - t2
         for name, ref in references:
             want = ref(b, txns, now, oldest)
@@ -4283,10 +4415,12 @@ REAL_SCENARIO_S = 3.5
 REAL_SCENARIO_SEED = 4026
 
 
-def card_counts(fc, engines):
-    """This process's fixpoint counts and its card engines' facts."""
-    return {"launches": fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches,
-            "plain_cuda_calls": fc.FIXPOINT.plain_cuda_calls,
+def card_counts(fc, engines, counter=None):
+    """This process's fixpoint counts (of `counter`, default the
+    single-table entry) and its card engines' facts."""
+    counter = counter or fc.FIXPOINT
+    return {"launches": counter.launches + counter.graph_launches,
+            "plain_cuda_calls": counter.plain_cuda_calls,
             "devices": [str(getattr(e, "device", "cpu")) for e in engines],
             "captures": sum(getattr(getattr(e, "perf", None), "captures", 0) for e in engines)}
 
@@ -4430,12 +4564,14 @@ def check_real_nodes(label, reports):
     return summary
 
 
-def real_campaign(fc, mode, workdir):
-    """run_campaign at REAL_CAMPAIGN_SEED on card engine mode `mode`, the
-    watchdog, journal and trace export on; held to assert_slos, journal
-    parity, the Chrome trace's schema, an explained incident set and
-    forensics.explain of a resolved version; dispatch faults by cause,
-    none from the card."""
+def real_campaign(fc, mode, workdir, duration_s=REAL_CAMPAIGN_S, counter=None):
+    """run_campaign at REAL_CAMPAIGN_SEED on card engine mode `mode` for
+    `duration_s`, the watchdog, journal and trace export on; held to
+    assert_slos, journal parity, the Chrome trace's schema, an explained
+    incident set and forensics.explain of a resolved version; dispatch
+    faults by cause, none from the card. `counter`: the fixpoint entry the
+    mode launches (default the single-table one)."""
+    counter = counter or fc.FIXPOINT
     from foundationdb_tpu_torch.core import blackbox
     from foundationdb_tpu_torch.real import nemesis
     from foundationdb_tpu_torch.tools import forensics, trace_export
@@ -4445,16 +4581,16 @@ def real_campaign(fc, mode, workdir):
     trace_path = os.path.join(workdir, f"trace_{mode}.json")
     bb_dir = os.path.join(workdir, f"bb_{mode}")
     cfg = nemesis.NemesisConfig(seed=REAL_CAMPAIGN_SEED, engine_mode=mode,
-                                duration_s=REAL_CAMPAIGN_S, trace_export=trace_path,
+                                duration_s=duration_s, trace_export=trace_path,
                                 blackbox_dir=bb_dir, watchdog=True)
-    fc.FIXPOINT.reset_counts()
+    counter.reset_counts()
     t0 = time.perf_counter()
     try:
         rep = nemesis.run_campaign(cfg)
     finally:
         nemesis.make_chaos_engine = make
     wall = time.perf_counter() - t0
-    counts = card_counts(fc, log["engines"])
+    counts = card_counts(fc, log["engines"], counter)
     label = f"campaign {mode}"
     check(counts["devices"] and all(d.startswith("cuda") for d in counts["devices"]),
           f"{label}: engines on {counts['devices']}")
@@ -4648,6 +4784,331 @@ def real_phase(fc, card):
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the sharded phase: the stacked fixpoint entry, the sub-sharded
+# engine, the sharded and mesh engines, the TPU8 specs, a mesh campaign
+# ---------------------------------------------------------------------------
+
+#: sub-shards of the sub-sharded engine; the sharded / mesh widths
+SHARDED_S = 8
+SHARDED_N = (1, 2, 4)
+#: the sub-sharded, sharded and mesh engines' programs: the top bucket,
+#: one chunk and (sub-sharded) a 2-chunk scan; a stacked step loops over
+#: its sub-shards, so each capture holds S times a step's kernels
+SHARDED_SCANS = (2,)
+TPU8_SPECS = ("CycleTestTPU8", "RandomReadWriteTPU8")
+TPU8_SEED = 1
+MESH_CAMPAIGN_SHARDS = 2
+STACKED_KERNEL = "commit_fixpoint_stacked_kernel"
+
+
+def pool_splits(n: int):
+    """Split keys that cut the columnar traffic's hot pool into n equal
+    spans."""
+    return [b"h/%014d" % (POOL_KEYS * i // n) for i in range(1, n)]
+
+
+#: 8 sub-shards, most of the pool in two of them: splits outside the pool,
+#: on pool keys and on prefixes of pool keys (a split key fits the 16-byte
+#: compare window)
+ADVERSARIAL_SPLITS = sorted({b"a", b"h/", b"h/0000000000010", b"h/%014d" % 100,
+                             b"h/0000000000409", b"h/%014d" % 4096, b"i"})
+
+
+def cpu_subsharded_twin(cfg_fields, splits, kw, batches):
+    """A CPU SubshardedConflictEngine's pass over the card engine's
+    batches (run in a worker process): its verdicts, heat snapshot and
+    history stats."""
+    import torch
+
+    from foundationdb_tpu_torch.core.keyshard import KeyShardMap
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    from foundationdb_tpu_torch.ops import host_engine as he
+
+    torch.set_num_threads(1)
+    clean_port_world()
+    eng = he.SubshardedConflictEngine(ck.KernelConfig(**cfg_fields), KeyShardMap(splits),
+                                      device="cpu", ladder=(), scan_sizes=SHARDED_SCANS,
+                                      device_time_sample_rate=0.0, **kw)
+    verdicts = [[int(v) for v in eng.resolve(t, n, o)] for t, n, o in batches]
+    return verdicts, eng.heat_snapshot(), eng.history_stats_snapshot()
+
+
+def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, oracle_ref, rng):
+    """The sharded resolver on the card.
+
+    Kernel: sharded_kernel_phase at the bench shape with S in {1, 2, 8}
+    and at the default KernelConfig with S = 8.
+
+    Sub-sharded: SubshardedConflictEngine(S = 8) at the bench's
+    KernelConfig (top bucket, scans of 2 chunks), with the pool split into
+    8 equal spans ("uniform", heat 64; heat 0; tiered) and with
+    ADVERSARIAL_SPLITS (heat 64), warmed up, on the columnar traffic
+    through serve(): verdicts equal the oracle's and the single-table card
+    engine's on every batch, the stacked entry on the path; the one-chunk
+    program's device ms and kernels against a single-table engine at the
+    same config, and txn/s of both in turns. A CPU twin of the uniform and
+    the tiered engines (jobs for run_twins) holds their heat snapshots and
+    history stats.
+
+    Sharded and mesh: ShardedConflictEngine and MeshShardedConflictEngine
+    (overlap serial and on) with N in SHARDED_N shards, every shard on
+    the card, at the bench config, one-chunk programs: verdicts equal the
+    oracle's, the mesh engines make no blocking sync and report
+    mesh_stats; then a ResolverPipeline at depth 2 over the widest
+    overlapped mesh engine (dispatch mode "mesh").
+
+    Specs: CycleTestTPU8 and RandomReadWriteTPU8 at TPU8_SEED with the
+    8-shard ShardedConflictEngine resolvers on the card; each recorded
+    resolve replays through a fresh oracle; the oracle twins are jobs.
+
+    Chaos: one mesh campaign (MESH_CAMPAIGN_SHARDS shards) for the atlas
+    recipes' REAL_SCENARIO_S.
+
+    Returns (results, twin jobs, finish(twins))."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from foundationdb_tpu_torch.core.keyshard import KeyShardMap
+    from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS
+    from foundationdb_tpu_torch.parallel.mesh_engine import MeshShardedConflictEngine
+    from foundationdb_tpu_torch.parallel.sharding import ShardedConflictEngine
+    from foundationdb_tpu_torch.testing.specs import SPECS, make_engine_factory
+    from foundationdb_tpu_torch.testing.workload import run_spec
+
+    out = {"kernel": {}, "subsharded": {}, "mesh": {}, "launches": {}, "single_launches": {}}
+    stacked = fc.FIXPOINT_STACKED
+
+    # -- the stacked entry against its plain version -------------------------
+    t0 = time.perf_counter()
+    for label, kcfg, sizes in (("bench", cfg, (1, 2, SHARDED_S)), ("engine", engine_cfg, (SHARDED_S,))):
+        for S in sizes:
+            kp = sharded_kernel_phase(ck, fc, kcfg, dev, rng, S, n_batches=4)
+            out["kernel"][f"{label}_S{S}"] = kp
+            print(f"sharded kernel, {label} shape, S={S} [{card}]: {kp['batches']} batches "
+                  f"bit-equal{' (and to the single-table entry)' if S == 1 else ''}, rounds "
+                  f"median {kp['rounds_median']} max {kp['rounds_max']}; kernel_ms="
+                  f"{kp['kernel_ms']:.4f} (call {kp['call_ms']:.4f}) plain_ms={kp['plain_ms']:.4f} "
+                  f"bound_ms={kp['bound_ms']:.6f} ({kp['bound_by']}); txn indices in "
+                  f"{'shared' if kp['wtx_in_smem'] else 'global'} memory, "
+                  f"{kp['scratch_bytes']} scratch bytes", flush=True)
+    out["kernel_s"] = time.perf_counter() - t0
+
+    # -- the sub-sharded engine ----------------------------------------------
+    references = [("the oracle", oracle_ref),
+                  ("the single-table card engine", lambda b, *_: serial[b])]
+    kw = dict(ladder=(), scan_sizes=SHARDED_SCANS, device_time_sample_rate=0.0)
+    runs, snaps = {}, {}
+    for label, splits, extra in (("uniform", pool_splits(SHARDED_S), {}),
+                                 ("adversarial", ADVERSARIAL_SPLITS, {}),
+                                 ("uniform_heat_off", pool_splits(SHARDED_S), {"heat_buckets": 0}),
+                                 ("uniform_tiered", pool_splits(SHARDED_S),
+                                  {"history_structure": "tiered"})):
+        t0 = time.perf_counter()
+        eng = he.SubshardedConflictEngine(cfg, KeyShardMap(splits), **kw, **extra)
+        check(eng.n_shards == SHARDED_S, f"{label}: {eng.n_shards} sub-shards")
+        warm = warmed(eng)
+        check(eng.perf.captures == 2 * (1 + len(SHARDED_SCANS)),
+              f"sub-sharded {label}: warmup captured {eng.perf.captures} graphs")
+        sv, served = serve(ck, fc, eng, batches, f"sub-sharded S={SHARDED_S} {label}", references,
+                           counter=stacked)
+        served.update(warm)
+        served["wall_s"] = time.perf_counter() - t0
+        # what the CPU twins hold, taken before any timing pass re-serves
+        # the traffic
+        snaps[label] = (eng.heat_snapshot(), eng.history_stats_snapshot(), sv)
+        runs[label] = (eng, sv, served)
+        out["launches"][f"subsharded_{label}"] = served["launches"]
+        print(f"sub-sharded S={SHARDED_S} {label} [{card}]: {served['txns']} txns in "
+              f"{served['batches']} batches equal the oracle and the single-table card engine; "
+              f"warmup {warm['warmup_s']:.2f} s; pack {served['pack_ms_per_batch']:.3f} dispatch "
+              f"{served['dispatch_ms_per_batch']:.3f} force {served['force_ms_per_batch']:.3f} "
+              f"ms/batch, {served['txn_per_s']:.0f} txn/s; {served['launches']} stacked launches, "
+              f"{served['merges']} merges ({served['wall_s']:.1f} s)", flush=True)
+    # a single table at the same config, and the one-chunk programs apart
+    t0 = time.perf_counter()
+    single = he.TorchConflictEngine(cfg, **kw)
+    warmed(single)
+    ssv, sserved = serve(ck, fc, single, batches, "single-table bench config", references)
+    out["single_launches"]["sharded_single_table"] = sserved["launches"]
+    sub, sub_sv, _ = runs["uniform"]
+    programs = {}
+    for label, e, kernel, fixpoints in (("single", single, FIXPOINT_KERNEL, 1),
+                                        ("subsharded", sub, STACKED_KERNEL, 1)):
+        prog = e._programs[(cfg.max_txns, 1)]
+        pw = traced_replays(lambda: prog.run(False), 2, fixpoints, f"the {label} one-chunk program",
+                            kernel)
+        programs[label] = {"device_ms": pw["device_ms"], "kernels": pw["kernels"]}
+    turns = {"single": [], "subsharded": []}
+    for label, e, sv in (("single", single, ssv), ("subsharded", sub, sub_sv),
+                         ("subsharded", sub, sub_sv), ("single", single, ssv)):
+        turns[label].append(columnar_timing(e, batches, sv))
+    out["subsharded"] = {k: v[2] for k, v in runs.items()}
+    out["subsharded"]["single_table"] = sserved
+    out["programs"] = programs
+    out["turns"] = turns
+    best = {k: max(r["txn_per_s"] for r in v) for k, v in turns.items()}
+    out["txn_per_s_ratio"] = best["subsharded"] / best["single"]
+    print(f"sub-sharded against one table, bench config [{card}]: one-chunk program "
+          f"{programs['subsharded']['device_ms']:.4f} ms in {programs['subsharded']['kernels']:.0f} "
+          f"kernels against {programs['single']['device_ms']:.4f} ms in "
+          f"{programs['single']['kernels']:.0f}; txn/s in turns single "
+          + " / ".join(f"{r['txn_per_s']:.0f}" for r in turns["single"]) + ", sub-sharded "
+          + " / ".join(f"{r['txn_per_s']:.0f}" for r in turns["subsharded"])
+          + f" ({out['txn_per_s_ratio']:.3f}x); ms/batch pack/dispatch/force single "
+          + " / ".join(f"{turns['single'][0][k]:.3f}" for k in ("pack_ms_per_batch",
+                                                               "dispatch_ms_per_batch",
+                                                               "force_ms_per_batch"))
+          + ", sub-sharded "
+          + " / ".join(f"{turns['subsharded'][0][k]:.3f}" for k in ("pack_ms_per_batch",
+                                                                   "dispatch_ms_per_batch",
+                                                                   "force_ms_per_batch"))
+          + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    del single
+
+    # -- the sharded and mesh engines ----------------------------------------
+    t0 = time.perf_counter()
+    mesh_kw = dict(ladder=(), scan_sizes=(), device_time_sample_rate=0.0)
+    widest = None
+    for n in SHARDED_N:
+        for family, extra in (("sharded", {}), ("mesh_serial", {"overlap": False}),
+                              ("mesh_overlapped", {"overlap": True})):
+            cls = ShardedConflictEngine if family == "sharded" else MeshShardedConflictEngine
+            eng = cls(cfg, KeyShardMap(pool_splits(n)), devices=[dev] * n, **mesh_kw, **extra)
+            warmed(eng)
+            want_graphs = 2 if family == "sharded" else 3
+            check(eng.perf.captures == want_graphs,
+                  f"{family} N={n}: warmup captured {eng.perf.captures} graphs")
+            label = f"{family} N={n}"
+            sv, served = serve(ck, fc, eng, batches, label, [("the oracle", oracle_ref)],
+                               counter=stacked)
+            out["launches"][f"{family}_{n}"] = served["launches"]
+            res = {k: served[k] for k in ("txns", "launches", "txn_per_s", "pack_ms_per_batch",
+                                          "dispatch_ms_per_batch", "force_ms_per_batch")}
+            if family != "sharded":
+                check(eng.loop_stats["blocking_syncs"] == 0, f"{label} made a blocking sync")
+                check(eng.mesh_stats["timed_exchanges"] > 0, f"{label} timed no exchange")
+                res["mesh_stats"] = eng.mesh_stats_snapshot()
+                res["device_view"] = eng.device_view()
+                if n == max(SHARDED_N) and eng.overlap:
+                    widest = (eng, sv)
+            out["mesh"][label] = res
+            print(f"{label} [{card}]: {served['txns']} txns equal the oracle; "
+                  f"{served['txn_per_s']:.0f} txn/s; {served['launches']} stacked launches"
+                  + (f"; mesh_stats {res['mesh_stats']}" if "mesh_stats" in res else ""),
+                  flush=True)
+    eng, sv = widest
+    eng.base = eng.oldest_version = 0
+    eng.clear(0)
+    torch.cuda.synchronize()
+    stacked.reset_counts()
+    drains0 = dict(eng.loop_stats)
+    pipe = pl.ResolverPipeline(eng, depth=2)
+    tp = time.perf_counter()
+    handles = [pipe.submit(txns, now, oldest) for txns, now, oldest in batches]
+    got = [[int(v) for v in h.result()] for h in handles]
+    wall = time.perf_counter() - tp
+    check(got == sv, "the mesh pipeline's verdicts differ from serial resolve()")
+    check(eng.loop_stats["blocking_syncs"] == drains0["blocking_syncs"],
+          "the mesh pipeline made a blocking sync")
+    batcher = getattr(pipe, "batcher", None)
+    check(batcher is None or batcher.dispatch_mode == "mesh",
+          "the mesh pipeline filed its EWMAs elsewhere")
+    n_l = stacked.launches + stacked.graph_launches
+    check(n_l > 0 and stacked.plain_cuda_calls == 0, f"the mesh pipeline made {n_l} launches")
+    out["launches"]["mesh_pipeline"] = n_l
+    out["mesh_pipeline"] = {"depth": 2, "txn_per_s": sum(len(t) for t, _, _ in batches) / wall,
+                            "drains": {k: eng.loop_stats[k] - drains0[k]
+                                       for k in ("units", "drained_nonblocking", "forced_waits",
+                                                 "blocking_syncs")}}
+    print(f"mesh pipeline, depth 2, N={max(SHARDED_N)} overlapped [{card}]: equal to serial "
+          f"resolve(), {out['mesh_pipeline']['txn_per_s']:.0f} txn/s, drains "
+          f"{out['mesh_pipeline']['drains']} ({time.perf_counter() - t0:.1f} s for the sharded "
+          f"and mesh engines)", flush=True)
+    del widest, eng
+
+    # -- the TPU8 specs --------------------------------------------------------
+    spec_runs = {}
+    for name in TPU8_SPECS:
+        clean_port_world()
+        stacked.reset_counts()
+        built = []
+        spec = SPECS[name]()
+        spec.cluster.engine_factory = recording_factory(
+            make_engine_factory(mode="sharded", n_shards=8), built)
+        t0 = time.perf_counter()
+        res = run_spec(spec, TPU8_SEED)
+        wall = time.perf_counter() - t0
+        check(res.ok, f"sharded phase: spec {name} failed on the card: {res.metrics}")
+        check(all(type(r["engine"]).__name__ == "ShardedConflictEngine"
+                  and r["engine"].state["hkeys"].device.type == "cuda" for r in built),
+              f"{name}: resolvers off the card or not sharded")
+        n_l = stacked.launches + stacked.graph_launches
+        check(n_l > 0 and stacked.plain_cuda_calls == 0, f"{name}: {n_l} stacked launches")
+        out["launches"][f"spec_{name}"] = n_l
+        spec_runs[name] = {"result": dataclasses.astuple(res), "wall_s": wall,
+                           "engines": len(built),
+                           "batches": sum(len(r["batches"]) for r in built),
+                           "replay_mismatches": sum(call_mismatches(r["batches"]) for r in built),
+                           "launches": n_l}
+    clean_port_world()
+
+    # -- a mesh chaos campaign -------------------------------------------------
+    with tempfile.TemporaryDirectory() as workdir:
+        SERVER_KNOBS.set_knob("resolver_mesh_devices", str(MESH_CAMPAIGN_SHARDS))
+        try:
+            camp = real_campaign(fc, "mesh", workdir, duration_s=REAL_SCENARIO_S,
+                                 counter=stacked)
+        finally:
+            SERVER_KNOBS.set_knob("resolver_mesh_devices", "0")
+    out["launches"]["campaign_mesh"] = camp["launches"]
+    out["campaign_mesh"] = camp
+    print(f"mesh campaign [{card}]: {MESH_CAMPAIGN_SHARDS} shards, {camp['wall_s']:.1f} s, p99 "
+          f"outside the windows {camp['p99_outside_ms']:.2f} ms against {camp['budget_ms']} ms, "
+          f"journal parity over {camp['parity_checked']} batches, faults {camp['faults']}, "
+          f"{camp['launches']} stacked launches", flush=True)
+    clean_port_world()
+
+    # -- twins -------------------------------------------------------------------
+    cfg_fields = dataclasses.asdict(cfg)
+    jobs = {("subsharded_cpu", label): (cpu_subsharded_twin, cfg_fields, pool_splits(SHARDED_S),
+                                        extra, batches)
+            for label, extra in (("uniform", {}), ("uniform_tiered",
+                                                   {"history_structure": "tiered"}))}
+    jobs.update({("cluster_spec", name, TPU8_SEED): (oracle_spec, name, TPU8_SEED)
+                 for name in TPU8_SPECS})
+    snaps = {label: snaps[label] for label in ("uniform", "uniform_tiered")}
+    del runs
+
+    def finish(twins):
+        for label, (heat, hist, sv) in snaps.items():
+            v, theat, thist = twins[("subsharded_cpu", label)]
+            check(v == sv, f"sub-sharded {label}: the CPU engine's verdicts differ")
+            check(heat == theat, f"sub-sharded {label}: the card's heat snapshot differs from the "
+                  "CPU engine's")
+            check(hist == thist, f"sub-sharded {label}: history stats differ from the CPU engine's")
+        for name, run in spec_runs.items():
+            twin = twins[("cluster_spec", name, TPU8_SEED)]
+            check(run["result"] == twin, f"spec {name} on the card {run['result']} differs from "
+                  f"its oracle twin {twin}")
+            check(run["replay_mismatches"] == 0,
+                  f"spec {name}: {run['replay_mismatches']} recorded batches differ from the "
+                  "oracle replay")
+            ok, metrics, _, vt = run["result"]
+            print(f"spec {name} seed {TPU8_SEED} [{card}]: ok, equal to its oracle twin (virtual "
+                  f"time {vt:.6f} s, {metrics}); {run['engines']} 8-shard card resolvers served "
+                  f"{run['batches']} batches, 0 replay mismatches; {run['launches']} stacked "
+                  f"launches; wall {run['wall_s']:.2f} s", flush=True)
+        print(f"sharded phase [{card}]: the sub-sharded heat snapshots and history stats equal "
+              f"their CPU twins", flush=True)
+        out["specs"] = spec_runs
+        return out
+
+    return jobs, finish
 
 
 TWIN_WORKERS = 6
@@ -5029,9 +5490,16 @@ def main(argv=None) -> int:
     print(f"real phase [{card}]: launches {real['launches']} ({real['wall_s']:.1f} s)",
           flush=True)
 
-    # the three phases' oracle twins, after the last card run, the longest
+    # the sharded resolver: the stacked entry, the sub-sharded, sharded and
+    # mesh engines, the TPU8 specs and a mesh campaign
+    t0 = time.perf_counter()
+    sh_jobs, sh_finish = sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches,
+                                       serial, oracle_ref, rng)
+    print(f"sharded phase card runs [{card}] ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    # the phases' oracle and CPU twins, after the last card run, the longest
     # (the backup run's and the recovery run's) first
-    twins, twin_s = run_twins({**bb_jobs, **dyn_jobs, **cl_jobs})
+    twins, twin_s = run_twins({**bb_jobs, **dyn_jobs, **sh_jobs, **cl_jobs})
     print(f"oracle twins [{card}]: {len(twins)} runs in {TWIN_WORKERS} workers after the last "
           f"card run ({twin_s:.1f} s)", flush=True)
     cl = cl_finish(twins)
@@ -5047,6 +5515,8 @@ def main(argv=None) -> int:
     print(f"bindings/backup phase [{card}]: {len(bb['stacks'])} stack streams, the backup run "
           f"and the DR switchover equal to their oracle twins, launches {bb['launches']}",
           flush=True)
+    sh = sh_finish(twins)
+    results["sharded_phase"] = sh
     results["twin_s"] = twin_s
 
     kernels = {"kernels": [{
@@ -5060,7 +5530,8 @@ def main(argv=None) -> int:
                     + sum(role["launches"].values()) + sum(sup["launches"].values())
                     + sum(crash_launches.values()) + rs["launches"]
                     + sum(cl["launches"].values()) + sum(dyn["launches"].values())
-                    + sum(bb["launches"].values()) + sum(real["launches"].values()),
+                    + sum(bb["launches"].values()) + sum(real["launches"].values())
+                    + sum(sh["single_launches"].values()),
         "launches_by_path": {"engine_general_router_graph": ep["graph_launches"],
                              "engine_general_router_eager": ep["eager_launches"],
                              "graph_step": gp["launches"], "columnar_engine": colp["launches"],
@@ -5083,7 +5554,8 @@ def main(argv=None) -> int:
                              **{f"supervised_role_{k}": v for k, v in sup["launches"].items()},
                              **{f"crash_child_{k}": v for k, v in crash_launches.items()},
                              "reshard": rs["launches"], **cl["launches"],
-                             **dyn["launches"], **bb["launches"], **real["launches"]},
+                             **dyn["launches"], **bb["launches"], **real["launches"],
+                             **sh["single_launches"]},
         "mismatches": 0,
         "max_abs_err": 0,
         "ms": kp["kernel_ms"],
@@ -5098,6 +5570,25 @@ def main(argv=None) -> int:
         "engine_traffic_rounds": tp["rounds"],
         "chain_ms": cp["kernel_ms"],
         "chain_rounds": cp["rounds"],
+    }, {
+        "name": "commit_fixpoint_stacked",
+        "route": "cuda",
+        "source": "foundationdb_tpu_torch/csrc/fixpoint.cu",
+        "replaces": "foundationdb_tpu/ops/fixpoint_pallas.py:336",
+        "launches": sum(sh["launches"].values()),
+        "launches_by_path": sh["launches"],
+        "mismatches": 0,
+        "max_abs_err": 0,
+        "ms": sh["kernel"][f"engine_S{SHARDED_S}"]["kernel_ms"],
+        "plain_ms": sh["kernel"][f"engine_S{SHARDED_S}"]["plain_ms"],
+        "bound_ms": sh["kernel"][f"engine_S{SHARDED_S}"]["bound_ms"],
+        "bound_by": sh["kernel"][f"engine_S{SHARDED_S}"]["bound_by"],
+        "library_ms": None,
+        "S": SHARDED_S,
+        "rounds": sh["kernel"][f"engine_S{SHARDED_S}"]["rounds_timed"],
+        "bench_shape": {f"S{S}": {k: sh["kernel"][f"bench_S{S}"][k]
+                                  for k in ("kernel_ms", "plain_ms", "bound_ms", "rounds_timed")}
+                        for S in (1, 2, SHARDED_S)},
     }]}
     results.update(kernels)
     if args.out:

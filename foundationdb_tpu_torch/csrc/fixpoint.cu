@@ -62,6 +62,23 @@
 //       the same c' from the same words, so every CTA takes the same
 //       convergence decision without a further barrier.
 //
+// The stacked entry (commit_fixpoint_stacked_kernel, below) runs the same
+// convergence for S key-range sub-shards of one batch in one launch: the
+// function of conflict_kernel.commit_fixpoint_stacked, which replaces the
+// mesh engine's psum of each round's blocked counts by a sum over the
+// sub-shards. What makes one cluster enough: the blocked bitmap lies in the
+// txn space, which every sub-shard shares, and blocked counts add up across
+// sub-shards, so "blocked in any sub-shard" is one OR into the same local
+// bitmap. The read rows of all S sub-shards form one row space of
+// S * (Rp + Rr) rows cut into the CTAs' slices; a compacted entry names its
+// sub-shard's writer-mask word (masks hold S * (WRW + WPW) words), and a
+// point row or point writer its sub-shard's segment of an S * (G + 2) gid
+// table. base folds every sub-shard's history hits (a sum over S). Each
+// writer's txn index stays in shared memory where it fits, else in global
+// scratch, filled once per launch and read through L2 each round. The round
+// structure, the merge into the leader's bitmap and the convergence test
+// are the single-table kernel's.
+//
 // Layout the caller guarantees (conflict_kernel.build_batch_arrays): valid
 // read rows grouped by ascending txn, so "OR over rows naming txn t" is the
 // plain version's "OR over t's row window". T % 32 == 0 (warp ballots pack
@@ -386,6 +403,220 @@ __global__ void __launch_bounds__(kThreads, 1) commit_fixpoint_kernel(
   cluster.sync();
 }
 
+// The stacked entry: S sub-shards, one launch (see the note at the top).
+// Inputs carry the sub-shard axis first: hist [S, T], rp_* / gid_rp
+// [S, Rp], r_* [S, Rr], wp_* / gid_wp [S, Wp], w_* [S, Wr], ovw [S, Rp + Rr,
+// WRW], ovrp [S, Rr, WPW]. mn is [S * (G + 2)]; wtx_g is [S * 32 * MW]
+// global scratch used when wtx_in_smem is 0.
+__global__ void __launch_bounds__(kThreads, 1) commit_fixpoint_stacked_kernel(
+    const bool* __restrict__ t_ok, const int32_t* __restrict__ hist,
+    const int32_t* __restrict__ rp_txn, const bool* __restrict__ rp_valid,
+    const int32_t* __restrict__ gid_rp,
+    const int32_t* __restrict__ r_txn, const bool* __restrict__ r_valid,
+    const int32_t* __restrict__ wp_txn, const bool* __restrict__ wp_valid,
+    const int32_t* __restrict__ gid_wp,
+    const int32_t* __restrict__ w_txn, const bool* __restrict__ w_valid,
+    const uint32_t* __restrict__ ovw, const uint32_t* __restrict__ ovrp,
+    unsigned long long* __restrict__ mn, int* __restrict__ wtx_g,
+    Entry* __restrict__ entry_spill, PointRow* __restrict__ point_spill,
+    bool* __restrict__ committed, int32_t* __restrict__ rounds_out,
+    int S, int T, int Rp, int Rr, int Wp, int Wr, int WRW, int WPW, int G,
+    int rows_per_cta, int point_cap, int entry_cap, int point_spill_cap, int entry_spill_cap,
+    int wtx_in_smem) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int nc = static_cast<int>(gridDim.x);  // the grid is one cluster
+
+  extern __shared__ uint32_t smem[];
+  const int TW = T >> 5;
+  const int MW = WRW + WPW;           // one sub-shard's writer-mask words
+  const int SMW = S * MW;             // all sub-shards' writer-mask words
+  const int RA = Rp + Rr;             // one sub-shard's read rows
+  const int G2 = G + 2;               // one sub-shard's gid-table slots
+  const int wper = (S * Wp + nc - 1) / nc;
+  int* counts = reinterpret_cast<int*>(smem);    // [0] entries, [1] point rows
+  uint32_t* c = smem + 4;             // [TW] committed bitmap
+  uint32_t* base = c + TW;            // [TW] t_ok & ~history hit in any sub-shard
+  uint32_t* blocked = base + TW;      // [TW] this CTA's blocked txns
+  uint32_t* lead = blocked + TW;      // [2][TW] the cluster's, by round parity
+  uint32_t* masks = lead + 2 * TW;    // [S][WRW range ++ WPW point] committed-writer words
+  int* wtx_s = reinterpret_cast<int*>(masks + SMW);  // [32 * SMW] when in shared memory
+  int* wtx = wtx_in_smem ? wtx_s : wtx_g;
+  int* wgid = wtx_s + (wtx_in_smem ? 32 * SMW : 0);  // [wper] point writers: gid slot, or -1
+  int* wraw = wgid + wper;            // [wper] ... and txn as given
+  int* rtx = wraw + wper;             // [rows_per_cta] txn of each read row of the slice, or -1
+  const SplitList<PointRow> points{reinterpret_cast<PointRow*>(rtx + rows_per_cta),
+                                   point_spill + static_cast<size_t>(rank) * point_spill_cap,
+                                   point_cap};
+  const SplitList<Entry> entries{reinterpret_cast<Entry*>(points.smem + point_cap),
+                                 entry_spill + static_cast<size_t>(rank) * entry_spill_cap,
+                                 entry_cap};
+  uint32_t* lead0 = cluster.map_shared_rank(lead, 0);
+
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = nthr >> 5;
+  const int gmax = G + 1;
+
+  // This CTA's rows [g0, g1) of the S * RA row space, and point writers
+  // [w0, w1) of the S * Wp writer space.
+  const int r_all = S * RA;
+  const int g0 = min(rank * rows_per_cta, r_all), g1 = min(g0 + rows_per_cta, r_all);
+  const int w0 = min(rank * wper, S * Wp), w1 = min(w0 + wper, S * Wp);
+
+  if (tid < 2) counts[tid] = 0;
+  for (int t = tid; t < T; t += nthr) {
+    uint32_t h = 0u;                  // the sum over sub-shards, int32 wrap as JAX's
+    for (int s = 0; s < S; ++s) h += static_cast<uint32_t>(hist[static_cast<size_t>(s) * T + t]);
+    const uint32_t word = __ballot_sync(0xffffffffu, t_ok[t] && static_cast<int>(h) <= 0);
+    if (lane == 0) {
+      base[t >> 5] = word;
+      c[t >> 5] = word;
+    }
+  }
+  for (int i = tid; i < 2 * TW; i += nthr) lead[i] = 0u;
+  {
+    // writer w of sub-shard s: range writers in words [s*MW, s*MW+WRW),
+    // point writers in [s*MW+WRW, (s+1)*MW); in global scratch the CTAs
+    // fill disjoint indices, ordered before any read by the cluster barrier
+    const int n = 32 * SMW;
+    const int start = wtx_in_smem ? tid : rank * nthr + tid;
+    const int step = wtx_in_smem ? nthr : nc * nthr;
+    for (int w = start; w < n; w += step) {
+      const int s = w / (32 * MW), r = w - s * 32 * MW;
+      int t = -1;
+      if (r < 32 * WRW) {
+        if (r < Wr && w_valid[s * Wr + r]) t = txn_index(w_txn[s * Wr + r], T);
+      } else {
+        const int q = r - 32 * WRW;
+        if (q < Wp && wp_valid[s * Wp + q]) t = txn_index(wp_txn[s * Wp + q], T);
+      }
+      wtx[w] = t;
+    }
+  }
+  for (int j = tid; j < wper; j += nthr) {
+    const int w = w0 + j;
+    int g = -1, t = 0;
+    if (w < w1 && wp_valid[w]) {
+      const int s = w / Wp;
+      g = gid_wp[w];
+      t = wp_txn[w];
+      g = (g < 0 || g > gmax) ? -1 : s * G2 + g;
+    }
+    wgid[j] = g;
+    wraw[j] = t;
+  }
+  for (int i = tid; i < rows_per_cta; i += nthr) {
+    int tx = -1;
+    if (g0 + i < g1) {
+      const int g = g0 + i, s = g / RA, l = g - s * RA;
+      tx = read_row_txn(l, Rp, T, rp_txn + static_cast<size_t>(s) * Rp,
+                        rp_valid + static_cast<size_t>(s) * Rp,
+                        r_txn + static_cast<size_t>(s) * Rr, r_valid + static_cast<size_t>(s) * Rr);
+    }
+    rtx[i] = tx;
+  }
+  __syncthreads();
+
+  // Compaction: the valid point rows of the slice, their gid slots reset
+  // to round 0 (= +inf); the loop is warp-uniform over 32-row steps.
+  {
+    const int nr = g1 - g0;
+    for (int i0 = warp * 32; i0 < nr; i0 += nwarps * 32) {  // warp-uniform
+      const int i = i0 + lane;
+      int tx = -1, slot = 0;
+      if (i < nr) {
+        const int g = g0 + i, s = g / RA, l = g - s * RA;
+        if (l < Rp && rtx[i] >= 0) {
+          tx = rtx[i];
+          slot = s * G2 + min(max(gid_rp[static_cast<size_t>(s) * Rp + l], 0), gmax);
+          mn[slot] = ~0ull;
+        }
+      }
+      const uint32_t keep = __ballot_sync(0xffffffffu, tx >= 0);
+      const int pos = warp_reserve(&counts[1], __popc(keep), lane);
+      if (tx >= 0) points[pos + __popc(keep & ((1u << lane) - 1u))] = PointRow{slot, tx};
+    }
+  }
+  // Edge words, sub-shard by sub-shard of the slice: ovw of every row,
+  // then ovrp of the range rows, each word naming its sub-shard's mask.
+  if (g0 < g1) {
+    for (int s = g0 / RA; s <= (g1 - 1) / RA; ++s) {
+      const int a = max(g0, s * RA), b = min(g1, (s + 1) * RA);
+      compact_words(ovw + (static_cast<size_t>(s) * RA + (a - s * RA)) * WRW, b - a, WRW,
+                    rtx + (a - g0), s * MW, entries, &counts[0], warp, nwarps, lane);
+      const int q = max(a, s * RA + Rp);
+      if (q < b)
+        compact_words(ovrp + (static_cast<size_t>(s) * Rr + (q - s * RA - Rp)) * WPW, b - q,
+                      WPW, rtx + (q - g0), s * MW + WRW, entries, &counts[0], warp, nwarps,
+                      lane);
+    }
+  }
+  cluster.sync();
+  const int n_entries = counts[0];
+  const int n_points = counts[1];
+
+  int rounds = 0;
+  for (;;) {
+    ++rounds;
+    // (a) writer masks from c; zero the local bitmap
+    for (int w = tid; w < 32 * SMW; w += nthr) {
+      const int t = wtx_in_smem ? wtx[w] : __ldcg(&wtx[w]);
+      const uint32_t word = __ballot_sync(0xffffffffu, t >= 0 && ((c[t >> 5] >> (t & 31)) & 1u));
+      if (lane == 0) masks[w >> 5] = word;
+    }
+    for (int i = tid; i < TW; i += nthr) blocked[i] = 0u;
+    __syncthreads();
+
+    // (b) per-gid minimum txn of the committed point writers
+    for (int j = tid; j < w1 - w0; j += nthr) {
+      if (wgid[j] < 0) continue;
+      const int w = w0 + j, s = w / Wp, q = w - s * Wp;
+      if ((masks[s * MW + WRW + (q >> 5)] >> (q & 31)) & 1u)
+        atomicMin(&mn[wgid[j]], gid_key(rounds, wraw[j]));
+    }
+    cluster.sync();
+    if (rank == 0)
+      for (int i = tid; i < TW; i += nthr) lead[((rounds + 1) & 1) * TW + i] = 0u;
+
+    // (c) the compacted edge words and the valid point rows
+    for (int e = tid; e < n_entries; e += nthr) {
+      const Entry en = entries[e];
+      if (en.bits & masks[en.word]) atomicOr(&blocked[en.txn >> 5], 1u << (en.txn & 31));
+    }
+    const uint32_t tag = 0xffffffffu - static_cast<uint32_t>(rounds);
+    for (int i = tid; i < n_points; i += nthr) {
+      const PointRow p = points[i];
+      const unsigned long long v = __ldcg(&mn[p.slot]);
+      if (static_cast<uint32_t>(v >> 32) == tag &&
+          static_cast<int>(static_cast<uint32_t>(v) ^ 0x80000000u) < p.txn)
+        atomicOr(&blocked[p.txn >> 5], 1u << (p.txn & 31));
+    }
+    __syncthreads();
+    uint32_t* lead_now = lead0 + (rounds & 1) * TW;
+    for (int i = tid; i < TW; i += nthr)
+      if (blocked[i]) atomicOr(&lead_now[i], blocked[i]);
+    cluster.sync();
+
+    // (d) c' = base & ~blocked; stop at the fixpoint or after T+1 rounds
+    int changed = 0;
+    for (int i = tid; i < TW; i += nthr) {
+      const uint32_t nw = base[i] & ~lead_now[i];
+      changed |= (nw != c[i]);
+      c[i] = nw;
+    }
+    if (!__syncthreads_or(changed) || rounds > T) break;
+  }
+
+  if (rank == 0) {
+    for (int t = tid; t < T; t += nthr) committed[t] = (c[t >> 5] >> (t & 31)) & 1u;
+    if (tid == 0) rounds_out[0] = rounds;
+  }
+  cluster.sync();
+}
+
 }  // namespace
 
 namespace {
@@ -393,15 +624,15 @@ namespace {
 // The launch of one cluster of `nc` CTAs with `smem_bytes` of dynamic shared
 // memory each: sets the kernel's attributes (a cluster above the portable 8
 // CTAs must be allowed first, or the launch is refused) and fills `config`.
-cudaError_t cluster_config(int nc, int smem_bytes, void* stream, cudaLaunchConfig_t* config,
-                           cudaLaunchAttribute* attr) {
+template <class Kernel>
+cudaError_t cluster_config(Kernel kernel, int nc, int smem_bytes, void* stream,
+                           cudaLaunchConfig_t* config, cudaLaunchAttribute* attr) {
   if (smem_bytes > kMaxSmem || nc < 1 || nc > 16) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(commit_fixpoint_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       smem_bytes);
   if (e != cudaSuccess) return e;
   if (nc > kPortableCluster) {
-    e = cudaFuncSetAttribute(commit_fixpoint_kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return e;
   }
   *config = {};
@@ -428,9 +659,20 @@ cudaError_t cluster_config(int nc, int smem_bytes, void* stream, cudaLaunchConfi
 extern "C" int fdb_fixpoint_active_clusters(int nc, int smem_bytes, int* out) {
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr[1];
-  cudaError_t e = cluster_config(nc, smem_bytes, nullptr, &config, attr);
+  cudaError_t e = cluster_config(commit_fixpoint_kernel, nc, smem_bytes, nullptr, &config, attr);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaOccupancyMaxActiveClusters(out, commit_fixpoint_kernel, &config));
+}
+
+// The same question for the stacked entry.
+extern "C" int fdb_fixpoint_stacked_active_clusters(int nc, int smem_bytes, int* out) {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e =
+      cluster_config(commit_fixpoint_stacked_kernel, nc, smem_bytes, nullptr, &config, attr);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(out, commit_fixpoint_stacked_kernel, &config));
 }
 
 // Plain C entry point (loaded with ctypes). Pointers are device pointers of
@@ -453,7 +695,7 @@ extern "C" int fdb_commit_fixpoint(
     int entry_spill_cap, int smem_bytes, void* stream) {
   cudaLaunchConfig_t config;
   cudaLaunchAttribute attr[1];
-  cudaError_t e = cluster_config(nc, smem_bytes, stream, &config, attr);
+  cudaError_t e = cluster_config(commit_fixpoint_kernel, nc, smem_bytes, stream, &config, attr);
   if (e != cudaSuccess) return static_cast<int>(e);
   e = cudaLaunchKernelEx(
       &config, commit_fixpoint_kernel,
@@ -470,6 +712,44 @@ extern "C" int fdb_commit_fixpoint(
       static_cast<int32_t*>(rounds),
       T, Rp, Rr, Wp, Wr, WRW, WPW, G,
       rows_per_cta, point_cap, entry_cap, point_spill_cap, entry_spill_cap);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The stacked entry's plain C entry point: as fdb_commit_fixpoint, with the
+// sub-shard count S, the global wtx scratch and whether wtx lives in shared
+// memory (the launch plan's choice, fixpoint_cuda.launch_plan_stacked).
+extern "C" int fdb_commit_fixpoint_stacked(
+    const void* t_ok, const void* hist,
+    const void* rp_txn, const void* rp_valid, const void* gid_rp,
+    const void* r_txn, const void* r_valid,
+    const void* wp_txn, const void* wp_valid, const void* gid_wp,
+    const void* w_txn, const void* w_valid,
+    const void* ovw, const void* ovrp,
+    void* mn, void* wtx, void* entry_spill, void* point_spill, void* committed, void* rounds,
+    int S, int T, int Rp, int Rr, int Wp, int Wr, int WRW, int WPW, int G,
+    int nc, int rows_per_cta, int point_cap, int entry_cap, int point_spill_cap,
+    int entry_spill_cap, int wtx_in_smem, int smem_bytes, void* stream) {
+  cudaLaunchConfig_t config;
+  cudaLaunchAttribute attr[1];
+  cudaError_t e =
+      cluster_config(commit_fixpoint_stacked_kernel, nc, smem_bytes, stream, &config, attr);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaLaunchKernelEx(
+      &config, commit_fixpoint_stacked_kernel,
+      static_cast<const bool*>(t_ok), static_cast<const int32_t*>(hist),
+      static_cast<const int32_t*>(rp_txn), static_cast<const bool*>(rp_valid),
+      static_cast<const int32_t*>(gid_rp),
+      static_cast<const int32_t*>(r_txn), static_cast<const bool*>(r_valid),
+      static_cast<const int32_t*>(wp_txn), static_cast<const bool*>(wp_valid),
+      static_cast<const int32_t*>(gid_wp),
+      static_cast<const int32_t*>(w_txn), static_cast<const bool*>(w_valid),
+      static_cast<const uint32_t*>(ovw), static_cast<const uint32_t*>(ovrp),
+      static_cast<unsigned long long*>(mn), static_cast<int*>(wtx),
+      static_cast<Entry*>(entry_spill), static_cast<PointRow*>(point_spill),
+      static_cast<bool*>(committed), static_cast<int32_t*>(rounds),
+      S, T, Rp, Rr, Wp, Wr, WRW, WPW, G,
+      rows_per_cta, point_cap, entry_cap, point_spill_cap, entry_spill_cap, wtx_in_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -33,5 +33,14 @@ def lib() -> ctypes.CDLL:
             so.build_point_rows.argtypes = [
                 ctypes.c_char_p, i64p, ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_char_p, ctypes.c_int64, u32p, i32p, u32p, i32p, i64p]
+            so.conflict_counts_sharded.restype = ctypes.c_int
+            so.conflict_counts_sharded.argtypes = [
+                ctypes.c_char_p, i64p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_char_p, i64p, ctypes.c_int64, i32p, i32p]
+            so.build_point_rows_sharded.restype = None
+            so.build_point_rows_sharded.argtypes = [
+                ctypes.c_char_p, i64p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_char_p, ctypes.c_int64, ctypes.c_char_p, i64p, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_int64, u32p, i32p, u32p, i32p, i64p]
             _LIB = so
         return _LIB

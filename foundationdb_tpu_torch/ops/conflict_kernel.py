@@ -22,6 +22,12 @@ history, keyspace heat). The step is the same fixed-shape program:
   resolve_server_loop the filled prefix of a Q-chunk queue slot as one
                       program whose chunk count is a device scalar (the
                       loop engine captures it with a CUDA graph WHILE node)
+  *_stacked           the step over S key-range sub-shards of one batch on
+                      one device (state and batch leaves [S, ...]): phases
+                      1-2, the apply and heat per sub-shard, and one
+                      stacked fixpoint that sums the sub-shards' blocked
+                      counts each round (one launch of the CUDA kernel's
+                      stacked entry on the card)
 
 Every output equals the JAX function's element for element, padding rows
 included (tests/test_torch_conflict_kernel.py).
@@ -733,24 +739,107 @@ def _blocked_txns(cfg: KernelConfig, edges: Dict[str, Tensor], batch: Dict,
 
 
 def commit_fixpoint(cfg: KernelConfig, t_ok: Tensor, hist_hits: Tensor,
-                    edges: Dict[str, Tensor], batch: Dict) -> Tensor:
+                    edges: Dict[str, Tensor], batch: Dict,
+                    allreduce=lambda x: x) -> Tensor:
     """Earlier-in-batch-wins verdicts, the plain torch form of the JAX
     while_loop: start from base = t_ok & ~hist_hit and iterate
     c <- base & ~blocked(c) to its fixpoint, at most T rounds after the
-    first. The loop test reads a device value, so on the card every round
-    syncs with the host; the engine's path uses the CUDA kernel there
-    (fixpoint_cuda.py) and this form runs on the card only to check it."""
+    first. `allreduce` combines one shard's per-txn blocked counts [T]
+    with the other shards' (counts add across disjoint key shards; the
+    identity for one shard), as JAX's psum hook does. The loop test reads
+    a device value, so on the card every round syncs with the host; the
+    engine's path uses the CUDA kernel there (fixpoint_cuda.py) and this
+    form runs on the card only to check it."""
     T = cfg.max_txns
     base = t_ok & ~(hist_hits > 0)
     bounds = _read_group_bounds(cfg, batch)
 
     def step(c):
-        return base & ~(_blocked_txns(cfg, edges, batch, c, bounds) > 0)
+        return base & ~(allreduce(_blocked_txns(cfg, edges, batch, c, bounds)) > 0)
 
+    return _iterate(step, base, T)
+
+
+def _iterate(step, base: Tensor, T: int) -> Tensor:
+    """c <- step(c) from base until c stops changing, at most T rounds
+    after the first (the JAX while_loop's bound)."""
     prev, c, it = base, step(base), 0
     while it < T and bool(torch.any(c != prev)):
         prev, c, it = c, step(c), it + 1
     return c
+
+
+# ---------------------------------------------------------------------------
+# the stacked commit fixpoint: S sub-shards of one batch
+# ---------------------------------------------------------------------------
+
+def _take_last(x: Tensor, idx: Tensor) -> Tensor:
+    """Per-row _take along the last axis: x [S, N], idx [S, Q] ->
+    x[s, idx[s, q]] with JAX's wrap-once-then-clamp rule."""
+    n = x.shape[-1]
+    idx = torch.where(idx < 0, idx + n, idx).clamp_(0, n - 1)
+    return x.gather(-1, idx)
+
+
+def _group_bounds_stacked(txn: Tensor, valid: Tensor, T: int) -> Tuple[Tensor, Tensor]:
+    """_group_bounds of every sub-shard at once: [S, R] rows -> [S, T]."""
+    idx = _drop(torch.where(valid, txn.long(), T), T)
+    cnt = torch.zeros((txn.shape[0], T + 1), dtype=torch.int64, device=txn.device)
+    cnt.scatter_add_(1, idx, torch.ones_like(idx))
+    cnt = cnt[:, :T]
+    ends = torch.cumsum(cnt, 1)
+    return ends - cnt, ends
+
+
+def _blocked_txns_stacked(cfg: KernelConfig, edges: Dict[str, Tensor], batch: Dict,
+                          c: Tensor, bounds) -> Tensor:
+    """_blocked_txns of every sub-shard under one committed mask c [T]:
+    the [S, T] blocked counts, as JAX's vmap of it gives them. Each
+    sub-shard has its own writer masks, gid table and row windows; only
+    the txn space is shared."""
+    S = batch["wp_txn"].shape[0]
+    T, Rp, G = cfg.max_txns, cfg.rp, cfg.gid_space
+    wp_txn = batch["wp_txn"].long()
+    cwp = _take(c, wp_txn) & batch["wp_valid"]
+    cwr = _take(c, batch["w_txn"].long()) & batch["w_valid"]
+    maskw = _pack_bits(cwr, cfg.wr_words)                        # [S, WRW]
+    hit_w = torch.any((edges["ovw"] & maskw[:, None, :]) != 0, dim=-1)
+    maskp = _pack_bits(cwp, cfg.wp_words)
+    hit_rp = torch.any((edges["ovrp"] & maskp[:, None, :]) != 0, dim=-1)
+    mn = torch.full((S, G + 3), T, dtype=torch.int64, device=c.device)
+    gsl = _drop(torch.where(cwp, edges["gid_wp"].long(), G + 1), G + 2)
+    mn.scatter_reduce_(1, gsl, wp_txn, "amin", include_self=True)
+    hit_pp = _take_last(mn[:, :G + 2], edges["gid_rp"].long()) < batch["rp_txn"]
+    hit_point, hit_range = hit_w[:, :Rp] | hit_pp, hit_w[:, Rp:] | hit_rp
+    ps, pe, rs, re_ = bounds
+
+    def seg_count(hit, starts, ends):
+        csum = torch.cat([torch.zeros((S, 1), dtype=torch.int64, device=hit.device),
+                          torch.cumsum(hit, 1)], dim=1)
+        return csum.gather(1, ends) - csum.gather(1, starts)
+
+    return seg_count(hit_point, ps, pe) + seg_count(hit_range, rs, re_)
+
+
+def commit_fixpoint_stacked(cfg: KernelConfig, t_ok: Tensor, hist_stacked: Tensor,
+                            edges: Dict[str, Tensor], batch: Dict) -> Tensor:
+    """Earlier-in-batch-wins verdicts across S sub-shards of one batch on
+    one device, the plain form of JAX's commit_fixpoint_stacked: the mesh
+    engine's psum becomes a sum over the leading axis. t_ok [T] is
+    global; hist_stacked [S, T], and every leaf of edges and batch, carry
+    the sub-shard axis first. base = t_ok & ~(sum_s hist > 0), then
+    c <- base & ~(sum_s blocked_s(c) > 0) as commit_fixpoint iterates.
+    The engines' path on the card is the CUDA kernel's stacked entry
+    (fixpoint_cuda.commit_fixpoint_stacked_kernel)."""
+    T = cfg.max_txns
+    base = t_ok & ~(hist_stacked.sum(0) > 0)
+    bounds = (_group_bounds_stacked(batch["rp_txn"], batch["rp_valid"], T)
+              + _group_bounds_stacked(batch["r_txn"], batch["r_valid"], T))
+
+    def step(c):
+        return base & ~(_blocked_txns_stacked(cfg, edges, batch, c, bounds).sum(0) > 0)
+
+    return _iterate(step, base, T)
 
 
 def _fixpoint(cfg: KernelConfig, t_ok, hist_hits, edges, batch) -> Tensor:
@@ -760,6 +849,13 @@ def _fixpoint(cfg: KernelConfig, t_ok, hist_hits, edges, batch) -> Tensor:
     from . import fixpoint_cuda
 
     return fixpoint_cuda.commit_fixpoint(cfg, t_ok, hist_hits, edges, batch)
+
+
+def _fixpoint_stacked(cfg: KernelConfig, t_ok, hist_stacked, edges, batch) -> Tensor:
+    """The stacked fixpoint on the tensors' device, as _fixpoint."""
+    from . import fixpoint_cuda
+
+    return fixpoint_cuda.commit_fixpoint_stacked(cfg, t_ok, hist_stacked, edges, batch)
 
 
 # ---------------------------------------------------------------------------
@@ -1274,9 +1370,10 @@ def heat_of(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict, committed:
     return out
 
 
-def heat_shapes(cfg: KernelConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+def heat_shapes(cfg: KernelConfig,
+                stack: Tuple[int, ...] = ()) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """Shapes and dtypes of one batch's heat aggregate (the port of
-    heat_struct); {} when heat is off."""
+    heat_struct), under the leading axes `stack`; {} when heat is off."""
     if cfg.heat_buckets <= 0:
         return {}
     B, K, T = cfg.heat_buckets, cfg.lanes, cfg.max_txns
@@ -1292,7 +1389,7 @@ def heat_shapes(cfg: KernelConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dty
     if is_tiered(cfg):
         out["runs"] = ((), i32)
         out["run_rows"] = ((), i32)
-    return out
+    return {k: (tuple(stack) + shape, dt) for k, (shape, dt) in out.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -1337,6 +1434,113 @@ def resolve_step_scan(cfg: KernelConfig, state: Dict[str, Tensor], batches: Dict
     stacked = {k: torch.stack([o[k] for o in outs]) for k in outs[0] if k not in ("n", "heat")}
     if "heat" in outs[0]:
         stacked["heat"] = {k: torch.stack([o["heat"][k] for o in outs]) for k in outs[0]["heat"]}
+    return state, stacked
+
+
+# ---------------------------------------------------------------------------
+# the stacked step: S key-range sub-shards of one batch on one device
+# ---------------------------------------------------------------------------
+#
+# JAX vmaps local_phases, apply_writes_and_gc and heat_of over the leading
+# [S] axis. Here they run per sub-shard on [S, ...] slices (a loop of S
+# calls: each call's kernels once per sub-shard in a captured graph), and
+# the fixpoint between them is ONE stacked launch on the card. Outputs
+# are stacked back, so every array equals JAX's element for element.
+
+def _shard(tree: Dict, s: int) -> Dict:
+    return {k: v[s] for k, v in tree.items()}
+
+
+def _stack(trees: List[Dict]) -> Dict:
+    return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+
+def detect_step_stacked(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict):
+    """Stacked phases 1-2 (local_phases per sub-shard): (hist [S, T], edges,
+    wpos) with every leaf [S, ...]. The split-step path's detect, and the
+    mesh engine's shard-local scan."""
+    outs = [local_phases(cfg, _shard(state, s), _shard(batch, s))
+            for s in range(batch["t_ok"].shape[0])]
+    return (torch.stack([o[0] for o in outs]), _stack([o[1] for o in outs]),
+            _stack([o[2] for o in outs]))
+
+
+def fix_step_stacked(cfg: KernelConfig, t_ok: Tensor, hist_stacked: Tensor,
+                     edges: Dict[str, Tensor], batch: Dict) -> Tensor:
+    """The stacked fixpoint with an updated global t_ok [T]."""
+    return _fixpoint_stacked(cfg, t_ok, hist_stacked, edges, batch)
+
+
+def _apply_stacked(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
+                   committed: Tensor, wpos: Dict[str, Tensor], gc_branch: bool):
+    """_apply_writes per sub-shard under the one committed mask: (new_state
+    [S, ...], overflow [S], reclaimed [S], merged [S] or None). The tiered
+    apply updates each sub-shard's slice of the state in place."""
+    outs = [_apply_writes(cfg, _shard(state, s), _shard(batch, s), committed,
+                          _shard(wpos, s), gc_branch)
+            for s in range(batch["t_ok"].shape[0])]
+    merged = None if outs[0][3] is None else torch.stack([o[3] for o in outs])
+    return (_stack([o[0] for o in outs]), torch.stack([o[1] for o in outs]),
+            torch.stack([o[2] for o in outs]), merged)
+
+
+def apply_step_stacked(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
+                       committed: Tensor, wpos: Dict[str, Tensor], gc_branch: bool):
+    """Apply the globally agreed writes (+GC) in every sub-shard:
+    (new_state, overflow bool 0-d: any sub-shard's)."""
+    new_state, overflow, _, _ = _apply_stacked(cfg, state, batch, committed, wpos, gc_branch)
+    return new_state, overflow.any()
+
+
+def exchange_step_stacked(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
+                          hist_stacked: Tensor, edges: Dict[str, Tensor],
+                          wpos: Dict[str, Tensor], gc_branch: bool):
+    """Everything of a stacked step after the shard-local phases: the
+    stacked fixpoint (the sum over sub-shards of each round's blocked
+    counts), the per-sub-shard apply, the statuses and, with heat on, the
+    per-sub-shard heat aggregates. Returns (new_state, {"status" [T],
+    "overflow" 0-d, "n" [S], "merged" [S] (tiered), "heat" [S, ...]})."""
+    committed = _fixpoint_stacked(cfg, batch["t_ok"][0], hist_stacked, edges, batch)
+    new_state, overflow, reclaimed, merged = _apply_stacked(cfg, state, batch, committed,
+                                                            wpos, gc_branch)
+    out = {"status": status_of(batch["t_too_old"][0], committed),
+           "overflow": overflow.any(), "n": new_state["n"]}
+    if merged is not None:
+        out["merged"] = merged
+    if cfg.heat_buckets > 0:
+        # per-sub-shard aggregates (each sub-shard's table delimits its own
+        # buckets); the host merges them keyed by boundary key
+        out["heat"] = _stack([heat_of(cfg, _shard(new_state, s), _shard(batch, s), committed,
+                                      _shard(edges, s), reclaimed[s])
+                              for s in range(batch["t_ok"].shape[0])])
+    return new_state, out
+
+
+def resolve_step_stacked(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
+                         gc_branch: bool):
+    """One resolver batch over S key-range sub-shards resident on one
+    device (state and batch leaves [S, ...]; t_ok / t_too_old / now / gc
+    replicated across the leading axis): the port of JAX's
+    resolve_step_stacked. Verdicts combine by the sum over sub-shards, so
+    they equal the single-table step's and the oracle's."""
+    hist, edges, wpos = detect_step_stacked(cfg, state, batch)
+    return exchange_step_stacked(cfg, state, batch, hist, edges, wpos, gc_branch)
+
+
+def resolve_step_stacked_scan(cfg: KernelConfig, state: Dict[str, Tensor], batches: Dict,
+                              gc_last: bool):
+    """C same-shape stacked batches (leaves [C, S, ...]) as one program,
+    threading the stacked table through: status [C, T], overflow [C],
+    merged [C, S] (tiered) and heat leaves [C, S, ...]."""
+    C = batches["t_ok"].shape[0]
+    outs = []
+    for c in range(C):
+        state, out = resolve_step_stacked(cfg, state, {k: v[c] for k, v in batches.items()},
+                                          gc_last and c == C - 1)
+        outs.append(out)
+    stacked = {k: torch.stack([o[k] for o in outs]) for k in outs[0] if k not in ("n", "heat")}
+    if "heat" in outs[0]:
+        stacked["heat"] = _stack([o["heat"] for o in outs])
     return state, stacked
 
 
@@ -1438,9 +1642,11 @@ def resolve_server_loop(cfg: KernelConfig, state: Dict[str, Tensor], batches: Di
 # shapes, state and batches
 # ---------------------------------------------------------------------------
 
-def state_shapes(cfg: KernelConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+def state_shapes(cfg: KernelConfig,
+                 stack: Tuple[int, ...] = ()) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """Shapes and dtypes of the device interval table (the port of
-    state_struct): the run planes exist only under the tiered structure."""
+    state_struct), under the leading axes `stack` ((S,) sub-shards): the
+    run planes exist only under the tiered structure."""
     out = {
         "hkeys": ((cfg.capacity, cfg.lanes), torch.int64),
         "hvers": ((cfg.capacity,), torch.int32),
@@ -1451,14 +1657,17 @@ def state_shapes(cfg: KernelConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dt
         out["rvers"] = ((cfg.run_slots, cfg.run_rows), torch.int32)
         out["rn"] = ((cfg.run_slots,), torch.int32)
         out["nruns"] = ((), torch.int32)
-    return out
+    return {k: (tuple(stack) + shape, dt) for k, (shape, dt) in out.items()}
 
 
-def batch_shapes(cfg: KernelConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """Shapes and dtypes of one device batch (the port of batch_struct)."""
+def batch_shapes(cfg: KernelConfig,
+                 stack: Tuple[int, ...] = ()) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Shapes and dtypes of one device batch (the port of batch_struct),
+    under the leading axes `stack`: (S,) sub-shards, (C,) scan chunks, or
+    (C, S)."""
     K = cfg.lanes
     i32, i64, b = torch.int32, torch.int64, torch.bool
-    return {
+    out = {
         "rpb": ((cfg.rp, K), i64),
         "rp_snap": ((cfg.rp,), i32),
         "rp_txn": ((cfg.rp,), i32),
@@ -1480,6 +1689,7 @@ def batch_shapes(cfg: KernelConfig) -> Dict[str, Tuple[Tuple[int, ...], torch.dt
         "now": ((), i32),
         "gc": ((), i32),
     }
+    return {k: (tuple(stack) + shape, dt) for k, (shape, dt) in out.items()}
 
 
 _NP_OF = {torch.int64: np.int64, torch.int32: np.int32, torch.bool: np.bool_}

@@ -1,16 +1,17 @@
 """Host side of the device-backed ConflictSet engine, and the engine.
 
-Port of ``foundationdb_tpu/ops/host_engine.py`` for one shard: the int32
-version window (device versions are offsets from a host-tracked base),
-routing and clipping of every conflict range, the exact host tier for keys
-beyond the device's compare window, greedy chunking against the device
-caps, and fixed-shape batch packing — the general router — plus the serving
-path the JAX engine takes first:
+Port of ``foundationdb_tpu/ops/host_engine.py``: the int32 version window
+(device versions are offsets from a host-tracked base), routing and
+clipping of every conflict range to its key-range shards, the exact host
+tier for keys beyond the device's compare window, greedy chunking against
+the device caps (per shard), and fixed-shape batch packing — the general
+router — plus the serving path the JAX engine takes first:
 
   columnar_pack      conflict-wire blocks -> padded point-row arrays by two
-                     native passes (csrc/fastpack.c) into pooled pack
-                     buffers (HostPackArena), pinned on the card; no
-                     per-range Python runs
+                     native passes (csrc/fastpack.c; with S > 1 shards the
+                     sharded passes route each point row to its shard) into
+                     pooled pack buffers (HostPackArena), pinned on the
+                     card; no per-range Python runs
   bucket ladder      each chunk runs on the smallest bucket shape it fits
                      (KernelConfig.bucket); every bucket shares the one
                      capacity-sized table
@@ -35,6 +36,11 @@ path the JAX engine takes first:
                      idle time while the host issues the unit, not only
                      device work), the engine.* spans (core/trace.py),
                      and the hub registrations (core/telemetry.py)
+
+The engines: TorchConflictEngine (one table), SubshardedConflictEngine (S
+key-range sub-shard tables stacked on one device, the stacked step of
+conflict_kernel), and through make_engine the parallel/ engines and the
+device loop (ops/device_loop.py).
 
 The ladder, history search mode, history structure and heat buckets come
 from the constructor, else a non-default config, else the knobs
@@ -130,6 +136,30 @@ def wire_pass1(window: int, blocks: List[bytes]):
     return blob, offs, rp_cnt, wp_cnt
 
 
+def wire_pass1_sharded(window: int, blocks: List[bytes], splits_blob: bytes,
+                       splits_offs: np.ndarray, S: int):
+    """Native pass 1 with per-shard routing: per-(txn, shard) POINT row
+    counts. Returns (blob, offs, rp_cnt [n, S], wp_cnt [n, S]), or None when
+    the batch has any range, empty or long-key row."""
+    if not blocks:
+        return None
+    lib = fastpack.lib()
+    n = len(blocks)
+    blob = b"".join(blocks)
+    offs = np.zeros((n + 1,), np.int64)
+    np.cumsum(np.fromiter((len(b) for b in blocks), np.int64, count=n), out=offs[1:])
+    rp_cnt = np.zeros((n, S), np.int32)
+    wp_cnt = np.zeros((n, S), np.int32)
+    rc = lib.conflict_counts_sharded(
+        blob, offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), n, window,
+        splits_blob, splits_offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), S - 1,
+        rp_cnt.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        wp_cnt.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    if rc != 0:
+        return None
+    return blob, offs, rp_cnt, wp_cnt
+
+
 # ---------------------------------------------------------------------------
 # one chunk's batch: a tensor per field
 # ---------------------------------------------------------------------------
@@ -167,14 +197,19 @@ def host_tensors(cfg: KernelConfig, arrays: Dict[str, np.ndarray]) -> Dict[str, 
 class PackSet:
     """One chunk's host pack buffers: a tensor per hot field at a bucket's
     input shapes (pinned when the engine is on the card, so each copy to
-    the card is asynchronous), and numpy views of them, keys as uint32."""
+    the card is asynchronous), and numpy views of them, keys as uint32.
+    With `S` > 1 sub-shards every field gains a leading [S] axis, the
+    replicated t_ok / t_too_old / now / gc too: the stacked step reads
+    them per sub-shard."""
 
     __slots__ = ("tensors", "arrays", "pinned")
 
-    def __init__(self, cfg: KernelConfig, pin: bool = False):
+    def __init__(self, cfg: KernelConfig, pin: bool = False, S: int = 1):
         shapes = input_shapes(cfg)
+        lead = (S,) if S > 1 else ()
         self.pinned = pin
-        self.tensors = {name: torch.zeros(shapes[name][0], dtype=shapes[name][1], pin_memory=pin)
+        self.tensors = {name: torch.zeros(lead + shapes[name][0], dtype=shapes[name][1],
+                                          pin_memory=pin)
                         for name in HOT_FIELDS}
         self.arrays = {name: t.numpy().view(np.uint32) if name in ck.KEY_FIELDS else t.numpy()
                        for name, t in self.tensors.items()}
@@ -225,38 +260,40 @@ class HostPackArena:
     def __init__(self, pin: bool = False) -> None:
         self.pin = pin
         self._lock = threading.Lock()
-        self._pools: Dict[KernelConfig, List[PackSet]] = {}
-        self._shared: Dict[KernelConfig, Dict[str, np.ndarray]] = {}
+        #: keyed by (bucket shape, sub-shards)
+        self._pools: Dict[Tuple[KernelConfig, int], List[PackSet]] = {}
+        self._shared: Dict[Tuple[KernelConfig, int], Dict[str, np.ndarray]] = {}
         #: sets made because the pool was empty
         self.misses = 0
 
-    def prefill(self, cfg: KernelConfig, n: int = PREFILL) -> None:
-        made = [PackSet(cfg, pin=self.pin) for _ in range(n)]
+    def prefill(self, cfg: KernelConfig, n: int = PREFILL, S: int = 1) -> None:
+        made = [PackSet(cfg, pin=self.pin, S=S) for _ in range(n)]
         with self._lock:
-            pool = self._pools.setdefault(cfg, [])
+            pool = self._pools.setdefault((cfg, S), [])
             pool.extend(made[:max(0, self.MAX_POOLED - len(pool))])
 
-    def lease(self, cfg: KernelConfig) -> Tuple[Dict[str, np.ndarray], ArenaLease]:
-        """Buffers for one chunk at `cfg`'s shapes: (bufs, lease). bufs holds
-        the set's hot views, the shared zero range rows and cached
-        aranges."""
+    def lease(self, cfg: KernelConfig, S: int = 1) -> Tuple[Dict[str, np.ndarray], ArenaLease]:
+        """Buffers for one chunk at `cfg`'s shapes ([S, ...] with S > 1
+        sub-shards): (bufs, lease). bufs holds the set's hot views, the
+        shared zero range rows and cached aranges."""
+        key = (cfg, S)
         with self._lock:
-            shared = self._shared.get(cfg)
+            shared = self._shared.get(key)
             if shared is None:
-                shared = self._shared[cfg] = shared_arrays(cfg)
-            pool = self._pools.get(cfg)
+                shared = self._shared[key] = shared_arrays(cfg, S)
+            pool = self._pools.get(key)
             pack = pool.pop() if pool else None
             if pack is None:
                 self.misses += 1
         if pack is None:
-            pack = PackSet(cfg)
+            pack = PackSet(cfg, S=S)
         out = dict(shared)
         out.update(pack.arrays)
-        return out, ArenaLease(self, cfg, pack)
+        return out, ArenaLease(self, key, pack)
 
-    def _give_back(self, cfg: KernelConfig, pack: PackSet) -> None:
+    def _give_back(self, key, pack: PackSet) -> None:
         with self._lock:
-            pool = self._pools.setdefault(cfg, [])
+            pool = self._pools.setdefault(key, [])
             if len(pool) < self.MAX_POOLED:
                 # pinned sets go to the end, which lease() pops first
                 if pack.pinned:
@@ -265,24 +302,26 @@ class HostPackArena:
                     pool.insert(0, pack)
 
 
-def shared_arrays(cfg: KernelConfig) -> Dict[str, np.ndarray]:
-    """The zero range-row arrays and the aranges a columnar chunk shares."""
+def shared_arrays(cfg: KernelConfig, S: int = 1) -> Dict[str, np.ndarray]:
+    """The zero range-row arrays and the aranges a columnar chunk shares
+    ([S, ...] row arrays with S > 1 sub-shards)."""
     K, Rr, Wr = cfg.lanes, cfg.max_reads, cfg.max_writes
+    lead = (S,) if S > 1 else ()
     return {
-        "rb": np.zeros((Rr, K), np.uint32), "re": np.zeros((Rr, K), np.uint32),
-        "r_snap": np.zeros((Rr,), np.int32), "r_txn": np.zeros((Rr,), np.int32),
-        "r_valid": np.zeros((Rr,), bool),
-        "wb": np.zeros((Wr, K), np.uint32), "we": np.zeros((Wr, K), np.uint32),
-        "w_txn": np.zeros((Wr,), np.int32), "w_valid": np.zeros((Wr,), bool),
+        "rb": np.zeros(lead + (Rr, K), np.uint32), "re": np.zeros(lead + (Rr, K), np.uint32),
+        "r_snap": np.zeros(lead + (Rr,), np.int32), "r_txn": np.zeros(lead + (Rr,), np.int32),
+        "r_valid": np.zeros(lead + (Rr,), bool),
+        "wb": np.zeros(lead + (Wr, K), np.uint32), "we": np.zeros(lead + (Wr, K), np.uint32),
+        "w_txn": np.zeros(lead + (Wr,), np.int32), "w_valid": np.zeros(lead + (Wr,), bool),
         "_arange_rp": np.arange(cfg.rp), "_arange_wp": np.arange(cfg.wp),
     }
 
 
-def fresh_bufs(cfg: KernelConfig) -> Tuple[Dict[str, np.ndarray], PackSet]:
+def fresh_bufs(cfg: KernelConfig, S: int = 1) -> Tuple[Dict[str, np.ndarray], PackSet]:
     """Unpooled pack buffers for one chunk (an engine built with
     arena=False): (bufs, the set behind them)."""
-    pack = PackSet(cfg)
-    bufs = shared_arrays(cfg)
+    pack = PackSet(cfg, S=S)
+    bufs = shared_arrays(cfg, S)
     bufs.update(pack.arrays)
     return bufs, pack
 
@@ -341,6 +380,73 @@ def wire_chunk_arrays(
         "wb": bufs["wb"], "we": bufs["we"], "w_txn": bufs["w_txn"], "w_valid": bufs["w_valid"],
         "t_ok": t_ok, "t_too_old": t_too_old, "now": bufs["now"], "gc": bufs["gc"],
     }
+
+
+def wire_chunk_arrays_sharded(
+    cfg: KernelConfig,
+    blob: bytes,
+    offs: np.ndarray,
+    t0: int,
+    t1: int,
+    skip: np.ndarray,
+    snap_rel: np.ndarray,
+    eff_r: np.ndarray,         # int32 [ntx, S] read counts, skipped txns zeroed
+    now_rel: int,
+    gc_rel: int,
+    splits_blob: bytes,
+    splits_offs: np.ndarray,
+    S: int,
+    bufs: Optional[Dict[str, np.ndarray]] = None,
+) -> List[Dict[str, np.ndarray]]:
+    """Native pass 2, sharded: the per-shard batch dicts for txns [t0, t1)
+    straight from wire bytes. One C call routes and packs every point row
+    into its shard's padded region (a point key never straddles a split,
+    so nothing is clipped); the int lanes are vectorized numpy. `bufs`
+    (HostPackArena.lease(cfg, S) or fresh_bufs(cfg, S)) holds [S, ...]
+    arrays; shard s's dict views row s of each, the replicated t_ok /
+    t_too_old / now / gc too."""
+    if bufs is None:
+        bufs, _ = fresh_bufs(cfg, S)
+    lib = fastpack.lib()
+    n = t1 - t0
+    rpb, rp_txn = bufs["rpb"], bufs["rp_txn"]
+    wpb, wp_txn = bufs["wpb"], bufs["wp_txn"]
+    out_n = np.zeros((2 * S,), np.int64)
+    lib.build_point_rows_sharded(
+        blob, offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        t0, t1, bytes(skip), cfg.key_words,
+        splits_blob, splits_offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), S - 1,
+        cfg.rp, cfg.wp,
+        rpb.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        rp_txn.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        wpb.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        wp_txn.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        out_n.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    t_ok, t_too_old = bufs["t_ok"], bufs["t_too_old"]
+    t_ok.fill(False)
+    t_too_old.fill(False)
+    t_too_old[:, :n] = skip[t0:t1] != 0
+    t_ok[:, :n] = ~t_too_old[:, :n]
+    bufs["now"][...] = now_rel
+    bufs["gc"][...] = gc_rel
+    rp_valid, wp_valid, rp_snap = bufs["rp_valid"], bufs["wp_valid"], bufs["rp_snap"]
+    per = []
+    for s in range(S):
+        n_rp, n_wp = int(out_n[2 * s]), int(out_n[2 * s + 1])
+        rp_snap[s, :n_rp] = np.repeat(snap_rel[t0:t1], eff_r[t0:t1, s])
+        np.less(bufs["_arange_rp"], n_rp, out=rp_valid[s])
+        np.less(bufs["_arange_wp"], n_wp, out=wp_valid[s])
+        per.append({
+            "rpb": rpb[s], "rp_snap": rp_snap[s], "rp_txn": rp_txn[s], "rp_valid": rp_valid[s],
+            "rb": bufs["rb"][s], "re": bufs["re"][s], "r_snap": bufs["r_snap"][s],
+            "r_txn": bufs["r_txn"][s], "r_valid": bufs["r_valid"][s],
+            "wpb": wpb[s], "wp_txn": wp_txn[s], "wp_valid": wp_valid[s],
+            "wb": bufs["wb"][s], "we": bufs["we"][s], "w_txn": bufs["w_txn"][s],
+            "w_valid": bufs["w_valid"][s],
+            "t_ok": t_ok[s], "t_too_old": t_too_old[s],
+            "now": bufs["now"][s:s + 1].reshape(()), "gc": bufs["gc"][s:s + 1].reshape(()),
+        })
+    return per
 
 
 #: dispatch-ring size of EnginePerf.recent
@@ -506,6 +612,12 @@ class RoutedConflictEngineBase:
         self.base: Version = 0
         self.oldest_version: Version = 0
         self._window = keypack.max_key_bytes(cfg.key_words)
+        #: the shard split keys in the wire form the native router reads
+        splits = shards.begins[1:]
+        self._splits_blob = b"".join(splits)
+        self._splits_offs = np.zeros((len(splits) + 1,), np.int64)
+        np.cumsum(np.fromiter((len(k) for k in splits), np.int64, count=len(splits)),
+                  out=self._splits_offs[1:])
         #: exact host tier for out-of-window keys (absolute versions);
         #: short-key-only workloads never touch it
         self.tier_map = VersionIntervalMap(0)
@@ -532,7 +644,7 @@ class RoutedConflictEngineBase:
         self.arena: Optional[HostPackArena] = HostPackArena(pin=pin_memory) if arena else None
         #: the keyspace-heat aggregator (None with heat off); every step's
         #: aggregate merges into it when its unit is forced
-        self.heat = heatmap.aggregator_for(cfg)
+        self.heat = heatmap.aggregator_for(cfg, n_shards=self.n_shards)
         hub = telemetry.hub()
         hub.register_engine_perf(self.perf, name=self.name)
         hub.register_perf_ledger(self.perf_ledger, name=self.name)
@@ -574,11 +686,15 @@ class RoutedConflictEngineBase:
             return ""
         return f"tiered:{self.cfg.run_slots}x{self.cfg.run_rows}"
 
-    def _build_and_record(self, bucket: KernelConfig, n_chunks: int):
+    def _build_and_record(self, bucket: KernelConfig, n_chunks: int, variant: str = "",
+                          make: Optional[Callable[[KernelConfig, int], Any]] = None):
         """Build one program, bump the compile counter, and file the build
         in the perf ledger: its duration (on the card: the captures) and
         peak device bytes, keyed (bucket, search mode, dispatch mode),
-        "warmup" inside warmup() and "steady" otherwise.
+        "warmup" inside warmup() and "steady" otherwise. `variant` names
+        one program of a multi-program dispatch unit (the mesh engine's
+        "scan" / "exchange" pair), built by `make` (default
+        _make_program); it joins the progcache key.
 
         With an on-disk program cache installed (core/progcache.py) the
         cache is asked first under the same key: a hit returns the loaded
@@ -592,7 +708,7 @@ class RoutedConflictEngineBase:
         if cache is not None:
             key = cache.key(engine=self.name, bucket=bucket.max_txns, n_chunks=n_chunks,
                             search_mode=search_mode, dispatch_mode=self.dispatch_mode,
-                            mesh=self._progcache_fingerprint(),
+                            mesh=self._progcache_fingerprint(), variant=variant,
                             structure=self._history_fingerprint(),
                             device=getattr(self, "device", None))
             b0 = cache.stats["hit_bytes"]
@@ -607,7 +723,8 @@ class RoutedConflictEngineBase:
             self.perf_ledger.record_progcache(engine=self.name, bucket=bucket.max_txns,
                                               event="miss")
         t0 = time.perf_counter()
-        prog, peak = self._measured_build(lambda: self._make_program(bucket, n_chunks))
+        make = make or self._make_program
+        prog, peak = self._measured_build(lambda: make(bucket, n_chunks))
         self.perf.compiles += 1
         self.perf_ledger.record_compile(
             engine=self.name, bucket=bucket.max_txns, n_chunks=n_chunks,
@@ -647,7 +764,7 @@ class RoutedConflictEngineBase:
                 for c in (1,) + tuple(scan_sizes if scan_sizes is not None else self._scan_sizes):
                     self._program(b, c)
                 if self.arena is not None and self.arena.pin:
-                    self.arena.prefill(b)
+                    self.arena.prefill(b, S=self.n_shards)
         finally:
             self._warming = False
         self.perf.warmup_ms += (time.perf_counter() - t0) * 1e3
@@ -857,24 +974,45 @@ class RoutedConflictEngineBase:
 
     def _merge_heat(self, heat_host, version=None, base=None, layout: str = "") -> None:
         """Merge a forced heat subtree into the aggregator. `layout` names
-        the leaves' leading axes: "" one chunk (resolve_step), "c" [C, ...]
-        chunks (a scan or a loop slot's prefix), each a distinct set of
-        transactions merged in order. The shard layouts of the JAX engine
-        ("s", "cs", "sc") belong to the sharded engines, which the port
-        does not have yet, and raise as an unknown layout does. `base` is
-        the version base the batch was packed against (witness versions
-        are base-relative); default: the current base."""
+        the leaves' leading axes, so that chunk and shard axes are not
+        conflated: a chunk is a distinct set of transactions and counts
+        fully, while a shard axis re-describes the SAME transactions across
+        key-range shards and folds through ONE merge_shards call:
+
+          ""   one single-shard chunk (resolve_step)
+          "c"  [C, ...] chunks (a scan, a loop slot's prefix)
+          "s"  [S, ...] shards of one chunk (the stacked and mesh steps)
+          "cs" [C, S, ...] (the sub-sharded chunk scan)
+          "sc" [S, C, ...] (the sharded chunk scan: shard axis outermost)
+
+        `base` is the version base the batch was packed against (witness
+        versions are base-relative); default: the current base."""
         if self.heat is None or heat_host is None:
             return
         if base is None:
             base = self.base
+
+        def at(tree, i):
+            return {k: np.asarray(v)[i] for k, v in tree.items()}
+
+        n = np.asarray(heat_host["bounds"]).shape[0] if layout else 0
         if layout == "":
             self.heat.merge({k: np.asarray(v) for k, v in heat_host.items()},
                             base=base, version=version)
         elif layout == "c":
-            for c in range(np.asarray(heat_host["bounds"]).shape[0]):
-                self._merge_heat({k: np.asarray(v)[c] for k, v in heat_host.items()},
-                                 version, base, "")
+            for c in range(n):
+                self._merge_heat(at(heat_host, c), version, base, "")
+        elif layout == "s":
+            self.heat.merge_shards([at(heat_host, s) for s in range(n)],
+                                   base=base, version=version)
+        elif layout == "cs":
+            for c in range(n):
+                self._merge_heat(at(heat_host, c), version, base, "s")
+        elif layout == "sc":
+            per_shard = [at(heat_host, s) for s in range(n)]
+            for c in range(np.asarray(per_shard[0]["bounds"]).shape[0]):
+                self.heat.merge_shards([at(sh, c) for sh in per_shard],
+                                       base=base, version=version)
         else:
             raise ValueError(f"unknown heat layout {layout!r}")
 
@@ -1058,9 +1196,12 @@ class RoutedConflictEngineBase:
 
     def columnar_pack(self, transactions: Sequence[Any], now: Version,
                       new_oldest: Version) -> Optional[dict]:
-        """Host half of the columnar fast path over conflict-wire blocks:
-        when every range is a short-key POINT row, batch assembly is two
-        native passes + numpy (no per-range Python). Point reads of
+        """Host half of the columnar fast path over conflict-wire blocks
+        (any shard count): when every range is a short-key POINT row, batch
+        assembly is two native passes + numpy (no per-range Python); with
+        S > 1 shards the C passes route each point row to its owning shard
+        (a point range never straddles a split key, so nothing is clipped
+        and the caps bind per shard). Point reads of
         in-window keys never couple with the host long-key tier (keypack.py:
         short-key membership is device-exact), so the fused step is always
         safe here. Host numpy and C only: it touches no CUDA state, so the
@@ -1072,9 +1213,10 @@ class RoutedConflictEngineBase:
         versions: the matching columnar_dispatch must run before any LATER
         batch packs (the ResolverPipeline keeps this ordering)."""
         cfg = self.cfg
+        S = self.n_shards
         ntx = len(transactions)
-        if ntx == 0 or self.n_shards != 1:
-            return None                 # the sharded passes are a later slice
+        if ntx == 0:
+            return None
         t_pack = span_now() if g_spans.enabled else 0.0
         blocks = []
         for tr in transactions:
@@ -1084,25 +1226,32 @@ class RoutedConflictEngineBase:
             if not all_point or max_len > self._window:
                 return None             # early out: later txns are not even encoded
             blocks.append(blk)
-        p1 = wire_pass1(self._window, blocks)
+        if S == 1:
+            p1 = wire_pass1(self._window, blocks)
+        else:
+            p1 = wire_pass1_sharded(self._window, blocks, self._splits_blob,
+                                    self._splits_offs, S)
         if p1 is None:
             return None
         blob, offs, rp_cnt, wp_cnt = p1
+        # the caps bind per shard (S > 1: rp_cnt / wp_cnt are [ntx, S])
         if int(rp_cnt.max()) > cfg.rp or int(wp_cnt.max()) > cfg.wp:
             raise error.client_invalid_operation(
                 "single transaction exceeds device conflict-range capacity")
+        has_reads = rp_cnt.sum(axis=1) > 0 if S > 1 else rp_cnt > 0
         snaps = np.fromiter((tr.read_snapshot for tr in transactions), np.int64, count=ntx)
         rel = snaps - self.base
         if int(rel.max()) >= 2**30 or now - self.base >= 2**30:
             raise error.client_invalid_operation(
                 f"version too far beyond base {self.base} for int32 device window")
         snap_rel = np.maximum(rel, -1).astype(np.int32)
-        too_old = (snaps < self.oldest_version) & (rp_cnt > 0)
+        too_old = (snaps < self.oldest_version) & has_reads
         skip = too_old.astype(np.uint8)
-        eff_r = np.where(too_old, 0, rp_cnt).astype(np.int32)
-        eff_w = np.where(too_old, 0, wp_cnt).astype(np.int32)
-        cr = np.cumsum(eff_r)
-        cw = np.cumsum(eff_w)
+        old = too_old[:, None] if S > 1 else too_old
+        eff_r = np.where(old, 0, rp_cnt).astype(np.int32)
+        eff_w = np.where(old, 0, wp_cnt).astype(np.int32)
+        cr = np.cumsum(eff_r, axis=0)
+        cw = np.cumsum(eff_w, axis=0)
 
         now_rel = self._rel(now)
         #: (per_shard_arrays, n_txns, bucket_cfg, arena_lease, pack_set) per chunk
@@ -1110,23 +1259,33 @@ class RoutedConflictEngineBase:
                            Optional[ArenaLease], PackSet]] = []
         i = 0
         while i < ntx:
-            r0 = int(cr[i - 1]) if i else 0
-            w0 = int(cw[i - 1]) if i else 0
-            j = min(i + cfg.max_txns, ntx,
-                    int(np.searchsorted(cr, r0 + cfg.rp, side="right")),
-                    int(np.searchsorted(cw, w0 + cfg.wp, side="right")))
+            r0 = cr[i - 1] if i else np.zeros_like(cr[0])
+            w0 = cw[i - 1] if i else np.zeros_like(cw[0])
+            j = min(i + cfg.max_txns, ntx)
+            for s in range(S):
+                crs, cws = (cr[:, s], cw[:, s]) if S > 1 else (cr, cw)
+                r0s, w0s = (int(r0[s]), int(w0[s])) if S > 1 else (int(r0), int(w0))
+                j = min(j, int(np.searchsorted(crs, r0s + cfg.rp, side="right")),
+                        int(np.searchsorted(cws, w0s + cfg.wp, side="right")))
             j = max(j, i + 1)           # a single txn always fits (checked above)
             last = j >= ntx
             gc_rel = self._rel(new_oldest) if last and new_oldest > self.oldest_version else 0
-            bucket = self.bucket_for(j - i, int(cr[j - 1]) - r0, int(cw[j - 1]) - w0)
+            # the smallest bucket the chunk fits (per-shard row maxima)
+            bucket = self.bucket_for(j - i, int(np.max(cr[j - 1] - r0)),
+                                     int(np.max(cw[j - 1] - w0)))
             lease = None
             if self.arena is not None:
-                bufs, lease = self.arena.lease(bucket)
+                bufs, lease = self.arena.lease(bucket, S)
                 pack = lease.pack
             else:
-                bufs, pack = fresh_bufs(bucket)
-            per = [wire_chunk_arrays(bucket, blob, offs, i, j, skip, snap_rel, eff_r,
-                                     now_rel, gc_rel, bufs=bufs)]
+                bufs, pack = fresh_bufs(bucket, S)
+            if S == 1:
+                per = [wire_chunk_arrays(bucket, blob, offs, i, j, skip, snap_rel, eff_r,
+                                         now_rel, gc_rel, bufs=bufs)]
+            else:
+                per = wire_chunk_arrays_sharded(bucket, blob, offs, i, j, skip, snap_rel, eff_r,
+                                                now_rel, gc_rel, self._splits_blob,
+                                                self._splits_offs, S, bufs=bufs)
             chunks.append((per, j - i, bucket, lease, pack))
             i = j
         if g_spans.enabled:
@@ -1425,11 +1584,39 @@ def _default_device(device) -> torch.device:
     return torch.device(device)
 
 
+def load_chunk(inputs: Dict[str, torch.Tensor], cold_dirty: List[bool], c: int,
+               bucket: KernelConfig, S: int, per, pack: Optional[PackSet]) -> None:
+    """Copy chunk c (its batch dict, or its per-shard batch dicts) into a
+    program's static inputs [C, ...] ([C, S, ...] with S stacked
+    sub-shards), stream-ordered, one copy a field: a pack set's hot fields
+    from its tensors (the range rows are zero on the columnar path, and
+    stay zero in the static inputs unless a general-router chunk wrote
+    them: `cold_dirty[c]`), or every field of any other batch dict."""
+    if isinstance(per, dict):
+        per = [per]
+    if pack is not None:
+        src = pack.tensors
+        if cold_dirty[c]:
+            for name in COLD_FIELDS:
+                inputs[name][c].zero_()
+            cold_dirty[c] = False
+    else:
+        if S:
+            hts = [host_tensors(bucket, a) for a in per]
+            src = {name: torch.stack([h[name] for h in hts]) for name in hts[0]}
+        else:
+            (arrays,) = per
+            src = host_tensors(bucket, arrays)
+        cold_dirty[c] = True
+    for name, t in src.items():
+        inputs[name][c].copy_(t, non_blocking=True)
+
+
 class _Program:
     """One (bucket, C) program: C steps of the bucket's shapes over the
     engine's static state, reading static [C, ...] input tensors, one per
-    batch field (input_shapes), and writing static status [C, T] /
-    overflow [C] buffers.
+    batch field (input_shapes; [C, S, ...] for an engine of S stacked
+    sub-shards), and writing static status [C, T] / overflow [C] buffers.
 
     On the card it is up to two captured CUDA graphs, one per answer to
     "does the last chunk carry gc > 0" (JAX's lax.cond on the device
@@ -1439,23 +1626,27 @@ class _Program:
     the tiered structure each step's lazy merge is a conditional IF node
     (ck.run_if, graph_if) whose body replays only when the run stack is
     full; its body is captured on the engine's body stream into its body
-    pool; the program also writes each step's `merged` flag [C]. With heat
-    on it writes each step's heat aggregate into static [C, ...] buffers
-    (`heat`, ck.heat_shapes). On the CPU the program runs resolve_step_scan
-    eagerly on the same buffers."""
+    pool; the program also writes each step's `merged` flag [C] ([C, S]
+    stacked). With heat on it writes each step's heat aggregate into
+    static buffers (`heat`, ck.heat_shapes under the engine's heat axes).
+    On the CPU the program runs the engine's scan (`_scan`) eagerly on the
+    same buffers."""
 
-    def __init__(self, engine: "TorchConflictEngine", bucket: KernelConfig, C: int):
+    def __init__(self, engine: "_CardEngine", bucket: KernelConfig, C: int):
         dev = engine.device
         self.engine = engine
         self.bucket, self.C = bucket, C
-        self.inputs = {name: torch.zeros((C,) + shape, dtype=dtype, device=dev)
+        self.S = engine.stack
+        lead = (C, self.S) if self.S else (C,)
+        self.inputs = {name: torch.zeros(lead + shape, dtype=dtype, device=dev)
                        for name, (shape, dtype) in input_shapes(bucket).items()}
         self.status = torch.zeros((C, bucket.max_txns), dtype=torch.int32, device=dev)
         self.overflow = torch.zeros((C,), dtype=torch.bool, device=dev)
-        self.merged = (torch.zeros((C,), dtype=torch.bool, device=dev)
+        self.merged = (torch.zeros(lead, dtype=torch.bool, device=dev)
                        if ck.is_tiered(bucket) else None)
-        self.heat = {k: torch.zeros((C,) + shape, dtype=dtype, device=dev)
-                     for k, (shape, dtype) in ck.heat_shapes(bucket).items()}
+        self.heat = {k: torch.zeros(shape, dtype=dtype, device=dev)
+                     for k, (shape, dtype) in ck.heat_shapes(bucket,
+                                                             engine._heat_axes(C)).items()}
         #: chunk slots whose range rows a general-router chunk wrote
         self.cold_dirty = [False] * C
         self.graphs: Dict[bool, "torch.cuda.CUDAGraph"] = {}
@@ -1474,7 +1665,7 @@ class _Program:
 
     def _body(self, state: Dict[str, torch.Tensor], gc_last: bool,
               batches: Optional[Dict[str, torch.Tensor]] = None) -> None:
-        new_state, out = ck.resolve_step_scan(
+        new_state, out = self.engine._scan(
             self.bucket, state, self.batches() if batches is None else batches, gc_last)
         for k, v in state.items():
             v.copy_(new_state[k])
@@ -1486,13 +1677,15 @@ class _Program:
             v.copy_(out["heat"][k])
 
     def _merge_warm_batches(self) -> Dict[str, torch.Tensor]:
-        """The static inputs with one committed point write in chunk 0, so
-        that a step on a full run stack takes the merge branch."""
+        """The static inputs with one committed point write in chunk 0 (of
+        sub-shard 0), so that a step on a full run stack takes the merge
+        branch."""
         b = {k: v.clone() for k, v in self.batches().items()}
-        b["t_ok"][0, 0] = True
-        b["t_too_old"][0, 0] = False
-        b["wp_valid"][0, 0] = True
-        b["wp_txn"][0, 0] = 0
+        at = (0, 0) if self.S else (0,)
+        b["t_ok"][0, ..., 0] = True
+        b["t_too_old"][0, ..., 0] = False
+        b["wp_valid"][at + (0,)] = True
+        b["wp_txn"][at + (0,)] = 0
         return b
 
     def _capture(self, gc_last: bool) -> None:
@@ -1515,62 +1708,54 @@ class _Program:
                 self._body(scratch, gc_last, self._merge_warm_batches())
         torch.cuda.current_stream(eng.device).wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        before = fixpoint_cuda.FIXPOINT.launches
+        counter = fixpoint_cuda.FIXPOINT_STACKED if self.S else fixpoint_cuda.FIXPOINT
+        before = counter.launches
         if_before = graph_if.GRAPH_IF.nodes
         with graph_if.bodies(eng.body_levels[:1]), \
                 torch.cuda.graph(graph, pool=eng.graph_pool, stream=stream,
                                  capture_error_mode="relaxed"):
             self._body(eng.state, gc_last)
-        launches = fixpoint_cuda.FIXPOINT.launches - before
+        launches = counter.launches - before
         if launches != self.C:
             raise RuntimeError(f"captured {launches} fixpoint launches in a {self.C}-step graph")
         if_nodes = graph_if.GRAPH_IF.nodes - if_before
-        if if_nodes != (self.C if self.merged is not None else 0):
+        if if_nodes != (self.C * max(self.S, 1) if self.merged is not None else 0):
             raise RuntimeError(f"captured {if_nodes} merge IF nodes in a {self.C}-step graph")
         self.launches = launches
         self.graphs[gc_last] = graph
         eng.perf.captures += 1
 
-    def load(self, c: int, arrays: Dict[str, np.ndarray], pack: Optional[PackSet]) -> None:
-        """Copy chunk c into the static inputs, stream-ordered, one copy a
-        field: a pack set's hot fields from its tensors (the range rows
-        are zero on the columnar path, and stay zero in the static inputs
-        unless a general-router chunk wrote them), or every field of any
-        other batch dict."""
-        if pack is not None:
-            src = pack.tensors
-            if self.cold_dirty[c]:
-                for name in COLD_FIELDS:
-                    self.inputs[name][c].zero_()
-                self.cold_dirty[c] = False
-        else:
-            src = host_tensors(self.bucket, arrays)
-            self.cold_dirty[c] = True
-        for name, t in src.items():
-            self.inputs[name][c].copy_(t, non_blocking=True)
+    def load(self, c: int, arrays, pack: Optional[PackSet]) -> None:
+        """Chunk c into the static inputs (load_chunk): `arrays` is its
+        batch dict, or its per-shard list of them."""
+        load_chunk(self.inputs, self.cold_dirty, c, self.bucket, self.S, arrays, pack)
 
     def run(self, gc_last: bool) -> None:
         if self.graphs:
             self.graphs[gc_last].replay()
-            fixpoint_cuda.FIXPOINT.graph_launches += self.launches
+            counter = fixpoint_cuda.FIXPOINT_STACKED if self.S else fixpoint_cuda.FIXPOINT
+            counter.graph_launches += self.launches
         else:
             self._body(self.engine.state, gc_last)
 
 
-class TorchConflictEngine(RoutedConflictEngineBase):
-    """Single-card ConflictSet engine backed by the torch conflict step and
-    the CUDA fixpoint kernel (one shard). Same resolve() contract as
-    OracleConflictEngine. `device=None` means the card, and raises where
-    there is none; `device="cpu"` runs the same programs eagerly on the
-    CPU, with the plain fixpoint.
+class _CardEngine(RoutedConflictEngineBase):
+    """A ConflictSet engine whose tables live on one torch device, in
+    static buffers (`state`) that every program reads and writes in place:
+    anything that sets the table copies into them, so a captured graph
+    never reads a dead table. `stack` = 0 keeps one table
+    (TorchConflictEngine); S > 0 keeps S key-range sub-shards on the
+    leading axis of the table and of every program input
+    (SubshardedConflictEngine and the parallel/ engines). `device=None`
+    means the card, and raises where there is none; `device="cpu"` runs
+    the same programs eagerly on the CPU, with the plain fixpoint."""
 
-    The interval table lives in static buffers (`state`) that every
-    program reads and writes in place: anything that sets the table copies
-    into them, so a captured graph never reads a dead table."""
+    #: sub-shards on the leading axis of the state; 0: one unstacked table
+    stack = 0
+    #: the heat layout of a C-chunk program's aggregates (_merge_heat)
+    heat_layout = "c"
 
-    name = "torch"
-
-    def __init__(self, cfg: KernelConfig = KernelConfig(), initial_version: Version = 0,
+    def __init__(self, cfg: KernelConfig, shards: KeyShardMap, initial_version: Version = 0,
                  device=None, ladder: Optional[Sequence[int]] = None,
                  scan_sizes: Sequence[int] = (2, 4, 8), arena: bool = True,
                  history_search: Optional[str] = None,
@@ -1579,12 +1764,12 @@ class TorchConflictEngine(RoutedConflictEngineBase):
                  history_structure: Optional[str] = None):
         device = _default_device(device)
         self.device = device
-        super().__init__(cfg, KeyShardMap([]), ladder=ladder, scan_sizes=scan_sizes,
+        super().__init__(cfg, shards, ladder=ladder, scan_sizes=scan_sizes,
                          arena=arena, pin_memory=device.type == "cuda",
                          history_search=history_search, heat_buckets=heat_buckets,
                          device_time_sample_rate=device_time_sample_rate,
                          history_structure=history_structure)
-        self.state = ck.initial_state(self.cfg, version_rel=initial_version, device=device)
+        self.state = self._initial_state(initial_version)
         self.tier_map = VersionIntervalMap(initial_version)
         if device.type == "cuda":
             #: one memory pool for every graph: replays are serialized on
@@ -1599,31 +1784,39 @@ class TorchConflictEngine(RoutedConflictEngineBase):
             self.body_levels = [(torch.cuda.Stream(device), torch.cuda.graph_pool_handle())
                                 for _ in range(2)]
 
+    # -- the table ------------------------------------------------------------
+    def _initial_state(self, version_rel: int) -> Dict[str, torch.Tensor]:
+        """A fresh table: one, or `stack` sub-shard tables stacked, each
+        starting at its shard's first key."""
+        if not self.stack:
+            return ck.initial_state(self.cfg, version_rel=version_rel, device=self.device)
+        return ck._stack([ck.initial_state(self.cfg, version_rel=version_rel,
+                                           first_key=self.shards.begins[s], device=self.device)
+                          for s in range(self.stack)])
+
     def _set_state(self, new: Dict[str, torch.Tensor]) -> None:
         for k, v in self.state.items():
             v.copy_(new[k])
 
     def _reset_device_state(self, version_rel: int) -> None:
-        self._set_state(ck.initial_state(self.cfg, version_rel=version_rel, device=self.device))
+        self._set_state(self._initial_state(version_rel))
 
     def _device_states_for_snapshot(self):
-        return [self.state]
+        if not self.stack:
+            return [self.state]
+        return [ck._shard(self.state, s) for s in range(self.stack)]
 
-    def load_state(self, state_np: Dict[str, np.ndarray], base: Version,
-                   oldest_version: Version, tier_map=None) -> None:
-        """Adopt another engine's interval table mid-stream: numpy
-        {"hkeys", "hvers", "n"} (base-relative versions), with the run
-        planes {"rkeys", "rvers", "rn", "nruns"} under the tiered
-        structure, its version base and GC horizon, and optionally its host
-        long-key tier (any object with `keys` / `vers` lists)."""
-        self._set_state(ck.state_from_numpy(self.cfg, state_np, self.device))
-        self.base = base
-        self.oldest_version = oldest_version
-        self.tier_map = VersionIntervalMap(0)
-        if tier_map is not None:
-            self.tier_map.keys = list(tier_map.keys)
-            self.tier_map.vers = list(tier_map.vers)
-        self._tier_has_writes = len(self.tier_map) > 1
+    # -- programs -------------------------------------------------------------
+    def _heat_axes(self, C: int) -> Tuple[int, ...]:
+        """Leading axes of a C-chunk program's heat aggregates."""
+        return (C, self.stack) if self.stack else (C,)
+
+    def _scan(self, bucket: KernelConfig, state: Dict[str, torch.Tensor],
+              batches: Dict[str, torch.Tensor], gc_last: bool):
+        """A program's body: C chunks (leaves [C, ...], or [C, S, ...])."""
+        if self.stack:
+            return ck.resolve_step_stacked_scan(bucket, state, batches, gc_last)
+        return ck.resolve_step_scan(bucket, state, batches, gc_last)
 
     def _make_program(self, bucket: KernelConfig, n_chunks: int) -> _Program:
         return _Program(self, bucket, n_chunks)
@@ -1659,8 +1852,8 @@ class TorchConflictEngine(RoutedConflictEngineBase):
             # once the unit is done
             timing = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             timing[0].record()
-        for c, (arrays,) in enumerate(per_chunks):
-            prog.load(c, arrays, packs[c] if packs else None)
+        for c, per in enumerate(per_chunks):
+            prog.load(c, per, packs[c] if packs else None)
         prog.run(gcs[-1] > 0)
         heat_base, heat_version = self.base, self._heat_version
         if self.device.type == "cpu":
@@ -1699,44 +1892,132 @@ class TorchConflictEngine(RoutedConflictEngineBase):
                 return (host["status"].numpy(), bool(host["overflow"].numpy().any()),
                         {k: host[k].numpy() for k in prog.heat})
 
+        layout = self.heat_layout
+
         def force() -> Tuple[np.ndarray, bool]:
             status, overflow, heat = read()
             if heat:
-                self._merge_heat(heat, version=heat_version, base=heat_base, layout="c")
+                self._merge_heat(heat, version=heat_version, base=heat_base, layout=layout)
             return status, overflow
 
         return force
 
+    # -- the split-step path (host long-key tier) -------------------------------
     def _batch(self, per_shard) -> Dict:
+        if self.stack:
+            return ck._stack([ck.batch_from_numpy(self.cfg, a, self.device) for a in per_shard])
         (arrays,) = per_shard
         return ck.batch_from_numpy(self.cfg, arrays, self.device)
 
     def _run_detect(self, per_shard):
         batch = self._batch(per_shard)
-        hist, edges, wpos = ck.detect_step(self.cfg, self.state, batch)
+        detect = ck.detect_step_stacked if self.stack else ck.detect_step
+        hist, edges, wpos = detect(self.cfg, self.state, batch)
         return {"batch": batch, "hist": hist, "edges": edges, "wpos": wpos}
 
     def _run_fix(self, ctx, per_shard, t_ok: np.ndarray) -> np.ndarray:
         t = torch.from_numpy(np.ascontiguousarray(t_ok)).to(self.device)
-        committed = ck.fix_step(self.cfg, t, ctx["hist"], ctx["edges"], ctx["batch"])
+        fix = ck.fix_step_stacked if self.stack else ck.fix_step
+        committed = fix(self.cfg, t, ctx["hist"], ctx["edges"], ctx["batch"])
         return committed.cpu().numpy()
 
     def _run_apply(self, ctx, per_shard, committed: np.ndarray) -> Tuple[np.ndarray, bool]:
         cm = torch.from_numpy(np.ascontiguousarray(committed)).to(self.device)
         batch = ctx["batch"]
-        new_state, overflow, _, merged = ck._apply_writes(
-            self.cfg, self.state, batch, cm, ctx["wpos"], gc_branch=int(per_shard[0]["gc"]) > 0)
+        gc_branch = int(per_shard[0]["gc"]) > 0
+        if self.stack:
+            new_state, overflow, _, merged = ck._apply_stacked(
+                self.cfg, self.state, batch, cm, ctx["wpos"], gc_branch)
+            t_too_old = batch["t_too_old"][0]
+        else:
+            new_state, overflow, _, merged = ck._apply_writes(
+                self.cfg, self.state, batch, cm, ctx["wpos"], gc_branch)
+            t_too_old = batch["t_too_old"]
         self._set_state(new_state)
         if merged is not None:
-            self.perf.merges += int(merged)
-        status = ck.status_of(batch["t_too_old"], cm)
-        return status.cpu().numpy(), bool(overflow)
+            self.perf.merges += int(merged.sum())
+        status = ck.status_of(t_too_old, cm)
+        return status.cpu().numpy(), bool(overflow.any())
 
 
-#: the engine-mode router: "torch" (single card, step dispatch) and
+class TorchConflictEngine(_CardEngine):
+    """Single-card ConflictSet engine backed by the torch conflict step and
+    the CUDA fixpoint kernel (one shard). Same resolve() contract as
+    OracleConflictEngine. `device=None` means the card, and raises where
+    there is none; `device="cpu"` runs the same programs eagerly on the
+    CPU, with the plain fixpoint."""
+
+    name = "torch"
+
+    def __init__(self, cfg: KernelConfig = KernelConfig(), initial_version: Version = 0,
+                 device=None, ladder: Optional[Sequence[int]] = None,
+                 scan_sizes: Sequence[int] = (2, 4, 8), arena: bool = True,
+                 history_search: Optional[str] = None,
+                 heat_buckets: Optional[int] = None,
+                 device_time_sample_rate: Optional[float] = None,
+                 history_structure: Optional[str] = None):
+        super().__init__(cfg, KeyShardMap([]), initial_version=initial_version, device=device,
+                         ladder=ladder, scan_sizes=scan_sizes, arena=arena,
+                         history_search=history_search, heat_buckets=heat_buckets,
+                         device_time_sample_rate=device_time_sample_rate,
+                         history_structure=history_structure)
+
+    def load_state(self, state_np: Dict[str, np.ndarray], base: Version,
+                   oldest_version: Version, tier_map=None) -> None:
+        """Adopt another engine's interval table mid-stream: numpy
+        {"hkeys", "hvers", "n"} (base-relative versions), with the run
+        planes {"rkeys", "rvers", "rn", "nruns"} under the tiered
+        structure, its version base and GC horizon, and optionally its host
+        long-key tier (any object with `keys` / `vers` lists)."""
+        self._set_state(ck.state_from_numpy(self.cfg, state_np, self.device))
+        self.base = base
+        self.oldest_version = oldest_version
+        self.tier_map = VersionIntervalMap(0)
+        if tier_map is not None:
+            self.tier_map.keys = list(tier_map.keys)
+            self.tier_map.vers = list(tier_map.vers)
+        self._tier_has_writes = len(self.tier_map) > 1
+
+
+class SubshardedConflictEngine(_CardEngine):
+    """S key-range sub-shards resident on ONE device: the port of JAX's
+    SubshardedConflictEngine. Each sub-shard holds its own capacity-sized
+    table (its shard's first key opens it), stacked on the leading axis;
+    the host routes rows with the native sharded passes
+    (wire_pass1_sharded / wire_chunk_arrays_sharded, or the general
+    router's per-shard clipping); every (bucket, C) program runs the
+    stacked step (conflict_kernel.resolve_step_stacked_scan), whose
+    fixpoint is one launch of the CUDA kernel's stacked entry on the card.
+    Heat merges under layout "s" per chunk ("cs" for a C-chunk program).
+    Verdicts equal TorchConflictEngine's and the oracle's."""
+
+    name = "subsharded"
+    heat_layout = "cs"
+
+    def __init__(self, cfg: KernelConfig, shards: KeyShardMap, initial_version: Version = 0,
+                 device=None, ladder: Optional[Sequence[int]] = None,
+                 scan_sizes: Sequence[int] = (2, 4, 8), arena: bool = True,
+                 history_search: Optional[str] = None,
+                 heat_buckets: Optional[int] = None,
+                 device_time_sample_rate: Optional[float] = None,
+                 history_structure: Optional[str] = None):
+        self.stack = shards.n_shards
+        super().__init__(cfg, shards, initial_version=initial_version, device=device,
+                         ladder=ladder, scan_sizes=scan_sizes, arena=arena,
+                         history_search=history_search, heat_buckets=heat_buckets,
+                         device_time_sample_rate=device_time_sample_rate,
+                         history_structure=history_structure)
+
+
+#: the engine-mode router: "torch" (single card, step dispatch),
+#: "subsharded" (S key-range sub-shards on one device), "sharded" (N
+#: shards over an explicit device list, fused step;
+#: parallel/sharding.py), "mesh" (N shards, split scan / exchange units
+#: with the non-blocking result ring; parallel/mesh_engine.py) and
 #: "device_loop" (single card, the device-resident server loop;
-#: ops/device_loop.py)
-ENGINE_MODES = ("torch", "device_loop")
+#: ops/device_loop.py). make_engine imports the parallel/ and loop
+#: modules only when asked for them.
+ENGINE_MODES = ("torch", "subsharded", "sharded", "mesh", "device_loop")
 
 
 def default_engine_mode() -> str:
@@ -1748,9 +2029,21 @@ def default_engine_mode() -> str:
 
 
 def make_engine(mode: str, cfg: KernelConfig, **kw):
-    """Registry entry point: build the engine family `mode` names."""
+    """Registry entry point: build the engine family `mode` names. The
+    sharded families take their KeyShardMap as `shards=` (subsharded needs
+    one; sharded and mesh default to a uniform map over their devices)."""
     if mode == "torch":
         return TorchConflictEngine(cfg, **kw)
+    if mode == "subsharded":
+        return SubshardedConflictEngine(cfg, **kw)
+    if mode == "sharded":
+        from ..parallel.sharding import ShardedConflictEngine
+
+        return ShardedConflictEngine(cfg, **kw)
+    if mode == "mesh":
+        from ..parallel.mesh_engine import MeshShardedConflictEngine
+
+        return MeshShardedConflictEngine(cfg, **kw)
     if mode == "device_loop":
         from .device_loop import DeviceLoopEngine
 

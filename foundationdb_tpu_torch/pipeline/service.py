@@ -84,6 +84,14 @@ class PipelineConfig:
                           splits into queue_enqueue / device_resident /
                           result_drain segments and the BudgetBatcher
                           files EWMAs under the "loop" dispatch key.
+                          "mesh" is the sharded mesh engine
+                          (parallel/mesh_engine.py): the same ring
+                          segment split — its enqueue and drain shares
+                          are the split dispatch and the non-blocking
+                          retirement of the exchange — with EWMAs filed
+                          under "mesh" and the engine's mesh_stats
+                          snapshot riding the device span next to
+                          loop_stats.
     queue_enqueue_ms    — loop mode: host cost to pack a queue slot and
                           async-dispatch the server step (no sync).
     result_drain_ms     — loop mode: host cost to poll + decode the
@@ -121,7 +129,7 @@ class PipelineConfig:
 
 
 #: the service's dispatch modes (PipelineConfig.dispatch_mode)
-DISPATCH_MODES = ("step", "device_loop")
+DISPATCH_MODES = ("step", "device_loop", "mesh")
 
 
 class PipelinedResolverService:
@@ -169,6 +177,7 @@ class PipelinedResolverService:
                 # resolver, so a device-loop rollout never poisons the
                 # step path's estimates (docs/perf.md)
                 dispatch_mode=("loop" if cfg.dispatch_mode == "device_loop"
+                               else "mesh" if cfg.dispatch_mode == "mesh"
                                else getattr(engine, "dispatch_mode", "step")),
             )
 
@@ -268,7 +277,10 @@ class PipelinedResolverService:
             await self._device_done.when_at_least(seq - 1)
             from ..sim.loop import now as _now
 
-            loop_mode = self.cfg.dispatch_mode == "device_loop"
+            # the mesh engine shares the device loop's ring discipline
+            # (enqueue share, non-blocking drain share, loop_stats), so it
+            # gets the same segment split and snapshot attachment
+            loop_mode = self.cfg.dispatch_mode in ("device_loop", "mesh")
             if spans_on:
                 t2 = span_now()
                 span_event("resolver.pipeline_wait", version, t1, t2,
@@ -315,6 +327,11 @@ class PipelinedResolverService:
                     snap = snap_fn() if snap_fn is not None else None
                     if snap is not None:
                         extra["loop_stats"] = snap
+                    mesh_fn = getattr(self.engine, "mesh_stats_snapshot", None)
+                    if mesh_fn is not None:
+                        # mesh engines: the shard fan-out and measured
+                        # exchange intervals ride the span too
+                        extra["mesh_stats"] = mesh_fn()
                 # keyspace-heat context (core/heatmap.py): the batch-time
                 # hot-range pressure rides the device span, so a slow
                 # batch's trace says whether the keyspace was hot

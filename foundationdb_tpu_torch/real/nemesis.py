@@ -114,10 +114,11 @@ def make_chaos_engine(engine_mode: str,
     the same way. `history_structure` selects the device history
     layout ("tiered" = the sorted-run interval table, docs/perf.md
     "Incremental history maintenance") — the oracle mode has no device
-    table and ignores it. The card modes ("torch", "device_loop") build
-    their engine on `device` (None: the card, raising where there is
-    none). "mesh" waits for the port's multi-device engine and is an
-    unknown mode until then."""
+    table and ignores it. The card modes ("torch", "device_loop", "mesh")
+    build their engine on `device` (None: the card, raising where there is
+    none); "mesh" spans `resolver_mesh_devices` shards (0: one per visible
+    device of the kind), every shard on that device, so a campaign over
+    mesh slots exercises the sharded engine's restart and handoff."""
     from ..fault.inject import FaultInjectingEngine, FaultRates
     from ..fault.resilient import ResilienceConfig, ResilientEngine
 
@@ -125,7 +126,7 @@ def make_chaos_engine(engine_mode: str,
         from ..ops.oracle import OracleConflictEngine
 
         inner = OracleConflictEngine()
-    elif engine_mode in ("torch", "device_loop"):
+    elif engine_mode in ("torch", "device_loop", "mesh"):
         from ..ops.host_engine import make_engine
 
         kw = ({"history_structure": history_structure}
@@ -2246,8 +2247,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=int, default=2)
     ap.add_argument("--base-seed", type=int, default=11)
     ap.add_argument("--engine-modes", default="torch,device_loop",
-                    help="comma list of oracle|torch|device_loop (the card "
-                         "modes run on the card and raise without one)")
+                    help="comma list of oracle|torch|device_loop|mesh (the "
+                         "card modes run on the card and raise without one)")
     ap.add_argument("--duration", type=float, default=None,
                     help="campaign seconds (default 4.0; --drift defaults "
                          "6.0 oracle / 10.0 device-backed)")

@@ -14,8 +14,10 @@ CycleTestTPU). The dynamic specs keep the JAX package's engines (the
 oracle; the fault injector over the oracle for DeviceNemesis); set
 `spec.dynamic.engine_factory = make_engine_factory()` to recruit card
 resolvers in every generation (BackupCorrectness's restore cluster takes
-the same factory). The multi-device CycleTestTPU8 / RandomReadWriteTPU8
-wait for parallel/ (ROADMAP queue 1 item 6).
+the same factory). CycleTestTPU8 and RandomReadWriteTPU8 keep the JAX
+package's names: one resolver role whose engine is the 8-shard
+ShardedConflictEngine (parallel/), its shards on the card; the CPU tests
+pass `make_engine_factory(device="cpu", mode="sharded", n_shards=8)`.
 """
 from __future__ import annotations
 
@@ -50,20 +52,27 @@ from .workloads import (
 )
 
 
-def make_engine_factory(device=None, cfg=None) -> Callable[[], object]:
+def make_engine_factory(device=None, cfg=None, mode: str = "torch",
+                        n_shards: int = 8) -> Callable[[], object]:
     """A zero-argument factory of the port's conflict engine at the specs'
     KernelConfig (the JAX package's _tpu_engine_factory): each call builds a
-    fresh TorchConflictEngine. `device=None` puts it on the card and the
-    factory's engines raise where there is none; the CPU tests pass
-    device="cpu". `cfg` overrides the KernelConfig."""
+    fresh engine of `mode` (ops/host_engine.make_engine): "torch" (one
+    table, the default), or "subsharded", "sharded" or "mesh" with
+    `n_shards` uniform key-range shards (the JAX package's
+    _sharded_engine_factory: 8), every shard on `device`. `device=None`
+    puts it on the card and the factory's engines raise where there is
+    none; the CPU tests pass device="cpu". `cfg` overrides the
+    KernelConfig."""
+    from ..core.keyshard import KeyShardMap
     from ..ops.conflict_kernel import KernelConfig
-    from ..ops.host_engine import TorchConflictEngine
+    from ..ops.host_engine import make_engine
 
     cfg = cfg or KernelConfig(key_words=4, capacity=1024, max_reads=256,
                               max_writes=256, max_txns=64)
+    kw = {} if mode == "torch" else {"shards": KeyShardMap.uniform(n_shards)}
 
     def factory():
-        return TorchConflictEngine(cfg, device=device)
+        return make_engine(mode, cfg, device=device, **kw)
 
     return factory
 
@@ -311,6 +320,30 @@ SPECS: Dict[str, Callable[[], Spec]] = {
         workloads=[(CycleWorkload, {"nodes": 10, "transactions": 8})],
         cluster=ClusterConfig(n_resolvers=2, n_storage=2, engine_factory=make_engine_factory()),
         client_count=2,
+    ),
+    # the north-star 8-shard config inside the simulated cluster: one
+    # resolver role backed by the 8-shard ShardedConflictEngine (8-way key
+    # sharding, the shards' planes summed in the stacked fixpoint)
+    "CycleTestTPU8": lambda: Spec(
+        title="CycleTestTPU8",
+        workloads=[(CycleWorkload, {"nodes": 10, "transactions": 8})],
+        cluster=ClusterConfig(
+            n_resolvers=1, n_storage=2,
+            engine_factory=make_engine_factory(mode="sharded", n_shards=8)),
+        client_count=2,
+    ),
+    # high-in-flight mixed load on the 8-shard engine: many concurrent
+    # clients keep several commit batches in the pipeline at once
+    "RandomReadWriteTPU8": lambda: Spec(
+        title="RandomReadWriteTPU8",
+        workloads=[
+            (RandomReadWriteWorkload, {"transactions": 12}),
+            (ConflictRangeWorkload, {"rounds": 6}),
+        ],
+        cluster=ClusterConfig(
+            n_resolvers=1, n_storage=4,
+            engine_factory=make_engine_factory(mode="sharded", n_shards=8)),
+        client_count=6,
     ),
     # fast/BackupCorrectness.txt: a live backup straddles cycle churn and
     # restores bit-identically into a second cluster

@@ -1267,3 +1267,122 @@ def test_stack_stream_with_card_resolvers_equals_the_oracle(card):
     launches = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
     assert got == run_with(toracle.OracleConflictEngine, stream)
     assert launches > 0 and fc.FIXPOINT.plain_cuda_calls == 0
+
+
+# ---------------------------------------------------------------------------
+# the stacked fixpoint entry and the sharded engines
+# ---------------------------------------------------------------------------
+
+def stacked_vs_plain(card, cfg, S, seed, n=4):
+    """The stacked entry on the card against its plain version on the CPU,
+    on the stacked step's own inputs over evolving sub-shard tables; at
+    S = 1 also against the single-table entry. Returns the rounds seen."""
+    rng = random.Random(seed)
+    state = ck._stack([ck.initial_state(cfg) for _ in range(S)])
+    rounds = []
+    for trial in range(n):
+        per = [synth_batch(rng, cfg, 100 + trial) for _ in range(S)]
+        for b in per[1:]:
+            b["t_ok"], b["t_too_old"] = per[0]["t_ok"], per[0]["t_too_old"]
+        batch = ck._stack([ck.batch_from_numpy(cfg, b, "cpu") for b in per])
+        hist, edges, wpos = ck.detect_step_stacked(cfg, state, batch)
+        want = fc.commit_fixpoint_stacked(cfg, batch["t_ok"][0], hist, edges, batch)
+        dbatch = {k: v.to(card) for k, v in batch.items()}
+        dedges = {k: v.to(card) for k, v in edges.items()}
+        got = fc.commit_fixpoint_stacked(cfg, dbatch["t_ok"][0], hist.to(card), dedges, dbatch)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (S, trial)
+        rounds.append(int(fc.FIXPOINT_STACKED.last_rounds.item()))
+        if S == 1:
+            one = fc.commit_fixpoint_kernel(cfg, dbatch["t_ok"][0], hist[0].to(card),
+                                            {k: v[0] for k, v in dedges.items()},
+                                            {k: v[0] for k, v in dbatch.items()})
+            torch.cuda.synchronize()
+            assert torch.equal(one, got), trial
+            assert int(fc.FIXPOINT.last_rounds.item()) == rounds[-1]
+        state, _ = ck.apply_step_stacked(cfg, state, batch, want, wpos, False)
+    return rounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 2, 8])
+@pytest.mark.parametrize("cfg", CONFIGS + (RAGGED,), ids=["small", "medium", "ragged"])
+def test_stacked_kernel_matches_plain(card, cfg, S):
+    """The stacked entry equals its plain version element for element, in
+    one launch per call; at S = 1 it equals the single-table entry."""
+    fc.FIXPOINT_STACKED.reset_counts()
+    rounds = stacked_vs_plain(card, cfg, S, seed=S * 31, n=4)
+    assert all(1 <= r <= cfg.max_txns + 1 for r in rounds)
+    assert fc.FIXPOINT_STACKED.launches == 4 and fc.FIXPOINT_STACKED.plain_cuda_calls == 0
+
+
+@pytest.mark.cuda
+def test_stacked_kernel_deep_chain_in_one_sub_shard(card):
+    """A deep chain in the last of 4 sub-shards, the others empty: one round
+    per link, as the plain version runs."""
+    cfg, S, n = WIDE, 4, WIDE.max_txns
+    chain = chain_rows(ck.build_batch_arrays, cfg, n)
+    empty = chain_rows(ck.build_batch_arrays, cfg, 0)
+    empty["t_ok"], empty["t_too_old"] = chain["t_ok"], chain["t_too_old"]
+    batch = ck._stack([ck.batch_from_numpy(cfg, b, "cpu") for b in [empty] * (S - 1) + [chain]])
+    state = ck._stack([ck.initial_state(cfg) for _ in range(S)])
+    hist, edges, _ = ck.detect_step_stacked(cfg, state, batch)
+    want = fc.commit_fixpoint_stacked(cfg, batch["t_ok"][0], hist, edges, batch)
+    got = fc.commit_fixpoint_stacked(cfg, batch["t_ok"][0].to(card), hist.to(card),
+                                     {k: v.to(card) for k, v in edges.items()},
+                                     {k: v.to(card) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want) and int(fc.FIXPOINT_STACKED.last_rounds.item()) == n
+    assert torch.equal(want[:n], torch.arange(n) % 2 == 0)
+
+
+@pytest.mark.cuda
+def test_stacked_kernel_refuses_what_it_cannot_hold(card):
+    cfg = CONFIGS[0]
+    assert fc.supported(cfg, 8) and not fc.supported(dataclasses.replace(cfg, max_txns=33), 2)
+    with pytest.raises(ValueError, match="stacked"):
+        fc.launch_plan_stacked(ck.KernelConfig(max_txns=1 << 16, max_point_reads=1 << 16,
+                                               max_point_writes=1 << 16), 64)
+    batch = ck._stack([ck.batch_from_numpy(cfg, synth_batch(random.Random(1), cfg, 9), card)
+                       for _ in range(2)])
+    hist, edges, _ = ck.detect_step_stacked(
+        cfg, ck._stack([ck.initial_state(cfg, device=card) for _ in range(2)]), batch)
+    with pytest.raises(ValueError, match="hist"):
+        fc.commit_fixpoint_stacked_kernel(cfg, batch["t_ok"][0], hist.to(torch.int64), edges,
+                                          batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["subsharded", "sharded", "mesh"])
+def test_sharded_engines_on_card_match_cpu(card, mode):
+    """The sharded engine families on the card (graph-captured stacked
+    programs; the mesh engine's split scan / exchange pair) against the
+    same engine on the CPU and the oracle, every dispatch without a host
+    sync, the stacked entry on the path and never the plain version."""
+    from foundationdb_tpu_torch.core.keyshard import KeyShardMap
+    from foundationdb_tpu_torch.ops.host_engine import make_engine
+
+    cfg = LADDER_CFG
+    shards = KeyShardMap([b"p00150", b"p00300", b"p00450"])
+    kw = dict(shards=shards, ladder=LADDER, scan_sizes=SCANS, heat_buckets=8)
+    gpu = make_engine(mode, cfg, **kw).warmup()
+    cpu = make_engine(mode, cfg, device="cpu", **kw)
+    ora = toracle.OracleConflictEngine()
+    fc.FIXPOINT_STACKED.reset_counts()
+    captures = gpu.perf.captures
+    for txns, now, oldest in point_batches(41, [30, 200, 700, 90, 1000, 5]):
+        plan = gpu.columnar_pack(txns, now, oldest)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            force = gpu.columnar_dispatch(plan)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = [int(v) for v in force()]
+        assert got == [int(v) for v in cpu.resolve(txns, now, oldest)]
+        assert got == [int(v) for v in ora.resolve(txns, now, oldest)]
+    assert gpu.perf.captures == captures, "captured after warmup"
+    assert fc.FIXPOINT_STACKED.graph_launches > 0
+    assert fc.FIXPOINT_STACKED.plain_cuda_calls == 0
+    assert gpu.heat_snapshot() == cpu.heat_snapshot()
+    if mode == "mesh":
+        assert gpu.loop_stats["blocking_syncs"] == 0

@@ -331,11 +331,12 @@ def test_tiered_run_snapshots_drain_and_match_the_step_engine():
 
 
 def test_make_engine_device_loop():
-    assert the.ENGINE_MODES == ("torch", "device_loop")
+    assert the.ENGINE_MODES == ("torch", "subsharded", "sharded", "mesh", "device_loop")
     eng = the.make_engine("device_loop", port_cfg(SMALL), device="cpu", queue_slots=3)
     assert isinstance(eng, tdl.DeviceLoopEngine) and eng.queue_slots == 3
     assert eng.name == "device_loop" and eng.cfg.heat_buckets == 64
     assert isinstance(the.make_engine("torch", port_cfg(SMALL), device="cpu"), TorchConflictEngine)
+    # the JAX package's name of the single-card mode is not the port's
     with pytest.raises(ValueError, match="unknown engine mode"):
-        the.make_engine("mesh", port_cfg(SMALL), device="cpu")
+        the.make_engine("jax", port_cfg(SMALL), device="cpu")
     assert eng._split_run(9) == [3, 3, 3] and eng._split_run(4) == [3, 1]

@@ -290,8 +290,11 @@ def test_default_heat_buckets_and_precedence():
 
 
 def test_unknown_heat_layout_raises():
+    """Layouts other than the five of JAX's _merge_heat raise (the shard
+    layouts "s", "cs" and "sc" are held to JAX's in
+    tests/test_torch_subsharded.py)."""
     eng = TorchConflictEngine(port_cfg(ESMALL), device="cpu", heat_buckets=4)
-    for layout in ("s", "cs", "sc", "x"):
+    for layout in ("x", "cc", "ss", "S"):
         with pytest.raises(ValueError, match="unknown heat layout"):
             eng._merge_heat({"bounds": np.zeros((1, 4, 3))}, layout=layout)
 

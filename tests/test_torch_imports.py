@@ -112,6 +112,11 @@ def test_subprocess_import_loads_no_jax():
     "foundationdb_tpu_torch.real.workload",
     "foundationdb_tpu_torch.real.nemesis",
     "foundationdb_tpu_torch.real.scenarios",
+    "foundationdb_tpu_torch.parallel",
+    "foundationdb_tpu_torch.parallel.sharding",
+    "foundationdb_tpu_torch.parallel.mesh_engine",
+    "foundationdb_tpu_torch.tools.sharded_bench",
+    "foundationdb_tpu_torch.tools.mesh_bench",
 ])
 def test_serving_path_modules_load_no_jax(module):
     """The columnar path's modules, each imported alone in a fresh process
@@ -178,7 +183,8 @@ def test_source_scan_finds_no_jax_import():
                  "real/transport.py", "real/runtime.py", "real/tls.py", "real/node.py",
                  "real/cluster.py", "real/monitor.py", "real/demo_server.py",
                  "real/chaos.py", "real/workload.py", "real/nemesis.py",
-                 "real/scenarios.py"):
+                 "real/scenarios.py", "parallel/__init__.py", "parallel/sharding.py",
+                 "parallel/mesh_engine.py", "tools/sharded_bench.py", "tools/mesh_bench.py"):
         assert PKG / name in files, name
     for path in files:
         bad = [r for r in imported_roots(path) if r in FORBIDDEN + ("cryptography",)]

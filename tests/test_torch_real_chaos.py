@@ -197,18 +197,19 @@ def test_chaos_status_lines_and_degraded_signals():
 
 def test_chaos_engine_modes():
     """make_chaos_engine takes the port's modes: oracle, and torch /
-    device_loop on an explicit device; the JAX package's "jax" and "mesh"
-    are unknown modes."""
+    device_loop / mesh on an explicit device; the JAX package's "jax" is
+    an unknown mode."""
     import torch
 
     PORT.simulator.Simulator(3)   # the supervisor draws its seed from the scheduler
     inner, _inj, sup = PORT.nemesis.make_chaos_engine("oracle")
     assert type(inner).__name__ == "OracleConflictEngine"
     torch.set_num_threads(1)
-    for mode, cls in (("torch", "TorchConflictEngine"), ("device_loop", "DeviceLoopEngine")):
+    for mode, cls in (("torch", "TorchConflictEngine"), ("device_loop", "DeviceLoopEngine"),
+                      ("mesh", "MeshShardedConflictEngine")):
         inner, _inj, sup = PORT.nemesis.make_chaos_engine(mode, device="cpu")
         assert type(inner).__name__ == cls and inner.cfg.max_txns == 64
-    for mode in ("jax", "mesh"):
+    for mode in ("jax", "sharded"):
         with pytest.raises(ValueError, match="unknown chaos engine mode"):
             PORT.nemesis.make_chaos_engine(mode)
     if not torch.cuda.is_available():

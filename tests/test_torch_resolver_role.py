@@ -235,12 +235,12 @@ def test_device_ms_charges_each_chunk(n_txns, ms):
         assert service(JAX)._device_ms(n_txns) == ms
 
 
-@pytest.mark.parametrize("mode", ["mesh", "loop"])
+@pytest.mark.parametrize("mode", ["jax", "loop"])
 def test_service_refuses_a_dispatch_mode_it_lacks(mode):
-    """The port's service serves "step" and "device_loop" only: a mode
-    it has no path for raises rather than running as another."""
+    """The port's service serves JAX's "step", "device_loop" and "mesh":
+    a mode it has no path for raises rather than running as another."""
     assert {service(PORT, dispatch_mode=m).cfg.dispatch_mode
-            for m in PORT.pipeline.service.DISPATCH_MODES} == {"step", "device_loop"}
+            for m in PORT.pipeline.service.DISPATCH_MODES} == {"step", "device_loop", "mesh"}
     with pytest.raises(ValueError, match="dispatch_mode"):
         service(PORT, dispatch_mode=mode)
 

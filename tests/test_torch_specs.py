@@ -4,7 +4,10 @@ Every spec of the static cluster runs through the port's `run_spec` and
 the JAX package's at seeds 1 and 2: the SpecResults (ok, metrics, seed,
 virtual time) must be equal. `CycleTestCUDA` with the port's engine on
 the CPU (`make_engine_factory(device="cpu")`) must equal JAX's
-CycleTestTPU. The runner CLI lists and runs specs, those of the dynamic
+CycleTestTPU; `CycleTestTPU8` and `RandomReadWriteTPU8` with the port's
+8-shard ShardedConflictEngine on the CPU (`make_engine_factory(device=
+"cpu", mode="sharded", n_shards=8)`) must equal JAX's on its 8 virtual
+devices. The runner CLI lists and runs specs, those of the dynamic
 cluster too (tests/test_torch_dynamic_specs.py holds each of them against
 JAX's). Knob randomization draws the same values from both registries.
 
@@ -37,6 +40,9 @@ def run_both(name, seed):
     spec = PORT.specs.SPECS[name]()
     if name == "CycleTestCUDA":
         spec.cluster.engine_factory = PORT.specs.make_engine_factory(device="cpu")
+    if name.endswith("TPU8"):
+        spec.cluster.engine_factory = PORT.specs.make_engine_factory(
+            device="cpu", mode="sharded", n_shards=8)
     clean_world()
     port = PORT.workload.run_spec(spec, seed)
     clean_world()
@@ -46,8 +52,8 @@ def run_both(name, seed):
 
 def test_every_static_spec_is_ported():
     static = {n for n, make in JAX.specs.SPECS.items() if make().dynamic is None}
-    assert {JAX_NAME.get(n, n) for n in PORTED} == static - {"CycleTestTPU8", "RandomReadWriteTPU8"}
-    assert len(PORTED) == 12
+    assert {JAX_NAME.get(n, n) for n in PORTED} == static
+    assert len(PORTED) == 14
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -72,6 +78,20 @@ def test_cycle_test_cuda_builds_port_engines_on_cpu():
     assert res.ok
     assert [(type(e).__name__, e.device.type, e.cfg.max_txns) for e in built] == \
         [("TorchConflictEngine", "cpu", 64)] * 2
+
+
+@pytest.mark.parametrize("mode,cls", [("sharded", "ShardedConflictEngine"),
+                                      ("subsharded", "SubshardedConflictEngine"),
+                                      ("mesh", "MeshShardedConflictEngine")])
+def test_sharded_engine_factories_build_port_engines_on_cpu(mode, cls):
+    """The factory's sharded modes: 8 uniform shards (the JAX package's
+    _sharded_engine_factory), every shard on the CPU, the specs'
+    KernelConfig; the TPU8 specs carry the sharded factory."""
+    eng = PORT.specs.make_engine_factory(device="cpu", mode=mode)()
+    assert type(eng).__name__ == cls and eng.n_shards == 8 and eng.cfg.max_txns == 64
+    assert eng.device.type == "cpu"
+    spec = PORT.specs.SPECS["CycleTestTPU8"]()
+    assert spec.cluster.n_resolvers == 1
 
 
 def test_make_engine_factory_defaults_to_the_card():
