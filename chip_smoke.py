@@ -241,9 +241,24 @@ toolkit. The script
      card resolvers, each equal to its oracle twin and every recorded
      resolve to a fresh oracle's replay; one mesh campaign (2 shards) at
      the atlas's 3.5 s.
-  The oracle twins of phases 17-19 and 21, and the CPU twins of 21, run
-  together in 6 worker processes after the last card run (phase 21's),
-  the longest first.
+  22. tools phase (tools_phase): each tool bench.py drives, through its
+     entry point at bench.py's shape: ladder_bench.drive_bucket_ladder
+     (the bench CFG, ladder 512/1024/2048; 0 builds and captures after
+     warmup; every batch equal to the oracle twin's); floor_bench's floor
+     sweep (both search modes, equal verdicts), apply sweep and loop
+     floor at the 512-txn point; heat_bench.run_conflict_heat there
+     (concentration rising with s, the split, on/off parity, device ms on
+     against off; the sweep equal to CPU engines'); profile_kernel's
+     variants at the bench shape (the fixpoint kernel equal to its plain
+     version); the native engine's txn/s; recovery_bench.run_rewarm in
+     two fresh processes on the card; a cli session and a one-shot `cli
+     status` over dynamic clusters with card resolvers, and `fdbbackup
+     restore` and `dr` with card resolvers (every card call equal to a
+     fresh oracle's replay, the text but the engine views and the
+     backup results equal to oracle twins').
+  The oracle twins of phases 17-19, 21 and 22, and the CPU twins of 21
+  and 22, run together in 6 worker processes after the last card run
+  (phase 22's), the longest first.
 
 Each path's kernel launches are counted from 0 just before it and read
 just after (a captured graph's fixpoint launches are counted at each
@@ -5111,6 +5126,372 @@ def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, o
     return jobs, finish
 
 
+# ---------------------------------------------------------------------------
+# the tools phase: the benches bench.py drives, profile_kernel, the CLI and
+# fdbbackup, on the card
+# ---------------------------------------------------------------------------
+
+#: bench.py's bucket_ladder section: its ladder over the bench CFG, its pool
+TOOLS_LADDER = (512, 1024, 2048)
+TOOLS_LADDER_ROUNDS = 2
+TOOLS_LADDER_SEED = 2026
+#: the floor, apply and heat programs' steps (bench.py: 256, 128 and 128;
+#: cut to keep the phase near 150 s)
+TOOLS_FLOOR_STEPS = 32
+TOOLS_HEAT_STEPS = 64
+#: profile_kernel's program steps at the bench shape (its STEPS: 256)
+TOOLS_PROFILE_STEPS = 32
+TOOLS_PROFILE_VARIANTS = ("full", "phases12", "sort", "fixpoint", "apply", "binsearch")
+#: the CLI session over one dynamic cluster, and the commands whose text
+#: reads the resolvers' engines (the rest must equal the oracle twin's)
+TOOLS_CLI_SEED = 0
+TOOLS_CLI_LINES = ("status", "set hello world", "get hello", "getrange a z", "clear hello",
+                   "get hello", "set 0x00ff 0xdead", "getrange 0x00 0xff", "shards",
+                   "telemetry", "perf", "heat")
+TOOLS_ENGINE_LINES = ("telemetry", "perf", "heat")
+TOOLS_BACKUP_SEED = 5
+
+
+def tools_cfg512(ck):
+    """bench.py's 512-txn production point (history_floor, loop_floor,
+    conflict_heat): the bench capacity, 1024 point rows a group."""
+    return ck.KernelConfig(key_words=4, capacity=24576, max_point_reads=1024,
+                           max_point_writes=1024, max_reads=64, max_writes=64, max_txns=512)
+
+
+def ladder_oracle_twin(sizes, pool, rounds, seed):
+    """The ladder drive's oracle twin (run in a worker process): the
+    oracle's verdicts on the drive's stream, batch by batch."""
+    from foundationdb_tpu_torch.ops.oracle import OracleConflictEngine
+    from foundationdb_tpu_torch.tools.ladder_bench import ladder_stream
+
+    oracle = OracleConflictEngine()
+    return [[int(v) for v in oracle.resolve(*b)]
+            for b in ladder_stream(sizes, pool, rounds, seed)]
+
+
+def heat_cpu_twin(pool, n_batches):
+    """The heat sweep's CPU twin (run in a worker process): run_conflict_heat
+    on CPU engines at the same shape and seed, the overhead left out."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    from foundationdb_tpu_torch.tools.heat_bench import run_conflict_heat
+
+    torch.set_num_threads(1)
+    out = run_conflict_heat(tools_cfg512(ck), pool=pool, n_batches=n_batches, device="cpu",
+                            overhead=False)
+    return {"sweep": out["sweep"], "split": out["split"], "parity_ok": out["parity_ok"]}
+
+
+def cli_session(seed, factory=None):
+    """TOOLS_CLI_LINES through one Cli over a dynamic cluster whose
+    resolvers `factory` builds (None: the oracle, the twin): {line: text}."""
+    import io
+
+    from foundationdb_tpu_torch.server.cluster import DynamicClusterConfig, build_dynamic_cluster
+    from foundationdb_tpu_torch.tools.cli import Cli
+
+    clean_port_world()
+    kw = {} if factory is None else {"engine_factory": factory}
+    cluster = build_dynamic_cluster(seed=seed, cfg=DynamicClusterConfig(**kw))
+    out = io.StringIO()
+    cli = Cli(cluster, out=out)
+    cli.sim.run(until=3.0)
+    texts = {}
+    for line in TOOLS_CLI_LINES:
+        out.seek(0)
+        out.truncate(0)
+        cli.run_command(line)
+        texts[line] = out.getvalue()
+    clean_port_world()
+    return texts
+
+
+def tool_main(module, argv):
+    """A tool's main(argv) in this process: (exit code, standard output)."""
+    import contextlib
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"foundationdb_tpu_torch.tools.{module}")
+    clean_port_world()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(list(argv))
+    clean_port_world()
+    return rc, buf.getvalue()
+
+
+def recorded_tool_main(fc, module, argv, built):
+    """tool_main with the tool's engine_factory wrapped so that every engine
+    it builds records its calls into `built` (recording_engines); the
+    fixpoint counts zeroed just before and read just after."""
+    import importlib
+
+    mod = importlib.import_module(f"foundationdb_tpu_torch.tools.{module}")
+    make = mod.engine_factory
+    mod.engine_factory = lambda kind="torch", device=None: recording_engines(
+        make(kind, device), built)
+    fc.FIXPOINT.reset_counts()
+    try:
+        rc, text = tool_main(module, argv)
+    finally:
+        mod.engine_factory = make
+    return rc, text, fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+
+
+def card_engines_checked(where, fc, built):
+    """Every recorded engine on the card, every call equal to a fresh
+    oracle's replay, no plain fixpoint on CUDA tensors: (engines, calls)."""
+    devices = {r["engine"].device.type for r in built}
+    calls = sum(len(r["calls"]) for r in built)
+    bad = sum(call_mismatches(r["calls"]) for r in built)
+    check(built and devices == {"cuda"}, f"{where}: engines on {devices or 'nothing'}")
+    check(calls > 0 and bad == 0, f"{where}: {bad} of {calls} card calls differ from the "
+          f"oracle's replay")
+    check(fc.FIXPOINT.plain_cuda_calls == 0, f"{where}: a plain fixpoint ran on CUDA tensors")
+    return len(built), calls
+
+
+def tools_phase(fc, he, ck, card, cfg):
+    """The tools bench.py drives, and the operator tools, each through its
+    entry point on the card, the fixpoint counts zeroed just before each
+    path and read just after:
+
+    ladder: ladder_bench.drive_bucket_ladder at bench.py's bucket_ladder
+    section (the bench CFG, ladder 512/1024/2048, the 8192-key pool, two
+    rounds): 0 builds and captures after warmup, every scan size served,
+    every batch's verdicts held to the oracle twin's (after the last card
+    run). floor: floor_bench.run_floor_sweep in both search modes at the
+    512-txn production point and the bench capacity (occupancy 1/4, 1/2,
+    3/4): device ms per batch against occupancy, equal verdicts across
+    modes, 0 captures after warmup; run_apply_sweep (monolithic against
+    tiered) and run_loop_floor (step against loop, verdicts equal, no
+    blocking sync). heat: heat_bench.run_conflict_heat at the 512-txn
+    point: concentration rises with s, the split within tolerance, heat on
+    and off verdicts equal, device ms on against off; the sweep's
+    snapshots held to CPU engines' (a twin). profile: profile_kernel's
+    variants at the bench shape (ms per iteration; the fixpoint kernel
+    equal to its plain version). skiplist: the native engine's txn/s on one
+    host core. rewarm: recovery_bench.run_rewarm, cold and warm warmup in
+    two fresh processes on the card, goal_met as JAX computes it. cli: a
+    session of TOOLS_CLI_LINES over a dynamic cluster with card resolvers
+    and `cli status` in one-shot mode: every card call equal to a fresh
+    oracle's replay, the text of every command but the engine views equal
+    to the oracle-resolver twin's. fdbbackup: `restore` and `dr` with card
+    resolvers (the tool's default): restore equal to the source, no
+    acknowledged commit lost, the JSON equal to the oracle twin's.
+
+    Returns (twin jobs, finish(twins))."""
+    import tempfile
+
+    from foundationdb_tpu_torch.tools import (floor_bench, heat_bench, ladder_bench,
+                                              profile_kernel, recovery_bench, skiplist_bench)
+
+    res, launches, walls = {}, {}, {}
+
+    def path(name, fn, kernel=True):
+        """fn() as one path, timed; its fixpoint launches where it runs
+        the kernel (`kernel`)."""
+        fc.FIXPOINT.reset_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        walls[name] = time.perf_counter() - t0
+        if kernel:
+            launches[f"tools_{name}"] = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+        check(fc.FIXPOINT.plain_cuda_calls == 0 or name == "profile",
+              f"tools phase, {name}: a plain fixpoint ran on CUDA tensors")
+        return out
+
+    verdicts = []
+    lad = path("ladder", lambda: ladder_bench.drive_bucket_ladder(
+        cfg, list(TOOLS_LADDER), pool=POOL_KEYS, steady_rounds=TOOLS_LADDER_ROUNDS,
+        seed=TOOLS_LADDER_SEED, verdicts=verdicts))
+    check(lad["device"].startswith("cuda"), f"ladder drive ran on {lad['device']}")
+    check(lad["steady_state_compiles"] == 0 and lad["steady_state_captures"] == 0,
+          f"ladder drive: {lad['steady_state_compiles']} builds and "
+          f"{lad['steady_state_captures']} captures after warmup")
+    check(all(lad["scan_dispatches"].get(str(c)) for c in (1, 2)),
+          f"ladder drive: scan dispatches {lad['scan_dispatches']}")
+    res["ladder"] = lad
+    print(f"tools phase, ladder [{card}]: {len(verdicts)} batches of {lad['driven_batch_sizes']} "
+          f"x{lad['rounds']}, bucket hits {lad['bucket_hits']}, scans {lad['scan_dispatches']}, "
+          f"warmup {lad['warmup_ms']} ms ({lad['compiles_warmup']} builds, "
+          f"{lad['captures_warmup']} captures), 0 after; resolve "
+          f"{lad['resolve_ms_per_batch']} ms/batch ({walls['ladder']:.1f} s)", flush=True)
+
+    c512 = tools_cfg512(ck)
+    floor = path("floor_sweep", lambda: floor_bench.run_floor_sweep(
+        c512, scan_steps=TOOLS_FLOOR_STEPS))
+    check(all(p["verdicts_equal"] for p in floor["points"]),
+          "floor sweep: fused_sort and bsearch verdicts differ")
+    check(floor["steady_state_compiles"] == {"fused_sort": 0, "bsearch": 0},
+          f"floor sweep: captures after warmup {floor['steady_state_compiles']}")
+    check(all(p["fused_sort_ms"] and p["bsearch_ms"] for p in floor["points"]),
+          "floor sweep: a point was not timed")
+    res["floor_sweep"] = floor
+    apply_cfg = ck.KernelConfig(key_words=4, capacity=cfg.capacity, max_point_reads=1024,
+                                max_point_writes=64, max_reads=64, max_writes=16, max_txns=512)
+    app = path("apply_sweep", lambda: floor_bench.run_apply_sweep(
+        apply_cfg, scan_steps=TOOLS_FLOOR_STEPS), kernel=False)
+    check(app["steady_state_compiles"] == {"monolithic": 0, "tiered": 0},
+          f"apply sweep: captures after warmup {app['steady_state_compiles']}")
+    res["apply_sweep"] = app
+    lf = path("loop_floor", lambda: floor_bench.run_loop_floor(c512, n_batches=32,
+                                                               pool=POOL_KEYS // 4))
+    check(lf["parity_ok"] and lf["loop_stats"]["blocking_syncs"] == 0,
+          f"loop floor: parity {lf['parity_ok']}, {lf['loop_stats']['blocking_syncs']} blocking "
+          f"syncs")
+    res["loop_floor"] = lf
+    print(f"tools phase, history floor [{card}]: T={floor['batch_txns']} H={floor['capacity']} "
+          f"({floor['scan_steps']}-step programs): " + "; ".join(
+              f"n={p['n']} fused_sort {p['fused_sort_ms']} / bsearch {p['bsearch_ms']} ms"
+              for p in floor["points"]) + f", auto picks {floor['auto_pick']}; apply "
+          + "; ".join(f"n={p['n']} monolithic {p['monolithic_ms']} / tiered {p['tiered_ms']} ms"
+                      for p in app["points"])
+          + f"; loop floor step {lf['step_host_ms_per_batch']} / loop "
+          f"{lf['loop_host_ms_per_batch']} host ms/batch ({walls['floor_sweep']:.1f} + "
+          f"{walls['apply_sweep']:.1f} + {walls['loop_floor']:.1f} s)", flush=True)
+
+    heat = path("heat", lambda: heat_bench.run_conflict_heat(
+        c512, pool=POOL_KEYS // 4, n_batches=24, overhead_scan_steps=TOOLS_HEAT_STEPS))
+    over = heat["overhead"]
+    check(heat["concentration_monotone"], "heat sweep: concentration does not rise with s: "
+          + str([r["concentration"] for r in heat["sweep"]]))
+    check(heat["parity_ok"], "heat sweep: heat on and heat off verdicts differ")
+    check(heat["split"] and heat["split"]["ok"], f"heat sweep: split {heat['split']}")
+    check(over["heat_on_ms"] and over["heat_off_ms"] and over["steady_state_compiles"] == 0,
+          f"heat overhead: {over}")
+    res["heat"] = heat
+    print(f"tools phase, heat [{card}]: concentration "
+          + ", ".join(f"s={r['s']} {r['concentration']}" for r in heat["sweep"])
+          + f"; split max dev {heat['split']['max_dev_frac']}; device ms/batch heat off "
+          f"{over['heat_off_ms']} / on {over['heat_on_ms']} ({over['overhead_pct']}% against a "
+          f"{over['budget_pct']}% budget) ({walls['heat']:.1f} s)", flush=True)
+
+    import io
+
+    prof = path("profile", lambda: profile_kernel.run(
+        list(TOOLS_PROFILE_VARIANTS), steps=TOOLS_PROFILE_STEPS, out=io.StringIO()))
+    launches["tools_profile"] -= prof.info.get("compare_launches", 0)
+    check(prof.info.get("fixpoint_equal") is True,
+          "profile_kernel: the fixpoint kernel differs from its plain version")
+    check(all(prof.ms.get(v) for v in TOOLS_PROFILE_VARIANTS) and prof.ms.get("fixpoint_plain"),
+          f"profile_kernel: variants without a time {prof.ms}")
+    res["profile"] = {"card": prof.card, "steps": prof.steps, "ms_per_iter": prof.ms,
+                      **prof.info}
+    print(f"tools phase, profile_kernel [{card}]: steady rows {prof.info['steady_rows']}, "
+          + ", ".join(f"{k} {v:.4f}" for k, v in prof.ms.items())
+          + f" ms/iter ({prof.steps}-step programs); fixpoint kernel equal to plain "
+          f"({walls['profile']:.1f} s)", flush=True)
+
+    sk = path("skiplist", lambda: skiplist_bench.run("native", batches=40, txns=1000,
+                                                     pool=POOL_KEYS, seed=7), kernel=False)
+    res["skiplist"] = sk
+    print(f"tools phase, skiplist [{card}]: native engine {sk['txns_per_sec']} txn/s on one "
+          f"host core ({walls['skiplist']:.1f} s)", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-rewarm-") as td:
+        rw = path("rewarm", lambda: recovery_bench.run_rewarm(os.path.join(td, "progcache")))
+    check(rw is not None, "rewarm: a child process failed")
+    check(rw["device"].startswith("cuda"), f"rewarm ran on {rw['device']}")
+    check(rw["goal_met"] is False and rw["warm"]["hits"] == 0,
+          "rewarm: a captured program came off disk")
+    launches["tools_rewarm"] = rw["cold"]["fixpoint_launches"] + rw["warm"]["fixpoint_launches"]
+    res["rewarm"] = rw
+    print(f"tools phase, rewarm [{card}]: cold {rw['cold']['warmup_ms']} ms, warm "
+          f"{rw['warm']['warmup_ms']} ms ({rw['warm']['captures']} graphs recaptured, "
+          f"{rw['warm']['errors']} programs refused by the cache), speedup "
+          f"{rw['rewarm_speedup']}, goal_met {rw['goal_met']} ({walls['rewarm']:.1f} s)",
+          flush=True)
+
+    from foundationdb_tpu_torch.tools import fdbbackup
+
+    built = []
+    texts = path("cli_session", lambda: cli_session(TOOLS_CLI_SEED, recording_engines(
+        fdbbackup.engine_factory("torch", "cuda"), built)))
+    cli_engines = card_engines_checked("cli session", fc, built)
+    built = []
+    rc, one_shot, launches["tools_cli_one_shot"] = recorded_tool_main(fc, "cli", ["status"],
+                                                                      built)
+    check(rc == 0 and "recovery state     - fully_recovered" in one_shot,
+          f"cli status (one-shot): exit {rc}, {one_shot!r}")
+    one_shot_engines = card_engines_checked("cli status (one-shot)", fc, built)
+    check("flops None, bytes None" in texts["perf"] and "compiles - warmup" in texts["perf"],
+          f"cli perf over card resolvers: {texts['perf']!r}")
+    check("hot ranges" in texts["heat"], f"cli heat over card resolvers: {texts['heat']!r}")
+    res["cli"] = {"texts": texts, "one_shot": one_shot, "engines": cli_engines,
+                  "one_shot_engines": one_shot_engines}
+    print(f"tools phase, cli [{card}]: {len(TOOLS_CLI_LINES)} commands over {cli_engines[0]} card "
+          f"resolvers ({cli_engines[1]} calls), `status` one-shot over {one_shot_engines[0]} "
+          f"({one_shot_engines[1]} calls), 0 replay mismatches ({walls['cli_session']:.1f} s)",
+          flush=True)
+
+    backups = {}
+    for personality in ("restore", "dr"):
+        built = []
+        t0 = time.perf_counter()
+        rc, text, launches[f"tools_fdbbackup_{personality}"] = recorded_tool_main(
+            fc, "fdbbackup", [personality, "--seed", str(TOOLS_BACKUP_SEED)], built)
+        out = json.loads(text.strip().splitlines()[-1])
+        check(rc == 0 and out.get("verified") is True,
+              f"fdbbackup {personality} on card resolvers: exit {rc}, {out}")
+        engines = card_engines_checked(f"fdbbackup {personality}", fc, built)
+        backups[personality] = {"out": out, "engines": engines,
+                                "wall_s": time.perf_counter() - t0}
+        print(f"tools phase, fdbbackup {personality} [{card}]: {out} over {engines[0]} card "
+              f"resolvers ({engines[1]} calls), 0 replay mismatches "
+              f"({backups[personality]['wall_s']:.1f} s)", flush=True)
+    res["fdbbackup"] = backups
+    for name, n in launches.items():
+        check(n > 0, f"tools phase: {name} made no fixpoint launch")
+    res["launches"] = launches
+    res["wall_s"] = walls
+
+    sizes = lad["driven_batch_sizes"]
+    jobs = {("tools", "ladder"): (ladder_oracle_twin, sizes, POOL_KEYS, TOOLS_LADDER_ROUNDS,
+                                  TOOLS_LADDER_SEED),
+            ("tools", "heat"): (heat_cpu_twin, POOL_KEYS // 4, 24),
+            ("tools", "cli"): (cli_session, TOOLS_CLI_SEED),
+            ("tools", "cli_one_shot"): (tool_main, "cli", ["--engine", "oracle", "status"])}
+    for personality in ("restore", "dr"):
+        jobs[("tools", personality)] = (tool_main, "fdbbackup", [
+            personality, "--seed", str(TOOLS_BACKUP_SEED), "--engine", "oracle"])
+
+    def finish(twins):
+        want = twins[("tools", "ladder")]
+        bad = sum(a != b for a, b in zip(verdicts, want))
+        check(len(verdicts) == len(want) and bad == 0,
+              f"ladder drive: {bad} of {len(verdicts)} batches differ from the oracle")
+        cpu = twins[("tools", "heat")]
+        for got, ref in zip(heat["sweep"], cpu["sweep"]):
+            check(got == ref, f"heat sweep s={got['s']}: the card's row differs from the CPU "
+                  f"engines' ({got['concentration']} against {ref['concentration']})")
+        check(heat["split"] == cpu["split"] and cpu["parity_ok"],
+              "heat sweep: the card's split differs from the CPU engines'")
+        twin_texts = twins[("tools", "cli")]
+        for line in TOOLS_CLI_LINES:
+            if line not in TOOLS_ENGINE_LINES:
+                check(texts[line] == twin_texts[line],
+                      f"cli {line!r}: the card-resolver text differs from the oracle twin's: "
+                      f"{texts[line]!r} against {twin_texts[line]!r}")
+        rc, twin_one_shot = twins[("tools", "cli_one_shot")]
+        check(rc == 0 and one_shot == twin_one_shot,
+              "cli status (one-shot): the card-resolver text differs from the oracle twin's")
+        for personality, b in backups.items():
+            rc, text = twins[("tools", personality)]
+            twin = json.loads(text.strip().splitlines()[-1])
+            check(rc == 0 and b["out"] == twin,
+                  f"fdbbackup {personality}: card {b['out']} against oracle twin {twin}")
+        print(f"tools phase [{card}]: the ladder's {len(verdicts)} batches equal the oracle, the "
+              f"heat sweep equals CPU engines', the cli text and fdbbackup results equal their "
+              f"oracle twins; launches {launches}", flush=True)
+        return res
+
+    return jobs, finish
+
+
 TWIN_WORKERS = 6
 
 
@@ -5497,9 +5878,14 @@ def main(argv=None) -> int:
                                        serial, oracle_ref, rng)
     print(f"sharded phase card runs [{card}] ({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    # the tools bench.py drives, profile_kernel, the CLI and fdbbackup
+    t0 = time.perf_counter()
+    tl_jobs, tl_finish = tools_phase(fc, he, ck, card, cfg)
+    print(f"tools phase card runs [{card}] ({time.perf_counter() - t0:.1f} s)", flush=True)
+
     # the phases' oracle and CPU twins, after the last card run, the longest
     # (the backup run's and the recovery run's) first
-    twins, twin_s = run_twins({**bb_jobs, **dyn_jobs, **sh_jobs, **cl_jobs})
+    twins, twin_s = run_twins({**bb_jobs, **dyn_jobs, **sh_jobs, **tl_jobs, **cl_jobs})
     print(f"oracle twins [{card}]: {len(twins)} runs in {TWIN_WORKERS} workers after the last "
           f"card run ({twin_s:.1f} s)", flush=True)
     cl = cl_finish(twins)
@@ -5517,6 +5903,8 @@ def main(argv=None) -> int:
           flush=True)
     sh = sh_finish(twins)
     results["sharded_phase"] = sh
+    tl = tl_finish(twins)
+    results["tools_phase"] = tl
     results["twin_s"] = twin_s
 
     kernels = {"kernels": [{
@@ -5531,7 +5919,7 @@ def main(argv=None) -> int:
                     + sum(crash_launches.values()) + rs["launches"]
                     + sum(cl["launches"].values()) + sum(dyn["launches"].values())
                     + sum(bb["launches"].values()) + sum(real["launches"].values())
-                    + sum(sh["single_launches"].values()),
+                    + sum(sh["single_launches"].values()) + sum(tl["launches"].values()),
         "launches_by_path": {"engine_general_router_graph": ep["graph_launches"],
                              "engine_general_router_eager": ep["eager_launches"],
                              "graph_step": gp["launches"], "columnar_engine": colp["launches"],
@@ -5555,7 +5943,7 @@ def main(argv=None) -> int:
                              **{f"crash_child_{k}": v for k, v in crash_launches.items()},
                              "reshard": rs["launches"], **cl["launches"],
                              **dyn["launches"], **bb["launches"], **real["launches"],
-                             **sh["single_launches"]},
+                             **sh["single_launches"], **tl["launches"]},
         "mismatches": 0,
         "max_abs_err": 0,
         "ms": kp["kernel_ms"],

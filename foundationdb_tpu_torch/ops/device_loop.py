@@ -67,7 +67,8 @@ from ..core.types import TransactionCommitResult, Version
 from . import conflict_kernel as ck
 from . import fixpoint_cuda, graph_if
 from .conflict_kernel import KernelConfig
-from .host_engine import COLD_FIELDS, HOT_FIELDS, TorchConflictEngine, input_shapes
+from .host_engine import (COLD_FIELDS, HOT_FIELDS, TorchConflictEngine, count_capture,
+                          input_shapes)
 
 #: legal values of the `resolver_device_loop` knob: "" (off — step
 #: dispatch), "on" and "pallas" (the loop engine; both run the CUDA
@@ -288,7 +289,7 @@ class _LoopProgram:
                 f"and {ifs} IF nodes; expected 2, 1 and {2 if tiered else 0}")
         self.launches = launches
         self.graphs[gc_last] = graph
-        eng.perf.captures += 1
+        count_capture(eng.perf)
 
     def launch(self, slot: _LoopSlot, n: int, gc_last: bool,
                timing=None) -> Optional["torch.cuda.Event"]:

@@ -554,6 +554,26 @@ class EnginePerf:
         }
 
 
+class CaptureCount:
+    """CUDA graphs captured in this process: every engine program's
+    capture (each also counted in its engine's perf.captures) and every
+    timing program of the tools (tools/floor_bench.ScanProgram). Nothing
+    is captured on the CPU, where it stays 0."""
+
+    def __init__(self) -> None:
+        self.n = 0
+
+
+CAPTURES = CaptureCount()
+
+
+def count_capture(perf: Optional[EnginePerf] = None) -> None:
+    """One graph captured: CAPTURES, and `perf.captures` where given."""
+    if perf is not None:
+        perf.captures += 1
+    CAPTURES.n += 1
+
+
 def ladder_from_knob() -> Optional[List[int]]:
     """Parse the `resolver_bucket_ladder` knob ("512,1024,2048") into bucket
     sizes; empty/unset means single-bucket. Entries are NOT validated here:
@@ -1723,7 +1743,7 @@ class _Program:
             raise RuntimeError(f"captured {if_nodes} merge IF nodes in a {self.C}-step graph")
         self.launches = launches
         self.graphs[gc_last] = graph
-        eng.perf.captures += 1
+        count_capture(eng.perf)
 
     def load(self, c: int, arrays, pack: Optional[PackSet]) -> None:
         """Chunk c into the static inputs (load_chunk): `arrays` is its

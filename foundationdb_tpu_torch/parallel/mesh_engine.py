@@ -58,7 +58,7 @@ from ..core.types import Version
 from ..ops import conflict_kernel as ck
 from ..ops import fixpoint_cuda, graph_if
 from ..ops.conflict_kernel import KernelConfig
-from ..ops.host_engine import _KEY_MASK, input_shapes, load_chunk
+from ..ops.host_engine import _KEY_MASK, count_capture, input_shapes, load_chunk
 from .sharding import ShardedConflictEngine, make_mesh_exchange_step, make_mesh_scan_step
 
 __all__ = ["MeshShardedConflictEngine", "measured_shard_map", "mesh_overlap_requested",
@@ -193,7 +193,7 @@ class _ScanProgram:
             for k, v in wpos.items():
                 self.out[2][k].copy_(v)
         self.graph = graph
-        eng.perf.captures += 1
+        count_capture(eng.perf)
 
     def load(self, per, pack) -> None:
         load_chunk(self.inputs, self.cold_dirty, 0, self.bucket, self.S, per, pack)
@@ -277,7 +277,7 @@ class _ExchangeProgram:
         if if_nodes != (self.S if self.merged is not None else 0):
             raise RuntimeError(f"captured {if_nodes} merge IF nodes in an exchange")
         self.graphs[gc_branch] = graph
-        eng.perf.captures += 1
+        count_capture(eng.perf)
 
     def run(self, gc_branch: bool) -> None:
         if self.graphs:

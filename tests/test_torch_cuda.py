@@ -11,7 +11,9 @@ perf-ledger row per captured program, the loop's samples landing through
 poll(), and a conflict-scheduled stream on the loop engine; the resolver
 role, the supervisor, the simulated clusters (static and dynamic: card
 resolvers recruited in every generation), a backup restored onto card
-resolvers and a stack-tester stream, over card engines.
+resolvers and a stack-tester stream, over card engines; the sharded
+engines and the stacked entry; and the tools: a ladder drive, the
+profile_kernel fixpoint variant and `cli status` over card resolvers.
 
 Every test here needs an NVIDIA card and skips without one. The file
 imports neither jax nor the JAX package, so it runs on a machine that has
@@ -1386,3 +1388,47 @@ def test_sharded_engines_on_card_match_cpu(card, mode):
     assert gpu.heat_snapshot() == cpu.heat_snapshot()
     if mode == "mesh":
         assert gpu.loop_stats["blocking_syncs"] == 0
+
+
+@pytest.mark.cuda
+def test_ladder_drive_on_card_equals_the_oracle(card):
+    """tools/ladder_bench's drive on a card engine: every batch's verdicts
+    equal the oracle's, every bucket and the 2-chunk scan serve, and
+    nothing is built or captured after warmup()."""
+    from foundationdb_tpu_torch.tools.ladder_bench import drive_bucket_ladder
+
+    cfg = ck.KernelConfig(key_words=4, capacity=2048, max_txns=128, max_point_reads=256,
+                          max_point_writes=256, max_reads=32, max_writes=32)
+    out = drive_bucket_ladder(cfg, [32, 64], pool=512, steady_rounds=2, scan_sizes=(2,),
+                              oracle_check=True)
+    assert out["device"].startswith("cuda") and out["oracle_parity_ok"]
+    assert out["steady_state_compiles"] == 0 and out["steady_state_captures"] == 0
+    assert out["captures_warmup"] > 0 and out["scan_dispatches"]["2"] > 0
+
+
+@pytest.mark.cuda
+def test_profile_kernel_fixpoint_variant_equals_plain(card):
+    """profile_kernel's fixpoint variant at the bench shape: the kernel's
+    verdicts equal the plain version's on the same inputs, and the captured
+    program of its loop replays and is timed."""
+    import io
+
+    from foundationdb_tpu_torch.tools import profile_kernel
+
+    out = io.StringIO()
+    p = profile_kernel.run(["fixpoint"], steps=4, out=out)
+    assert p.info["fixpoint_equal"] is True
+    assert p.ms["fixpoint"] > 0 and "ms/iter" in out.getvalue()
+
+
+@pytest.mark.cuda
+def test_cli_status_over_card_resolvers_equals_oracle_text(card, capsys):
+    """`cli status` in one-shot mode: the cluster's resolvers are card
+    engines by default, and the text equals an oracle-resolver twin's."""
+    from foundationdb_tpu_torch.tools import cli
+
+    assert cli.main(["status"]) == 0
+    card_text = capsys.readouterr().out
+    assert cli.main(["--engine", "oracle", "status"]) == 0
+    assert card_text == capsys.readouterr().out
+    assert "recovery state     - fully_recovered" in card_text

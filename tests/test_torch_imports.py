@@ -117,6 +117,17 @@ def test_subprocess_import_loads_no_jax():
     "foundationdb_tpu_torch.parallel.mesh_engine",
     "foundationdb_tpu_torch.tools.sharded_bench",
     "foundationdb_tpu_torch.tools.mesh_bench",
+    "foundationdb_tpu_torch.tools.skiplist_bench",
+    "foundationdb_tpu_torch.tools.ladder_bench",
+    "foundationdb_tpu_torch.tools.floor_bench",
+    "foundationdb_tpu_torch.tools.heat_bench",
+    "foundationdb_tpu_torch.tools.profile_kernel",
+    "foundationdb_tpu_torch.tools.recovery_bench",
+    "foundationdb_tpu_torch.tools.bench_smoke",
+    "foundationdb_tpu_torch.tools.bench_history",
+    "foundationdb_tpu_torch.tools.buggify_coverage",
+    "foundationdb_tpu_torch.tools.fdbbackup",
+    "foundationdb_tpu_torch.tools.cli",
 ])
 def test_serving_path_modules_load_no_jax(module):
     """The columnar path's modules, each imported alone in a fresh process
@@ -184,7 +195,11 @@ def test_source_scan_finds_no_jax_import():
                  "real/cluster.py", "real/monitor.py", "real/demo_server.py",
                  "real/chaos.py", "real/workload.py", "real/nemesis.py",
                  "real/scenarios.py", "parallel/__init__.py", "parallel/sharding.py",
-                 "parallel/mesh_engine.py", "tools/sharded_bench.py", "tools/mesh_bench.py"):
+                 "parallel/mesh_engine.py", "tools/sharded_bench.py", "tools/mesh_bench.py",
+                 "tools/skiplist_bench.py", "tools/ladder_bench.py", "tools/floor_bench.py",
+                 "tools/heat_bench.py", "tools/profile_kernel.py", "tools/recovery_bench.py",
+                 "tools/bench_smoke.py", "tools/bench_history.py",
+                 "tools/buggify_coverage.py", "tools/fdbbackup.py", "tools/cli.py"):
         assert PKG / name in files, name
     for path in files:
         bad = [r for r in imported_roots(path) if r in FORBIDDEN + ("cryptography",)]

@@ -50,7 +50,10 @@ MODULES = {"buggify": "core.buggify", "error": "core.error", "types": "core.type
            "dr": "backup.dr", "http_blob": "backup.http_blob",
            "watchdog": "core.watchdog", "metric_logger": "client.metric_logger",
            "trace_export": "tools.trace_export", "forensics": "tools.forensics",
-           "native_engine": "ops.native_engine"}
+           "native_engine": "ops.native_engine", "cli": "tools.cli",
+           "fdbbackup": "tools.fdbbackup", "bench_history": "tools.bench_history",
+           "buggify_coverage": "tools.buggify_coverage",
+           "recovery_bench": "tools.recovery_bench"}
 #: imported at first use: real/transport.py wire-registers every role
 #: message of its package when it is imported, which must not happen while
 #: tests are collected (tests/test_torch_blackbox.py parametrizes over the
