@@ -74,7 +74,7 @@ toolkit. The script
      columnar engine's; no blocking sync; slots filled to 1 and to 4; the
      card's trace shows one fixpoint kernel per filled chunk of a top-
      bucket replay at fill 1 and 4; enqueue and decode host ms. Then every
-     engine serves the traffic twice more, in turns (monolithic, heat off,
+     engine serves the traffic once more, in turns (monolithic, heat off,
      tiered, loop, tiered loop), for txn/s and per-layer ms;
   9. tiered general-router phase: the engine phase's traffic (byte keys,
      ranges, long keys) through a tiered engine on the card; verdicts equal
@@ -93,7 +93,7 @@ toolkit. The script
      dispatch unit, no blocking sync; the spans' ms per batch beside the
      phase's clocks, the sampled device ms per chunk beside the profiler's
      kernel ms; a columnar engine at the default rate (1/16); txn/s of
-     off, default and on in turns, three times; then the columnar and loop
+     off, default and on in turns, twice; then the columnar and loop
      engines' sampled intervals against a torch.profiler trace of the same
      pass: the kernels, copies and idle time inside them, and where the
      idle time sits;
@@ -103,7 +103,8 @@ toolkit. The script
      dispatched journal replays equal through a CPU engine and the oracle.
   13. resolver role phase: the port's Resolver role (server/resolver.py) in
      the port's simulator (sim/), buggify on, over the warmed engines above,
-     on the columnar traffic with versions MAX_WRITE_TRANSACTION_LIFE_VERSIONS
+     on the columnar traffic less its 20000-txn batch (ROLE_SIZES) with
+     versions MAX_WRITE_TRANSACTION_LIFE_VERSIONS
      // GC_LAG_BATCHES apart (the role sets its own horizon, 4 batches
      behind): a proxy process sends every batch over the simulated network,
      chained by prev_version, every 4th twice. Serially, pipelined at depth
@@ -206,7 +207,7 @@ toolkit. The script
      through real_node_main (a wrapper of real/node.py's main that records
      every engine its factory builds and reports on SIGTERM), every
      recruited resolver a TorchConflictEngine at the default KernelConfig:
-     the Cycle ring over 1,000 keys and 1,000 transactions, then the
+     the Cycle ring over 1,000 keys and 500 transactions, then the
      launcher's backup -> wipe -> restore drill through a blobstore://
      HTTPBlobServer; each held to at least one card resolver, fixpoint
      launches in each node that recruited one, no plain fixpoint on a
@@ -256,9 +257,24 @@ toolkit. The script
      restore` and `dr` with card resolvers (every card call equal to a
      fresh oracle's replay, the text but the engine views and the
      backup results equal to oracle twins').
-  The oracle twins of phases 17-19, 21 and 22, and the CPU twins of 21
+  23. smokes phase (smokes_phase): the six smokes that build card engines,
+     each through its run(device="cuda"): heat_smoke (hot ranges cover the
+     planted keys, split balance, strict exposition, no heat in a heat-off
+     engine's outputs or captured programs), history_smoke (parity with
+     the oracle across monolithic and tiered engines, 0 builds and
+     captures after warmup, exposition; its apply speedup against the
+     1.5x bar printed, reported, not gated), perf_smoke (ledger rows,
+     peak bytes, sampling on/off parity, 0 blocking syncs, the trend
+     gate), reshard_smoke (split and merge, blackout within 250 ms, 0
+     steady builds, journal parity), mesh_smoke (8 shards stacked on the
+     card: live and journal parity across an epoch flip, the stacked
+     entry, 0 blocking syncs) and crash_smoke (kill -9 and recovery in
+     budget, its child instrumented by crash_child_main). Every check of
+     each is gated but history's speedup; every resolve of the heat and
+     perf smokes' engines is replayed through a fresh oracle (a twin).
+  The oracle twins of phases 17-19 and 21-23, and the CPU twins of 21
   and 22, run together in 6 worker processes after the last card run
-  (phase 22's), the longest first.
+  (phase 23's), the longest first.
 
 Each path's kernel launches are counted from 0 just before it and read
 just after (a captured graph's fixpoint launches are counted at each
@@ -1541,7 +1557,7 @@ def pipeline_phase(fc, pl, eng, batches, serial, runs=PIPELINE_RUNS, executors=(
     return out
 
 
-TELEMETRY_TURNS = 3
+TELEMETRY_TURNS = 2
 #: the telemetry phase's engines: key -> (family, history structure)
 TELEMETRY_ENGINES = {"columnar": ("columnar", "monolithic"),
                      "tiered_columnar": ("columnar", "tiered"),
@@ -1935,6 +1951,10 @@ def telemetry_phases(ck, fc, he, dl, pl, oracle_mod, card, engine_cfg, batches, 
 #: depths, and the virtual seconds each run is given (the role's counter
 #: logger never ends, so a run ends at this time)
 ROLE_KILL_AT = 4
+#: the role phase's batch sizes: the columnar traffic less its 20000-txn
+#: batch (the oracle replay of that one batch is quadratic host Python,
+#: ~25 s)
+ROLE_SIZES = COLUMNAR_SIZES[:-1]
 ROLE_DEPTHS = (1, 2, 3)
 ROLE_RUN_UNTIL = 60.0
 #: worker processes that read the role runs' journals back and replay them
@@ -2279,7 +2299,8 @@ def bare_engine_txn_per_s(engine, batches, horizons, replies):
 
 def resolver_role_phase(fc, pl, card, engines, clocks, rng):
     """The resolver role (server/resolver.py) over the port's warmed engines
-    in the port's simulator (drive_role) on the columnar traffic with its
+    in the port's simulator (drive_role) on the columnar traffic (less its
+    largest batch: ROLE_SIZES) with its
     versions MAX_WRITE_TRANSACTION_LIFE_VERSIONS // GC_LAG_BATCHES apart:
     serially, pipelined at depth 1-3, the loop engine at depth 2, a kill
     and restart at depth 2, and depth 2 again with the same seed. The
@@ -2305,7 +2326,7 @@ def resolver_role_phase(fc, pl, card, engines, clocks, rng):
     from foundationdb_tpu_torch.core.types import MAX_WRITE_TRANSACTION_LIFE_VERSIONS as life
 
     eng, leng, eng2 = engines["columnar"], engines["device_loop"], engines["gen2"]
-    batches = columnar_traffic(rng, COLUMNAR_SIZES, READ_ONLY, step=role_version_step())
+    batches = columnar_traffic(rng, ROLE_SIZES, READ_ONLY, step=role_version_step())
     txns_total = sum(len(t) for t, _, _ in batches)
 
     def config(depth, key="columnar", **kw):
@@ -3242,28 +3263,38 @@ def recording_factory(make, built):
     return factory
 
 
+def record_engine(eng):
+    """The record {"engine", "calls", "resolving"} of `eng`, whose resolve()
+    and clear() (instance attributes) from now on record (version,
+    new_oldest, transactions, verdicts) and ("clear", version) in call
+    order, for call_mismatches; "resolving" is true inside a resolve()."""
+    rec = {"engine": eng, "calls": [], "resolving": False}
+    resolve, clear = eng.resolve, eng.clear
+
+    def recording(txns, now, new_oldest):
+        rec["resolving"] = True
+        try:
+            verdicts = resolve(txns, now, new_oldest)
+        finally:
+            rec["resolving"] = False
+        rec["calls"].append((now, new_oldest, list(txns), [int(v) for v in verdicts]))
+        return verdicts
+
+    def recording_clear(version):
+        rec["calls"].append(("clear", version))
+        return clear(version)
+
+    eng.resolve, eng.clear = recording, recording_clear
+    return rec
+
+
 def recording_engines(make, built):
-    """A factory of engines from `make()`, each appended to `built` as a
-    record {"engine", "calls"}: its resolve() and clear() (instance
-    attributes) record (version, new_oldest, transactions, verdicts) and
-    ("clear", version) in call order, for call_mismatches."""
+    """A factory of engines from `make()`, each appended to `built` as its
+    record_engine record."""
 
     def factory():
         eng = make()
-        rec = {"engine": eng, "calls": []}
-        resolve, clear = eng.resolve, eng.clear
-
-        def recording(txns, now, new_oldest):
-            verdicts = resolve(txns, now, new_oldest)
-            rec["calls"].append((now, new_oldest, list(txns), [int(v) for v in verdicts]))
-            return verdicts
-
-        def recording_clear(version):
-            rec["calls"].append(("clear", version))
-            return clear(version)
-
-        eng.resolve, eng.clear = recording, recording_clear
-        built.append(rec)
+        built.append(record_engine(eng))
         return eng
 
     return factory
@@ -4414,7 +4445,7 @@ def bindings_backup_phase(fc, he, card, recovery_cfg):
 #: drill through a blobstore:// HTTPBlobServer
 REAL_PROCS = 4
 REAL_KEYS = 1000
-REAL_TXNS = 1000
+REAL_TXNS = 500
 REAL_LAUNCH_TIMEOUT_S = 420
 #: where a node started by real_node_main writes its report when it takes
 #: SIGTERM (the launcher stops its nodes with terminate())
@@ -4615,7 +4646,12 @@ def real_campaign(fc, mode, workdir, duration_s=REAL_CAMPAIGN_S, counter=None):
     try:
         nemesis.assert_slos(rep, cfg)
     except AssertionError as e:
-        fail(f"{label}: assert_slos: {e}")
+        # assert_slos ends its message with the whole report: print that on
+        # a line of its own, so the failure's reason stays the last line
+        reason, _, report = str(e).partition(": {")
+        if report:
+            print(f"{label}: the campaign report: {{{report}", file=sys.stderr, flush=True)
+        fail(f"{label}: assert_slos: {reason}")
     check(rep.parity_checked > 0 and rep.parity_mismatches == 0,
           f"{label}: journal parity {rep.parity_mismatches} of {rep.parity_checked}")
     incidents = rep.incidents or []
@@ -4642,6 +4678,43 @@ def real_campaign(fc, mode, workdir, duration_s=REAL_CAMPAIGN_S, counter=None):
             "launches": counts["launches"], "chaos_counts": rep.chaos_counts}
 
 
+def instrumented_crash_child_argv(report_path):
+    """A stand-in for real/nemesis.py's _crash_child_argv that starts the
+    recoverable child through crash_child_main (reports to
+    `report_path`.<pid>)."""
+    root = str(Path(__file__).resolve().parent)
+
+    def instrumented(port, datadir, engine_mode, seed, disk_prob, device=None):
+        argv = ["--serve-recover", str(port), "--datadir", datadir, "--child-engine",
+                engine_mode, "--recovery-seed", str(seed), "--disk-prob", str(disk_prob)]
+        if device is not None:
+            argv += ["--device", str(device)]
+        code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
+                "sys.exit(chip_smoke.crash_child_main(%r, %r))" % (root, report_path, argv))
+        return [sys.executable, "-c", code]
+
+    return instrumented
+
+
+def crash_children_checked(label, report_path):
+    """The crash children's reports (both boots): each child's engines on
+    the card, fixpoint launches and no plain fixpoint on a CUDA tensor, no
+    dispatch fault but buggify's."""
+    children = [json.loads(p.read_text())
+                for p in sorted(Path(report_path).parent.glob(Path(report_path).name + ".*"))
+                if p.suffix != ".tmp"]
+    check(len(children) >= 2, f"{label}: {len(children)} child reports")
+    for i, c in enumerate(children):
+        check(c["devices"] and all(d.startswith("cuda") for d in c["devices"]),
+              f"{label}: child {i}'s engines on {c['devices']}")
+        check(c["launches"] > 0 and c["plain_cuda_calls"] == 0,
+              f"{label}: child {i}: {c['launches']} fixpoint launches, {c['plain_cuda_calls']} "
+              "plain fixpoints on CUDA tensors")
+        check(c["faults"]["watchdog"] == 0 and c["faults"]["other"] == 0,
+              f"{label}: child {i}'s dispatch faults {c['faults']} {c['other_errors']}")
+    return children
+
+
 def real_crash_campaign(workdir):
     """run_crash_campaign on a card engine, its recoverable child
     instrumented (crash_child_main): parity across the crash, complete
@@ -4650,18 +4723,9 @@ def real_crash_campaign(workdir):
     from foundationdb_tpu_torch.core.knobs import SERVER_KNOBS
     from foundationdb_tpu_torch.real import nemesis
 
-    root = str(Path(__file__).resolve().parent)
     report_path = os.path.join(workdir, "crash_child")
     argv_of = nemesis._crash_child_argv
-
-    def instrumented(port, datadir, engine_mode, seed, disk_prob):
-        argv = ["--serve-recover", str(port), "--datadir", datadir, "--child-engine",
-                engine_mode, "--recovery-seed", str(seed), "--disk-prob", str(disk_prob)]
-        code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
-                "sys.exit(chip_smoke.crash_child_main(%r, %r))" % (root, report_path, argv))
-        return [sys.executable, "-c", code]
-
-    nemesis._crash_child_argv = instrumented
+    nemesis._crash_child_argv = instrumented_crash_child_argv(report_path)
     cfg = nemesis.crash_config(REAL_CRASH_SEED, engine_mode="torch",
                                datadir=os.path.join(workdir, "crash"))
     t0 = time.perf_counter()
@@ -4679,16 +4743,7 @@ def real_crash_campaign(workdir):
     check(rec.get("mode") == "complete" and rec.get("coverage_ok")
           and rec.get("verdict_mismatches", 1) == 0, f"{label}: recovery {rec}")
     check(rep.get("committed_post_restart", 0) > 0, f"{label}: no commit after the restart")
-    children = [json.loads(p.read_text()) for p in sorted(Path(workdir).glob("crash_child.*"))]
-    check(len(children) >= 2, f"{label}: {len(children)} child reports")
-    for i, c in enumerate(children):
-        check(c["devices"] and all(d.startswith("cuda") for d in c["devices"]),
-              f"{label}: child {i}'s engines on {c['devices']}")
-        check(c["launches"] > 0 and c["plain_cuda_calls"] == 0,
-              f"{label}: child {i}: {c['launches']} fixpoint launches, {c['plain_cuda_calls']} "
-              "plain fixpoints on CUDA tensors")
-        check(c["faults"]["watchdog"] == 0 and c["faults"]["other"] == 0,
-              f"{label}: child {i}'s dispatch faults {c['faults']} {c['other_errors']}")
+    children = crash_children_checked(label, report_path)
     return {"wall_s": wall, "blackout_ms": rec.get("blackout_ms"), "warm_ms": rec.get("warm_ms"),
             "budget_ms": float(SERVER_KNOBS.resolver_recovery_budget_ms),
             "campaign_budget_ms": cfg.resolved_budget_ms(),
@@ -4879,8 +4934,10 @@ def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, o
     8-shard ShardedConflictEngine resolvers on the card; each recorded
     resolve replays through a fresh oracle; the oracle twins are jobs.
 
-    Chaos: one mesh campaign (MESH_CAMPAIGN_SHARDS shards) for the atlas
-    recipes' REAL_SCENARIO_S.
+    Chaos: one mesh campaign (MESH_CAMPAIGN_SHARDS shards) for the other
+    card campaigns' REAL_CAMPAIGN_S: the fault windows last as long at any
+    duration, and a shorter run leaves barely the 50 acks outside them that
+    assert_slos requires.
 
     Returns (results, twin jobs, finish(twins))."""
     import dataclasses
@@ -5076,14 +5133,14 @@ def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, o
     with tempfile.TemporaryDirectory() as workdir:
         SERVER_KNOBS.set_knob("resolver_mesh_devices", str(MESH_CAMPAIGN_SHARDS))
         try:
-            camp = real_campaign(fc, "mesh", workdir, duration_s=REAL_SCENARIO_S,
-                                 counter=stacked)
+            camp = real_campaign(fc, "mesh", workdir, counter=stacked)
         finally:
             SERVER_KNOBS.set_knob("resolver_mesh_devices", "0")
     out["launches"]["campaign_mesh"] = camp["launches"]
     out["campaign_mesh"] = camp
     print(f"mesh campaign [{card}]: {MESH_CAMPAIGN_SHARDS} shards, {camp['wall_s']:.1f} s, p99 "
-          f"outside the windows {camp['p99_outside_ms']:.2f} ms against {camp['budget_ms']} ms, "
+          f"outside the windows {camp['p99_outside_ms']:.2f} ms against {camp['budget_ms']} ms "
+          f"(n={camp['n_outside']}), "
           f"journal parity over {camp['parity_checked']} batches, faults {camp['faults']}, "
           f"{camp['launches']} stacked launches", flush=True)
     clean_port_world()
@@ -5492,6 +5549,188 @@ def tools_phase(fc, he, ck, card, cfg):
     return jobs, finish
 
 
+#: the smokes that build card engines, in the order the phase runs them
+CARD_SMOKES = ("heat", "history", "perf", "reshard", "mesh", "crash")
+
+
+def recording_new_engines(he, built):
+    """A context manager: every card engine built inside it is appended to
+    `built` as its record_engine record (the engines a smoke builds for
+    itself). A pipeline's columnar_pack / columnar_dispatch outside
+    resolve() records too: the batch at dispatch, its verdicts when its
+    force() returns. "partial" turns true where the table changed by a path
+    the record misses (a plan packed while a resolve() ran, a load_state,
+    serve()); a replay then skips the record."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        init = he._CardEngine.__init__
+
+        def recording_init(self, *a, **kw):
+            init(self, *a, **kw)
+            if "resolve" in self.__dict__:
+                return
+            rec = record_engine(self)
+            rec["partial"] = False
+
+            def marking(fn):
+                def call(*a, **kw):
+                    rec["partial"] = rec["partial"] or not rec["resolving"]
+                    return fn(*a, **kw)
+                return call
+
+            def packing(fn):
+                def call(txns, now, new_oldest):
+                    plan = fn(txns, now, new_oldest)
+                    if plan is not None and not rec["resolving"]:
+                        plan["recorded"] = (now, new_oldest, list(txns))
+                    return plan
+                return call
+
+            def dispatching(fn):
+                def call(plan):
+                    force = fn(plan)
+                    if rec["resolving"]:
+                        return force
+                    if "recorded" not in plan:
+                        rec["partial"] = True
+                        return force
+                    entry = [*plan["recorded"], None]
+                    rec["calls"].append(entry)
+
+                    def recording_force():
+                        verdicts = force()
+                        entry[3] = [int(v) for v in verdicts]
+                        return verdicts
+
+                    return recording_force
+                return call
+
+            for attr, wrap in (("columnar_pack", packing), ("columnar_dispatch", dispatching),
+                               ("load_state", marking), ("serve", marking)):
+                if hasattr(self, attr):
+                    setattr(self, attr, wrap(getattr(self, attr)))
+            built.append(rec)
+
+        he._CardEngine.__init__ = recording_init
+        try:
+            yield built
+        finally:
+            he._CardEngine.__init__ = init
+
+    return ctx()
+
+
+def smokes_phase(fc, he, card):
+    """The six smokes that build card engines (CARD_SMOKES), each through
+    its run(device="cuda"), the fixpoint counts (both entries) zeroed just
+    before each and read just after: each must launch the kernel, mesh the
+    stacked entry. Every check of a smoke is gated, but history's apply
+    speedup (check 1: printed beside its 1.5x bar, reported, not gated).
+    The heat and perf smokes hold no verdict to the oracle themselves:
+    every resolve of their engines is recorded and replayed through a
+    fresh oracle (a twin). The crash smoke's child is instrumented
+    (crash_child_main): both boots on the card, launching the kernel.
+
+    Returns (twin jobs, finish(twins))."""
+    import importlib
+    import tempfile
+
+    from foundationdb_tpu_torch.real import nemesis
+
+    res, launches, stacked, walls, recorded = {}, {}, {}, {}, {}
+    for name in CARD_SMOKES:
+        mod = importlib.import_module(f"foundationdb_tpu_torch.tools.{name}_smoke")
+        clean_port_world()
+        fc.FIXPOINT.reset_counts()
+        fc.FIXPOINT_STACKED.reset_counts()
+        built = []
+        t0 = time.perf_counter()
+        if name == "crash":
+            with tempfile.TemporaryDirectory(prefix="chip-smoke-crash-") as td:
+                report_path = os.path.join(td, "crash_child")
+                argv_of = nemesis._crash_child_argv
+                nemesis._crash_child_argv = instrumented_crash_child_argv(report_path)
+                try:
+                    out = mod.run("cuda", workdir=td)
+                finally:
+                    nemesis._crash_child_argv = argv_of
+                children = crash_children_checked("crash smoke", report_path)
+            launches[name] = sum(c["launches"] for c in children)
+        else:
+            with recording_new_engines(he, built):
+                out = mod.run("cuda")
+            launches[name] = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
+            stacked[name] = fc.FIXPOINT_STACKED.launches + fc.FIXPOINT_STACKED.graph_launches
+        walls[name] = time.perf_counter() - t0
+        clean_port_world()
+        out.pop("_group", None)
+        out.pop("group", None)
+        res[name] = out
+        check(out["device"].startswith("cuda"), f"{name}_smoke ran on {out['device']}")
+        gated = [f for f in out["failures"]
+                 if not (name == "history" and f.startswith("apply_scaling:"))]
+        check(not gated, f"{name}_smoke on the card: {gated}")
+        check(fc.FIXPOINT.plain_cuda_calls == 0 and fc.FIXPOINT_STACKED.plain_cuda_calls == 0,
+              f"{name}_smoke: a plain fixpoint ran on CUDA tensors")
+        if name == "mesh":
+            check(stacked[name] > 0, f"mesh_smoke: {stacked[name]} stacked fixpoint launches")
+        else:
+            check(launches[name] > 0, f"{name}_smoke: {launches[name]} fixpoint launches")
+        if built:
+            devices = {r["engine"].device.type for r in built}
+            check(devices == {"cuda"}, f"{name}_smoke: engines on {devices}")
+        if name in ("heat", "perf"):
+            recorded[name] = [r["calls"] for r in built if r["calls"] and not r["partial"]
+                              and all(c[0] == "clear" or c[3] is not None for c in r["calls"])]
+            check(recorded[name], f"{name}_smoke: no engine resolved a batch")
+        print(f"smokes phase, {name}_smoke [{card}]: ok {out['ok']}, fixpoint launches "
+              f"{launches[name]}, stacked {stacked.get(name, 0)}"
+              + (f", {len(built)} card engines" if built else "")
+              + f" ({walls[name]:.1f} s)", flush=True)
+
+    hist = res["history"]
+    points = hist.get("apply_scaling") or {}
+    print(f"smokes phase, history apply scaling [{card}]: "
+          + "; ".join(f"capacity {cap}: monolithic {p['monolithic_ms']} / tiered "
+                      f"{p['tiered_ms']} device ms per batch, speedup {p['tiered_speedup']}x"
+                      for cap, p in points.items())
+          + " against the 1.5x bar (reported, not gated)"
+          + (f": {[f for f in hist['failures'] if f.startswith('apply_scaling:')]}"
+             if not hist["ok"] else ""), flush=True)
+    check(len(points) == 2 and all(p["tiered_speedup"] for p in points.values()),
+          f"history_smoke: the apply sweep was not timed on the card: {points}")
+    peaks = [b for b in res["perf"]["peak_bytes"] if b]
+    print(f"smokes phase [{card}]: heat {res['heat']['split_points']['max_dev']:.4f} split "
+          f"deviation; perf peak bytes {min(peaks, default=None)}-{max(peaks, default=None)}, "
+          f"sampled/floor {res['perf']['sampled_over_floor']}; "
+          f"reshard blackouts {[round(op['blackout_ms'], 2) for op in res['reshard']['ops']]} "
+          f"ms against {res['reshard']['budget_ms']}; mesh {res['mesh']['mesh']}; crash "
+          f"blackout {res['crash']['recovery']['blackout_ms']} ms against "
+          f"{res['crash']['budget_ms']}", flush=True)
+    res["launches"] = launches
+    res["stacked_launches"] = stacked
+    res["wall_s"] = walls
+
+    jobs = {("smokes", name, i): (call_mismatches, calls)
+            for name, streams in recorded.items() for i, calls in enumerate(streams)}
+
+    def finish(twins):
+        for name, streams in recorded.items():
+            bad = sum(twins[("smokes", name, i)] for i in range(len(streams)))
+            n = sum(len(c) for c in streams)
+            check(bad == 0, f"{name}_smoke: {bad} of {n} card calls differ from the oracle's "
+                  "replay")
+            res[f"{name}_oracle_calls"] = n
+        print(f"smokes phase [{card}]: the heat and perf smokes' "
+              f"{res.get('heat_oracle_calls')} + {res.get('perf_oracle_calls')} card calls equal "
+              f"a fresh oracle's replay; launches {launches}, stacked {stacked}", flush=True)
+        return res
+
+    return jobs, finish
+
+
 TWIN_WORKERS = 6
 
 
@@ -5722,7 +5961,7 @@ def main(argv=None) -> int:
     loop_report(card, tlp, "the oracle and the tiered columnar card engine (heat snapshot and "
                 "history stats too)", time.perf_counter() - t0)
 
-    # every engine again, twice, in turns (their first passes ran in this
+    # every engine again, once more, in turns (their first passes ran in this
     # order above)
     t0 = time.perf_counter()
     engines = (("monolithic", eng, serial), ("monolithic_heat_off", eng0, serial0),
@@ -5730,9 +5969,8 @@ def main(argv=None) -> int:
                ("tiered_device_loop", tleng, tlserial))
     turns = {"monolithic": [colp], "monolithic_heat_off": [colp0], "tiered": [tcol],
              "device_loop": [lp], "tiered_device_loop": [tlp]}
-    for _ in range(2):
-        for label, e, sv in engines:
-            turns[label].append(columnar_timing(e, batches, sv))
+    for label, e, sv in engines:
+        turns[label].append(columnar_timing(e, batches, sv))
     fields = ("pack_ms_per_batch", "dispatch_ms_per_batch", "force_ms_per_batch", "txn_per_s",
               "enqueue_ms_per_batch", "decode_ms_per_batch")
     results["columnar_turns"] = {k: [{f: r[f] for f in fields if f in r} for r in v]
@@ -5883,9 +6121,15 @@ def main(argv=None) -> int:
     tl_jobs, tl_finish = tools_phase(fc, he, ck, card, cfg)
     print(f"tools phase card runs [{card}] ({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    # the six smokes that build card engines, each through its run()
+    t0 = time.perf_counter()
+    sm_jobs, sm_finish = smokes_phase(fc, he, card)
+    print(f"smokes phase card runs [{card}] ({time.perf_counter() - t0:.1f} s)", flush=True)
+
     # the phases' oracle and CPU twins, after the last card run, the longest
     # (the backup run's and the recovery run's) first
-    twins, twin_s = run_twins({**bb_jobs, **dyn_jobs, **sh_jobs, **tl_jobs, **cl_jobs})
+    twins, twin_s = run_twins({**bb_jobs, **dyn_jobs, **sh_jobs, **tl_jobs, **cl_jobs,
+                               **sm_jobs})
     print(f"oracle twins [{card}]: {len(twins)} runs in {TWIN_WORKERS} workers after the last "
           f"card run ({twin_s:.1f} s)", flush=True)
     cl = cl_finish(twins)
@@ -5905,6 +6149,8 @@ def main(argv=None) -> int:
     results["sharded_phase"] = sh
     tl = tl_finish(twins)
     results["tools_phase"] = tl
+    smk = sm_finish(twins)
+    results["smokes_phase"] = smk
     results["twin_s"] = twin_s
 
     kernels = {"kernels": [{
@@ -5919,7 +6165,8 @@ def main(argv=None) -> int:
                     + sum(crash_launches.values()) + rs["launches"]
                     + sum(cl["launches"].values()) + sum(dyn["launches"].values())
                     + sum(bb["launches"].values()) + sum(real["launches"].values())
-                    + sum(sh["single_launches"].values()) + sum(tl["launches"].values()),
+                    + sum(sh["single_launches"].values()) + sum(tl["launches"].values())
+                    + sum(smk["launches"].values()),
         "launches_by_path": {"engine_general_router_graph": ep["graph_launches"],
                              "engine_general_router_eager": ep["eager_launches"],
                              "graph_step": gp["launches"], "columnar_engine": colp["launches"],
@@ -5943,7 +6190,8 @@ def main(argv=None) -> int:
                              **{f"crash_child_{k}": v for k, v in crash_launches.items()},
                              "reshard": rs["launches"], **cl["launches"],
                              **dyn["launches"], **bb["launches"], **real["launches"],
-                             **sh["single_launches"], **tl["launches"]},
+                             **sh["single_launches"], **tl["launches"],
+                             **{f"smokes_{k}": v for k, v in smk["launches"].items()}},
         "mismatches": 0,
         "max_abs_err": 0,
         "ms": kp["kernel_ms"],
@@ -5963,8 +6211,9 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "foundationdb_tpu_torch/csrc/fixpoint.cu",
         "replaces": "foundationdb_tpu/ops/fixpoint_pallas.py:336",
-        "launches": sum(sh["launches"].values()),
-        "launches_by_path": sh["launches"],
+        "launches": sum(sh["launches"].values()) + sum(smk["stacked_launches"].values()),
+        "launches_by_path": {**sh["launches"],
+                             **{f"smokes_{k}": v for k, v in smk["stacked_launches"].items()}},
         "mismatches": 0,
         "max_abs_err": 0,
         "ms": sh["kernel"][f"engine_S{SHARDED_S}"]["kernel_ms"],

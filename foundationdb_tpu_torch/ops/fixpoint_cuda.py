@@ -10,7 +10,9 @@ slices, shared memory, scratch) in plain Python, so it runs without a card.
 
 Dispatch is by device (``commit_fixpoint``): CPU tensors take the plain
 version, CUDA tensors the kernel — or an error when the config is not
-kernel-supported. Nothing falls back. The plain version on CUDA tensors is
+kernel-supported (a batch of T % 32 != 0 txns is: the wrapper pads it to
+whole 32-txn words with txns that never commit). Nothing falls back. The
+plain version on CUDA tensors is
 called only to check the kernel against it (``commit_fixpoint_plain``);
 ``FIXPOINT`` counts both, so a run can show which one its path took.
 
@@ -25,6 +27,7 @@ by device as ``commit_fixpoint`` does.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Dict, Optional
 
@@ -276,11 +279,30 @@ def _check(name: str, x: Tensor, shape, dtype, device) -> Tensor:
     return x
 
 
+def _whole_words(cfg: KernelConfig, t_ok: Tensor, hist: Tensor):
+    """A batch of T % 32 != 0 txns as one of whole 32-txn words (the
+    kernel's warp ballots): the config widened to the next multiple of 32,
+    t_ok and the history hits ([T], or [S, T] stacked) padded with txns
+    that never commit and that no row names. The caller drops the padding
+    from the result; nothing else of the batch depends on T."""
+    T = cfg.max_txns
+    pad = -T % 32
+    _check("t_ok", t_ok, (T,), torch.bool, t_ok.device)
+    _check("hist", hist, tuple(hist.shape[:-1]) + (T,), torch.int32, t_ok.device)
+    t_ok = torch.cat([t_ok, t_ok.new_zeros(pad)])
+    hist = torch.cat([hist, hist.new_zeros(tuple(hist.shape[:-1]) + (pad,))], dim=-1)
+    return dataclasses.replace(cfg, max_txns=T + pad), t_ok, hist.contiguous()
+
+
 def commit_fixpoint_kernel(cfg: KernelConfig, t_ok: Tensor, hist_hits: Tensor,
                            edges: Dict[str, Tensor], batch: Dict) -> Tensor:
-    """committed bool [T] from the CUDA kernel, on PyTorch's current stream."""
+    """committed bool [T] from the CUDA kernel, on PyTorch's current stream
+    (a T that is not a whole number of 32-txn words runs padded to one)."""
     if not t_ok.is_cuda:
         raise ValueError("commit_fixpoint_kernel needs CUDA tensors")
+    if cfg.max_txns % 32:
+        wide, t_ok, hist_hits = _whole_words(cfg, t_ok, hist_hits)
+        return commit_fixpoint_kernel(wide, t_ok, hist_hits, edges, batch)[:cfg.max_txns]
     if not supported(cfg):
         raise ValueError(
             "the CUDA fixpoint does not support this config (need max_txns % 32 == 0, "
@@ -342,9 +364,14 @@ def commit_fixpoint_stacked_kernel(cfg: KernelConfig, t_ok: Tensor, hist_stacked
                                    edges: Dict[str, Tensor], batch: Dict) -> Tensor:
     """committed bool [T] for S sub-shards (hist_stacked [S, T], edges and
     batch leaves [S, ...], t_ok [T]) from ONE launch of the CUDA kernel's
-    stacked entry, on PyTorch's current stream."""
+    stacked entry, on PyTorch's current stream (a T that is not a whole
+    number of 32-txn words runs padded to one)."""
     if not t_ok.is_cuda:
         raise ValueError("commit_fixpoint_stacked_kernel needs CUDA tensors")
+    if cfg.max_txns % 32 and hist_stacked.dim() == 2:
+        wide, t_ok, hist_stacked = _whole_words(cfg, t_ok, hist_stacked)
+        return commit_fixpoint_stacked_kernel(wide, t_ok, hist_stacked, edges,
+                                              batch)[:cfg.max_txns]
     S = hist_stacked.shape[0] if hist_stacked.dim() == 2 else -1
     if S < 1 or not supported(cfg, S):
         raise ValueError(

@@ -186,7 +186,7 @@ class ChaosCommitServer:
                  dispatch_timeout_s: Optional[float] = None,
                  elastic: bool = False, reshard: bool = False,
                  reshard_spares: int = 2, conflict_sched=None,
-                 history_structure: Optional[str] = None):
+                 history_structure: Optional[str] = None, device=None):
         from ..server.ratekeeper import TenantAdmission
         from .runtime import make_dispatcher
 
@@ -208,7 +208,7 @@ class ChaosCommitServer:
             group = ElasticResolverGroup(
                 lambda: make_chaos_engine(
                     engine_mode, dispatch_timeout_s=dispatch_timeout_s,
-                    history_structure=history_structure),
+                    history_structure=history_structure, device=device),
                 make_batcher=lambda: BudgetBatcher(ladder))
             self.inner, self.engine = group, group
             self.injector = _GroupInjector(group)
@@ -218,7 +218,7 @@ class ChaosCommitServer:
         else:
             self.inner, self.injector, self.engine = make_chaos_engine(
                 engine_mode, dispatch_timeout_s=dispatch_timeout_s,
-                history_structure=history_structure)
+                history_structure=history_structure, device=device)
         self.proc = RealProcess(port=port)
         self.proc.dispatcher = make_dispatcher(sched)
         self.proc.register(COMMIT_TOKEN, self._commit)
@@ -1879,6 +1879,9 @@ class CrashConfig:
     #: first-boot serve deadline: a cold device-backed child AOT-compiles
     #: its ladder before listening (restarts rewarm from the progcache)
     boot_timeout_s: float = 240.0
+    #: the torch device the child's card-mode engine runs on (None: the
+    #: card, raising in the child where there is none)
+    device: Optional[str] = None
 
     def resolved_budget_ms(self) -> float:
         base = (float(SERVER_KNOBS.resolver_recovery_budget_ms)
@@ -1899,13 +1902,16 @@ def crash_config(seed: int, engine_mode: str = "torch", **kw) -> CrashConfig:
 
 
 def _crash_child_argv(port: int, datadir: str, engine_mode: str,
-                      seed: int, disk_prob: float) -> List[str]:
+                      seed: int, disk_prob: float,
+                      device: Optional[str] = None) -> List[str]:
+    argv = ["--serve-recover", str(port), "--datadir", datadir,
+            "--child-engine", engine_mode, "--recovery-seed", str(seed),
+            "--disk-prob", str(disk_prob)]
+    if device is not None:
+        argv += ["--device", str(device)]
     code = ("import sys; sys.path.insert(0, %r); "
             "from foundationdb_tpu_torch.real.nemesis import main; "
-            "sys.exit(main(['--serve-recover', '%d', '--datadir', %r, "
-            "'--child-engine', %r, '--recovery-seed', '%d', "
-            "'--disk-prob', '%s']))"
-            % (REPO_ROOT, port, datadir, engine_mode, seed, disk_prob))
+            "sys.exit(main(%r))" % (REPO_ROOT, argv))
     return [sys.executable, "-c", code]
 
 
@@ -1924,7 +1930,8 @@ async def _child_rpc(port: int, token: str, timeout_s: float = 1.5):
 
 
 async def _serve_recoverable(port: int, datadir: str, engine_mode: str,
-                             seed: int, disk_prob: float) -> None:
+                             seed: int, disk_prob: float,
+                             device: Optional[str] = None) -> None:
     """The --crash campaign's child: a ChaosCommitServer that RECOVERS
     before it serves. Every boot replays the durable directory — newest
     readable snapshot, then the journal's batch suffix at original
@@ -1959,7 +1966,8 @@ async def _serve_recoverable(port: int, datadir: str, engine_mode: str,
     sched = RealScheduler(seed=seed)
     set_scheduler(sched)
     run_task = asyncio.ensure_future(sched.run_async())
-    server = ChaosCommitServer(sched, engine_mode=engine_mode, port=port)
+    server = ChaosCommitServer(sched, engine_mode=engine_mode, port=port,
+                               device=device)
     server.disk_nemesis = disk
     tracker = recovery.RecoveryTracker(name=f"crash{port}")
     server.recovery_tracker = tracker
@@ -2084,7 +2092,8 @@ async def _crash_campaign(cfg: CrashConfig) -> dict:
                     "child_up": False, "child_restarts": 0,
                     "child_pingable_after": False}
     child = Child("node.crash", _crash_child_argv(
-        port, datadir, cfg.engine_mode, cfg.seed, cfg.disk_prob))
+        port, datadir, cfg.engine_mode, cfg.seed, cfg.disk_prob,
+        device=cfg.device))
     child.backoff = cfg.child_backoff_s
     child.spawn(log_dir)
     net = RealNetwork(name="crash-driver")
@@ -2293,6 +2302,9 @@ def main(argv=None) -> int:
                     help="--serve-recover engine mode")
     ap.add_argument("--recovery-seed", type=int, default=11,
                     help="--serve-recover nemesis seed")
+    ap.add_argument("--device", default=None,
+                    help="--serve-recover: the torch device of a card-mode "
+                         "engine (default: the card)")
     ap.add_argument("--disk-prob", type=float, default=0.05,
                     help="--serve-recover per-write disk-fault "
                          "probability")
@@ -2323,10 +2335,15 @@ def main(argv=None) -> int:
         if not args.datadir:
             print("--serve-recover requires --datadir", file=sys.stderr)
             return 2
+        if args.device == "cpu" and args.child_engine != "oracle":
+            import torch
+
+            # as a node: the child shares the host's cores with its parent
+            torch.set_num_threads(1)
         try:
             asyncio.run(_serve_recoverable(
                 args.serve_recover, args.datadir, args.child_engine,
-                args.recovery_seed, args.disk_prob))
+                args.recovery_seed, args.disk_prob, device=args.device))
         except KeyboardInterrupt:
             pass
         return 0

@@ -221,6 +221,7 @@ def run_apply_sweep(
     history_runs: int = 8,
     seed: int = 2028,
     device=None,
+    host_reps: int = 0,
 ) -> Dict:
     """The `history_floor.apply` section (docs/perf.md "Incremental
     history maintenance"): device ms per WRITE batch vs table occupancy,
@@ -233,7 +234,11 @@ def run_apply_sweep(
     set (one fold admits the point-write end rows), the write positions are
     recomputed against that steady table, and the timed program then
     replays the identical apply at stationary occupancy — checked by
-    comparing warm-end and timed-end row counts."""
+    comparing warm-end and timed-end row counts. On the CPU nothing is
+    timed unless `host_reps` > 0: then every program's eager run is timed
+    `host_reps` times by the host's clock, in turns across the programs,
+    and its fastest run kept (host ms, not a device figure: the CPU
+    history smoke's scaling bar reads them)."""
     cfg = cfg or SMOKE_CFG
     dev = bench_device(device)
     rng = np.random.default_rng(seed)
@@ -278,6 +283,13 @@ def run_apply_sweep(
                                f"{final_n} != {steady_n[(structure, frac)]}")
         compiles[structure] += counter.seen() - before
     counter.close()
+    for _rep in range(host_reps if dev.type == "cpu" else 0):
+        for structure, frac, n, prog in runs:
+            t0 = time.perf_counter()
+            prog.run()
+            host_ms = _per_step((time.perf_counter() - t0) * 1e3, scan_steps)
+            best = ms[(structure, frac)]
+            ms[(structure, frac)] = host_ms if best is None else min(best, host_ms)
 
     points = []
     for frac in occupancy_fracs:

@@ -1432,3 +1432,59 @@ def test_cli_status_over_card_resolvers_equals_oracle_text(card, capsys):
     assert cli.main(["--engine", "oracle", "status"]) == 0
     assert card_text == capsys.readouterr().out
     assert "recovery state     - fully_recovered" in card_text
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [16, 40])
+def test_fixpoint_kernel_pads_part_words_equal_to_plain(card, T):
+    """A batch of T % 32 != 0 txns runs the kernel padded to whole 32-txn
+    words: committed bits equal the plain version's on the same inputs, in
+    one launch, and a T=16 card engine (history_smoke's parity shape)
+    resolves like the oracle."""
+    cfg = ck.KernelConfig(key_words=2, capacity=512, max_txns=T, max_reads=64, max_writes=64)
+    rng = random.Random(T)
+    state = ck.initial_state(cfg, device=card)
+    for now in (100, 140, 180):
+        batch = ck.batch_from_numpy(cfg, synth_batch(rng, cfg, now), card)
+        hist, edges, _ = ck.local_phases(cfg, state, batch)
+        before = fc.FIXPOINT.launches
+        got = fc.commit_fixpoint_kernel(cfg, batch["t_ok"], hist, edges, batch)
+        want = fc.commit_fixpoint_plain(cfg, batch["t_ok"], hist, edges, batch)
+        assert got.shape == (T,) and torch.equal(got, want)
+        assert fc.FIXPOINT.launches == before + 1
+    eng = TorchConflictEngine(cfg, ladder=(), device=card)
+    ora = toracle.OracleConflictEngine()
+    for i, n in enumerate((3, T, 9)):
+        txns = [CommitTransaction(read_snapshot=100 + i,
+                                  read_conflict_ranges=[KeyRange(b"k%d" % (j % 5), b"k%d\x00" % (j % 5))],
+                                  write_conflict_ranges=[KeyRange(b"k%d" % ((j + 1) % 5),
+                                                                  b"k%d\x00" % ((j + 1) % 5))])
+                for j in range(n)]
+        got = [int(v) for v in eng.resolve(txns, 200 + 50 * i, 0)]
+        assert got == [int(v) for v in ora.resolve(txns, 200 + 50 * i, 0)]
+
+
+@pytest.mark.cuda
+def test_heat_smoke_disabled_path_over_captured_programs(card):
+    """heat_smoke's disabled path on the card: a heat_buckets=0 engine
+    builds no aggregator, the step's outputs carry no heat, and no program
+    its warmup captured holds a heat buffer."""
+    from foundationdb_tpu_torch.tools import heat_smoke
+
+    out = heat_smoke.check_disabled_path(card)
+    assert out["captured_programs"] > 0
+    assert "heat" not in out["resolve"]
+    assert not any(k.startswith("heat_") for k in out["edges"])
+
+
+@pytest.mark.cuda
+def test_perf_smoke_ledger_peak_bytes_on_card(card):
+    """perf_smoke on the card: one ledger row per captured build, every
+    row's peak_bytes above 0 (flops None by design), sampling on/off
+    parity, no build or capture after warmup, no blocking sync."""
+    from foundationdb_tpu_torch.tools import perf_smoke
+
+    out = perf_smoke.run("cuda")
+    assert out["ok"], out["failures"]
+    assert out["ledger_rows"] > 0 and all(b and b > 0 for b in out["peak_bytes"])
+    assert out["steady_state_compiles"] == 0

@@ -128,6 +128,18 @@ def test_subprocess_import_loads_no_jax():
     "foundationdb_tpu_torch.tools.buggify_coverage",
     "foundationdb_tpu_torch.tools.fdbbackup",
     "foundationdb_tpu_torch.tools.cli",
+    "foundationdb_tpu_torch.tools.heat_smoke",
+    "foundationdb_tpu_torch.tools.watch_smoke",
+    "foundationdb_tpu_torch.tools.sched_smoke",
+    "foundationdb_tpu_torch.tools.history_smoke",
+    "foundationdb_tpu_torch.tools.perf_smoke",
+    "foundationdb_tpu_torch.tools.telemetry_smoke",
+    "foundationdb_tpu_torch.tools.trace_smoke",
+    "foundationdb_tpu_torch.tools.forensics_smoke",
+    "foundationdb_tpu_torch.tools.crash_smoke",
+    "foundationdb_tpu_torch.tools.reshard_smoke",
+    "foundationdb_tpu_torch.tools.mesh_smoke",
+    "foundationdb_tpu_torch.tools.atlas_smoke",
 ])
 def test_serving_path_modules_load_no_jax(module):
     """The columnar path's modules, each imported alone in a fresh process
@@ -199,7 +211,13 @@ def test_source_scan_finds_no_jax_import():
                  "tools/skiplist_bench.py", "tools/ladder_bench.py", "tools/floor_bench.py",
                  "tools/heat_bench.py", "tools/profile_kernel.py", "tools/recovery_bench.py",
                  "tools/bench_smoke.py", "tools/bench_history.py",
-                 "tools/buggify_coverage.py", "tools/fdbbackup.py", "tools/cli.py"):
+                 "tools/buggify_coverage.py", "tools/fdbbackup.py", "tools/cli.py",
+                 "tools/heat_smoke.py", "tools/watch_smoke.py",
+                 "tools/sched_smoke.py", "tools/history_smoke.py",
+                 "tools/perf_smoke.py", "tools/telemetry_smoke.py",
+                 "tools/trace_smoke.py", "tools/forensics_smoke.py",
+                 "tools/crash_smoke.py", "tools/reshard_smoke.py",
+                 "tools/mesh_smoke.py", "tools/atlas_smoke.py"):
         assert PKG / name in files, name
     for path in files:
         bad = [r for r in imported_roots(path) if r in FORBIDDEN + ("cryptography",)]
