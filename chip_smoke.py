@@ -7,7 +7,11 @@ Run from the root of a checkout on a machine with a CUDA card and the CUDA
 toolkit. The script
 
   1. builds the port's CUDA kernels from foundationdb_tpu_torch/csrc/ and
-     prints the card's name and power limit (nvidia-smi);
+     prints the card's name and power limit (nvidia-smi); then the lint
+     phase (lint_phase): the port's fdbtpu-lint over this checkout, in
+     process, one line of per-rule counts (new, baselined, suppressed) and
+     its seconds; a new finding, a stale baseline entry or a module of jax
+     or of the JAX package in this process fails the run;
   2. kernel phase, at the bench width (T=4096 txns, 8192 point reads and
      8192 point writes, 256 range reads and 256 range writes, 16-byte keys
      over an 8192-key hot pool, a 24576-row table): runs local_phases on the
@@ -93,7 +97,7 @@ toolkit. The script
      dispatch unit, no blocking sync; the spans' ms per batch beside the
      phase's clocks, the sampled device ms per chunk beside the profiler's
      kernel ms; a columnar engine at the default rate (1/16); txn/s of
-     off, default and on in turns, twice; then the columnar and loop
+     off, default and on in turns, once; then the columnar and loop
      engines' sampled intervals against a torch.profiler trace of the same
      pass: the kernels, copies and idle time inside them, and where the
      idle time sits;
@@ -272,9 +276,16 @@ toolkit. The script
      budget, its child instrumented by crash_child_main). Every check of
      each is gated but history's speedup; every resolve of the heat and
      perf smokes' engines is replayed through a fresh oracle (a twin).
-  The oracle twins of phases 17-19 and 21-23, and the CPU twins of 21
-  and 22, run together in 6 worker processes after the last card run
-  (phase 23's), the longest first.
+     Then torch.profiler traces of three one-step apply programs at
+     history_smoke's sweep shape (16-txn batch) and 16,384 rows
+     (history_kernel_counts): kernels per replay of the monolithic apply,
+     the tiered step that appends a run and the tiered step that merges
+     first.
+  The oracle twins of phases 17-19 start in 2 worker processes as soon as
+  phase 19's card runs end, and those of phase 21 (its CPU twins too) in
+  2 more as soon as its card runs end, beside the later phases; those of
+  22-23, and the CPU twins of 22, run in 6 worker processes after the
+  last card run (phase 23's), the longest first.
 
 Each path's kernel launches are counted from 0 just before it and read
 just after (a captured graph's fixpoint launches are counted at each
@@ -293,6 +304,7 @@ file without the package.
 from __future__ import annotations
 
 import argparse
+import fnmatch
 import itertools
 import json
 import math
@@ -337,6 +349,9 @@ ENGINE_SIZES = [256, 384, 512, 512, 1500, 3000, 4500, 6000]
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    for pool in _TWIN_POOLS:
+        # the jobs in flight end, the rest never start
+        pool.shutdown(wait=False, cancel_futures=True)
     sys.exit(1)
 
 
@@ -1557,7 +1572,7 @@ def pipeline_phase(fc, pl, eng, batches, serial, runs=PIPELINE_RUNS, executors=(
     return out
 
 
-TELEMETRY_TURNS = 2
+TELEMETRY_TURNS = 1
 #: the telemetry phase's engines: key -> (family, history structure)
 TELEMETRY_ENGINES = {"columnar": ("columnar", "monolithic"),
                      "tiered_columnar": ("columnar", "tiered"),
@@ -3359,8 +3374,8 @@ def cluster_phase(fc, he, card, engine_cfg, device_ms_by_bucket, pack_ms_per_txn
     point's as_dict() equals its oracle twin's.
 
     The card runs are timed here. The phase returns its oracle twins as
-    jobs for run_twins, which main calls after the last card run of the
-    script, and finish(twins), which holds the card runs to them. Each spec and each point is a path: the fixpoint counts are zeroed just
+    jobs for start_twins, which main calls after the bindings/backup
+    phase, and finish(twins), which holds the card runs to them. Each spec and each point is a path: the fixpoint counts are zeroed just
     before it and read just after, and each path must launch the kernel
     with no plain fixpoint on a CUDA tensor; every engine built is on the
     card."""
@@ -3865,8 +3880,8 @@ def dynamic_cluster_phase(fc, he, ck, card, recovery_cfg):
     and captures per generation, each kill's virtual and wall ms to the
     first commit of the new epoch and the peak device memory.
 
-    Returns the oracle twins as jobs for run_twins (after the last card
-    run of the script) and finish(twins), which holds the runs to them."""
+    Returns the oracle twins as jobs for start_twins (after the
+    bindings/backup phase) and finish(twins), which holds the runs to them."""
     import dataclasses
 
     import torch
@@ -4294,8 +4309,8 @@ def bindings_backup_phase(fc, he, card, recovery_cfg):
     KernelConfig in both clusters: check_dr, equal to its oracle twin,
     check_engines.
 
-    Returns the oracle twins as jobs for run_twins (after the last card
-    run of the script) and finish(twins), which holds the runs to them."""
+    Returns the oracle twins as jobs for start_twins (after the
+    bindings/backup phase) and finish(twins), which holds the runs to them."""
 
     import torch
 
@@ -4445,7 +4460,7 @@ def bindings_backup_phase(fc, he, card, recovery_cfg):
 #: drill through a blobstore:// HTTPBlobServer
 REAL_PROCS = 4
 REAL_KEYS = 1000
-REAL_TXNS = 500
+REAL_TXNS = 250
 REAL_LAUNCH_TIMEOUT_S = 420
 #: where a node started by real_node_main writes its report when it takes
 #: SIGTERM (the launcher stops its nodes with terminate())
@@ -4920,7 +4935,7 @@ def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, o
     engine's on every batch, the stacked entry on the path; the one-chunk
     program's device ms and kernels against a single-table engine at the
     same config, and txn/s of both in turns. A CPU twin of the uniform and
-    the tiered engines (jobs for run_twins) holds their heat snapshots and
+    the tiered engines (jobs for start_twins) holds their heat snapshots and
     history stats.
 
     Sharded and mesh: ShardedConflictEngine and MeshShardedConflictEngine
@@ -5551,6 +5566,120 @@ def tools_phase(fc, he, ck, card, cfg):
 
 #: the smokes that build card engines, in the order the phase runs them
 CARD_SMOKES = ("heat", "history", "perf", "reshard", "mesh", "crash")
+#: rows of the history kernel counts' tables (history_smoke's larger
+#: capacity) and their occupancy (the sweep's)
+HISTORY_TRACE_ROWS = 16384
+HISTORY_TRACE_OCCUPANCY = 0.75
+
+
+def history_kernel_counts(card):
+    """Kernels per replay of three one-step apply programs at history_smoke's
+    sweep shape (its 16-txn batch of point writes) on a HISTORY_TRACE_ROWS
+    table at the sweep's occupancy, each read from a torch.profiler trace of
+    one replay: the monolithic apply_writes_and_gc, and the tiered one with
+    its run stack set before the trace to empty (the step appends a run)
+    and to full (the step merges the runs first), the stack's fill
+    synchronized before the trace starts. A trace can lose kernel events
+    (one trace each lost 103 of the monolithic's and of the append's), so
+    each program takes the more of 2 traces; also the seconds the counts
+    took."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    from foundationdb_tpu_torch.tools import floor_bench as fb
+    from foundationdb_tpu_torch.tools import history_smoke as hs
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = ck.KernelConfig(capacity=HISTORY_TRACE_ROWS, **hs.SWEEP_SHAPE)
+    n = int(HISTORY_TRACE_OCCUPANCY * cfg.capacity)
+    rng = np.random.default_rng(SEED)
+    batch = ck.batch_from_numpy(cfg, fb._write_batch(cfg, rng, n), dev)
+    committed = torch.ones((cfg.max_txns,), dtype=torch.bool, device=dev)
+
+    def kernels(run, setup=None):
+        best = 0
+        for _ in range(2):
+            if setup is not None:
+                setup()
+                torch.cuda.synchronize()
+            best = max(best, profile_window(run, 1)["kernels"])
+        return best
+
+    out = {"rows": cfg.capacity, "occupancy": n, "batch_txns": cfg.max_txns}
+    for structure in ("monolithic", "tiered"):
+        scfg = dataclasses.replace(cfg, history_structure=structure)
+        state = dict(ck.initial_state(scfg, device=dev))
+        state.update(fb._table_state(cfg, n, dev))
+        wpos = ck.local_phases(scfg, state, batch)[2]
+        state = ck.apply_writes_and_gc(scfg, state, batch, committed, wpos, False)[0]
+        wpos = ck.local_phases(scfg, state, batch)[2]
+
+        def step(st, _i, _cfg=scfg, _w=wpos):
+            st2 = ck.apply_writes_and_gc(_cfg, st, batch, committed, _w, False)[0]
+            return st2, st2["n"]
+
+        prog = fb.ScanProgram(step, state, 1)
+        if structure == "monolithic":
+            out["monolithic_apply"] = kernels(prog.graph.replay)
+            continue
+        nruns = prog.carry["nruns"]
+        for label, value in (("tiered_append", 0), ("tiered_merge", scfg.run_slots)):
+            out[label] = kernels(prog.graph.replay, lambda value=value: nruns.fill_(value))
+        out["run_slots"] = scfg.run_slots
+    out["seconds"] = time.perf_counter() - t0
+    check(out["tiered_merge"] > out["tiered_append"] > 0 and out["monolithic_apply"] > 0,
+          f"history kernel counts: {out}")
+    print(f"smokes phase, history kernel counts [{card}]: kernels per replay at "
+          f"{out['rows']} rows ({out['occupancy']} occupied), {out['batch_txns']}-txn batch: "
+          f"monolithic apply {out['monolithic_apply']:.0f}, tiered append "
+          f"{out['tiered_append']:.0f}, tiered merge {out['tiered_merge']:.0f} "
+          f"({out['run_slots']} run slots) ({out['seconds']:.1f} s)", flush=True)
+    return out
+
+
+def lint_phase(card):
+    """The port's fdbtpu-lint over this checkout, in process, against the
+    port's own baseline: one line of per-rule counts (new, baselined,
+    suppressed) and the seconds the run took. A new finding or a stale
+    baseline entry fails the run, and so does a module of jax or of the JAX
+    package in this process."""
+    from foundationdb_tpu_torch.tools.lint import CHECKERS, load_baseline, run_lint
+    from foundationdb_tpu_torch.tools.lint.core import BASELINE_REL
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    res = run_lint(root, CHECKERS, baseline=load_baseline(root / BASELINE_REL))
+    seconds = time.perf_counter() - t0
+    counts = res.counts()
+    print(f"lint phase [{card}]: {res.files} files, {len(res.rules) - 1} rules, new/baselined/"
+          f"suppressed " + ", ".join(f"{rule} {c['new']}/{c['baselined']}/{c['suppressed']}"
+                                     for rule, c in sorted(counts.items()))
+          + f" ({seconds:.3f} s)", flush=True)
+    check(not res.new, "lint: new findings: " + "; ".join(
+        f"{f.path}:{f.line} [{f.rule}] {f.message}" for f in res.new))
+    check(not res.stale_baseline, f"lint: stale baseline entries {res.stale_baseline}")
+    # jax by name; the JAX package as whatever this process loaded from the
+    # checkout that is neither the port nor this script
+    port = root / "foundationdb_tpu_torch"
+    me = Path(__file__).resolve()
+
+    def foreign(name, mod):
+        if fnmatch.fnmatch(name, "jax*"):
+            return True
+        f = getattr(mod, "__file__", None)
+        if not f or not os.path.isabs(f):
+            return False        # a builtin, or a name like torch.ops' "_ops.py"
+        f = Path(f).resolve()
+        return f.is_relative_to(root) and not f.is_relative_to(port) and f != me
+
+    loaded = sorted(name for name, mod in list(sys.modules.items()) if foreign(name, mod))
+    check(not loaded, f"modules of jax or of the checkout outside the port in this process: "
+          f"{loaded}")
+    return {"files": res.files, "counts": counts, "seconds": seconds}
 
 
 def recording_new_engines(he, built):
@@ -5701,6 +5830,7 @@ def smokes_phase(fc, he, card):
              if not hist["ok"] else ""), flush=True)
     check(len(points) == 2 and all(p["tiered_speedup"] for p in points.values()),
           f"history_smoke: the apply sweep was not timed on the card: {points}")
+    res["history_kernels"] = history_kernel_counts(card)
     peaks = [b for b in res["perf"]["peak_bytes"] if b]
     print(f"smokes phase [{card}]: heat {res['heat']['split_points']['max_dev']:.4f} split "
           f"deviation; perf peak bytes {min(peaks, default=None)}-{max(peaks, default=None)}, "
@@ -5732,20 +5862,43 @@ def smokes_phase(fc, he, card):
 
 
 TWIN_WORKERS = 6
+#: the workers of the cluster phases' twins and of the sharded phase's,
+#: each pool beside the later card phases (the wall-clock nodes of the
+#: real phase take 4 cores)
+EARLY_TWIN_WORKERS = 2
+#: twin pools not yet shut down, which fail() cancels
+_TWIN_POOLS = []
 
 
-def run_twins(jobs):
-    """Each job {key: (fn, *args)} in TWIN_WORKERS spawn-context worker
-    processes, submitted in the order given (the longest first): returns
-    ({key: fn(*args)}, wall seconds)."""
+def _timed_twin(fn, *args):
+    """fn(*args) in a twin worker, and the seconds it took there."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def start_twins(jobs, workers):
+    """Submit each job {key: (fn, *args)} to `workers` spawn-context worker
+    processes in the order given (the longest first); finish_twins
+    collects them."""
     from concurrent.futures import ProcessPoolExecutor
     from multiprocessing import get_context
 
-    t0 = time.perf_counter()
-    with ProcessPoolExecutor(TWIN_WORKERS, mp_context=get_context("spawn")) as pool:
-        futures = {key: pool.submit(fn, *args) for key, (fn, *args) in jobs.items()}
-        results = {key: f.result() for key, f in futures.items()}
-    return results, time.perf_counter() - t0
+    pool = ProcessPoolExecutor(workers, mp_context=get_context("spawn"))
+    _TWIN_POOLS.append(pool)
+    return pool, {key: pool.submit(_timed_twin, fn, *args) for key, (fn, *args) in jobs.items()}
+
+
+def finish_twins(started):
+    """({key: fn(*args)}, {key: seconds in its worker}) of every pool that
+    start_twins started, each pool shut down once its jobs are in."""
+    results, seconds = {}, {}
+    for pool, futures in started:
+        for key, f in futures.items():
+            results[key], seconds[key] = f.result()
+        pool.shutdown()
+        _TWIN_POOLS.remove(pool)
+    return results, seconds
 
 
 def main(argv=None) -> int:
@@ -5771,6 +5924,7 @@ def main(argv=None) -> int:
         fail(f"foundationdb_tpu_torch is not importable next to this script ({e})")
 
     dev = torch.device("cuda")
+    t_script = time.perf_counter()
     t0 = time.perf_counter()
     built = build.build()
     print(f"build: {json.dumps({k: round(v, 3) for k, v in built.items()})} "
@@ -5784,7 +5938,7 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(SEED)
     cfg = bench_cfg(ck)
     engine_cfg = ck.KernelConfig()
-    results = {"card": card, "seed": SEED}
+    results = {"card": card, "seed": SEED, "lint_phase": lint_phase(card)}
 
     # the kernel at the bench shape, and at the shape the engine path gives
     # it (the default KernelConfig the engine phase runs)
@@ -6097,6 +6251,9 @@ def main(argv=None) -> int:
     bb_jobs, bb_finish = bindings_backup_phase(fc, he, card, cfg)
     print(f"bindings/backup phase card runs [{card}] ({time.perf_counter() - t0:.1f} s)",
           flush=True)
+    # their oracle twins from here on, beside the later card phases, the
+    # longest (the backup run's and the recovery run's) first
+    early_twins = start_twins({**bb_jobs, **dyn_jobs, **cl_jobs}, EARLY_TWIN_WORKERS)
 
     # the wall-clock cluster and its campaigns: card resolvers in OS-process
     # nodes over TCP, the fault, crash and scenario campaigns on card engines
@@ -6115,6 +6272,9 @@ def main(argv=None) -> int:
     sh_jobs, sh_finish = sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches,
                                        serial, oracle_ref, rng)
     print(f"sharded phase card runs [{card}] ({time.perf_counter() - t0:.1f} s)", flush=True)
+    # its twins (the sub-sharded CPU twins the longest) beside the tools
+    # and smokes phases
+    sharded_twins = start_twins(sh_jobs, EARLY_TWIN_WORKERS)
 
     # the tools bench.py drives, profile_kernel, the CLI and fdbbackup
     t0 = time.perf_counter()
@@ -6126,12 +6286,18 @@ def main(argv=None) -> int:
     sm_jobs, sm_finish = smokes_phase(fc, he, card)
     print(f"smokes phase card runs [{card}] ({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    # the phases' oracle and CPU twins, after the last card run, the longest
-    # (the backup run's and the recovery run's) first
-    twins, twin_s = run_twins({**bb_jobs, **dyn_jobs, **sh_jobs, **tl_jobs, **cl_jobs,
-                               **sm_jobs})
-    print(f"oracle twins [{card}]: {len(twins)} runs in {TWIN_WORKERS} workers after the last "
-          f"card run ({twin_s:.1f} s)", flush=True)
+    # the later phases' oracle and CPU twins, after the last card run; then
+    # the early ones' results
+    t0 = time.perf_counter()
+    late = start_twins({**tl_jobs, **sm_jobs}, TWIN_WORKERS)
+    twins, twin_job_s = finish_twins([late, sharded_twins, early_twins])
+    twin_s = time.perf_counter() - t0
+    longest = sorted(twin_job_s.items(), key=lambda kv: -kv[1])[:5]
+    print(f"oracle twins [{card}]: {len(early_twins[1])} runs in {EARLY_TWIN_WORKERS} workers "
+          f"from the bindings/backup phase on, {len(sharded_twins[1])} in "
+          f"{EARLY_TWIN_WORKERS} from the sharded phase on, {len(late[1])} in {TWIN_WORKERS} "
+          f"workers after the last card run ({twin_s:.1f} s after it); the longest "
+          + ", ".join(f"{'/'.join(map(str, k))} {v:.1f} s" for k, v in longest), flush=True)
     cl = cl_finish(twins)
     results["cluster_phase"] = cl
     print(f"cluster phase [{card}]: {len(cl['specs'])} spec runs and {len(cl['points'])} harness "
@@ -6152,6 +6318,7 @@ def main(argv=None) -> int:
     smk = sm_finish(twins)
     results["smokes_phase"] = smk
     results["twin_s"] = twin_s
+    results["twin_job_s"] = {"/".join(map(str, k)): v for k, v in twin_job_s.items()}
 
     kernels = {"kernels": [{
         "name": "commit_fixpoint",
@@ -6228,6 +6395,8 @@ def main(argv=None) -> int:
                         for S in (1, 2, SHARDED_S)},
     }]}
     results.update(kernels)
+    results["script_s"] = time.perf_counter() - t_script
+    print(f"chip_smoke [{card}]: every phase passed in {results['script_s']:.1f} s", flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(results, indent=1))

@@ -79,7 +79,7 @@ class TDMetricCollection:
     def __init__(self, now=None):
         import time as _time
 
-        self.now = now or _time.monotonic  # wall-mode default; a simulator passes its virtual clock as `now`
+        self.now = now or _time.monotonic  # fdbtpu-lint: allow[determinism] wall-mode default only; the sim passes its virtual clock as `now`
         self.metrics: Dict[str, _BaseMetric] = {}
 
     def int64(self, name: str) -> Int64Metric:

@@ -90,7 +90,7 @@ class TraceCollector:
 g_trace = TraceCollector()
 
 #: Virtual-time source, installed by the simulator so events carry sim time.
-_now: Callable[[], float] = time.monotonic  # wall-mode default; set_time_source() installs a virtual clock
+_now: Callable[[], float] = time.monotonic  # fdbtpu-lint: allow[determinism] wall-mode default only; set_time_source() installs the sim's virtual clock before any deterministic run
 
 
 def set_time_source(now: Callable[[], float]) -> None:

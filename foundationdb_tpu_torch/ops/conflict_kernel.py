@@ -760,11 +760,17 @@ def commit_fixpoint(cfg: KernelConfig, t_ok: Tensor, hist_hits: Tensor,
     return _iterate(step, base, T)
 
 
+# fdbtpu-lint: drain-point — the plain fixpoint's loop test reads one bool
+# per round by design; on the card the engines run the CUDA kernel and this
+# form runs there only to check it (commit_fixpoint's docstring)
 def _iterate(step, base: Tensor, T: int) -> Tensor:
     """c <- step(c) from base until c stops changing, at most T rounds
     after the first (the JAX while_loop's bound)."""
     prev, c, it = base, step(base), 0
-    while it < T and bool(torch.any(c != prev)):
+    while it < T:
+        changed_dev = torch.any(c != prev)
+        if not bool(changed_dev):
+            break
         prev, c, it = c, step(c), it + 1
     return c
 
@@ -1126,24 +1132,28 @@ MERGE = HostReads()
 LOOP = HostReads()
 
 
-def run_if(pred: Tensor, body) -> None:
-    """body() iff the 0-d bool `pred` holds, without computing body when it
+# fdbtpu-lint: drain-point — outside a capture on the card the host read of
+# `pred_dev` is the documented fallback, counted in MERGE.host_reads
+def run_if(pred_dev: Tensor, body) -> None:
+    """body() iff the 0-d bool `pred_dev` holds, without computing body when it
     does not: on the CPU a host branch; on the card under CUDA graph
-    capture a conditional IF node whose body replays only when `pred` holds
+    capture a conditional IF node whose body replays only when `pred_dev` holds
     (graph_if; body must write its results into tensors that exist before
-    the node); on the card outside a capture a host read of `pred`, a
+    the node); on the card outside a capture a host read of `pred_dev`, a
     sync, counted in MERGE.host_reads. Nothing computes both sides and
     selects."""
-    if pred.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-        with graph_if.if_node(pred):
+    if pred_dev.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        with graph_if.if_node(pred_dev):
             body()
         return
-    if pred.device.type == "cuda":
+    if pred_dev.device.type == "cuda":
         MERGE.host_reads += 1
-    if bool(pred):
+    if bool(pred_dev):
         body()
 
 
+# fdbtpu-lint: drain-point — outside a capture on the card each host read of
+# the condition is the documented fallback, counted in LOOP.host_reads
 def run_while(cond, body) -> None:
     """while cond(): body(), where cond() returns a 0-d bool tensor: on the
     CPU a host loop; on the card under CUDA graph capture a conditional
@@ -1152,19 +1162,19 @@ def run_while(cond, body) -> None:
     exist before the node, and cond() reads only such tensors); on the card
     outside a capture a host loop that reads the condition, a sync each
     time, counted in LOOP.host_reads."""
-    pred = cond()
-    if pred.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-        with graph_if.while_node(pred) as again:
+    pred_dev = cond()
+    if pred_dev.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        with graph_if.while_node(pred_dev) as again:
             body()
             again(cond())
         return
     while True:
-        if pred.device.type == "cuda":
+        if pred_dev.device.type == "cuda":
             LOOP.host_reads += 1
-        if not bool(pred):
+        if not bool(pred_dev):
             return
         body()
-        pred = cond()
+        pred_dev = cond()
 
 
 def _tiered_apply(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
@@ -1719,11 +1729,13 @@ def state_from_numpy(cfg: KernelConfig, arrays: Dict, device) -> Dict[str, Tenso
             for name, (shape, dtype) in state_shapes(cfg).items()}
 
 
+# fdbtpu-lint: drain-point — a host export of the table: the copy is the
+# contract, and no dispatch path calls it
 def state_to_numpy(state: Dict[str, Tensor]) -> Dict[str, np.ndarray]:
     """Inverse of state_from_numpy: key planes back to uint32."""
     out = {}
-    for name, t in state.items():
-        a = t.cpu().numpy()
+    for name, t_dev in state.items():
+        a = t_dev.cpu().numpy()
         out[name] = a.astype(np.uint32) if name in ("hkeys", "rkeys") else a
     return out
 
@@ -1746,6 +1758,8 @@ def initial_state(cfg: KernelConfig, version_rel: int = 0, first_key: bytes = b"
     return state_from_numpy(cfg, arrays, device)
 
 
+# fdbtpu-lint: drain-point — a host export of the run planes (the O(delta)
+# handoff read): the copy is the contract
 def history_run_snapshot(cfg: KernelConfig, state: Dict, since_runs: int = 0) -> Dict[str, object]:
     """Host copy of the ACTIVE run planes only, the O(delta) export: the
     runs appended since the caller's watermark `since_runs` (the nruns of
@@ -1759,8 +1773,8 @@ def history_run_snapshot(cfg: KernelConfig, state: Dict, since_runs: int = 0) ->
     if structure != "tiered":
         return {"structure": structure, "nruns": 0, "runs": []}
 
-    def host(x):
-        return x.cpu().numpy() if isinstance(x, Tensor) else np.asarray(x)
+    def host(x_dev):
+        return x_dev.cpu().numpy() if isinstance(x_dev, Tensor) else np.asarray(x_dev)
 
     nruns = int(host(state["nruns"]))
     rn = host(state["rn"])

@@ -304,6 +304,7 @@ class _LoopProgram:
             timing[0].record()
         cold = any(slot.cold[i] or i in self.dirty for i in range(n))
         for name in (self.inputs if cold else HOT_FIELDS):
+            # fdbtpu-lint: allow[recompile] a partial fill outside the graph: the WHILE node reads n_chunks rows by its device counter, the graph's shapes stay the bucket's
             self.inputs[name][:n].copy_(slot.inputs[name][:n], non_blocking=True)
         if cold:
             self.dirty = {i for i in self.dirty if i >= n} | {i for i in range(n) if slot.cold[i]}
@@ -494,6 +495,10 @@ class DeviceLoopEngine(TorchConflictEngine):
                 self.loop_stats["wait_ms"] += (time.perf_counter() - t0) * 1e3
             self._finish(self._ring.popleft())
 
+    # fdbtpu-lint: drain-point — only reached once ticket.ready() (or the
+    # deadline fallback, which loop_stats charges as a blocking sync): the
+    # .numpy() reads below copy a slot's COMPLETED pinned buffers, they never
+    # park in the device
     def _finish(self, ticket: _LoopTicket) -> None:
         """Decode a landed ticket from its slot's host buffers: statuses,
         overflow, merge count and heat."""

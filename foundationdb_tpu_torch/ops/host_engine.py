@@ -1901,6 +1901,8 @@ class _CardEngine(RoutedConflictEngineBase):
             done.record()
             keep = (per_chunks, packs)
 
+            # fdbtpu-lint: drain-point — called only by the unit's force():
+            # waiting on the unit's done event is the force contract
             def read():
                 done.synchronize()
                 _ = keep        # the host buffers live until the copies ran
@@ -1935,29 +1937,34 @@ class _CardEngine(RoutedConflictEngineBase):
         hist, edges, wpos = detect(self.cfg, self.state, batch)
         return {"batch": batch, "hist": hist, "edges": edges, "wpos": wpos}
 
+    # fdbtpu-lint: drain-point — the split-step path: the host tier's next
+    # fixpoint round needs this round's verdicts; only batches that carry
+    # long keys take it, outside the pipelined dispatch
     def _run_fix(self, ctx, per_shard, t_ok: np.ndarray) -> np.ndarray:
         t = torch.from_numpy(np.ascontiguousarray(t_ok)).to(self.device)
         fix = ck.fix_step_stacked if self.stack else ck.fix_step
-        committed = fix(self.cfg, t, ctx["hist"], ctx["edges"], ctx["batch"])
-        return committed.cpu().numpy()
+        committed_dev = fix(self.cfg, t, ctx["hist"], ctx["edges"], ctx["batch"])
+        return committed_dev.cpu().numpy()
 
+    # fdbtpu-lint: drain-point — the split-step path returns its verdicts
+    # and overflow to the caller at once (see _run_fix)
     def _run_apply(self, ctx, per_shard, committed: np.ndarray) -> Tuple[np.ndarray, bool]:
         cm = torch.from_numpy(np.ascontiguousarray(committed)).to(self.device)
         batch = ctx["batch"]
         gc_branch = int(per_shard[0]["gc"]) > 0
         if self.stack:
-            new_state, overflow, _, merged = ck._apply_stacked(
+            new_state, overflow_dev, _, merged_dev = ck._apply_stacked(
                 self.cfg, self.state, batch, cm, ctx["wpos"], gc_branch)
             t_too_old = batch["t_too_old"][0]
         else:
-            new_state, overflow, _, merged = ck._apply_writes(
+            new_state, overflow_dev, _, merged_dev = ck._apply_writes(
                 self.cfg, self.state, batch, cm, ctx["wpos"], gc_branch)
             t_too_old = batch["t_too_old"]
         self._set_state(new_state)
-        if merged is not None:
-            self.perf.merges += int(merged.sum())
-        status = ck.status_of(t_too_old, cm)
-        return status.cpu().numpy(), bool(overflow.any())
+        if merged_dev is not None:
+            self.perf.merges += int(merged_dev.sum())
+        status_dev = ck.status_of(t_too_old, cm)
+        return status_dev.cpu().numpy(), bool(overflow_dev.any())
 
 
 class TorchConflictEngine(_CardEngine):

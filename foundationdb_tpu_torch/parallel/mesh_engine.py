@@ -512,6 +512,10 @@ class MeshShardedConflictEngine(ShardedConflictEngine):
                 self.loop_stats["wait_ms"] += (time.perf_counter() - t0) * 1e3
             self._finish(self._ring.popleft())
 
+    # fdbtpu-lint: drain-point — only reached once ticket.ready() (or the
+    # deadline fallback, which loop_stats charges as a blocking sync): the
+    # .numpy() reads below copy COMPLETED pinned buffers, they never park
+    # in the device
     def _finish(self, ticket: _MeshTicket) -> None:
         """Decode a landed ticket from its host buffers."""
         t_dec = time.perf_counter()

@@ -874,7 +874,11 @@ class ReshardController:
                            Proc="reshard", batches=op.precopied)
             if blackbox.enabled():
                 blackbox.record_reshard(op, "precopy")
-            # FREEZE -> residual delta -> CUTOVER: the blackout
+            # FREEZE -> residual delta -> CUTOVER: the blackout. The port
+            # waits out the batch in flight BEFORE freezing (the reference
+            # freezes first): batches that touch the moving ranges keep
+            # flowing while it lands, so the wait is no blackout
+            await g.quiesce()
             op.state = "frozen"
             g.freeze([(b, e) for _sid, b, e in moving])
             op.t_freeze = self.now_fn()

@@ -5,11 +5,11 @@ The cluster the CLI boots recruits card resolvers by default
 (TorchConflictEngine at the specs' KernelConfig, tools/fdbbackup.
 engine_factory), so `perf`, `telemetry` and `heat` show a card engine's
 ledger rows, device times and heat; `--engine oracle` gives JAX's oracle
-resolvers and `--device cpu` runs the torch engines on the CPU. Two
-differences by design: `perf` renders the ledger's flops and bytes
-accessed as None (a captured CUDA graph reports no cost analysis), and
-`lint` raises NotImplementedError until fdbtpu-lint is ported (ROADMAP,
-queue 1 item 4).
+resolvers and `--device cpu` runs the torch engines on the CPU. One
+difference by design: `perf` renders the ledger's flops and bytes
+accessed as None (a captured CUDA graph reports no cost analysis).
+`lint` runs the port's own fdbtpu-lint over the port's tree
+(tools/lint/).
 
 Re-design of fdbcli/fdbcli.actor.cpp: status + the
 get/set/clear/getrange transaction commands, driven against a simulated
@@ -114,8 +114,8 @@ commands:
                        fetch live span rings over RPC (trace.spans token),
                        reconstruct per-commit waterfalls, optionally write
                        Chrome trace JSON (docs/observability.md)
-  lint [ARGS...]       fdbtpu-lint, the static invariant checker: not
-                       ported yet (raises; ROADMAP queue 1 item 4)
+  lint [ARGS...]       run fdbtpu-lint, the static invariant checker,
+                       over the port's tree (--json, --rules a,b, paths)
   help                 this text
   exit                 quit
 Keys/values are text; prefix with 0x for hex bytes."""
@@ -1075,13 +1075,18 @@ class Cli:
                 self._print(f"    ** recovery error: {r.error} **")
 
     def do_lint(self, args: List[str]) -> int:
-        """Static invariant check (docs/static_analysis.md): fdbtpu-lint is
-        not ported yet, so this raises NotImplementedError until the slice
-        that ports it (ROADMAP queue 1 item 4: `lint/` as the port's own
-        tool, with package-neutral rules)."""
-        raise NotImplementedError(
-            "cli lint: fdbtpu-lint (tools/lint/) is not ported to foundationdb_tpu_torch "
-            "yet; see ROADMAP.md, queue 1 item 4 (lint/ as the port's own tool)")
+        """Static invariant check: run the port's fdbtpu-lint checkers over
+        the port's tree — cluster-less, pure AST (never imports torch or
+        jax), args pass straight through to the lint CLI. Returns the lint
+        exit status so one-shot `cli lint` fails CI exactly like
+        `python -m foundationdb_tpu_torch.tools.lint` does."""
+        from .lint import CHECKERS
+        from .lint.core import main as lint_main
+
+        rc = lint_main(CHECKERS, argv=list(args), out=self.out)
+        if rc:
+            self._print("lint: FINDINGS (see above)")
+        return rc
 
     def do_trace(self, args: List[str]) -> None:
         """Distributed-trace workflows (docs/observability.md "Distributed

@@ -140,6 +140,8 @@ def test_subprocess_import_loads_no_jax():
     "foundationdb_tpu_torch.tools.reshard_smoke",
     "foundationdb_tpu_torch.tools.mesh_smoke",
     "foundationdb_tpu_torch.tools.atlas_smoke",
+    "foundationdb_tpu_torch.tools.lint",
+    "foundationdb_tpu_torch.tools.lint.core",
 ])
 def test_serving_path_modules_load_no_jax(module):
     """The columnar path's modules, each imported alone in a fresh process
@@ -157,6 +159,27 @@ def test_serving_path_modules_load_no_jax(module):
     loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert module in loaded
     bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_lint_import_loads_neither_jax_nor_torch():
+    """The port's linter is pure AST: a fresh process that imports it and
+    runs a rule loads no jax, no torch and nothing of the JAX package, so
+    it runs on any machine (the card machine has no jax)."""
+    code = (
+        "import json, sys\n"
+        "from foundationdb_tpu_torch.tools.lint import CHECKERS, run_lint\n"
+        "from foundationdb_tpu_torch.tools.lint.core import REPO\n"
+        "res = run_lint(REPO, CHECKERS, rules=('span-registry',))\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "foundationdb_tpu_torch.tools.lint.core" in loaded
+    bad = [m for m in loaded if m.split(".")[0] in FORBIDDEN + ("torch",)]
     assert not bad, bad
 
 
@@ -217,7 +240,12 @@ def test_source_scan_finds_no_jax_import():
                  "tools/perf_smoke.py", "tools/telemetry_smoke.py",
                  "tools/trace_smoke.py", "tools/forensics_smoke.py",
                  "tools/crash_smoke.py", "tools/reshard_smoke.py",
-                 "tools/mesh_smoke.py", "tools/atlas_smoke.py"):
+                 "tools/mesh_smoke.py", "tools/atlas_smoke.py",
+                 "tools/lint/__init__.py", "tools/lint/__main__.py", "tools/lint/core.py",
+                 "tools/lint/determinism.py", "tools/lint/span_registry.py",
+                 "tools/lint/blackbox_registry.py", "tools/lint/knob_drift.py",
+                 "tools/lint/host_sync.py", "tools/lint/recompile.py",
+                 "tools/lint/donation.py"):
         assert PKG / name in files, name
     for path in files:
         bad = [r for r in imported_roots(path) if r in FORBIDDEN + ("cryptography",)]

@@ -735,3 +735,69 @@ def test_split_under_load_over_tiered_engines_keeps_the_run_delta():
     clean_world()
     jbad, jstate, _, jdelta, _ = split_under_load(JAX)
     assert jstate == "done" and jdelta == 0 and jbad, "the reference lost no delta here"
+
+
+# -- a difference by design: the batch in flight lands before the freeze -----
+
+def split_with_slow_batches(P, batch_s=0.03, gap_s=0.01, seed=45):
+    """A split while each batch takes `batch_s` of virtual time to resolve
+    (a loaded host's eager resolve, in the simulator) and the next arrives
+    `gap_s` after it: the controller reaches its freeze with a batch in
+    flight. Returns (the verdicts served, the versions whose verdicts
+    differ from the serial oracle's, the op)."""
+    sim = make_sim(P)
+    group = P.reshard.ElasticResolverGroup(oracle_factory(P))
+    group.prewarm_spares(1)
+    ctl = P.reshard.ReshardController(group, min_heat_batches=5)
+    ctl._last_done = -100.0
+    oracle = P.oracle.OracleConflictEngine()
+    pool = 96
+    warm = hot_batches(P, 30, pool, 60, 92, seed=seed)
+    load = hot_batches(P, 40, pool, 60, 92, seed=seed + 1, start_v=warm[-1][1])
+    got, bad = [], []
+    fast = group._resolve_fast
+
+    async def slow_fast(*a, **k):
+        await P.loop.delay(batch_s)
+        return await fast(*a, **k)
+
+    async def serve(batches, gap=0.0):
+        for txns, v, old in batches:
+            g = ints(await group.resolve(txns, v, old))
+            if g != ints(oracle.resolve(txns, v, old)):
+                bad.append(v)
+            got.append(g)
+            if gap:
+                await P.loop.delay(gap)
+
+    async def go():
+        await serve(warm)
+        plan = ctl.plan()
+        assert plan is not None and plan["kind"] == "split", plan
+        group._resolve_fast = slow_fast
+        load_task = sim.sched.spawn(serve(load, gap=gap_s))
+        await P.loop.delay(batch_s / 2)
+        op = await ctl.execute(plan)
+        await load_task
+        return op
+
+    op = drive(P, sim, go())
+    return got, bad, op
+
+
+def test_batch_in_flight_lands_before_the_freeze_and_the_verdicts_equal_jax():
+    """The port waits out the batch in flight before it freezes
+    (server/reshard.py, `await g.quiesce()` ahead of `g.freeze`); the
+    reference freezes first and waits for it inside the blackout. With
+    every batch taking 30 virtual ms, both packages give the serial
+    oracle's verdicts, the same verdicts, the same frozen delta, and the
+    port's blackout leaves the in-flight wait out."""
+    pgot, pbad, pop = split_with_slow_batches(PORT)
+    clean_world()
+    jgot, jbad, jop = split_with_slow_batches(JAX)
+    assert pbad == [] and jbad == [] and pgot == jgot
+    assert pop.state == jop.state == "done"
+    assert (pop.delta, pop.precopied) == (jop.delta, jop.precopied)
+    # a replay takes no virtual time: the port's blackout is empty, the
+    # reference's holds what was left of the batch in flight
+    assert pop.blackout_ms == 0.0 < jop.blackout_ms

@@ -7,8 +7,8 @@ resolvers: the printed text and the world the simulation leaves behind
 over CPU torch resolvers in the port, held to JAX's oracle-resolver text.
 The cluster-less file views (heat, alerts, incidents, chaos-status,
 atlas, shards, trace, explain, blackbox, recovery) render the same files
-to byte-equal text in both packages, and `cli lint` raises
-NotImplementedError in the port."""
+to byte-equal text in both packages, and `cli lint` runs the port's own
+fdbtpu-lint (tests/test_torch_lint.py holds it against the reference's)."""
 import contextlib
 import io
 import json
@@ -263,12 +263,33 @@ def test_cli_default_engine_is_the_card():
 
 
 def test_cli_lint_raises_not_implemented():
-    cli = PORT.cli.Cli.__new__(PORT.cli.Cli)
-    cli.out = io.StringIO()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.do_lint(["--json"])
-    with pytest.raises(NotImplementedError):
-        PORT.cli.main(["lint"])
+    """`cli lint` raised NotImplementedError while the port had no linter;
+    it no longer does: in both packages it returns the lint's exit code."""
+    for P in (PORT, JAX):
+        cli = P.cli.Cli.__new__(P.cli.Cli)
+        cli.out = io.StringIO()
+        try:
+            rc = cli.do_lint(["--rules", "span-registry"])
+        except NotImplementedError as e:  # pragma: no cover - the failure
+            pytest.fail(f"{P.__name__}: cli lint raised {e!r}")
+        assert rc == 0
+
+
+def test_cli_lint_runs_the_ports_lint():
+    """`cli lint` runs the port's fdbtpu-lint over the port's tree and
+    returns the lint's exit code, as the JAX package's `cli lint` does over
+    its own tree: a clean JSON report in both, and `main(["lint", ...])`
+    returns 0 with the text report."""
+    for P in (PORT, JAX):
+        cli = P.cli.Cli.__new__(P.cli.Cli)
+        cli.out = io.StringIO()
+        assert cli.do_lint(["--json", "--rules", "span-registry,blackbox-registry"]) == 0
+        report = json.loads(cli.out.getvalue())
+        assert report["new"] == [] and report["stale_baseline"] == []
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert PORT.cli.main(["lint", "--rules", "host-sync"]) == 0
+    assert "no new findings" in out.getvalue()
 
 
 # -- the cluster-less file views ----------------------------------------------
