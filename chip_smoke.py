@@ -89,15 +89,17 @@ toolkit. The script
      resolve(); txn/s per depth; then the tiered engine and the loop engine
      at depth 1-3 (no blocking sync).
   11. telemetry phase: the engines above run with device-time sampling
-     off; fresh ones (columnar and loop, monolithic and tiered) run at
-     sample rate 1.0 with spans on, the dispatch under sync debug "error":
+     off; the same engines (columnar and loop, monolithic and tiered),
+     emptied, run at sample rate 1.0 with spans on, the dispatch under
+     sync debug "error":
      verdicts equal the off engines' on every batch, one ledger row per
      program (two captured graphs each) with its capture ms and peak
      bytes, one CUDA-event sample and one engine.device_time span per
      dispatch unit, no blocking sync; the spans' ms per batch beside the
      phase's clocks, the sampled device ms per chunk beside the profiler's
-     kernel ms; a columnar engine at the default rate (1/16); txn/s of
-     off, default and on in turns, once; then the columnar and loop
+     kernel ms; the columnar engine at the default rate (1/16); txn/s of
+     off, default and on in turns, once (each engine's sampling set for
+     its turn); then the columnar and loop
      engines' sampled intervals against a torch.profiler trace of the same
      pass: the kernels, copies and idle time inside them, and where the
      idle time sits;
@@ -117,7 +119,7 @@ toolkit. The script
      second role (gen2, over the heat-off engine) serving every later
      version, and depth 2 again with the same seed. Each run journals to a
      BlackboxJournal; its journal is read back and replayed through the
-     oracle in worker processes, and every reply must equal the replay;
+     oracle in twin workers, and every reply must equal the replay;
      duplicates come from the replay window; the same-seed runs give equal
      replies, journal bytes and scheduler steps; dispatches run under sync
      debug "error" and the loop role makes no blocking sync. Virtual reply
@@ -158,7 +160,7 @@ toolkit. The script
      KernelConfig: each run ok and equal to its oracle twin (ok, metrics,
      virtual time), every card engine's recorded batches equal to a fresh
      oracle's replay. Then the latency harness (run_latency_under_load,
-     open-loop Poisson arrivals through the whole commit path, 6,000
+     open-loop Poisson arrivals through the whole commit path, 3,000
      txns a point) with a TorchConflictEngine at the default KernelConfig
      in the resolver, fed the columnar phase's one-chunk replay ms per
      bucket and pack ms per txn: depth 1 at bucket 512, depth 2 at 1024
@@ -174,6 +176,8 @@ toolkit. The script
      BackupCorrectness (its restore cluster recruits card engines too)
      also at seed 2, at the specs' KernelConfig
      (capacity 1024, T=64; DataDistributionAttrition at capacity 4096),
+     from a pool of warmed engines per KernelConfig (a spec recruits the
+     engines earlier specs spent, emptied, before it builds new ones),
      each engine supervised as recruitment does (DeviceNemesis: over the
      fault injector, as its own factory): each run ok and equal to its oracle
      twin (ok, metrics, virtual time), each supervisor's health counters
@@ -181,7 +185,7 @@ toolkit. The script
      the card, every card call and every supervisor's journal equal to a
      fresh oracle's replay. Then a recovery run at the bench's
      KernelConfig: 64 closed-loop clients (2 point reads and 2 point
-     writes over the 8192-key pool) to 1,000 commits, the worker hosting
+     writes over the 8192-key pool) to 500 commits, the worker hosting
      resolver.resolve REBOOT-killed at 30% and the one hosting
      proxy.commit at 65%, each kill an epoch recovery that recruits fresh
      card engines: equal to its oracle twin (committed count, the final
@@ -195,8 +199,8 @@ toolkit. The script
      byte-equal to the oracle run's, every card call equal to an oracle
      replay. Then a full-width backup: two dynamic clusters of the
      recovery run's shape in one simulation with card resolvers at the
-     bench's KernelConfig, the recovery run's 64 clients to 1,000 commits;
-     a BackupAgent starts after 500 commits, snapshots in 8 chunks with 3
+     bench's KernelConfig, the recovery run's 64 clients to 500 commits;
+     a BackupAgent starts after 250 commits, snapshots in 8 chunks with 3
      workers, finishes when the load is done and is restored into the
      second cluster: the restore equals the source read at the end
      version, and the run equals its oracle twin (commits, end version,
@@ -211,7 +215,7 @@ toolkit. The script
      through real_node_main (a wrapper of real/node.py's main that records
      every engine its factory builds and reports on SIGTERM), every
      recruited resolver a TorchConflictEngine at the default KernelConfig:
-     the Cycle ring over 1,000 keys and 500 transactions, then the
+     the Cycle ring over 1,000 keys and REAL_TXNS transactions, then the
      launcher's backup -> wipe -> restore drill through a blobstore://
      HTTPBlobServer; each held to at least one card resolver, fixpoint
      launches in each node that recruited one, no plain fixpoint on a
@@ -226,7 +230,9 @@ toolkit. The script
      complete recovery, the restarted child serving on the card, its
      blackout against resolver_recovery_budget_ms reported, not gated;
      the six recipes of the scenario atlas on the torch mode at 3.5 s each:
-     every scorecard row and journal parity 0.
+     every scorecard row and journal parity 0. The two campaigns and the
+     recipes draw their engines from one pool of warmed engines
+     (EnginePool: a later campaign takes a spent engine, emptied).
   21. sharded phase (sharded_phase): the fixpoint kernel's stacked entry
      (S sub-shards in one launch) against its plain version on the
      stacked step's own inputs at the bench shape with S in {1, 2, 8} (at
@@ -244,8 +250,8 @@ toolkit. The script
      mesh_stats; a ResolverPipeline at depth 2 over the 4-shard mesh
      engine; CycleTestTPU8 and RandomReadWriteTPU8 at seed 1 with 8-shard
      card resolvers, each equal to its oracle twin and every recorded
-     resolve to a fresh oracle's replay; one mesh campaign (2 shards) at
-     the atlas's 3.5 s.
+     resolve to a fresh oracle's replay; one mesh campaign (2 shards) for
+     8 s (REAL_CAMPAIGN_S).
   22. tools phase (tools_phase): each tool bench.py drives, through its
      entry point at bench.py's shape: ladder_bench.drive_bucket_ladder
      (the bench CFG, ladder 512/1024/2048; 0 builds and captures after
@@ -281,11 +287,19 @@ toolkit. The script
      (history_kernel_counts): kernels per replay of the monolithic apply,
      the tiered step that appends a run and the tiered step that merges
      first.
-  The oracle twins of phases 17-19 start in 2 worker processes as soon as
-  phase 19's card runs end, and those of phase 21 (its CPU twins too) in
-  2 more as soon as its card runs end, beside the later phases; those of
-  22-23, and the CPU twins of 22, run in 6 worker processes after the
-  last card run (phase 23's), the longest first.
+  The CPU engines and the oracle that phases 5, 7, 8 and 9 hold the card
+  to, and the oracle replays and journal read-backs of phases 13-14, run
+  in 2 twin worker processes from phase 5 on (check_twin_refs and the
+  phases' finish hold the card to them at the end). The oracle twins of
+  phases 17-19, and their card engines' replays, start in 2 more as soon
+  as phase 19's card runs end, and those of phase 21 (its CPU twins too)
+  in 2 more as soon as its card runs end, beside the later phases; those
+  of 22, and its CPU twins, in 2 more as soon as its card runs end,
+  beside phase 23, whose oracle replays join them after the last card
+  run; every twin worker runs at niceness TWIN_NICE. Every phase, and each
+  sub-step of phases 18 and 20-23, prints its wall seconds split into
+  graph captures, child processes, twins still in line and the rest
+  (split_start / split_end).
 
 Each path's kernel launches are counted from 0 just before it and read
 just after (a captured graph's fixpoint launches are counted at each
@@ -858,18 +872,21 @@ def byte_traffic(rng, sizes):
     return out
 
 
-def engine_phase(fc, he, oracle_mod, dev, cfg, traffic, oracle_batches: int,
+def engine_phase(fc, he, dev, cfg, traffic, oracle_batches: int,
                  structure="monolithic", card_reference=None):
     """The main path: resolve() on the card vs the same engine on the CPU
     (every batch), the oracle (the first `oracle_batches` batches) and,
     where given, another card engine's verdicts (`card_reference`, one list
-    per batch). Returns (the largest chunk's recorded arrays and table,
-    results, verdicts per batch)."""
+    per batch). The CPU engine and the oracle run as twin jobs
+    (cpu_engine_twin, oracle_verdicts_twin), held to the card's verdicts by
+    check_twin_refs. Returns (the largest chunk's recorded arrays and table,
+    results, verdicts per batch, the twin jobs)."""
+    import dataclasses
+
     import torch
 
     gpu = he.TorchConflictEngine(cfg, history_structure=structure)
     gpu.warmup(scan_sizes=())            # the general router's one program
-    cpu = he.TorchConflictEngine(cfg, device="cpu", history_structure=structure)
     # record the packed arrays (and the table they meet) of the largest
     # chunk, fused or split-step. Inside the timed resolve, so it takes
     # references and one stream-ordered copy of the table, which the
@@ -887,7 +904,6 @@ def engine_phase(fc, he, oracle_mod, dev, cfg, traffic, oracle_batches: int,
 
     gpu._run_step = recording(gpu._run_step)
     gpu._run_detect = recording(gpu._run_detect)
-    ora = oracle_mod.OracleConflictEngine()
     counts = [0, 0, 0]
     gpu_s = 0.0
     verdicts = []
@@ -897,15 +913,9 @@ def engine_phase(fc, he, oracle_mod, dev, cfg, traffic, oracle_batches: int,
         got = [int(v) for v in gpu.resolve(txns, now, oldest)]
         torch.cuda.synchronize()
         gpu_s += time.perf_counter() - t0
-        want = [int(v) for v in cpu.resolve(txns, now, oldest)]
-        check(got == want, f"{structure} engine batch {b}: card and CPU verdicts differ at "
-              f"{sum(g != w for g, w in zip(got, want))} of {len(txns)} txns")
         if card_reference is not None:
             check(got == card_reference[b], f"{structure} engine batch {b}: verdicts differ "
                   "from the monolithic card engine's")
-        if b < oracle_batches:
-            ref = [int(v) for v in ora.resolve(txns, now, oldest)]
-            check(got == ref, f"{structure} engine batch {b}: verdicts differ from the oracle")
         verdicts.append(got)
         for v in got:
             counts[v] += 1
@@ -916,13 +926,21 @@ def engine_phase(fc, he, oracle_mod, dev, cfg, traffic, oracle_batches: int,
     check(plain_cuda == 0, f"the {structure} engine path ran the plain fixpoint on CUDA tensors")
     check(gpu._tier_has_writes, "no long-key write reached the host tier")
     check(min(counts) > 0, f"verdict mix lacks a class: {counts}")
+    label = f"{structure} engine"
+    jobs = {("engine", structure, "cpu"): (cpu_engine_twin, dataclasses.asdict(cfg), traffic,
+                                           {"history_structure": structure}),
+            ("engine", structure, "oracle"): (oracle_verdicts_twin, traffic[:oracle_batches])}
+    TWIN_REFS.extend([(label, "the CPU engine",
+                       TwinRef(("engine", structure, "cpu"), "verdicts"), verdicts),
+                      (label, "the oracle", TwinRef(("engine", structure, "oracle")),
+                       verdicts[:oracle_batches])])
     return captured, {
         "structure": gpu.history_structure, "batches": len(traffic),
         "txns": sum(len(t) for t, _, _ in traffic), "oracle_batches": oracle_batches,
         "launches": launches, "eager_launches": eager, "graph_launches": graph,
         "merges": gpu.perf.merges,
         "conflict": counts[0], "too_old": counts[1],
-        "committed": counts[2], "card_resolve_s": gpu_s}, verdicts
+        "committed": counts[2], "card_resolve_s": gpu_s}, verdicts, jobs
 
 
 # ---------------------------------------------------------------------------
@@ -1151,11 +1169,68 @@ def warmed(eng):
             "while_nodes": graph_if.GRAPH_IF.while_nodes - whiles}
 
 
+class TwinRef:
+    """A reference whose verdicts a twin worker computes: serve() keeps the
+    engine's verdicts against it in TWIN_REFS, and check_twin_refs holds
+    them batch by batch once the twins are in. `key` names the twin job;
+    `field`, where given, the part of its result that holds the verdicts."""
+
+    def __init__(self, key, field=None):
+        self.key, self.field = key, field
+
+    def verdicts(self, twins):
+        out = twins[self.key]
+        return out if self.field is None else out[self.field]
+
+
+#: (label, reference name, TwinRef, the engine's verdicts per batch) of
+#: every serve() against a twin-held reference
+TWIN_REFS = []
+
+
+def check_twin_refs(twins):
+    """Hold every engine served against a TwinRef to that twin's verdicts,
+    batch by batch; returns how many (engine, reference) pairs it held."""
+    for label, name, ref, serial in TWIN_REFS:
+        want = ref.verdicts(twins)
+        check(len(want) == len(serial), f"{label}: {len(serial)} batches, {name} {len(want)}")
+        for b, (got, w) in enumerate(zip(serial, want)):
+            check(got == w, f"{label} batch {b}: verdicts differ from {name} at "
+                  f"{sum(g != x for g, x in zip(got, w))} of {len(got)} txns")
+    return len(TWIN_REFS)
+
+
+def oracle_verdicts_twin(batches):
+    """The oracle's verdicts on `batches`, batch by batch (run in a worker
+    process)."""
+    from foundationdb_tpu_torch.ops.oracle import OracleConflictEngine
+
+    ora = OracleConflictEngine()
+    return [[int(v) for v in ora.resolve(txns, now, oldest)] for txns, now, oldest in batches]
+
+
+def cpu_engine_twin(cfg_fields, batches, kw):
+    """A TorchConflictEngine on the CPU at the card engine's KernelConfig
+    and constructor arguments `kw` over `batches` (run in a worker
+    process): its verdicts per batch, heat snapshot and history stats."""
+    import torch
+
+    from foundationdb_tpu_torch.ops import conflict_kernel as ck
+    from foundationdb_tpu_torch.ops import host_engine as he
+
+    torch.set_num_threads(1)
+    eng = he.TorchConflictEngine(ck.KernelConfig(**cfg_fields), device="cpu", **kw)
+    verdicts = [[int(v) for v in eng.resolve(txns, now, oldest)] for txns, now, oldest in batches]
+    return {"verdicts": verdicts, "heat": eng.heat_snapshot(),
+            "history_stats": eng.history_stats_snapshot()}
+
+
 def serve(ck, fc, eng, batches, label, references, counter=None):
     """Every point-only batch through columnar_pack / columnar_dispatch /
     force, the dispatch under sync debug mode "error" (a synchronizing call
     there fails the phase); verdicts against each of `references`, [(name,
-    fn(b, txns, now, oldest) -> verdicts)], on every batch. Fails on a
+    fn(b, txns, now, oldest) -> verdicts)], on every batch, or with a
+    TwinRef for fn, in check_twin_refs once the twins are in. Fails on a
     capture after warmup, a path without kernel launches or with the plain
     fixpoint on CUDA tensors, or a host read of the merge or loop
     condition. `counter`: the fixpoint entry the path launches
@@ -1164,7 +1239,7 @@ def serve(ck, fc, eng, batches, label, references, counter=None):
     import torch
 
     counter = counter or fc.FIXPOINT
-    captures = eng.perf.captures
+    captures, merges0 = eng.perf.captures, eng.perf.merges
     host_reads = (ck.MERGE.host_reads, ck.LOOP.host_reads)
     # the host's share of heat: the aggregator's merges (a "c" layout
     # merges chunk by chunk through the same method: time the outer call)
@@ -1204,6 +1279,8 @@ def serve(ck, fc, eng, batches, label, references, counter=None):
         plain += counter.plain_cuda_calls
         pack_s, dispatch_s, force_s = pack_s + t1 - t0, dispatch_s + t2 - t1, force_s + t3 - t2
         for name, ref in references:
+            if isinstance(ref, TwinRef):
+                continue
             want = ref(b, txns, now, oldest)
             check(got == want, f"{label} batch {b}: verdicts differ from {name} at "
                   f"{sum(g != w for g, w in zip(got, want))} of {len(txns)} txns")
@@ -1211,6 +1288,8 @@ def serve(ck, fc, eng, batches, label, references, counter=None):
         for v in got:
             counts[v] += 1
     eng._merge_heat = merge_heat
+    TWIN_REFS.extend((label, name, ref, serial) for name, ref in references
+                     if isinstance(ref, TwinRef))
     check(eng.perf.captures == captures, f"the {label} engine captured after warmup()")
     check(launches > 0 and plain == 0, f"{label} path: {launches} kernel launches, "
           f"{plain} plain fixpoints on CUDA tensors")
@@ -1220,7 +1299,7 @@ def serve(ck, fc, eng, batches, label, references, counter=None):
           f"a bucket went unused: {eng.perf.bucket_hits}")
     check(min(counts) > 0, f"verdict mix lacks a class: {counts}")
     tiered = eng.history_structure == "tiered"
-    merges = eng.perf.merges
+    merges = eng.perf.merges - merges0
     check(not tiered or merges >= 2, f"only {merges} merges ran inside tiered replays")
     if eng.heat is not None:
         # the heat aggregate's run accounting counts the merges the serving
@@ -1600,20 +1679,48 @@ def ledger_rows(eng):
             for r in eng.perf_ledger.rows()]
 
 
-def telemetry_engine_phase(ck, fc, he, dl, trace, cfg, batches, family, structure, serial):
-    """A fresh engine of `family` ("columnar" | "loop") and `structure` at
-    device-time sample rate 1.0, warmed up: one perf-ledger row per
-    program, two captured graphs each, every row with its capture ms and a
-    peak-bytes reading. Then the traffic through serve() with spans on:
-    verdicts equal `serial` (the same engine with spans and sampling off)
-    on every batch, every dispatch unit timed with CUDA events (one
-    sample and one engine.device_time span each), no blocking sync on the
-    loop; the engine spans' ms per batch beside serve()'s clocks."""
-    kw = dict(ladder=LADDER, history_structure=structure, device_time_sample_rate=1.0)
-    eng = (he.TorchConflictEngine(cfg, scan_sizes=SCANS, **kw) if family == "columnar"
-           else dl.DeviceLoopEngine(cfg, **kw))
+def set_sampling(eng, rate):
+    """Set `eng`'s device-time sampling to `rate` as its constructor's
+    `device_time_sample_rate` sets it (perfledger.sample_every_from_rate,
+    the dispatch counter from 0): 1.0 times every dispatch unit, None the
+    knob's default (1/16), 0.0 none."""
+    from foundationdb_tpu_torch.core import perfledger
+
+    eng._sample_every = perfledger.sample_every_from_rate(rate)
+    eng._dispatch_seq = 0
+
+
+def empty_table(eng):
+    """`eng` back to an empty history at version 0 (clear(0), the base and
+    GC horizon at 0), its captured programs kept, with an empty heat
+    aggregate as its constructor builds one (heatmap.aggregator_for over
+    its config): the old aggregate's run accounting would read the cleared
+    table's empty run stack as a merge."""
+    import torch
+
+    from foundationdb_tpu_torch.core import heatmap
+
+    eng.base = eng.oldest_version = 0
+    eng.clear(0)
+    if eng.heat is not None:
+        eng.heat = heatmap.aggregator_for(eng.cfg, n_shards=eng.n_shards)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def telemetry_engine_phase(ck, fc, trace, eng, warm, batches, family, structure, serial):
+    """`eng`, the warmed engine of `family` ("columnar" | "loop") and
+    `structure` that served `batches` with spans and sampling off (its
+    verdicts `serial`, its warmup `warm`), at device-time sample rate 1.0:
+    one perf-ledger row per program, two captured graphs each, every row
+    with its capture ms and a peak-bytes reading. Then, emptied, the
+    traffic through serve() with spans on: verdicts equal `serial` on every
+    batch, every dispatch unit timed with CUDA events (one sample and one
+    engine.device_time span each), no blocking sync on the loop; the
+    engine spans' ms per batch beside serve()'s clocks."""
     label = f"{structure} {family} (spans on, sampling 1.0)"
-    warm = warmed(eng)
+    set_sampling(eng, 1.0)
+    empty_table(eng)
     rows = eng.perf_ledger.rows()
     check(len(rows) == len(eng._programs) == eng.perf.compiles
           and eng.perf.captures == 2 * len(rows),
@@ -1622,6 +1729,8 @@ def telemetry_engine_phase(ck, fc, he, dl, trace, cfg, batches, family, structur
     check(all(r["kind"] == "warmup" and r["duration_ms"] > 0 and (r["peak_bytes"] or 0) > 0
               for r in rows), f"a {label} ledger row lacks its capture time or bytes: {rows}")
     stats0 = dict(getattr(eng, "loop_stats", {}))
+    units0 = sum(eng.perf.scan_dispatches.values())
+    samples0 = sum(d["samples"] for d in eng.perf.device_time.values())
     spans = trace.g_spans
     spans.clear()
     spans.enabled = True
@@ -1630,8 +1739,8 @@ def telemetry_engine_phase(ck, fc, he, dl, trace, cfg, batches, family, structur
             ("the engine with spans and sampling off", lambda b, *_: serial[b])])
     finally:
         spans.enabled = False
-    units = sum(eng.perf.scan_dispatches.values())
-    samples = sum(d["samples"] for d in eng.perf.device_time.values())
+    units = sum(eng.perf.scan_dispatches.values()) - units0
+    samples = sum(d["samples"] for d in eng.perf.device_time.values()) - samples0
     device_spans = spans.by_name("engine.device_time")
     check(samples == units == len(device_spans) > 0,
           f"the {label}: {samples} samples and {len(device_spans)} device_time spans for "
@@ -1655,11 +1764,13 @@ def telemetry_engine_phase(ck, fc, he, dl, trace, cfg, batches, family, structur
 
 
 def telemetry_turns(trace, engines, batches, serial):
-    """columnar_timing of each (label, engine, spans on) in turns,
-    TELEMETRY_TURNS times: txn/s and per-batch clocks per label."""
-    turns = {label: [] for label, _, _ in engines}
+    """columnar_timing of each (label, engine, spans on, sample rate) in
+    turns, TELEMETRY_TURNS times, the engine's sampling set to the rate
+    for its turn: txn/s and per-batch clocks per label."""
+    turns = {label: [] for label, *_ in engines}
     for _ in range(TELEMETRY_TURNS):
-        for label, eng, spans_on in engines:
+        for label, eng, spans_on, rate in engines:
+            set_sampling(eng, rate)
             trace.g_spans.enabled = spans_on
             try:
                 turns[label].append(columnar_timing(eng, batches, serial))
@@ -1857,25 +1968,31 @@ def scheduled_pipeline_phase(fc, he, pl, knobs, oracle_mod, trace, eng, cfg, rng
             "target": batcher.target_batch_txns(2), "budget_ms": batcher.budget_ms}
 
 
-def telemetry_phases(ck, fc, he, dl, pl, oracle_mod, card, engine_cfg, batches, rng, phases):
+def telemetry_phases(ck, fc, he, pl, oracle_mod, card, engine_cfg, batches, rng, phases):
     """The telemetry phases at full width. `phases` maps each of "columnar",
     "tiered_columnar", "device_loop", "tiered_device_loop" to the earlier
     phase's (engine, verdicts per batch, report), that engine with spans
-    and sampling off. Per family and structure: a fresh engine at sample
-    rate 1.0 with spans on (telemetry_engine_phase); the monolithic
-    columnar engine at the default rate; the engines' txn/s in turns
-    (off, default, on); then the scheduled pipeline. Returns (telemetry
-    results, scheduled pipeline results)."""
+    and sampling off. Per family and structure: that engine again, emptied,
+    at sample rate 1.0 with spans on (telemetry_engine_phase: a fresh
+    engine's warmup would only repeat the phase engine's captures);
+    the monolithic columnar engine at the default rate; each engine's
+    txn/s in turns (off, default, on: its sampling set for each turn);
+    then the scheduled pipeline. The engines end with sampling off again.
+    Returns (telemetry results, scheduled pipeline results)."""
     from foundationdb_tpu_torch.core import knobs, perfledger, trace
 
     tele, pairs = {}, {}
     device_refs = {key: rep.get("program_device_ms") or {
         f"{engine_cfg.max_txns}x{k}": v for k, v in rep["top_replay_device_ms"].items()}
         for key, (_, _, rep) in phases.items()}
+    warm_keys = ("warmup_s", "memory_reserved_before_warmup", "memory_reserved_after_warmup",
+                 "if_nodes", "while_nodes")
     for key, (family, structure) in TELEMETRY_ENGINES.items():
         off_eng, sv, off_rep = phases[key]
+        off_rep = dict(off_rep)     # its spans-off clocks, before this pass
         t0 = time.perf_counter()
-        on_eng, tm = telemetry_engine_phase(ck, fc, he, dl, trace, engine_cfg, batches, family,
+        on_eng, tm = telemetry_engine_phase(ck, fc, trace, off_eng,
+                                            {k: off_rep[k] for k in warm_keys}, batches, family,
                                             structure, sv)
         pairs[key] = (on_eng, off_eng, sv)
         tele[key] = tm
@@ -1901,24 +2018,28 @@ def telemetry_phases(ck, fc, he, dl, pl, oracle_mod, card, engine_cfg, batches, 
             for r in tm["ledger_rows"]), flush=True)
     # the default sample rate (1/16) on the monolithic columnar engine
     t0 = time.perf_counter()
-    deng = he.TorchConflictEngine(engine_cfg, ladder=LADDER, scan_sizes=SCANS)
-    dwarm = warmed(deng)
+    deng = phases["columnar"][0]
+    set_sampling(deng, None)
+    empty_table(deng)
+    units0 = sum(deng.perf.scan_dispatches.values())
+    samples0 = sum(d["samples"] for d in deng.perf.device_time.values())
     _, dserved = serve(ck, fc, deng, batches, "monolithic columnar (default sampling)",
                        [("spans and sampling off", lambda b, *_: phases["columnar"][1][b])])
-    d_units = sum(deng.perf.scan_dispatches.values())
-    d_samples = sum(d["samples"] for d in deng.perf.device_time.values())
+    d_units = sum(deng.perf.scan_dispatches.values()) - units0
+    d_samples = sum(d["samples"] for d in deng.perf.device_time.values()) - samples0
     check(d_samples == d_units // perfledger.sample_every_from_rate(None),
           f"the default rate took {d_samples} samples of {d_units} units")
-    tele["default_rate"] = dict(dserved, **dwarm, units=d_units, samples=d_samples)
+    tele["default_rate"] = dict(dserved, **{k: phases["columnar"][2][k] for k in warm_keys},
+                                units=d_units, samples=d_samples)
     print(f"telemetry phase, columnar at the default sample rate [{card}]: matches spans and "
           f"sampling off on all {dserved['batches']} batches; {d_samples} samples for {d_units} "
           f"dispatch units; {dserved['txn_per_s']:.0f} txn/s ({time.perf_counter() - t0:.1f} s)",
           flush=True)
     for key, (on_eng, off_eng, sv) in pairs.items():
-        engines = [("spans off, sampling 0", off_eng, False)]
+        engines = [("spans off, sampling 0", off_eng, False, 0.0)]
         if key == "columnar":
-            engines.append(("spans off, sampling 1/16", deng, False))
-        engines.append(("spans on, sampling 1.0", on_eng, True))
+            engines.append(("spans off, sampling 1/16", deng, False, None))
+        engines.append(("spans on, sampling 1.0", on_eng, True, 1.0))
         tele[key]["turns"] = telemetry_turns(trace, engines, batches, sv)
         print(f"  telemetry turns, {key} [{card}]: " + "; ".join(
             f"{label}: " + " / ".join(f"{r['txn_per_s']:.0f}" for r in runs) + " txn/s"
@@ -1926,6 +2047,7 @@ def telemetry_phases(ck, fc, he, dl, pl, oracle_mod, card, engine_cfg, batches, 
             + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
     for key in TRACED_SAMPLES:
         t0 = time.perf_counter()
+        set_sampling(pairs[key][0], 1.0)
         svt = tele[key]["sampled_vs_trace"] = sampled_vs_trace(fc, pairs[key][0], batches,
                                                                pairs[key][2])
         tot = svt["total"]
@@ -1946,8 +2068,12 @@ def telemetry_phases(ck, fc, he, dl, pl, oracle_mod, card, engine_cfg, batches, 
               f"events, {svt['device_events_outside_windows']} outside the windows "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t0 = time.perf_counter()
+    set_sampling(pairs["columnar"][0], 1.0)
     spp = scheduled_pipeline_phase(fc, he, pl, knobs, oracle_mod, trace, pairs["columnar"][0],
                                    engine_cfg, rng)
+    # the later phases take these engines with sampling off, as built
+    for _, off_eng, _ in pairs.values():
+        set_sampling(off_eng, 0.0)
     print(f"scheduled pipeline phase [{card}]: depth 2, BudgetBatcher (budget "
           f"{spp['budget_ms']} ms, batch caps {spp['caps']}, target {spp['target']}) and "
           f"resolver_sched=on over skewed traffic: {spp['txns']} txns in {spp['batches']} "
@@ -1972,10 +2098,6 @@ ROLE_KILL_AT = 4
 ROLE_SIZES = COLUMNAR_SIZES[:-1]
 ROLE_DEPTHS = (1, 2, 3)
 ROLE_RUN_UNTIL = 60.0
-#: worker processes that read the role runs' journals back and replay them
-#: through the oracle after the last run (host Python, ~35 s for the whole
-#: traffic)
-ROLE_REPLAY_WORKERS = 4
 #: one journal segment holds a whole run (~15 MB): nothing rotates away
 ROLE_JOURNAL_SEGMENT_BYTES = 1 << 30
 
@@ -2325,16 +2447,15 @@ def resolver_role_phase(fc, pl, card, engines, clocks, rng):
     Engines are cleared to version 0 between runs, with no capture. After
     each run without a kill, its engine resolves the traffic bare, at the
     role's horizons, for its wall txn/s without the role under the same
-    host load. After the last run, ROLE_REPLAY_WORKERS worker processes
-    read each run's journal back from disk (its records' transactions
-    equal to the ring's) and replay each distinct (version, new_oldest)
-    sequence through the oracle once; every run holds to the replay
-    (check_role_run). The loop role makes no blocking sync; the second
-    depth-2 run gives the same replies, journal bytes and scheduler steps
-    as the first."""
+    host load. The loop role makes no blocking sync; the second depth-2
+    run gives the same replies, journal bytes and scheduler steps as the
+    first. After the last run, twin workers read each run's journal back
+    from disk (its records' transactions equal to the ring's) and replay
+    each distinct (version, new_oldest) sequence through the oracle once
+    (the jobs returned); finish(twins) holds every run to the replay
+    (check_role_run). Returns (the phase's report, the twin jobs,
+    finish)."""
     import tempfile
-    from concurrent.futures import ProcessPoolExecutor
-    from multiprocessing import get_context
 
     import torch
 
@@ -2367,62 +2488,82 @@ def resolver_role_phase(fc, pl, card, engines, clocks, rng):
             ("depth2_same_seed", "resolver_role_pipelined", eng, {"pipeline": config(2)})]
     captures = [e.perf.captures for e in (eng, leng, eng2)]
     out, launches, bare, served = {"runs": {}}, {}, {}, []
-    with tempfile.TemporaryDirectory(prefix="role-journals-") as tmp:
-        for label, path, engine, kw in runs:
-            t0 = time.perf_counter()
-            cleared(engine, kw.get("engine2"))
-            stats0 = dict(getattr(engine, "loop_stats", {}))
-            run = drive_role(fc, engine, batches, Path(tmp) / label, f"resolver role, {label}",
-                             **kw)
-            if stats0:
-                blocking = engine.loop_stats["blocking_syncs"] - stats0["blocking_syncs"]
-                check(blocking == 0, f"the loop role made {blocking} blocking syncs")
-                run["blocking_syncs"] = blocking
-            if kw.get("kill_at") is None:
-                # the same engine bare right after its role run, under the
-                # same host load (after a kill, gen2's table starts empty,
-                # so the bare pass could not reproduce its replies: the
-                # restart run reads the engine's latest bare pass)
-                horizons = dict(role_sequences(run)[run["roles"][0].proc.address])
-                bare[id(engine)] = bare_engine_txn_per_s(engine, batches, horizons,
-                                                         run["replies"])
-            run["bare_txn_per_s"] = bare[id(engine)]
-            run["seconds"] = time.perf_counter() - t0
-            launches[path] = launches.get(path, 0) + run["launches"]
-            served.append((label, engine, kw, run))
-        # the oracle replays and the read-backs run after the last timed run,
-        # so no worker shares the host with a role or a bare pass
+    # the journals stay on disk until finish() has read them back
+    tmp = tempfile.mkdtemp(prefix="role-journals-")
+    for label, path, engine, kw in runs:
         t0 = time.perf_counter()
-        with ProcessPoolExecutor(ROLE_REPLAY_WORKERS, mp_context=get_context("spawn")) as pool:
-            replaying = [pool.submit(oracle_replay, seq) for seq in replay_jobs(
-                [run for *_, run in served])]
-            reading = [pool.submit(journal_read_back, run["journal_dir"],
-                                   run["journal"]["batches"]) for *_, run in served]
-            replays = dict(f.result() for f in replaying)
-            read_back = [f.result() for f in reading]
-        replay_s = time.perf_counter() - t0
-        for (label, engine, kw, run), (disk, differ) in zip(served, read_back):
+        cleared(engine, kw.get("engine2"))
+        stats0 = dict(getattr(engine, "loop_stats", {}))
+        run = drive_role(fc, engine, batches, Path(tmp) / label, f"resolver role, {label}",
+                         **kw)
+        if stats0:
+            blocking = engine.loop_stats["blocking_syncs"] - stats0["blocking_syncs"]
+            check(blocking == 0, f"the loop role made {blocking} blocking syncs")
+            run["blocking_syncs"] = blocking
+        if kw.get("kill_at") is None:
+            # the same engine bare right after its role run, under the
+            # same host load (after a kill, gen2's table starts empty,
+            # so the bare pass could not reproduce its replies: the
+            # restart run reads the engine's latest bare pass)
+            horizons = dict(role_sequences(run)[run["roles"][0].proc.address])
+            bare[id(engine)] = bare_engine_txn_per_s(engine, batches, horizons,
+                                                     run["replies"])
+        run["bare_txn_per_s"] = bare[id(engine)]
+        run["seconds"] = time.perf_counter() - t0
+        launches[path] = launches.get(path, 0) + run["launches"]
+        served.append((label, engine, kw, run))
+        lat = list(run["latency"].values())
+        out["runs"][label] = {
+            "txns": txns_total, "batches": len(batches),
+            "duplicates": sum(1 for i in range(len(batches)) if i % 4 == 3),
+            "launches": run["launches"],
+            "virtual_p50_ms": nearest_rank(lat, 0.50) * 1e3,
+            "virtual_p99_ms": nearest_rank(lat, 0.99) * 1e3,
+            "wall_s": run["wall_s"], "engine_s": run["engine_s"],
+            "journal_s": run["journal_s"], "key_sample_s": run["sample_s"],
+            "dispatches": run["dispatches"], "wall_txn_per_s": txns_total / run["wall_s"],
+            "bare_engine_txn_per_s": run["bare_txn_per_s"],
+            "scheduler_steps": len(run["tasks"]), "blocking_syncs": run.get("blocking_syncs"),
+            "answered_by_gen2": sum(run["answered_by"].values())}
+    first = next(run for label, *_, run in served if label == "depth2")
+    again = next(run for label, *_, run in served if label == "depth2_same_seed")
+    same = {"replies": again["replies"] == first["replies"],
+            "scheduler_steps": again["tasks"] == first["tasks"],
+            "journal_bytes": journal_bytes(again["journal_dir"])
+            == journal_bytes(first["journal_dir"])}
+    check(all(same.values()), f"the same seed ran differently: {same}")
+    out["seed_replay"] = dict(same, steps=len(again["tasks"]),
+                              bytes=sum(map(len, journal_bytes(again["journal_dir"]))))
+    print(f"  seed replay [{card}]: depth 2 twice with seed {SEED}: equal replies, "
+          f"{out['seed_replay']['steps']} equal (virtual time, task) scheduler steps, "
+          f"{out['seed_replay']['bytes']} equal journal bytes", flush=True)
+    check([e.perf.captures for e in (eng, leng, eng2)] == captures,
+          "an engine captured in the role phase")
+    # the oracle replays and the read-backs go to the twin workers, after
+    # the last timed run, so no worker shares the host with a role or a
+    # bare pass; finish() holds every run to them
+    seqs = replay_jobs([run for *_, run in served])
+    jobs = {("role", "replay", i): (oracle_replay, seq) for i, seq in enumerate(seqs)}
+    jobs.update({("role", "read_back", label): (journal_read_back, run["journal_dir"],
+                                                run["journal"]["batches"])
+                 for label, *_, run in served})
+    out.update(launches=launches, oracle_replays=len(seqs))
+
+    def finish(twins):
+        import shutil
+
+        replays = dict(twins[("role", "replay", i)] for i in range(len(seqs)))
+        for label, engine, kw, run in served:
+            disk, differ = twins[("role", "read_back", label)]
             check(not differ, f"resolver role, {label}: the journal on disk holds other "
                   f"transactions than its ring at versions {differ}")
             mismatches, horizons, shed = check_role_run(run, disk, replays)
-            lat = list(run["latency"].values())
-            rec = {"txns": txns_total, "batches": len(batches),
-                   "duplicates": sum(1 for i in range(len(batches)) if i % 4 == 3),
-                   "mismatches": mismatches, "launches": run["launches"],
-                   "virtual_p50_ms": nearest_rank(lat, 0.50) * 1e3,
-                   "virtual_p99_ms": nearest_rank(lat, 0.99) * 1e3,
-                   "wall_s": run["wall_s"], "engine_s": run["engine_s"],
-                   "journal_s": run["journal_s"], "key_sample_s": run["sample_s"],
-                   "dispatches": run["dispatches"],
-                   "tightened_horizons": sum(old != max(0, v - life)
-                                             for v, old in horizons.items()),
-                   "wall_txn_per_s": txns_total / run["wall_s"],
-                   "bare_engine_txn_per_s": run["bare_txn_per_s"],
-                   "scheduler_steps": len(run["tasks"]), "journal_shed": shed,
-                   "journal_records_read_back": sum(map(len, disk.values())),
-                   "blocking_syncs": run.get("blocking_syncs"),
-                   "answered_by_gen2": sum(run["answered_by"].values())}
-            out["runs"][label] = rec
+            rec = out["runs"][label]
+            rec.update(mismatches=mismatches,
+                       tightened_horizons=sum(old != max(0, v - life)
+                                              for v, old in horizons.items()),
+                       journal_shed=shed,
+                       journal_records_read_back=sum(map(len, disk.values())))
             rest_ms = (run["wall_s"] - run["engine_s"] - run["journal_s"]
                        - run["sample_s"]) / len(batches) * 1e3
             print(f"resolver role, {label} [{card}]: {rec['txns']} txns in {rec['batches']} "
@@ -2445,24 +2586,11 @@ def resolver_role_phase(fc, pl, card, engines, clocks, rng):
                   f"and tightened {rec['tightened_horizons']} horizons; "
                   f"{rec['journal_records_read_back']} records read back from disk, their "
                   f"transactions equal to the ring's ({run['seconds']:.1f} s)", flush=True)
-        first = next(run for label, *_, run in served if label == "depth2")
-        again = next(run for label, *_, run in served if label == "depth2_same_seed")
-        same = {"replies": again["replies"] == first["replies"],
-                "scheduler_steps": again["tasks"] == first["tasks"],
-                "journal_bytes": journal_bytes(again["journal_dir"])
-                == journal_bytes(first["journal_dir"])}
-        check(all(same.values()), f"the same seed ran differently: {same}")
-        out["seed_replay"] = dict(same, steps=len(again["tasks"]),
-                                  bytes=sum(map(len, journal_bytes(again["journal_dir"]))))
-    print(f"  seed replay [{card}]: depth 2 twice with seed {SEED}: equal replies, "
-          f"{out['seed_replay']['steps']} equal (virtual time, task) scheduler steps, "
-          f"{out['seed_replay']['bytes']} equal journal bytes; {len(replays)} oracle replays "
-          f"and {len(served)} read-backs in {ROLE_REPLAY_WORKERS} workers after the last run "
-          f"({replay_s:.1f} s)", flush=True)
-    check([e.perf.captures for e in (eng, leng, eng2)] == captures,
-          "an engine captured in the role phase")
-    out.update(launches=launches, oracle_replays=len(replays), replay_wait_s=replay_s)
-    return out
+        shutil.rmtree(tmp, ignore_errors=True)
+        served.clear()
+        return out
+
+    return out, jobs, finish
 
 
 #: the supervised runs' traffic: the columnar generator at the ladder's
@@ -2561,10 +2689,10 @@ def supervised_role_phase(fc, pl, card, eng, clocks, rng, role_depth2):
     runs first, for the wall txn/s beside theirs. Every reply equals the oracle
     replay of the run's journal; every dispatch fault is one the injector
     or a buggify site caused (none is a card error), counted by cause;
-    no dispatch synchronizes; a rewarm captures nothing."""
+    no dispatch synchronizes; a rewarm captures nothing. The replays and
+    the journals' read-backs are twin jobs: returns (the phase's report,
+    the jobs, finish(twins), which holds the runs to them)."""
     import tempfile
-    from concurrent.futures import ProcessPoolExecutor
-    from multiprocessing import get_context
 
     import torch
 
@@ -2574,32 +2702,40 @@ def supervised_role_phase(fc, pl, card, eng, clocks, rng, role_depth2):
                                  device_ms_by_bucket=clocks["device_ms_by_bucket"])
     captures0 = eng.perf.captures
     served, out = [], {"runs": {}, "batches": len(batches), "txns": txns_total}
-    with tempfile.TemporaryDirectory(prefix="supervised-journals-") as tmp:
-        for label, (rates, probe_rate, bug) in [("bare", (None, 0, True)),
-                                                *SUPERVISED_RUNS.items()]:
-            eng.base = eng.oldest_version = 0
-            eng.clear(0)
-            if eng.device.type == "cuda":
-                torch.cuda.synchronize()
-            log = {}
-            supervise = (None if rates is None
-                         else lambda e, r=rates, p=probe_rate: supervised_stack(e, r, p, log))
-            t0 = time.perf_counter()
-            run = drive_role(fc, eng, batches, Path(tmp) / label, f"supervised role, {label}",
-                             pipeline=pipeline, supervise=supervise, buggify_on=bug)
-            run["seconds"] = time.perf_counter() - t0
-            run["log"] = log
-            served.append((label, run))
+    # the journals stay on disk until finish() has read them back
+    tmp = tempfile.mkdtemp(prefix="supervised-journals-")
+    for label, (rates, probe_rate, bug) in [("bare", (None, 0, True)),
+                                            *SUPERVISED_RUNS.items()]:
+        eng.base = eng.oldest_version = 0
+        eng.clear(0)
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+        log = {}
+        supervise = (None if rates is None
+                     else lambda e, r=rates, p=probe_rate: supervised_stack(e, r, p, log))
         t0 = time.perf_counter()
-        with ProcessPoolExecutor(ROLE_REPLAY_WORKERS, mp_context=get_context("spawn")) as pool:
-            replaying = [pool.submit(oracle_replay, seq) for seq in replay_jobs(
-                [run for _, run in served])]
-            reading = [pool.submit(journal_read_back, run["journal_dir"],
-                                   run["journal"]["batches"]) for _, run in served]
-            replays = dict(f.result() for f in replaying)
-            read_back = [f.result() for f in reading]
-        replay_s = time.perf_counter() - t0
-        for (label, run), (disk, differ) in zip(served, read_back):
+        run = drive_role(fc, eng, batches, Path(tmp) / label, f"supervised role, {label}",
+                         pipeline=pipeline, supervise=supervise, buggify_on=bug)
+        run["seconds"] = time.perf_counter() - t0
+        run["log"] = log
+        served.append((label, run))
+    check(eng.perf.captures == captures0, "the card engine captured in the supervised phase")
+    # the oracle replays and the read-backs go to the twin workers, after
+    # the last run; finish() holds every run to them
+    seqs = replay_jobs([run for _, run in served])
+    jobs = {("supervised", "replay", i): (oracle_replay, seq) for i, seq in enumerate(seqs)}
+    jobs.update({("supervised", "read_back", label): (journal_read_back, run["journal_dir"],
+                                                      run["journal"]["batches"])
+                 for label, run in served})
+    out.update(oracle_replays=len(seqs),
+               launches={label: run["launches"] for label, run in served})
+
+    def finish(twins):
+        import shutil
+
+        replays = dict(twins[("supervised", "replay", i)] for i in range(len(seqs)))
+        for label, run in served:
+            disk, differ = twins[("supervised", "read_back", label)]
             check(not differ, f"supervised role, {label}: the journal on disk holds other "
                   f"transactions than its ring at versions {differ}")
             mismatches, _, shed = check_role_run(run, disk, replays)
@@ -2654,10 +2790,11 @@ def supervised_role_phase(fc, pl, card, eng, clocks, rng, role_depth2):
                       f"cause {rec['faults']} (injector {rec['injected']}); {rec['rewarms']} "
                       f"rewarms ({rec['rewarm_failures']} failed) {rec['rewarm_ms']} ms, "
                       f"{rec['rewarm_captures']} captures", flush=True)
-    check(eng.perf.captures == captures0, "the card engine captured in the supervised phase")
-    out.update(replay_wait_s=replay_s, oracle_replays=len(replays),
-               launches={label: rec["launches"] for label, rec in out["runs"].items()})
-    return out
+        shutil.rmtree(tmp, ignore_errors=True)
+        served.clear()
+        return out
+
+    return out, jobs, finish
 
 
 #: the crash phase: the columnar generator at the ladder's sizes, 12
@@ -3202,10 +3339,10 @@ CLUSTER_SPECS = ("CycleTestCUDA", "CycleTest", "Serializability", "ConflictRange
                  "RandomReadWrite", "AtomicOps")
 CLUSTER_SEEDS = (1, 2)
 #: the latency harness's points (the JAX package's bench.py latency curve,
-#: bench.py:441-520): 6,000 txns each (a depth cut that makes room for the
-#: real phase), depth 1 at bucket 512 at 0.85 of the serial
+#: bench.py:441-520): 3,000 txns each (a depth cut, from 6,000, that keeps
+#: the script inside its time limit), depth 1 at bucket 512 at 0.85 of the serial
 #: capacity, depth 2 at these (bucket, share of T / device_ms)
-HARNESS_TXNS = 6_000
+HARNESS_TXNS = 3_000
 HARNESS_SERIAL = (512, 0.85)
 HARNESS_PIPELINED = ((1024, 0.97), (1024, 1.0), (2048, 0.97), (2048, 1.0))
 
@@ -3535,9 +3672,9 @@ DYNAMIC_CAPACITY = {"DataDistributionAttrition": 4096}
 #: without that
 RECOVERY_CLUSTER = dict(n_workers=6, n_tlogs=2, n_resolvers=2, n_proxies=1, n_storage=2)
 RECOVERY_CLIENTS = 64
-#: (a depth cut that makes room for the real phase, in the recovery run
-#: and the backup run alike)
-RECOVERY_TXNS = 1_000
+#: (a depth cut, in the recovery run and the backup run alike, from 3,000
+#: and then 1,000 commits)
+RECOVERY_TXNS = 500
 RECOVERY_KILLS = ((0.30, "resolver.resolve"), (0.65, "proxy.commit"))
 RECOVERY_SEED = SEED + 10
 RECOVERY_UNTIL = 600.0
@@ -3569,6 +3706,8 @@ def supervised_card_factory(make, built, nemesis=False):
     def factory():
         eng = record()
         rec = recorded[-1]
+        rec["captures0"] = eng.perf.captures
+        rec["capture_ms0"] = sum(eng.perf_ledger.compile_ms.values())
         if nemesis:
             stack = ResilientEngine(FaultInjectingEngine(eng),
                                     ResilienceConfig(**NEMESIS_SUPERVISOR), record_journal=True)
@@ -3590,28 +3729,63 @@ def registered_health():
     return [{k: e.health_stats().get(k, 0) for k in HEALTH_KEYS} for e in registered_engines()]
 
 
-def engine_summary(rec):
+def engine_summary(rec, replays):
     """One recorded card engine after its run: where its tensors live, its
-    resolves and clears, captures and capture seconds, its supervisor's
-    health and dispatch faults by cause; the replay mismatches of the
-    card's own calls and of the supervisor's journal (the verdicts it
-    emitted, one entry per batch)."""
+    resolves and clears, captures and capture seconds (since the record
+    began: a pooled engine's earlier runs are not its), its supervisor's
+    health and dispatch faults by cause. The replays of the card's own
+    calls and of the supervisor's journal (the verdicts it emitted, one
+    entry per batch) are left to a twin worker: (calls, journal) is
+    appended to `replays`, and the mismatches stay None until
+    fill_mismatches sets them from engines_mismatches."""
     eng, stack = rec["engine"], rec["stack"]
     st = stack.health_stats()
     resolves = [c for c in rec["calls"] if c[0] != "clear"]
     journal = [(now, oldest, list(txns), verdicts)
                for now, txns, oldest, verdicts in stack.journal]
-    return {"device": eng.state["hkeys"].device.type, "resolves": len(resolves),
-            "clears": len(rec["calls"]) - len(resolves),
-            "txns": sum(len(c[2]) for c in resolves),
-            "largest_batch": max((len(c[2]) for c in resolves), default=0),
-            "first_version": resolves[0][0] if resolves else None,
-            "captures": eng.perf.captures,
-            "capture_s": sum(eng.perf_ledger.compile_ms.values()) / 1e3,
-            "health": {k: st.get(k, 0) for k in HEALTH_KEYS},
-            "faults": dict(rec["faults"]), "other_errors": rec.get("other_errors", []),
-            "mismatches": call_mismatches(rec["calls"]),
-            "journal_batches": len(journal), "journal_mismatches": call_mismatches(journal)}
+    out = {"device": eng.state["hkeys"].device.type, "resolves": len(resolves),
+           "clears": len(rec["calls"]) - len(resolves),
+           "txns": sum(len(c[2]) for c in resolves),
+           "largest_batch": max((len(c[2]) for c in resolves), default=0),
+           "first_version": resolves[0][0] if resolves else None,
+           "captures": eng.perf.captures - rec.get("captures0", 0),
+           "capture_s": (sum(eng.perf_ledger.compile_ms.values()) - rec.get("capture_ms0", 0.0))
+           / 1e3,
+           "health": {k: st.get(k, 0) for k in HEALTH_KEYS},
+           "faults": dict(rec["faults"]), "other_errors": rec.get("other_errors", []),
+           "journal_batches": len(journal), "mismatches": None, "journal_mismatches": None}
+    replays.append((rec["calls"], journal))
+    return out
+
+
+def engines_mismatches(replays):
+    """The replay mismatches of each (calls, journal) of a run's card
+    engines (run in a worker process): [(calls', journal's)]."""
+    return [(call_mismatches(calls), call_mismatches(journal)) for calls, journal in replays]
+
+
+def fill_mismatches(engines, counts):
+    """Set each engine summary's replay mismatches from engines_mismatches'
+    result."""
+    for e, (calls, journal) in zip(engines, counts, strict=True):
+        e["mismatches"], e["journal_mismatches"] = calls, journal
+
+
+def register_with_hub(eng):
+    """Register `eng`'s perf counters, perf ledger, heat aggregate and (tiered)
+    history with the telemetry hub, as its constructor does: a run that
+    reset the hub (clean_port_world) sees a reused engine as a fresh one."""
+    from foundationdb_tpu_torch.core import telemetry
+
+    hub = telemetry.hub()
+    hub.register_engine_perf(eng.perf, name=eng.name)
+    hub.register_perf_ledger(eng.perf_ledger, name=eng.name)
+    if eng.heat is not None:
+        hub.register_heat(eng.heat, name=eng.name)
+    if eng.history_structure == "tiered":
+        hub.register_history(eng, name=eng.name)
+
+
 
 
 def recoveries():
@@ -3637,12 +3811,14 @@ def oracle_dynamic_spec(name, seed):
     return res, registered_health()
 
 
-def dynamic_spec_run(fc, name, seed, make):
+def dynamic_spec_run(fc, name, seed, make, pool):
     """run_spec on one dynamic spec with every recruited resolver a card
-    engine from `make()`, supervised as the worker or the nemesis factory
-    would; the fixpoint counts zeroed just before it and read just after.
+    engine from `make()` (drawn from `pool`, an EnginePool, which takes the
+    run's engines back after it), supervised as the worker or the nemesis
+    factory would; the fixpoint counts zeroed just before it and read just after.
     Returns the run's result, recoveries, engines, captures, launches,
-    wall seconds and each engine's summary."""
+    wall seconds, each engine's summary and, under "replays", what
+    engines_mismatches replays in a twin worker."""
     import dataclasses
 
     from foundationdb_tpu_torch.testing.specs import SPECS
@@ -3659,9 +3835,11 @@ def dynamic_spec_run(fc, name, seed, make):
     wall = time.perf_counter() - t0
     launches = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
     plain = fc.FIXPOINT.plain_cuda_calls
+    replays = []
     run = {"result": dataclasses.astuple(res), "recoveries": recoveries(), "wall_s": wall,
            "launches": launches, "plain_cuda_calls": plain,
-           "engines": [engine_summary(r) for r in built]}
+           "engines": [engine_summary(r, replays) for r in built], "replays": replays}
+    pool.release([r["engine"] for r in built])
     built.clear()
     clean_port_world()   # drops the fault registry's engines of every generation
     return run
@@ -3892,12 +4070,18 @@ def dynamic_cluster_phase(fc, he, ck, card, recovery_cfg):
                                max_txns=64)
     names = [n for n, make in SPECS.items() if make().dynamic is not None]
     runs, launches = {}, {}
+    # one pool of warmed engines: a spec recruits the engines the earlier
+    # specs spent at its KernelConfig, emptied, before it builds new ones
+    # (the factories made inside the pool build through it)
+    with EnginePool(he) as pool:
+        makes = {None: make_engine_factory()}
+        makes.update({cap: make_engine_factory(cfg=dataclasses.replace(spec_cfg, capacity=cap))
+                      for cap in DYNAMIC_CAPACITY.values()})
     for name in names:
-        make = (make_engine_factory(cfg=dataclasses.replace(spec_cfg,
-                                                            capacity=DYNAMIC_CAPACITY[name]))
-                if name in DYNAMIC_CAPACITY else make_engine_factory())
+        make = makes[DYNAMIC_CAPACITY.get(name)]
         for seed in DYNAMIC_SEEDS.get(name, (1,)):
-            run = dynamic_spec_run(fc, name, seed, make)
+            with substep("dynamic", f"{name}_{seed}"):
+                run = dynamic_spec_run(fc, name, seed, make, pool)
             runs[(name, seed)] = run
             launches[f"dynamic_spec_{name}_{seed}"] = run["launches"]
 
@@ -3908,24 +4092,39 @@ def dynamic_cluster_phase(fc, he, ck, card, recovery_cfg):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fc.FIXPOINT.reset_counts()
+    mark = split_start()
     rec = recovery_run(factory)
+    split_end("dynamic", "recovery_run", mark)
+    mark = split_start()
     launches["dynamic_recovery"] = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
     rec["plain_cuda_calls"] = fc.FIXPOINT.plain_cuda_calls
     torch.cuda.synchronize()
     rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    rec["engines"] = [engine_summary(r) for r in built]
+    rec_replays = []
+    rec["engines"] = [engine_summary(r, rec_replays) for r in built]
     built.clear()
+    split_end("dynamic", "recovery_run_summary", mark)
     rec["generations"] = generations(rec["engines"])
     check(launches["dynamic_recovery"] > 0 and rec["plain_cuda_calls"] == 0,
           f"dynamic phase: the recovery run made {launches['dynamic_recovery']} fixpoint "
           f"launches, {rec['plain_cuda_calls']} plain fixpoints on CUDA tensors")
 
-    jobs = {("dynamic_recovery",): (oracle_recovery_run,)}
+    pooled = {"built": pool.built, "reused": pool.reused}
+    print(f"dynamic phase, warmed engine pool [{card}]: {pool.built} engines built, "
+          f"{pool.reused} handed out again", flush=True)
+    del pool, makes
+    jobs = {("dynamic_recovery",): (oracle_recovery_run,),
+            ("dynamic_replay", "recovery"): (engines_mismatches, rec_replays)}
     jobs.update({("dynamic_spec", *key): (oracle_dynamic_spec, *key) for key in runs})
+    jobs.update({("dynamic_replay", *key): (engines_mismatches, run.pop("replays"))
+                 for key, run in runs.items()})
 
     def finish(all_twins):
         rec_twin = all_twins[("dynamic_recovery",)]
         twins = {key: all_twins[("dynamic_spec", *key)] for key in runs}
+        fill_mismatches(rec["engines"], all_twins[("dynamic_replay", "recovery")])
+        for key, run in runs.items():
+            fill_mismatches(run["engines"], all_twins[("dynamic_replay", *key)])
         for (name, seed), run in runs.items():
             check_dynamic_spec(name, seed, run, twins[(name, seed)])
             es = run["engines"]
@@ -3978,7 +4177,7 @@ def dynamic_cluster_phase(fc, he, ck, card, recovery_cfg):
         rec["twin"] = {"committed": committed, "rows": len(rows), "virtual_time": vt,
                        "violations": violations}
         return {"specs": {f"{n}_{s}": r for (n, s), r in runs.items()}, "recovery": rec,
-                "launches": launches}
+                "launches": launches, "engine_pools": pooled}
 
     return jobs, finish
 
@@ -4001,10 +4200,12 @@ STACK_SEEDS = (201, 202)
 #: simulated storage in transaction_too_old retries (~174 virtual s to 500
 #: commits) and the tag claim's commit answers commit_unknown_result, which
 #: the agent's retry then refuses as its own claim (both packages; ROADMAP
-#: standing notes)
+#: standing notes). Cut with RECOVERY_TXNS: BACKUP_WARM from 100 to 50,
+#: BACKUP_START from 500 to 250 (at this depth the oracle twin's restore
+#: equals the source, with no durability violation and no claim fault)
 BACKUP_SEED = RECOVERY_SEED
-BACKUP_WARM = 100
-BACKUP_START = 500
+BACKUP_WARM = 50
+BACKUP_START = 250
 BACKUP_CHUNKS = 8
 BACKUP_WORKERS = 3
 BACKUP_UNTIL = 900.0
@@ -4345,7 +4546,8 @@ def bindings_backup_phase(fc, he, card, recovery_cfg):
     bk["plain_cuda_calls"] = fc.FIXPOINT.plain_cuda_calls
     torch.cuda.synchronize()
     bk["max_memory_allocated"] = torch.cuda.max_memory_allocated()
-    bk["engines"] = [engine_summary(r) for r in built]
+    bk_replays = []
+    bk["engines"] = [engine_summary(r, bk_replays) for r in built]
     built.clear()
 
     built = []
@@ -4355,7 +4557,8 @@ def bindings_backup_phase(fc, he, card, recovery_cfg):
     dr["wall_s"] = time.perf_counter() - t0
     launches["dr_switchover"] = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
     dr["plain_cuda_calls"] = fc.FIXPOINT.plain_cuda_calls
-    dr["engines"] = [engine_summary(r) for r in built]
+    dr_replays = []
+    dr["engines"] = [engine_summary(r, dr_replays) for r in built]
     built.clear()
     for label, n in launches.items():
         check(n > 0, f"bindings/backup phase: {label} made no fixpoint launch")
@@ -4363,12 +4566,16 @@ def bindings_backup_phase(fc, he, card, recovery_cfg):
           and bk["plain_cuda_calls"] == 0 and dr["plain_cuda_calls"] == 0,
           "bindings/backup phase: a plain fixpoint ran on CUDA tensors")
 
-    jobs = {("backup_run",): (oracle_backup_run,), ("dr_run",): (oracle_dr_run,)}
+    jobs = {("backup_run",): (oracle_backup_run,), ("dr_run",): (oracle_dr_run,),
+            ("backup_replay",): (engines_mismatches, bk_replays),
+            ("dr_replay",): (engines_mismatches, dr_replays)}
     jobs.update({("stack", seed): (stack_run, seed) for seed in STACK_SEEDS})
 
     def finish(all_twins):
         bk_twin, dr_twin = all_twins[("backup_run",)], all_twins[("dr_run",)]
         stack_twins = {seed: all_twins[("stack", seed)] for seed in STACK_SEEDS}
+        fill_mismatches(bk["engines"], all_twins[("backup_replay",)])
+        fill_mismatches(dr["engines"], all_twins[("dr_replay",)])
         for seed, s in stacks.items():
             n, commits, aborts, journal, rows, vt = s["run"]
             check(s["run"] == stack_twins[seed],
@@ -4451,16 +4658,14 @@ def bindings_backup_phase(fc, he, card, recovery_cfg):
     return jobs, finish
 
 
-#: worker processes of the oracle twins of the cluster, dynamic cluster and
-#: bindings/backup phases, which all run after the script's last card run
 #: the real phase (20): the wall-clock cluster of REAL_PROCS OS-process
 #: nodes over 127.0.0.1 TCP (real/cluster.py), every recruited resolver a
 #: card engine at the node's default KernelConfig; the Cycle ring over
-#: REAL_KEYS keys and REAL_TXNS transactions; then the launcher's backup
-#: drill through a blobstore:// HTTPBlobServer
+#: REAL_KEYS keys and REAL_TXNS transactions (a depth cut, from 1,000);
+#: then the launcher's backup drill through a blobstore:// HTTPBlobServer
 REAL_PROCS = 4
 REAL_KEYS = 1000
-REAL_TXNS = 250
+REAL_TXNS = 125
 REAL_LAUNCH_TIMEOUT_S = 420
 #: where a node started by real_node_main writes its report when it takes
 #: SIGTERM (the launcher stops its nodes with terminate())
@@ -4471,6 +4676,12 @@ REAL_CAMPAIGN_MODES = ("torch", "device_loop")
 REAL_CAMPAIGN_SEED = 11
 REAL_CAMPAIGN_S = 8.0
 REAL_CRASH_SEED = 11
+#: the crash campaign's serving windows before the kill and after the
+#: restart, crash_smoke's (a depth cut from crash_config's 3.0 and 1.5 s;
+#: the campaign serves past the first window until the child has written
+#: a snapshot)
+REAL_CRASH_WARM_S = 2.0
+REAL_CRASH_POST_S = 1.0
 #: the scenario atlas at a short duration, seed as run_scenario_atlas's
 REAL_SCENARIO_S = 3.5
 REAL_SCENARIO_SEED = 4026
@@ -4625,13 +4836,14 @@ def check_real_nodes(label, reports):
     return summary
 
 
-def real_campaign(fc, mode, workdir, duration_s=REAL_CAMPAIGN_S, counter=None):
+def real_campaign(fc, mode, workdir, duration_s=REAL_CAMPAIGN_S, counter=None, pool=None):
     """run_campaign at REAL_CAMPAIGN_SEED on card engine mode `mode` for
     `duration_s`, the watchdog, journal and trace export on; held to
     assert_slos, journal parity, the Chrome trace's schema, an explained
     incident set and forensics.explain of a resolved version; dispatch
     faults by cause, none from the card. `counter`: the fixpoint entry the
-    mode launches (default the single-table one)."""
+    mode launches (default the single-table one). `pool`: an open
+    EnginePool the campaign's engines come from and go back to."""
     counter = counter or fc.FIXPOINT
     from foundationdb_tpu_torch.core import blackbox
     from foundationdb_tpu_torch.real import nemesis
@@ -4652,6 +4864,9 @@ def real_campaign(fc, mode, workdir, duration_s=REAL_CAMPAIGN_S, counter=None):
         nemesis.make_chaos_engine = make
     wall = time.perf_counter() - t0
     counts = card_counts(fc, log["engines"], counter)
+    if pool is not None:
+        counts["captures"] = pool.captures_since_handout(log["engines"])
+        pool.release(log["engines"])
     label = f"campaign {mode}"
     check(counts["devices"] and all(d.startswith("cuda") for d in counts["devices"]),
           f"{label}: engines on {counts['devices']}")
@@ -4742,7 +4957,8 @@ def real_crash_campaign(workdir):
     argv_of = nemesis._crash_child_argv
     nemesis._crash_child_argv = instrumented_crash_child_argv(report_path)
     cfg = nemesis.crash_config(REAL_CRASH_SEED, engine_mode="torch",
-                               datadir=os.path.join(workdir, "crash"))
+                               datadir=os.path.join(workdir, "crash"), warm_s=REAL_CRASH_WARM_S,
+                               post_s=REAL_CRASH_POST_S)
     t0 = time.perf_counter()
     try:
         rep = nemesis.run_crash_campaign(cfg)
@@ -4771,10 +4987,65 @@ def real_crash_campaign(workdir):
             "children": children, "launches": sum(c["launches"] for c in children)}
 
 
-def real_scenarios(fc):
+class EnginePool:
+    """Warmed card engines handed out again. While it is open (a context
+    manager), host_engine.make_engine, through which real/nemesis.py's
+    make_chaos_engine and testing/specs.py's make_engine_factory build
+    their engines, goes through the pool: for a (mode, KernelConfig,
+    arguments) it has built before, it hands out an engine that release()
+    took back, the one with the most programs, as a fresh engine starts
+    (empty_table, register_with_hub), its captured programs kept; else it
+    builds one. A factory made inside it keeps building through it."""
+
+    def __init__(self, he):
+        self.he, self.make = he, he.make_engine
+        self.free, self.key_of, self.captures0 = {}, {}, {}
+        self.built = self.reused = 0
+
+    def __enter__(self):
+        self.he.make_engine = self._make
+        return self
+
+    def __exit__(self, *exc):
+        self.he.make_engine = self.make
+
+    def _make(self, mode, cfg, **kw):
+        key = (mode, cfg, tuple(sorted((k, repr(v)) for k, v in kw.items())))
+        free = self.free.get(key)
+        if free:
+            free.sort(key=lambda e: len(e._programs))     # the most programs first
+            eng = free.pop()
+            self.reused += 1
+            empty_table(eng)
+            register_with_hub(eng)
+        else:
+            eng = self.make(mode, cfg, **kw)
+            self.built += 1
+        self.key_of[id(eng)] = key
+        self.captures0[id(eng)] = eng.perf.captures
+        return eng
+
+    def captures_since_handout(self, engines):
+        """Graphs the engines captured since the pool handed them out."""
+        return sum(e.perf.captures - self.captures0.get(id(e), 0) for e in engines)
+
+    def release(self, engines):
+        """Take back a finished run's engines (each once), without the
+        instance wrappers a run put on them (record_engine's resolve and
+        clear): a later run must not record into this run's calls."""
+        for eng in {id(e): e for e in engines}.values():
+            key = self.key_of.pop(id(eng), None)
+            if key is not None:
+                for attr in ("resolve", "clear"):
+                    eng.__dict__.pop(attr, None)
+                self.free.setdefault(key, []).append(eng)
+
+
+def real_scenarios(fc, pool=None):
     """The six recipes of the scenario atlas on the card's step engine at
     REAL_SCENARIO_S each (run_scenario): every scorecard SLO row passes,
-    journal parity 0, every engine on the card."""
+    journal parity 0, every engine on the card. `pool`: an open
+    EnginePool the recipes' engines come from and go back to."""
     from foundationdb_tpu_torch.real import nemesis, scenarios
 
     rows, launches = {}, 0
@@ -4782,6 +5053,7 @@ def real_scenarios(fc):
         log = {}
         make = instrument_chaos_engines(log)
         fc.FIXPOINT.reset_counts()
+        mark = split_start()
         t0 = time.perf_counter()
         try:
             rep, row = scenarios.run_scenario(name, seed=REAL_SCENARIO_SEED + i * 10,
@@ -4789,6 +5061,9 @@ def real_scenarios(fc):
         finally:
             nemesis.make_chaos_engine = make
         counts = card_counts(fc, log["engines"])
+        if pool is not None:
+            counts["captures"] = pool.captures_since_handout(log["engines"])
+            pool.release(log["engines"])
         label = f"scenario {name}"
         check(counts["devices"] and all(d.startswith("cuda") for d in counts["devices"]),
               f"{label}: engines on {counts['devices']}")
@@ -4805,6 +5080,7 @@ def real_scenarios(fc):
                                           "committed", "parity_checked", "reshards_executed")}
         rows[name].update(wall_s=time.perf_counter() - t0, engines=len(counts["devices"]),
                           captures=counts["captures"], launches=counts["launches"])
+        split_end("real", f"scenario_{name}", mark)
     return rows, launches
 
 
@@ -4814,11 +5090,15 @@ def real_phase(fc, card):
     nodes over TCP), the fault campaigns on both card modes, the crash
     campaign and the scenario atlas. Returns the phase's report, its
     fixpoint launches by path in "launches"."""
+    import contextlib
     import shutil
     import tempfile
 
+    from foundationdb_tpu_torch.ops import host_engine as he
+
     out = {"launches": {}}
     workdir = tempfile.mkdtemp(prefix="chip_smoke_real_")
+    stack = contextlib.ExitStack()
     try:
         for label, argv in (
                 ("real_cluster", ["--procs", str(REAL_PROCS), "--keys", str(REAL_KEYS),
@@ -4826,11 +5106,13 @@ def real_phase(fc, card):
                 ("real_backup", ["--procs", str(REAL_PROCS), "--backup", "--engine", "torch"])):
             reports = os.path.join(workdir, label)
             os.makedirs(reports)
+            mark = split_start()
             rc, text, wall, nodes = real_launch(argv, reports, REAL_LAUNCH_TIMEOUT_S)
             marker = ("backup->wipe->restore via blobstore verified" if label == "real_backup"
                       else "REAL CLUSTER OK")
             check(rc == 0 and marker in text, f"{label}: the launcher failed:\n{text[-3000:]}")
             s = check_real_nodes(label, nodes)
+            split_end("real", label, mark)
             s["wall_s"] = wall
             out[label] = s
             out["launches"][label] = s["launches"]
@@ -4838,8 +5120,13 @@ def real_phase(fc, card):
                   f"resolvers, {s['batches']} batches equal to the oracle's replay, "
                   f"{s['launches']} fixpoint launches, {s['captures']} graphs; "
                   f"wall {wall:.1f} s", flush=True)
+        # the campaigns and the recipes build their engines from one pool of
+        # warmed engines: a later campaign takes a spent one, emptied
+        pool = EnginePool(he)
+        stack.enter_context(pool)
         for mode in REAL_CAMPAIGN_MODES:
-            c = real_campaign(fc, mode, workdir)
+            with substep("real", f"campaign_{mode}"):
+                c = real_campaign(fc, mode, workdir, pool=pool)
             out[f"campaign_{mode}"] = c
             out["launches"][f"campaign_{mode}"] = c["launches"]
             print(f"  campaign {mode} [{card}]: p99 outside windows {c['p99_outside_ms']:.3f} ms "
@@ -4850,7 +5137,8 @@ def real_phase(fc, card):
                   f"explained), {c['trace_events']} trace events, {c['engines']} engines, "
                   f"{c['captures']} graphs, {c['launches']} launches; wall {c['wall_s']:.1f} s",
                   flush=True)
-        cr = real_crash_campaign(workdir)
+        with substep("real", "crash_campaign"):
+            cr = real_crash_campaign(workdir)
         out["crash_campaign"] = cr
         out["launches"]["crash_campaign"] = cr["launches"]
         print(f"  crash campaign [{card}]: blackout {cr['blackout_ms']} ms (warm {cr['warm_ms']} "
@@ -4858,7 +5146,11 @@ def real_phase(fc, card):
               f"gated), {cr['replayed_batches']} batches replayed, parity "
               f"{cr['parity_checked']} batches, {cr['committed_post_restart']} commits after the "
               f"restart, {cr['launches']} launches; wall {cr['wall_s']:.1f} s", flush=True)
-        rows, n = real_scenarios(fc)
+        rows, n = real_scenarios(fc, pool)
+        stack.close()
+        out["engine_pool"] = {"built": pool.built, "reused": pool.reused}
+        print(f"  campaign engine pool [{card}]: {pool.built} engines built, {pool.reused} "
+              f"handed out again", flush=True)
         out["scenarios"] = rows
         out["launches"]["scenarios"] = n
         for name, row in rows.items():
@@ -4867,6 +5159,7 @@ def real_phase(fc, card):
                   f"commits, parity {row['parity_checked']} batches, {row['engines']} engines, "
                   f"{row['launches']} launches; wall {row['wall_s']:.1f} s", flush=True)
     finally:
+        stack.close()
         shutil.rmtree(workdir, ignore_errors=True)
     return out
 
@@ -4971,6 +5264,7 @@ def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, o
     stacked = fc.FIXPOINT_STACKED
 
     # -- the stacked entry against its plain version -------------------------
+    mark = split_start()
     t0 = time.perf_counter()
     for label, kcfg, sizes in (("bench", cfg, (1, 2, SHARDED_S)), ("engine", engine_cfg, (SHARDED_S,))):
         for S in sizes:
@@ -4984,6 +5278,7 @@ def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, o
                   f"{'shared' if kp['wtx_in_smem'] else 'global'} memory, "
                   f"{kp['scratch_bytes']} scratch bytes", flush=True)
     out["kernel_s"] = time.perf_counter() - t0
+    split_end("sharded", "kernel", mark)
 
     # -- the sub-sharded engine ----------------------------------------------
     references = [("the oracle", oracle_ref),
@@ -4995,6 +5290,7 @@ def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, o
                                  ("uniform_heat_off", pool_splits(SHARDED_S), {"heat_buckets": 0}),
                                  ("uniform_tiered", pool_splits(SHARDED_S),
                                   {"history_structure": "tiered"})):
+        mark = split_start()
         t0 = time.perf_counter()
         eng = he.SubshardedConflictEngine(cfg, KeyShardMap(splits), **kw, **extra)
         check(eng.n_shards == SHARDED_S, f"{label}: {eng.n_shards} sub-shards")
@@ -5009,6 +5305,7 @@ def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, o
         # the traffic
         snaps[label] = (eng.heat_snapshot(), eng.history_stats_snapshot(), sv)
         runs[label] = (eng, sv, served)
+        split_end("sharded", f"subsharded_{label}", mark)
         out["launches"][f"subsharded_{label}"] = served["launches"]
         print(f"sub-sharded S={SHARDED_S} {label} [{card}]: {served['txns']} txns in "
               f"{served['batches']} batches equal the oracle and the single-table card engine; "
@@ -5017,6 +5314,7 @@ def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, o
               f"ms/batch, {served['txn_per_s']:.0f} txn/s; {served['launches']} stacked launches, "
               f"{served['merges']} merges ({served['wall_s']:.1f} s)", flush=True)
     # a single table at the same config, and the one-chunk programs apart
+    mark = split_start()
     t0 = time.perf_counter()
     single = he.TorchConflictEngine(cfg, **kw)
     warmed(single)
@@ -5056,8 +5354,10 @@ def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, o
                                                                    "force_ms_per_batch"))
           + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
     del single
+    split_end("sharded", "single_table_and_turns", mark)
 
     # -- the sharded and mesh engines ----------------------------------------
+    mark = split_start()
     t0 = time.perf_counter()
     mesh_kw = dict(ladder=(), scan_sizes=(), device_time_sample_rate=0.0)
     widest = None
@@ -5117,8 +5417,10 @@ def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, o
           f"{out['mesh_pipeline']['drains']} ({time.perf_counter() - t0:.1f} s for the sharded "
           f"and mesh engines)", flush=True)
     del widest, eng
+    split_end("sharded", "sharded_and_mesh_engines", mark)
 
     # -- the TPU8 specs --------------------------------------------------------
+    mark = split_start()
     spec_runs = {}
     for name in TPU8_SPECS:
         clean_port_world()
@@ -5143,8 +5445,10 @@ def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, o
                            "replay_mismatches": sum(call_mismatches(r["batches"]) for r in built),
                            "launches": n_l}
     clean_port_world()
+    split_end("sharded", "tpu8_specs", mark)
 
     # -- a mesh chaos campaign -------------------------------------------------
+    mark = split_start()
     with tempfile.TemporaryDirectory() as workdir:
         SERVER_KNOBS.set_knob("resolver_mesh_devices", str(MESH_CAMPAIGN_SHARDS))
         try:
@@ -5159,6 +5463,7 @@ def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, o
           f"journal parity over {camp['parity_checked']} batches, faults {camp['faults']}, "
           f"{camp['launches']} stacked launches", flush=True)
     clean_port_world()
+    split_end("sharded", "mesh_campaign", mark)
 
     # -- twins -------------------------------------------------------------------
     cfg_fields = dataclasses.asdict(cfg)
@@ -5208,9 +5513,10 @@ TOOLS_LADDER = (512, 1024, 2048)
 TOOLS_LADDER_ROUNDS = 2
 TOOLS_LADDER_SEED = 2026
 #: the floor, apply and heat programs' steps (bench.py: 256, 128 and 128;
-#: cut to keep the phase near 150 s)
-TOOLS_FLOOR_STEPS = 32
-TOOLS_HEAT_STEPS = 64
+#: cut to keep the script inside its time limit: a capture's seconds grow
+#: with its steps)
+TOOLS_FLOOR_STEPS = 16
+TOOLS_HEAT_STEPS = 32
 #: profile_kernel's program steps at the bench shape (its STEPS: 256)
 TOOLS_PROFILE_STEPS = 32
 TOOLS_PROFILE_VARIANTS = ("full", "phases12", "sort", "fixpoint", "apply", "binsearch")
@@ -5367,9 +5673,11 @@ def tools_phase(fc, he, ck, card, cfg):
         """fn() as one path, timed; its fixpoint launches where it runs
         the kernel (`kernel`)."""
         fc.FIXPOINT.reset_counts()
+        mark = split_start()
         t0 = time.perf_counter()
         out = fn()
         walls[name] = time.perf_counter() - t0
+        split_end("tools", name, mark)
         if kernel:
             launches[f"tools_{name}"] = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
         check(fc.FIXPOINT.plain_cuda_calls == 0 or name == "profile",
@@ -5485,8 +5793,10 @@ def tools_phase(fc, he, ck, card, cfg):
         fdbbackup.engine_factory("torch", "cuda"), built)))
     cli_engines = card_engines_checked("cli session", fc, built)
     built = []
+    mark = split_start()
     rc, one_shot, launches["tools_cli_one_shot"] = recorded_tool_main(fc, "cli", ["status"],
                                                                       built)
+    split_end("tools", "cli_one_shot", mark)
     check(rc == 0 and "recovery state     - fully_recovered" in one_shot,
           f"cli status (one-shot): exit {rc}, {one_shot!r}")
     one_shot_engines = card_engines_checked("cli status (one-shot)", fc, built)
@@ -5503,6 +5813,7 @@ def tools_phase(fc, he, ck, card, cfg):
     backups = {}
     for personality in ("restore", "dr"):
         built = []
+        mark = split_start()
         t0 = time.perf_counter()
         rc, text, launches[f"tools_fdbbackup_{personality}"] = recorded_tool_main(
             fc, "fdbbackup", [personality, "--seed", str(TOOLS_BACKUP_SEED)], built)
@@ -5510,6 +5821,7 @@ def tools_phase(fc, he, ck, card, cfg):
         check(rc == 0 and out.get("verified") is True,
               f"fdbbackup {personality} on card resolvers: exit {rc}, {out}")
         engines = card_engines_checked(f"fdbbackup {personality}", fc, built)
+        split_end("tools", f"fdbbackup_{personality}", mark)
         backups[personality] = {"out": out, "engines": engines,
                                 "wall_s": time.perf_counter() - t0}
         print(f"tools phase, fdbbackup {personality} [{card}]: {out} over {engines[0]} card "
@@ -5645,8 +5957,13 @@ def lint_phase(card):
     """The port's fdbtpu-lint over this checkout, in process, against the
     port's own baseline: one line of per-rule counts (new, baselined,
     suppressed) and the seconds the run took. A new finding or a stale
-    baseline entry fails the run, and so does a module of jax or of the JAX
+    baseline entry fails the run; so does a stale port block in README
+    (readme_perf --check, in process), and a module of jax or of the JAX
     package in this process."""
+    import contextlib
+    import io
+
+    from foundationdb_tpu_torch.tools import readme_perf
     from foundationdb_tpu_torch.tools.lint import CHECKERS, load_baseline, run_lint
     from foundationdb_tpu_torch.tools.lint.core import BASELINE_REL
 
@@ -5662,6 +5979,14 @@ def lint_phase(card):
     check(not res.new, "lint: new findings: " + "; ".join(
         f"{f.path}:{f.line} [{f.rule}] {f.message}" for f in res.new))
     check(not res.stale_baseline, f"lint: stale baseline entries {res.stale_baseline}")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = readme_perf.main(["--check"])
+    readme_s = time.perf_counter() - t0
+    print(f"lint phase, readme_perf --check [{card}]: exit {rc}: {buf.getvalue().strip()} "
+          f"({readme_s:.3f} s)", flush=True)
+    check(rc == 0, f"readme_perf --check: exit {rc}: {buf.getvalue().strip()}")
     # jax by name; the JAX package as whatever this process loaded from the
     # checkout that is neither the port nor this script
     port = root / "foundationdb_tpu_torch"
@@ -5679,7 +6004,8 @@ def lint_phase(card):
     loaded = sorted(name for name, mod in list(sys.modules.items()) if foreign(name, mod))
     check(not loaded, f"modules of jax or of the checkout outside the port in this process: "
           f"{loaded}")
-    return {"files": res.files, "counts": counts, "seconds": seconds}
+    return {"files": res.files, "counts": counts, "seconds": seconds,
+            "readme_perf_check": {"rc": rc, "seconds": readme_s}}
 
 
 def recording_new_engines(he, built):
@@ -5775,6 +6101,7 @@ def smokes_phase(fc, he, card):
         fc.FIXPOINT.reset_counts()
         fc.FIXPOINT_STACKED.reset_counts()
         built = []
+        mark = split_start()
         t0 = time.perf_counter()
         if name == "crash":
             with tempfile.TemporaryDirectory(prefix="chip-smoke-crash-") as td:
@@ -5793,6 +6120,7 @@ def smokes_phase(fc, he, card):
             launches[name] = fc.FIXPOINT.launches + fc.FIXPOINT.graph_launches
             stacked[name] = fc.FIXPOINT_STACKED.launches + fc.FIXPOINT_STACKED.graph_launches
         walls[name] = time.perf_counter() - t0
+        split_end("smokes", name, mark)
         clean_port_world()
         out.pop("_group", None)
         out.pop("group", None)
@@ -5830,7 +6158,8 @@ def smokes_phase(fc, he, card):
              if not hist["ok"] else ""), flush=True)
     check(len(points) == 2 and all(p["tiered_speedup"] for p in points.values()),
           f"history_smoke: the apply sweep was not timed on the card: {points}")
-    res["history_kernels"] = history_kernel_counts(card)
+    with substep("smokes", "history_kernel_counts"):
+        res["history_kernels"] = history_kernel_counts(card)
     peaks = [b for b in res["perf"]["peak_bytes"] if b]
     print(f"smokes phase [{card}]: heat {res['heat']['split_points']['max_dev']:.4f} split "
           f"deviation; perf peak bytes {min(peaks, default=None)}-{max(peaks, default=None)}, "
@@ -5861,10 +6190,102 @@ def smokes_phase(fc, he, card):
     return jobs, finish
 
 
-TWIN_WORKERS = 6
-#: the workers of the cluster phases' twins and of the sharded phase's,
-#: each pool beside the later card phases (the wall-clock nodes of the
-#: real phase take 4 cores)
+# ---------------------------------------------------------------------------
+# where a phase's seconds go: each sub-step's wall split by cause
+# ---------------------------------------------------------------------------
+
+#: the causes a sub-step's wall seconds are split into (seconds in this
+#: process): program builds (graph captures and their eager warm steps),
+#: waits on child processes (subprocess.run), and CPU twins and oracle
+#: replays run in line; the rest is the host's Python (the simulators,
+#: packing, the campaigns' event loops) and the card's work
+CAUSES = ("captures", "processes", "inline_twins")
+_CAUSE_S = dict.fromkeys(CAUSES, 0.0)
+_IN_CAUSE = set()
+#: every sub-step timed so far: {"phase", "name", "wall_s", <cause>_s,
+#: "rest_s", "host_cpu_s"}
+SUBSTEPS = []
+
+
+def _cause_timed(cause, fn, when=None):
+    """fn, its seconds added to `cause` (where when(*args) holds, if given);
+    a call inside another call of the same cause counts once."""
+    import functools
+
+    @functools.wraps(fn)
+    def timed(*a, **kw):
+        if cause in _IN_CAUSE or (when is not None and not when(*a)):
+            return fn(*a, **kw)
+        _IN_CAUSE.add(cause)
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            _CAUSE_S[cause] += time.perf_counter() - t0
+            _IN_CAUSE.discard(cause)
+
+    return timed
+
+
+def install_cause_clocks(he, oracle_mod):
+    """Time the causes in this process: every engine's program builds,
+    floor_bench's captured scans, subprocess.run, the oracle's resolve()
+    and a CPU engine's resolve()."""
+    from foundationdb_tpu_torch.tools import floor_bench
+
+    base = he.RoutedConflictEngineBase
+    base._build_and_record = _cause_timed("captures", base._build_and_record)
+    floor_bench.ScanProgram.__init__ = _cause_timed("captures", floor_bench.ScanProgram.__init__)
+    subprocess.run = _cause_timed("processes", subprocess.run)
+    oracle_mod.OracleConflictEngine.resolve = _cause_timed(
+        "inline_twins", oracle_mod.OracleConflictEngine.resolve)
+    base.resolve = _cause_timed("inline_twins", base.resolve,
+                                when=lambda self, *_: getattr(self, "device", None) is not None
+                                and self.device.type == "cpu")
+
+
+def split_start():
+    """A mark for split_end: the clocks now."""
+    return time.perf_counter(), time.process_time(), dict(_CAUSE_S)
+
+
+def split_end(phase, name, mark, card=None):
+    """The sub-step `name` of `phase` since `mark`: its wall seconds split
+    by cause, printed on a line of its own and kept in SUBSTEPS."""
+    t0, p0, c0 = mark
+    row = {"phase": phase, "name": name, "wall_s": time.perf_counter() - t0}
+    for k in CAUSES:
+        row[f"{k}_s"] = _CAUSE_S[k] - c0[k]
+    row["rest_s"] = row["wall_s"] - sum(row[f"{k}_s"] for k in CAUSES)
+    row["host_cpu_s"] = time.process_time() - p0
+    SUBSTEPS.append(row)
+    print(f"  seconds, {phase} / {name}" + (f" [{card}]" if card else "")
+          + f": {row['wall_s']:.1f} wall = captures {row['captures_s']:.1f} + processes "
+          f"{row['processes_s']:.1f} + twins in line {row['inline_twins_s']:.1f} + the rest "
+          f"{row['rest_s']:.1f} (this process's host CPU {row['host_cpu_s']:.1f})", flush=True)
+    return row
+
+
+def substep(phase, name):
+    """A context manager: split_end of what runs inside it."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        mark = split_start()
+        try:
+            yield
+        finally:
+            split_end(phase, name, mark)
+
+    return ctx()
+
+
+#: the workers of each twin pool: the engine phase's (the CPU engines and
+#: oracles of the engine, columnar and loop phases, the role and
+#: supervised replays), the cluster phases', the sharded phase's and the
+#: tools and smokes phases', each beside the later card phases (the
+#: wall-clock nodes of the real phase take 4 cores)
 EARLY_TWIN_WORKERS = 2
 #: twin pools not yet shut down, which fail() cancels
 _TWIN_POOLS = []
@@ -5877,16 +6298,28 @@ def _timed_twin(fn, *args):
     return out, time.perf_counter() - t0
 
 
+#: the twin workers' niceness: below this process's, so that a worker
+#: busy with a CPU twin leaves the host's cores to the card phases
+TWIN_NICE = 10
+
+
 def start_twins(jobs, workers):
     """Submit each job {key: (fn, *args)} to `workers` spawn-context worker
-    processes in the order given (the longest first); finish_twins
-    collects them."""
+    processes (at TWIN_NICE) in the order given (the longest first);
+    finish_twins collects them."""
     from concurrent.futures import ProcessPoolExecutor
     from multiprocessing import get_context
 
-    pool = ProcessPoolExecutor(workers, mp_context=get_context("spawn"))
+    pool = ProcessPoolExecutor(workers, mp_context=get_context("spawn"), initializer=os.nice,
+                               initargs=(TWIN_NICE,))
     _TWIN_POOLS.append(pool)
     return pool, {key: pool.submit(_timed_twin, fn, *args) for key, (fn, *args) in jobs.items()}
+
+
+def add_twins(started, jobs):
+    """Submit more jobs {key: (fn, *args)} to a pool start_twins started."""
+    pool, futures = started
+    futures.update({key: pool.submit(_timed_twin, fn, *args) for key, (fn, *args) in jobs.items()})
 
 
 def finish_twins(started):
@@ -5906,6 +6339,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also write every result to this JSON file")
     args = ap.parse_args(argv)
 
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -5924,6 +6359,7 @@ def main(argv=None) -> int:
         fail(f"foundationdb_tpu_torch is not importable next to this script ({e})")
 
     dev = torch.device("cuda")
+    install_cause_clocks(he, oracle_mod)
     t_script = time.perf_counter()
     t0 = time.perf_counter()
     built = build.build()
@@ -5979,11 +6415,14 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     traffic = byte_traffic(rng, ENGINE_SIZES)
-    captured, ep, router_verdicts = engine_phase(fc, he, oracle_mod, dev, engine_cfg, traffic,
-                                                 oracle_batches=4)
+    captured, ep, router_verdicts, ep_jobs = engine_phase(fc, he, dev, engine_cfg, traffic,
+                                                          oracle_batches=4)
     results["engine_phase"] = ep
+    # the CPU engine's and the oracle's verdicts in twin workers from here
+    # on; the columnar, role and supervised phases add theirs
+    phase_twins = start_twins(ep_jobs, EARLY_TWIN_WORKERS)
     print(f"engine phase [{card}]: {ep['txns']} txns in {ep['batches']} resolve() batches "
-          f"match the CPU engine ({ep['oracle_batches']} also the oracle): "
+          f"to match the CPU engine ({ep['oracle_batches']} also the oracle; twins): "
           f"{ep['committed']} committed / {ep['conflict']} conflict / {ep['too_old']} too old; "
           f"{ep['launches']} kernel launches ({ep['graph_launches']} in graph replays, "
           f"{ep['eager_launches']} eager); card resolve {ep['card_resolve_s']:.3f} s "
@@ -6020,37 +6459,34 @@ def main(argv=None) -> int:
               f"{pr['device_busy_share']}, {pr['kernels']:.0f} kernels per {GRAPH_C} batches",
               flush=True)
 
+    phase_mark = split_start()
     t0 = time.perf_counter()
     batches = columnar_traffic(rng, COLUMNAR_SIZES, READ_ONLY)
-    ora = oracle_mod.OracleConflictEngine()
-    oracle_verdicts = []
-
-    def oracle_ref(b, txns, now, oldest):
-        if b == len(oracle_verdicts):
-            oracle_verdicts.append([int(v) for v in ora.resolve(txns, now, oldest)])
-        return oracle_verdicts[b]
-
+    # the oracle's and the CPU engines' passes over this traffic run in twin
+    # workers from here on; every card engine that serves it is held to
+    # them (TwinRef) once they are in. The CPU engines run the same ladder:
+    # the same chunks, so the same heat aggregates merge in the same order
+    engine_fields = dataclasses.asdict(engine_cfg)
+    add_twins(phase_twins, {("columnar", "oracle"): (oracle_verdicts_twin, batches), **{
+        ("columnar", "cpu", structure): (cpu_engine_twin, engine_fields, batches, {
+            "ladder": LADDER, "scan_sizes": SCANS, "history_structure": structure})
+        for structure in ("monolithic", "tiered")}})
+    oracle_ref = TwinRef(("columnar", "oracle"))
     router = he.TorchConflictEngine(engine_cfg)
     router._resolve_columnar = lambda *a: None
     router.warmup(scan_sizes=())
-    # the same ladder on the CPU: the same chunks, so the same heat
-    # aggregates merge in the same order
-    cpu_mono = he.TorchConflictEngine(engine_cfg, device="cpu", ladder=LADDER, scan_sizes=SCANS)
     eng, serial, colp = columnar_engine_phase(ck, fc, he, engine_cfg, batches, "monolithic", [
         ("the oracle", oracle_ref),
         ("the general router", lambda b, txns, now, oldest: [
             int(v) for v in router.resolve(txns, now, oldest)]),
-        ("the CPU engine", lambda b, txns, now, oldest: [
-            int(v) for v in cpu_mono.resolve(txns, now, oldest)])])
+        ("the CPU engine", TwinRef(("columnar", "cpu", "monolithic"), "verdicts"))])
     check(eng.cfg.heat_buckets == 64, f"the default engine runs {eng.cfg.heat_buckets} heat buckets")
     heat_snap = eng.heat_snapshot()
-    check(heat_snap == cpu_mono.heat_snapshot(),
-          "the card engine's heat snapshot differs from the CPU engine's")
     check(heat_snap["hot_ranges"] and heat_snap["split_points"],
           "the heat snapshot holds no hot range or split point")
     colp["heat_snapshot"] = {k: heat_snap[k] for k in ("batches", "occupancy", "verdicts",
                                                        "concentration", "split_points")}
-    del router, cpu_mono
+    del router
     results["columnar_engine_phase"] = colp
     columnar_report(card, colp, "the oracle, the general router and the CPU engine (heat "
                     "snapshot too)", time.perf_counter() - t0)
@@ -6071,19 +6507,14 @@ def main(argv=None) -> int:
           flush=True)
 
     t0 = time.perf_counter()
-    cpu_tiered = he.TorchConflictEngine(engine_cfg, device="cpu", ladder=LADDER, scan_sizes=SCANS,
-                                        history_structure="tiered")
     teng, tserial, tcol = columnar_engine_phase(ck, fc, he, engine_cfg, batches, "tiered", [
         ("the oracle", oracle_ref),
         ("the monolithic card engine", lambda b, *_: serial[b]),
-        ("the CPU tiered engine", lambda b, txns, now, oldest: [
-            int(v) for v in cpu_tiered.resolve(txns, now, oldest)])])
-    check(teng.heat_snapshot() == cpu_tiered.heat_snapshot(),
-          "the tiered card engine's heat snapshot differs from the CPU tiered engine's")
-    check(teng.history_stats_snapshot() == cpu_tiered.history_stats_snapshot(),
-          "the tiered card engine's history stats differ from the CPU tiered engine's")
+        ("the CPU tiered engine", TwinRef(("columnar", "cpu", "tiered"), "verdicts"))])
     tcol["history_stats"] = teng.history_stats_snapshot()
-    del cpu_tiered
+    # what the CPU twins hold, taken before any later pass re-serves
+    columnar_snaps = {"monolithic": (heat_snap, None),
+                      "tiered": (teng.heat_snapshot(), tcol["history_stats"])}
     results["tiered_columnar_engine_phase"] = tcol
     columnar_report(card, tcol, "the oracle, the monolithic card engine and the CPU tiered "
                     "engine", time.perf_counter() - t0)
@@ -6115,6 +6546,7 @@ def main(argv=None) -> int:
     loop_report(card, tlp, "the oracle and the tiered columnar card engine (heat snapshot and "
                 "history stats too)", time.perf_counter() - t0)
 
+    split_end("script", "columnar_and_loop", phase_mark, card)
     # every engine again, once more, in turns (their first passes ran in this
     # order above)
     t0 = time.perf_counter()
@@ -6139,12 +6571,13 @@ def main(argv=None) -> int:
             + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
 
     t0 = time.perf_counter()
-    _, tep, _ = engine_phase(fc, he, oracle_mod, dev, engine_cfg, traffic, oracle_batches=4,
-                             structure="tiered", card_reference=router_verdicts)
+    _, tep, _, tep_jobs = engine_phase(fc, he, dev, engine_cfg, traffic, oracle_batches=4,
+                                       structure="tiered", card_reference=router_verdicts)
+    add_twins(phase_twins, tep_jobs)
     results["tiered_engine_phase"] = tep
     print(f"tiered engine phase [{card}]: {tep['txns']} txns in {tep['batches']} resolve() "
-          f"batches match the monolithic card engine and the CPU tiered engine "
-          f"({tep['oracle_batches']} also the oracle); {tep['merges']} merges; "
+          f"batches match the monolithic card engine, and are to match the CPU tiered engine "
+          f"({tep['oracle_batches']} also the oracle; twins); {tep['merges']} merges; "
           f"{tep['launches']} kernel launches ({tep['graph_launches']} in graph replays, "
           f"{tep['eager_launches']} eager); card resolve {tep['card_resolve_s']:.3f} s "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
@@ -6177,12 +6610,14 @@ def main(argv=None) -> int:
           + f"; {lpp['launches']} kernel launches; drains {lpp['drains']} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    tele, spp = telemetry_phases(ck, fc, he, dl, pl, oracle_mod, card, engine_cfg, batches, rng, {
+    phase_mark = split_start()
+    tele, spp = telemetry_phases(ck, fc, he, pl, oracle_mod, card, engine_cfg, batches, rng, {
         "columnar": (eng, serial, colp), "tiered_columnar": (teng, tserial, tcol),
         "device_loop": (leng, lserial, lp), "tiered_device_loop": (tleng, tlserial, tlp)})
     results["telemetry_phase"] = tele
     results["scheduled_pipeline_phase"] = spp
 
+    split_end("script", "telemetry", phase_mark, card)
     # the resolver role in the simulator, its pipelined service fed the
     # card's own pack clocks and sampled device ms per bucket
     def sampled(key):
@@ -6195,62 +6630,79 @@ def main(argv=None) -> int:
                               "queue_enqueue_ms": lp["enqueue_ms_per_batch"],
                               "result_drain_ms": lp["decode_ms_per_batch"]}}
     t0 = time.perf_counter()
-    role = resolver_role_phase(fc, pl, card, {"columnar": eng, "device_loop": leng, "gen2": eng0},
-                               clocks, rng)
+    phase_mark = split_start()  # role
+    role, role_jobs, role_finish = resolver_role_phase(
+        fc, pl, card, {"columnar": eng, "device_loop": leng, "gen2": eng0}, clocks, rng)
     role["clocks"] = clocks
     results["resolver_role_phase"] = role
-    print(f"resolver role phase [{card}]: {len(role['runs'])} runs, {role['oracle_replays']} "
-          f"oracle replays, launches {role['launches']} ({time.perf_counter() - t0:.1f} s)",
-          flush=True)
-
-    t0 = time.perf_counter()
-    sup = supervised_role_phase(fc, pl, card, eng, clocks["columnar"], rng,
-                                role["runs"]["depth2"]["wall_txn_per_s"])
-    results["supervised_role_phase"] = sup
-    print(f"supervised role phase [{card}]: {len(sup['runs'])} runs of {sup['batches']} batches, "
-          f"{sup['oracle_replays']} oracle replays, launches {sup['launches']} "
+    # its oracle replays and read-backs in the phase twins' workers
+    add_twins(phase_twins, role_jobs)
+    print(f"resolver role phase card runs [{card}]: {len(role['runs'])} runs, "
+          f"{role['oracle_replays']} oracle replays to come, launches {role['launches']} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    split_end("script", "role", phase_mark, card)
 
     t0 = time.perf_counter()
+    phase_mark = split_start()  # supervised
+    sup, sup_jobs, sup_finish = supervised_role_phase(
+        fc, pl, card, eng, clocks["columnar"], rng, role["runs"]["depth2"]["wall_txn_per_s"])
+    results["supervised_role_phase"] = sup
+    add_twins(phase_twins, sup_jobs)
+    print(f"supervised role phase card runs [{card}]: {len(sup['launches'])} runs of "
+          f"{sup['batches']} batches, {sup['oracle_replays']} oracle replays to come, launches "
+          f"{sup['launches']} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    split_end("script", "supervised", phase_mark, card)
+
+    t0 = time.perf_counter()
+    phase_mark = split_start()  # crash_recovery
     crash = crash_recovery_phase(card)
     results["crash_recovery_phase"] = crash
     crash_launches = {k: crash[k]["launches"] + crash[k].get("recovery_launches", 0)
                       for k in ("A", "B")}
     print(f"crash recovery phase [{card}]: launches {crash_launches} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    split_end("script", "crash_recovery", phase_mark, card)
 
     t0 = time.perf_counter()
     # its batches (RESHARD_SIZES, at most 512 txns) are one chunk each, so
     # its engines capture no multi-chunk scan
+    phase_mark = split_start()  # reshard
     rs = reshard_phase(fc, card, rng, lambda: he.TorchConflictEngine(
         engine_cfg, ladder=LADDER, scan_sizes=(), history_structure="tiered",
         device_time_sample_rate=0.0))
     results["reshard_phase"] = rs
     print(f"reshard phase [{card}]: {len(rs['ops'])} reshards, {rs['launches']} launches "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    split_end("script", "reshard", phase_mark, card)
 
     # the static cluster with card resolvers, the harness fed the columnar
     # phase's one-chunk replay ms per bucket and its pack ms per txn
     t0 = time.perf_counter()
+    phase_mark = split_start()  # cluster
     cl_jobs, cl_finish = cluster_phase(fc, he, card, engine_cfg, {
         int(k.split("x")[0]): ms for k, ms in colp["program_device_ms"].items()
         if k.endswith("x1")}, clocks["columnar"]["pack_ms_per_txn"])
     print(f"cluster phase card runs [{card}] ({time.perf_counter() - t0:.1f} s)", flush=True)
+    split_end("script", "cluster", phase_mark, card)
 
     # the dynamic cluster: every resolver recruited in every generation a
     # card engine, the specs' KernelConfig in the specs, the bench's in
     # the recovery run
     t0 = time.perf_counter()
+    phase_mark = split_start()  # dynamic
     dyn_jobs, dyn_finish = dynamic_cluster_phase(fc, he, ck, card, cfg)
     print(f"dynamic cluster phase card runs [{card}] ({time.perf_counter() - t0:.1f} s)",
           flush=True)
+    split_end("script", "dynamic", phase_mark, card)
 
     # the bindings, a full-width backup and a DR switchover, every resolver
     # of every cluster a card engine
     t0 = time.perf_counter()
+    phase_mark = split_start()  # bindings_backup
     bb_jobs, bb_finish = bindings_backup_phase(fc, he, card, cfg)
     print(f"bindings/backup phase card runs [{card}] ({time.perf_counter() - t0:.1f} s)",
           flush=True)
+    split_end("script", "bindings_backup", phase_mark, card)
     # their oracle twins from here on, beside the later card phases, the
     # longest (the backup run's and the recovery run's) first
     early_twins = start_twins({**bb_jobs, **dyn_jobs, **cl_jobs}, EARLY_TWIN_WORKERS)
@@ -6259,45 +6711,73 @@ def main(argv=None) -> int:
     # nodes over TCP, the fault, crash and scenario campaigns on card engines
     t0 = time.perf_counter()
     clean_port_world()
+    phase_mark = split_start()  # real
     real = real_phase(fc, card)
     clean_port_world()
     real["wall_s"] = time.perf_counter() - t0
     results["real_phase"] = real
     print(f"real phase [{card}]: launches {real['launches']} ({real['wall_s']:.1f} s)",
           flush=True)
+    split_end("script", "real", phase_mark, card)
 
     # the sharded resolver: the stacked entry, the sub-sharded, sharded and
     # mesh engines, the TPU8 specs and a mesh campaign
     t0 = time.perf_counter()
+    phase_mark = split_start()  # sharded
     sh_jobs, sh_finish = sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches,
                                        serial, oracle_ref, rng)
     print(f"sharded phase card runs [{card}] ({time.perf_counter() - t0:.1f} s)", flush=True)
+    split_end("script", "sharded", phase_mark, card)
     # its twins (the sub-sharded CPU twins the longest) beside the tools
     # and smokes phases
     sharded_twins = start_twins(sh_jobs, EARLY_TWIN_WORKERS)
 
     # the tools bench.py drives, profile_kernel, the CLI and fdbbackup
     t0 = time.perf_counter()
+    phase_mark = split_start()  # tools
     tl_jobs, tl_finish = tools_phase(fc, he, ck, card, cfg)
     print(f"tools phase card runs [{card}] ({time.perf_counter() - t0:.1f} s)", flush=True)
+    split_end("script", "tools", phase_mark, card)
+    # its twins beside the smokes phase, whose own replays join them
+    late = start_twins(tl_jobs, EARLY_TWIN_WORKERS)
 
     # the six smokes that build card engines, each through its run()
     t0 = time.perf_counter()
+    phase_mark = split_start()  # smokes
     sm_jobs, sm_finish = smokes_phase(fc, he, card)
     print(f"smokes phase card runs [{card}] ({time.perf_counter() - t0:.1f} s)", flush=True)
+    split_end("script", "smokes", phase_mark, card)
 
-    # the later phases' oracle and CPU twins, after the last card run; then
-    # the early ones' results
+    # the smokes' oracle replays after the last card run; then every twin's
+    # result
     t0 = time.perf_counter()
-    late = start_twins({**tl_jobs, **sm_jobs}, TWIN_WORKERS)
-    twins, twin_job_s = finish_twins([late, sharded_twins, early_twins])
+    phase_mark = split_start()  # twins
+    add_twins(late, sm_jobs)
+    twins, twin_job_s = finish_twins([late, sharded_twins, early_twins, phase_twins])
     twin_s = time.perf_counter() - t0
     longest = sorted(twin_job_s.items(), key=lambda kv: -kv[1])[:5]
-    print(f"oracle twins [{card}]: {len(early_twins[1])} runs in {EARLY_TWIN_WORKERS} workers "
+    print(f"oracle twins [{card}]: {len(phase_twins[1])} runs in {EARLY_TWIN_WORKERS} workers "
+          f"from the engine phase on, {len(early_twins[1])} in {EARLY_TWIN_WORKERS} "
           f"from the bindings/backup phase on, {len(sharded_twins[1])} in "
-          f"{EARLY_TWIN_WORKERS} from the sharded phase on, {len(late[1])} in {TWIN_WORKERS} "
-          f"workers after the last card run ({twin_s:.1f} s after it); the longest "
+          f"{EARLY_TWIN_WORKERS} from the sharded phase on, {len(late[1])} in "
+          f"{EARLY_TWIN_WORKERS} from the tools phase on ({twin_s:.1f} s after the last card "
+          f"run); the longest "
           + ", ".join(f"{'/'.join(map(str, k))} {v:.1f} s" for k, v in longest), flush=True)
+    split_end("script", "twins", phase_mark, card)
+    for structure, (heat, hist) in columnar_snaps.items():
+        cpu = twins[("columnar", "cpu", structure)]
+        check(heat == cpu["heat"], f"the {structure} card engine's heat snapshot differs from the "
+              f"CPU {structure} engine's")
+        check(hist is None or hist == cpu["history_stats"],
+              f"the {structure} card engine's history stats differ from the CPU {structure} "
+              f"engine's")
+    role_finish(twins)
+    sup_finish(twins)
+    n_refs = check_twin_refs(twins)
+    print(f"twin-held references [{card}]: {n_refs} card engine passes equal the oracle's or a "
+          f"CPU engine's verdicts on every batch; the monolithic and tiered columnar card "
+          f"engines' heat snapshots (and tiered history stats) equal the CPU engines'; the role "
+          f"and supervised runs equal the oracle replays of their journals", flush=True)
     cl = cl_finish(twins)
     results["cluster_phase"] = cl
     print(f"cluster phase [{card}]: {len(cl['specs'])} spec runs and {len(cl['points'])} harness "
@@ -6318,6 +6798,7 @@ def main(argv=None) -> int:
     smk = sm_finish(twins)
     results["smokes_phase"] = smk
     results["twin_s"] = twin_s
+    results["substeps"] = SUBSTEPS
     results["twin_job_s"] = {"/".join(map(str, k)): v for k, v in twin_job_s.items()}
 
     kernels = {"kernels": [{

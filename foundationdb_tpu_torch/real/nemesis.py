@@ -1859,7 +1859,10 @@ class CrashConfig:
     #: snapshots (versions restart at 0) but KEEP progcache/ on purpose:
     #: rewarm-from-cache is the steady state the budget is sized for.
     datadir: Optional[str] = None
-    warm_s: float = 3.0       #: pre-kill serving phase (seeds snapshots)
+    #: pre-kill serving phase (seeds snapshots); the port keeps serving
+    #: past it until the child has written a snapshot, at most
+    #: boot_timeout_s more (_serve_until_snapshot)
+    warm_s: float = 3.0
     post_s: float = 1.5       #: post-recovery serving phase
     #: extra bounded wait for the FIRST post-restart commit before the
     #: post_s window starts counting: the load client's reconnect
@@ -1913,6 +1916,28 @@ def _crash_child_argv(port: int, datadir: str, engine_mode: str,
             "from foundationdb_tpu_torch.real.nemesis import main; "
             "sys.exit(main(%r))" % (REPO_ROOT, argv))
     return [sys.executable, "-c", code]
+
+
+def _snapshot_written(status: dict) -> bool:
+    """Whether a child's status shows a snapshot written to disk."""
+    return int((status.get("snapshots") or {}).get("written", 0)) >= 1
+
+
+async def _serve_until_snapshot(port: int, status: dict, timeout_s: float,
+                                poll_s: float = 0.1) -> Tuple[dict, float]:
+    """After the pre-kill window: while the child's status shows no
+    snapshot written, let the load run on and ask again every `poll_s`,
+    for at most `timeout_s`. Returns (the last status, the seconds past
+    the window). The snapshot cadence counts committed versions, so on a
+    slow host the window alone may end before the first snapshot; where
+    the first status already shows one, nothing more runs and the
+    campaign's sequence is the reference's."""
+    t0 = time.monotonic()
+    deadline = t0 + timeout_s
+    while not _snapshot_written(status) and time.monotonic() < deadline:
+        await asyncio.sleep(poll_s)
+        status = await _child_rpc(port, STATUS_TOKEN) or {}
+    return status, round(time.monotonic() - t0, 3)
 
 
 async def _child_rpc(port: int, token: str, timeout_s: float = 1.5):
@@ -2115,6 +2140,8 @@ async def _crash_campaign(cfg: CrashConfig) -> dict:
         # pre-kill serving phase: commits flow, snapshots cadence out
         await asyncio.sleep(cfg.warm_s)
         st = await _child_rpc(port, STATUS_TOKEN) or {}
+        st, report["pre_kill_extra_s"] = await _serve_until_snapshot(
+            port, st, cfg.boot_timeout_s)
         report["committed_before_kill"] = int(
             st.get("committed_version", 0))
         report["snapshots_before_kill"] = dict(st.get("snapshots") or {})

@@ -125,6 +125,7 @@ def test_subprocess_import_loads_no_jax():
     "foundationdb_tpu_torch.tools.recovery_bench",
     "foundationdb_tpu_torch.tools.bench_smoke",
     "foundationdb_tpu_torch.tools.bench_history",
+    "foundationdb_tpu_torch.tools.readme_perf",
     "foundationdb_tpu_torch.tools.buggify_coverage",
     "foundationdb_tpu_torch.tools.fdbbackup",
     "foundationdb_tpu_torch.tools.cli",
@@ -233,7 +234,7 @@ def test_source_scan_finds_no_jax_import():
                  "parallel/mesh_engine.py", "tools/sharded_bench.py", "tools/mesh_bench.py",
                  "tools/skiplist_bench.py", "tools/ladder_bench.py", "tools/floor_bench.py",
                  "tools/heat_bench.py", "tools/profile_kernel.py", "tools/recovery_bench.py",
-                 "tools/bench_smoke.py", "tools/bench_history.py",
+                 "tools/bench_smoke.py", "tools/bench_history.py", "tools/readme_perf.py",
                  "tools/buggify_coverage.py", "tools/fdbbackup.py", "tools/cli.py",
                  "tools/heat_smoke.py", "tools/watch_smoke.py",
                  "tools/sched_smoke.py", "tools/history_smoke.py",
