@@ -657,7 +657,9 @@ def sharded_kernel_phase(ck, fc, cfg, dev, rng, S: int, n_batches: int):
     txn space), the stacked phases 1-2, then both fixpoints on the same
     inputs, batch by batch on evolving tables; at S = 1 also the
     single-table entry on the same inputs. Times the stacked entry (device
-    ms behind a spin), its call and the plain version."""
+    ms behind a spin), its call and the plain version, and the entry on
+    the same inputs with no txn ok: the same setup and compaction, then
+    one round that commits nothing (``setup_ms``)."""
     import torch
 
     pools = [key_pool(cfg, rng) for _ in range(S)]
@@ -728,14 +730,21 @@ def sharded_kernel_phase(ck, fc, cfg, dev, rng, S: int, n_batches: int):
     call_ms = cuda_ms(kernel, 20)
     plain_ms = cuda_ms(lambda: fc.commit_fixpoint_stacked_plain(cfg, b["t_ok"][0], hist, edges,
                                                                 b), 1)
-    plan = fc.launch_plan_stacked(cfg, S)
+    none_ok = torch.zeros_like(b["t_ok"][0])
+    setup_ms = device_ms(lambda: fc.commit_fixpoint_stacked_kernel(cfg, none_ok, hist, edges, b),
+                         20)
+    check(int(fc.FIXPOINT_STACKED.last_rounds.item()) == 1,
+          "with no txn ok the stacked entry took more than one round")
+    plan = fc.FIXPOINT_STACKED.last_plan        # the card's: K depends on what it holds
     return {"S": S, "batches": n_batches, "mismatches": 0, "single_entry_equal": single_equal,
             "rounds_median": statistics.median(rounds), "rounds_max": max(rounds),
             "rounds_timed": rounds[-1], "kernel_ms": kernel_ms, "call_ms": call_ms,
-            "plain_ms": plain_ms, "wtx_in_smem": plan["wtx_in_smem"],
-            "smem_bytes": plan["smem_bytes"],
+            "plain_ms": plain_ms, "setup_ms": setup_ms, "clusters": plan["clusters"],
+            "cluster_ctas": plan["cluster"],
+            "sub_shards_per_cluster": plan["sub_shards_per_cluster"],
+            "wtx_in_smem": plan["wtx_in_smem"], "smem_bytes": plan["smem_bytes"],
             "scratch_bytes": plan["entry_scratch_bytes"] + plan["point_scratch_bytes"]
-            + plan["wtx_bytes"] + plan["gid_table_bytes"],
+            + plan["wtx_bytes"] + plan["gx_bytes"] + plan["gid_table_bytes"],
             **stacked_bound(cfg, b, rounds[-1])}
 
 
@@ -5180,6 +5189,8 @@ TPU8_SPECS = ("CycleTestTPU8", "RandomReadWriteTPU8")
 TPU8_SEED = 1
 MESH_CAMPAIGN_SHARDS = 2
 STACKED_KERNEL = "commit_fixpoint_stacked_kernel"
+#: sub-shard counts the stacked entry is held against its plain version at
+STACKED_KERNEL_S = (1, 2, 4, 8, 16)
 
 
 def pool_splits(n: int):
@@ -5217,8 +5228,9 @@ def cpu_subsharded_twin(cfg_fields, splits, kw, batches):
 def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, oracle_ref, rng):
     """The sharded resolver on the card.
 
-    Kernel: sharded_kernel_phase at the bench shape with S in {1, 2, 8}
-    and at the default KernelConfig with S = 8.
+    Kernel: sharded_kernel_phase at the bench shape and at the default
+    KernelConfig with S in STACKED_KERNEL_S (one cluster per sub-shard
+    where the card holds S clusters).
 
     Sub-sharded: SubshardedConflictEngine(S = 8) at the bench's
     KernelConfig (top bucket, scans of 2 chunks), with the pool split into
@@ -5266,16 +5278,18 @@ def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, o
     # -- the stacked entry against its plain version -------------------------
     mark = split_start()
     t0 = time.perf_counter()
-    for label, kcfg, sizes in (("bench", cfg, (1, 2, SHARDED_S)), ("engine", engine_cfg, (SHARDED_S,))):
-        for S in sizes:
+    for label, kcfg in (("bench", cfg), ("engine", engine_cfg)):
+        for S in STACKED_KERNEL_S:
             kp = sharded_kernel_phase(ck, fc, kcfg, dev, rng, S, n_batches=4)
             out["kernel"][f"{label}_S{S}"] = kp
             print(f"sharded kernel, {label} shape, S={S} [{card}]: {kp['batches']} batches "
                   f"bit-equal{' (and to the single-table entry)' if S == 1 else ''}, rounds "
                   f"median {kp['rounds_median']} max {kp['rounds_max']}; kernel_ms="
-                  f"{kp['kernel_ms']:.4f} (call {kp['call_ms']:.4f}) plain_ms={kp['plain_ms']:.4f} "
-                  f"bound_ms={kp['bound_ms']:.6f} ({kp['bound_by']}); txn indices in "
-                  f"{'shared' if kp['wtx_in_smem'] else 'global'} memory, "
+                  f"{kp['kernel_ms']:.4f} (call {kp['call_ms']:.4f}; setup and one empty round "
+                  f"{kp['setup_ms']:.4f}) plain_ms={kp['plain_ms']:.4f} "
+                  f"bound_ms={kp['bound_ms']:.6f} ({kp['bound_by']}); {kp['clusters']} clusters "
+                  f"of {kp['cluster_ctas']} CTAs, {kp['sub_shards_per_cluster']} sub-shards "
+                  f"each; txn indices in {'shared' if kp['wtx_in_smem'] else 'global'} memory, "
                   f"{kp['scratch_bytes']} scratch bytes", flush=True)
     out["kernel_s"] = time.perf_counter() - t0
     split_end("sharded", "kernel", mark)
@@ -6871,9 +6885,12 @@ def main(argv=None) -> int:
         "library_ms": None,
         "S": SHARDED_S,
         "rounds": sh["kernel"][f"engine_S{SHARDED_S}"]["rounds_timed"],
-        "bench_shape": {f"S{S}": {k: sh["kernel"][f"bench_S{S}"][k]
-                                  for k in ("kernel_ms", "plain_ms", "bound_ms", "rounds_timed")}
-                        for S in (1, 2, SHARDED_S)},
+        "clusters": sh["kernel"][f"engine_S{SHARDED_S}"]["clusters"],
+        "cluster_ctas": sh["kernel"][f"engine_S{SHARDED_S}"]["cluster_ctas"],
+        "by_S": {f"{label}_S{S}": {k: sh["kernel"][f"{label}_S{S}"][k]
+                                   for k in ("kernel_ms", "plain_ms", "bound_ms", "rounds_timed",
+                                             "clusters", "cluster_ctas")}
+                 for label in ("bench", "engine") for S in STACKED_KERNEL_S},
     }]}
     results.update(kernels)
     results["script_s"] = time.perf_counter() - t_script

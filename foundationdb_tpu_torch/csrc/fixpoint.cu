@@ -66,19 +66,32 @@
 // convergence for S key-range sub-shards of one batch in one launch: the
 // function of conflict_kernel.commit_fixpoint_stacked, which replaces the
 // mesh engine's psum of each round's blocked counts by a sum over the
-// sub-shards. What makes one cluster enough: the blocked bitmap lies in the
-// txn space, which every sub-shard shares, and blocked counts add up across
-// sub-shards, so "blocked in any sub-shard" is one OR into the same local
-// bitmap. The read rows of all S sub-shards form one row space of
-// S * (Rp + Rr) rows cut into the CTAs' slices; a compacted entry names its
-// sub-shard's writer-mask word (masks hold S * (WRW + WPW) words), and a
-// point row or point writer its sub-shard's segment of an S * (G + 2) gid
-// table. base folds every sub-shard's history hits (a sum over S). Each
-// writer's txn index stays in shared memory where it fits, else in global
-// scratch, filled once per launch and read through L2 each round. The round
-// structure, the merge into the leader's bitmap and the convergence test
-// are the single-table kernel's.
-//
+// sub-shards. The blocked bitmap lies in the txn space, which every
+// sub-shard shares, and blocked counts add up across sub-shards, so
+// "blocked in any sub-shard" is one OR of bitmaps. So the entry launches K
+// clusters, each owning whole sub-shards (K = S where the card holds S
+// clusters at once, else ceil(S / K) sub-shards each): inside a cluster
+// the CTAs split its sub-shards' read rows and point writers as v5 splits
+// one table's, and a CTA holds only its cluster's writer masks, writer txn
+// table, row txns and lists in shared memory. So a round's mask rebuild
+// costs 32 * (WRW + WPW) lookups per sub-shard the cluster owns, the gid
+// atomics stay inside the cluster that owns the sub-shard, and K * nc SMs
+// share the first-round compaction. The round inside a cluster is v5's;
+// across clusters, once a round, each cluster leader ORs its cluster's
+// nonzero blocked words into a global bitmap (L2 atomics), one grid barrier
+// follows, and every CTA reads the same words, computes the same c' and
+// takes the same convergence decision. The grid barrier needs every CTA
+// resident at once: the launch is cooperative (with the cluster
+// attribute), which CUDA refuses rather than hangs when the grid does not
+// fit, and the wrapper asks cudaOccupancyMaxActiveClusters before it
+// plans K and the cluster size (fixpoint_cuda.choose_plan_stacked: one
+// cluster per sub-shard at the largest size the card holds S of). base
+// folds every sub-shard's history hits (a sum over S). What bounds it on
+// an H100 (PERF.md §6): a round costs ~4.8 us at K > 1 against ~3.8 at
+// K = 1, so the grid barrier and the L2 exchange add ~1 us; the launch's
+// setup and first-round compaction take 55-65% of a traffic batch's time,
+// and that part falls as the CTAs per sub-shard grow.
+
 // Layout the caller guarantees (conflict_kernel.build_batch_arrays): valid
 // read rows grouped by ascending txn, so "OR over rows naming txn t" is the
 // plain version's "OR over t's row window". T % 32 == 0 (warp ballots pack
@@ -403,11 +416,14 @@ __global__ void __launch_bounds__(kThreads, 1) commit_fixpoint_kernel(
   cluster.sync();
 }
 
-// The stacked entry: S sub-shards, one launch (see the note at the top).
-// Inputs carry the sub-shard axis first: hist [S, T], rp_* / gid_rp
-// [S, Rp], r_* [S, Rr], wp_* / gid_wp [S, Wp], w_* [S, Wr], ovw [S, Rp + Rr,
-// WRW], ovrp [S, Rr, WPW]. mn is [S * (G + 2)]; wtx_g is [S * 32 * MW]
-// global scratch used when wtx_in_smem is 0.
+// The stacked entry: S sub-shards in one launch of K clusters of nc CTAs
+// (see the note at the top). Inputs carry the sub-shard axis first: hist
+// [S, T], rp_* / gid_rp [S, Rp], r_* [S, Rr], wp_* / gid_wp [S, Wp], w_*
+// [S, Wr], ovw [S, Rp + Rr, WRW], ovrp [S, Rr, WPW]. Cluster k owns the
+// sub-shards [k * spc, min((k + 1) * spc, S)). mn is [S * (G + 2)]; wtx_g
+// is [S * 32 * MW] global scratch used when wtx_in_smem is 0; gx is the
+// [3][TW] cross-cluster bitmap; each spill list has one segment per CTA of
+// the grid.
 __global__ void __launch_bounds__(kThreads, 1) commit_fixpoint_stacked_kernel(
     const bool* __restrict__ t_ok, const int32_t* __restrict__ hist,
     const int32_t* __restrict__ rp_txn, const bool* __restrict__ rp_valid,
@@ -417,39 +433,41 @@ __global__ void __launch_bounds__(kThreads, 1) commit_fixpoint_stacked_kernel(
     const int32_t* __restrict__ gid_wp,
     const int32_t* __restrict__ w_txn, const bool* __restrict__ w_valid,
     const uint32_t* __restrict__ ovw, const uint32_t* __restrict__ ovrp,
-    unsigned long long* __restrict__ mn, int* __restrict__ wtx_g,
+    unsigned long long* __restrict__ mn, int* __restrict__ wtx_g, uint32_t* __restrict__ gx,
     Entry* __restrict__ entry_spill, PointRow* __restrict__ point_spill,
     bool* __restrict__ committed, int32_t* __restrict__ rounds_out,
-    int S, int T, int Rp, int Rr, int Wp, int Wr, int WRW, int WPW, int G,
-    int rows_per_cta, int point_cap, int entry_cap, int point_spill_cap, int entry_spill_cap,
-    int wtx_in_smem) {
+    int S, int T, int Rp, int Rr, int Wp, int Wr, int WRW, int WPW, int G, int spc,
+    int rows_per_cta, int wper, int point_cap, int entry_cap, int point_spill_cap,
+    int entry_spill_cap, int wtx_in_smem) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int nc = static_cast<int>(gridDim.x);  // the grid is one cluster
+  const int nc = static_cast<int>(cluster.num_blocks());
+  const int cta = static_cast<int>(blockIdx.x);   // clusters tile the grid in order
+  const int K = static_cast<int>(gridDim.x) / nc;
+  const int s0 = (cta / nc) * spc;                // this cluster's first sub-shard
+  const int ns = min(spc, S - s0);                // ... and how many it owns
 
   extern __shared__ uint32_t smem[];
   const int TW = T >> 5;
   const int MW = WRW + WPW;           // one sub-shard's writer-mask words
-  const int SMW = S * MW;             // all sub-shards' writer-mask words
   const int RA = Rp + Rr;             // one sub-shard's read rows
   const int G2 = G + 2;               // one sub-shard's gid-table slots
-  const int wper = (S * Wp + nc - 1) / nc;
   int* counts = reinterpret_cast<int*>(smem);    // [0] entries, [1] point rows
   uint32_t* c = smem + 4;             // [TW] committed bitmap
   uint32_t* base = c + TW;            // [TW] t_ok & ~history hit in any sub-shard
   uint32_t* blocked = base + TW;      // [TW] this CTA's blocked txns
   uint32_t* lead = blocked + TW;      // [2][TW] the cluster's, by round parity
-  uint32_t* masks = lead + 2 * TW;    // [S][WRW range ++ WPW point] committed-writer words
-  int* wtx_s = reinterpret_cast<int*>(masks + SMW);  // [32 * SMW] when in shared memory
-  int* wtx = wtx_in_smem ? wtx_s : wtx_g;
-  int* wgid = wtx_s + (wtx_in_smem ? 32 * SMW : 0);  // [wper] point writers: gid slot, or -1
+  uint32_t* masks = lead + 2 * TW;    // [spc][WRW range ++ WPW point] committed-writer words
+  int* wtx_s = reinterpret_cast<int*>(masks + spc * MW);  // [32 * spc * MW] when in smem
+  int* wtx = wtx_in_smem ? wtx_s : wtx_g + static_cast<size_t>(s0) * 32 * MW;
+  int* wgid = wtx_s + (wtx_in_smem ? 32 * spc * MW : 0);  // [wper] point writers: gid slot, or -1
   int* wraw = wgid + wper;            // [wper] ... and txn as given
   int* rtx = wraw + wper;             // [rows_per_cta] txn of each read row of the slice, or -1
   const SplitList<PointRow> points{reinterpret_cast<PointRow*>(rtx + rows_per_cta),
-                                   point_spill + static_cast<size_t>(rank) * point_spill_cap,
+                                   point_spill + static_cast<size_t>(cta) * point_spill_cap,
                                    point_cap};
   const SplitList<Entry> entries{reinterpret_cast<Entry*>(points.smem + point_cap),
-                                 entry_spill + static_cast<size_t>(rank) * entry_spill_cap,
+                                 entry_spill + static_cast<size_t>(cta) * entry_spill_cap,
                                  entry_cap};
   uint32_t* lead0 = cluster.map_shared_rank(lead, 0);
 
@@ -460,15 +478,15 @@ __global__ void __launch_bounds__(kThreads, 1) commit_fixpoint_stacked_kernel(
   const int nwarps = nthr >> 5;
   const int gmax = G + 1;
 
-  // This CTA's rows [g0, g1) of the S * RA row space, and point writers
-  // [w0, w1) of the S * Wp writer space.
-  const int r_all = S * RA;
+  // This CTA's rows [g0, g1) of its cluster's ns * RA rows (row g lies in
+  // sub-shard s0 + g / RA), and point writers [w0, w1) of its ns * Wp.
+  const int r_all = ns * RA;
   const int g0 = min(rank * rows_per_cta, r_all), g1 = min(g0 + rows_per_cta, r_all);
-  const int w0 = min(rank * wper, S * Wp), w1 = min(w0 + wper, S * Wp);
+  const int w0 = min(rank * wper, ns * Wp), w1 = min(w0 + wper, ns * Wp);
 
   if (tid < 2) counts[tid] = 0;
   for (int t = tid; t < T; t += nthr) {
-    uint32_t h = 0u;                  // the sum over sub-shards, int32 wrap as JAX's
+    uint32_t h = 0u;                  // the sum over ALL sub-shards, int32 wrap as JAX's
     for (int s = 0; s < S; ++s) h += static_cast<uint32_t>(hist[static_cast<size_t>(s) * T + t]);
     const uint32_t word = __ballot_sync(0xffffffffu, t_ok[t] && static_cast<int>(h) <= 0);
     if (lane == 0) {
@@ -478,14 +496,15 @@ __global__ void __launch_bounds__(kThreads, 1) commit_fixpoint_stacked_kernel(
   }
   for (int i = tid; i < 2 * TW; i += nthr) lead[i] = 0u;
   {
-    // writer w of sub-shard s: range writers in words [s*MW, s*MW+WRW),
-    // point writers in [s*MW+WRW, (s+1)*MW); in global scratch the CTAs
-    // fill disjoint indices, ordered before any read by the cluster barrier
-    const int n = 32 * SMW;
+    // writer w of the cluster's local sub-shard l: range writers in words
+    // [l*MW, l*MW+WRW), point writers in [l*MW+WRW, (l+1)*MW); in global
+    // scratch the cluster's CTAs fill disjoint indices of its own segment,
+    // ordered before any read by the cluster barrier
+    const int n = 32 * ns * MW;
     const int start = wtx_in_smem ? tid : rank * nthr + tid;
     const int step = wtx_in_smem ? nthr : nc * nthr;
     for (int w = start; w < n; w += step) {
-      const int s = w / (32 * MW), r = w - s * 32 * MW;
+      const int l = w / (32 * MW), r = w - l * 32 * MW, s = s0 + l;
       int t = -1;
       if (r < 32 * WRW) {
         if (r < Wr && w_valid[s * Wr + r]) t = txn_index(w_txn[s * Wr + r], T);
@@ -497,12 +516,12 @@ __global__ void __launch_bounds__(kThreads, 1) commit_fixpoint_stacked_kernel(
     }
   }
   for (int j = tid; j < wper; j += nthr) {
-    const int w = w0 + j;
+    const int w = w0 + j;             // the cluster's point writer w: sub-shard s0 + w / Wp
     int g = -1, t = 0;
-    if (w < w1 && wp_valid[w]) {
-      const int s = w / Wp;
-      g = gid_wp[w];
-      t = wp_txn[w];
+    if (w < w1 && wp_valid[s0 * Wp + w]) {
+      const int s = s0 + w / Wp;
+      g = gid_wp[s0 * Wp + w];
+      t = wp_txn[s0 * Wp + w];
       g = (g < 0 || g > gmax) ? -1 : s * G2 + g;
     }
     wgid[j] = g;
@@ -511,7 +530,7 @@ __global__ void __launch_bounds__(kThreads, 1) commit_fixpoint_stacked_kernel(
   for (int i = tid; i < rows_per_cta; i += nthr) {
     int tx = -1;
     if (g0 + i < g1) {
-      const int g = g0 + i, s = g / RA, l = g - s * RA;
+      const int g = g0 + i, s = s0 + g / RA, l = g % RA;
       tx = read_row_txn(l, Rp, T, rp_txn + static_cast<size_t>(s) * Rp,
                         rp_valid + static_cast<size_t>(s) * Rp,
                         r_txn + static_cast<size_t>(s) * Rr, r_valid + static_cast<size_t>(s) * Rr);
@@ -528,7 +547,7 @@ __global__ void __launch_bounds__(kThreads, 1) commit_fixpoint_stacked_kernel(
       const int i = i0 + lane;
       int tx = -1, slot = 0;
       if (i < nr) {
-        const int g = g0 + i, s = g / RA, l = g - s * RA;
+        const int g = g0 + i, s = s0 + g / RA, l = g % RA;
         if (l < Rp && rtx[i] >= 0) {
           tx = rtx[i];
           slot = s * G2 + min(max(gid_rp[static_cast<size_t>(s) * Rp + l], 0), gmax);
@@ -541,28 +560,35 @@ __global__ void __launch_bounds__(kThreads, 1) commit_fixpoint_stacked_kernel(
     }
   }
   // Edge words, sub-shard by sub-shard of the slice: ovw of every row,
-  // then ovrp of the range rows, each word naming its sub-shard's mask.
+  // then ovrp of the range rows, each word naming its local sub-shard's
+  // mask words.
   if (g0 < g1) {
-    for (int s = g0 / RA; s <= (g1 - 1) / RA; ++s) {
-      const int a = max(g0, s * RA), b = min(g1, (s + 1) * RA);
-      compact_words(ovw + (static_cast<size_t>(s) * RA + (a - s * RA)) * WRW, b - a, WRW,
-                    rtx + (a - g0), s * MW, entries, &counts[0], warp, nwarps, lane);
-      const int q = max(a, s * RA + Rp);
+    for (int l = g0 / RA; l <= (g1 - 1) / RA; ++l) {
+      const int s = s0 + l;
+      const int a = max(g0, l * RA), b = min(g1, (l + 1) * RA);
+      compact_words(ovw + (static_cast<size_t>(s) * RA + (a - l * RA)) * WRW, b - a, WRW,
+                    rtx + (a - g0), l * MW, entries, &counts[0], warp, nwarps, lane);
+      const int q = max(a, l * RA + Rp);
       if (q < b)
-        compact_words(ovrp + (static_cast<size_t>(s) * Rr + (q - s * RA - Rp)) * WPW, b - q,
-                      WPW, rtx + (q - g0), s * MW + WRW, entries, &counts[0], warp, nwarps,
+        compact_words(ovrp + (static_cast<size_t>(s) * Rr + (q - l * RA - Rp)) * WPW, b - q,
+                      WPW, rtx + (q - g0), l * MW + WRW, entries, &counts[0], warp, nwarps,
                       lane);
     }
   }
+  // The cross-cluster bitmaps start at zero: one CTA clears them, and the
+  // grid barrier orders that before any cluster's first OR.
+  if (K > 1 && cta == 0)
+    for (int i = tid; i < 3 * TW; i += nthr) gx[i] = 0u;
   cluster.sync();
+  if (K > 1) cg::this_grid().sync();
   const int n_entries = counts[0];
   const int n_points = counts[1];
 
   int rounds = 0;
   for (;;) {
     ++rounds;
-    // (a) writer masks from c; zero the local bitmap
-    for (int w = tid; w < 32 * SMW; w += nthr) {
+    // (a) the cluster's writer masks from c; zero the local bitmap
+    for (int w = tid; w < 32 * ns * MW; w += nthr) {
       const int t = wtx_in_smem ? wtx[w] : __ldcg(&wtx[w]);
       const uint32_t word = __ballot_sync(0xffffffffu, t >= 0 && ((c[t >> 5] >> (t & 31)) & 1u));
       if (lane == 0) masks[w >> 5] = word;
@@ -570,11 +596,12 @@ __global__ void __launch_bounds__(kThreads, 1) commit_fixpoint_stacked_kernel(
     for (int i = tid; i < TW; i += nthr) blocked[i] = 0u;
     __syncthreads();
 
-    // (b) per-gid minimum txn of the committed point writers
+    // (b) per-gid minimum txn of the committed point writers (the slots
+    // are the cluster's own sub-shards')
     for (int j = tid; j < w1 - w0; j += nthr) {
       if (wgid[j] < 0) continue;
-      const int w = w0 + j, s = w / Wp, q = w - s * Wp;
-      if ((masks[s * MW + WRW + (q >> 5)] >> (q & 31)) & 1u)
+      const int w = w0 + j, l = w / Wp, q = w - l * Wp;
+      if ((masks[l * MW + WRW + (q >> 5)] >> (q & 31)) & 1u)
         atomicMin(&mn[wgid[j]], gid_key(rounds, wraw[j]));
     }
     cluster.sync();
@@ -600,20 +627,45 @@ __global__ void __launch_bounds__(kThreads, 1) commit_fixpoint_stacked_kernel(
       if (blocked[i]) atomicOr(&lead_now[i], blocked[i]);
     cluster.sync();
 
-    // (d) c' = base & ~blocked; stop at the fixpoint or after T+1 rounds
+    // (x) across clusters: each leader ORs its cluster's nonzero words into
+    // the round's global bitmap (three, by round mod 3: the one of round
+    // r + 1 is cleared in round r, after every CTA passed round r - 1's
+    // grid barrier, which follows its last read of that bitmap in round
+    // r - 2, and before round r's grid barrier, which precedes any OR of
+    // round r + 1 — two would need a second grid barrier a round); then
+    // one grid barrier, and every CTA reads the same words
+    const uint32_t* src = lead_now;
+    if (K > 1) {
+      uint32_t* g_now = gx + (rounds % 3) * TW;
+      if (rank == 0)
+        for (int i = tid; i < TW; i += nthr) {
+          const uint32_t v = lead[(rounds & 1) * TW + i];
+          if (v) atomicOr(&g_now[i], v);
+        }
+      if (cta == 0)
+        for (int i = tid; i < TW; i += nthr) gx[((rounds + 1) % 3) * TW + i] = 0u;
+      cg::this_grid().sync();
+      src = g_now;
+    }
+
+    // (d) c' = base & ~blocked; stop at the fixpoint or after T+1 rounds.
+    // Every CTA of the grid reads the same words, so all take the same
+    // decision without a further barrier.
     int changed = 0;
     for (int i = tid; i < TW; i += nthr) {
-      const uint32_t nw = base[i] & ~lead_now[i];
+      const uint32_t nw = base[i] & ~(K > 1 ? __ldcg(&src[i]) : src[i]);
       changed |= (nw != c[i]);
       c[i] = nw;
     }
     if (!__syncthreads_or(changed) || rounds > T) break;
   }
 
-  if (rank == 0) {
+  if (cta == 0) {
     for (int t = tid; t < T; t += nthr) committed[t] = (c[t >> 5] >> (t & 31)) & 1u;
     if (tid == 0) rounds_out[0] = rounds;
   }
+  // No CTA leaves while another of its cluster may still read the leader's
+  // shared memory.
   cluster.sync();
 }
 
@@ -621,13 +673,17 @@ __global__ void __launch_bounds__(kThreads, 1) commit_fixpoint_stacked_kernel(
 
 namespace {
 
-// The launch of one cluster of `nc` CTAs with `smem_bytes` of dynamic shared
-// memory each: sets the kernel's attributes (a cluster above the portable 8
-// CTAs must be allowed first, or the launch is refused) and fills `config`.
+// The launch of `clusters` clusters of `nc` CTAs with `smem_bytes` of
+// dynamic shared memory each: sets the kernel's attributes (a cluster above
+// the portable 8 CTAs must be allowed first, or the launch is refused) and
+// fills `config`. Several clusters launch cooperatively: the grid barrier
+// between them needs every CTA resident at once, which a cooperative launch
+// guarantees or refuses (cudaErrorCooperativeLaunchTooLarge) — it never
+// hangs.
 template <class Kernel>
-cudaError_t cluster_config(Kernel kernel, int nc, int smem_bytes, void* stream,
+cudaError_t cluster_config(Kernel kernel, int clusters, int nc, int smem_bytes, void* stream,
                            cudaLaunchConfig_t* config, cudaLaunchAttribute* attr) {
-  if (smem_bytes > kMaxSmem || nc < 1 || nc > 16) return cudaErrorInvalidValue;
+  if (smem_bytes > kMaxSmem || nc < 1 || nc > 16 || clusters < 1) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem_bytes);
   if (e != cudaSuccess) return e;
@@ -636,16 +692,21 @@ cudaError_t cluster_config(Kernel kernel, int nc, int smem_bytes, void* stream,
     if (e != cudaSuccess) return e;
   }
   *config = {};
-  config->gridDim = dim3(nc, 1, 1);
+  config->gridDim = dim3(clusters * nc, 1, 1);
   config->blockDim = dim3(kThreads, 1, 1);
   config->dynamicSmemBytes = static_cast<size_t>(smem_bytes);
   config->stream = static_cast<cudaStream_t>(stream);
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = nc;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nc;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
   config->attrs = attr;
   config->numAttrs = 1;
+  if (clusters > 1) {
+    attr[1].id = cudaLaunchAttributeCooperative;
+    attr[1].val.cooperative = 1;
+    config->numAttrs = 2;
+  }
   return cudaSuccess;
 }
 
@@ -658,18 +719,20 @@ cudaError_t cluster_config(Kernel kernel, int nc, int smem_bytes, void* stream,
 // not have. Returns the cudaError_t of the query.
 extern "C" int fdb_fixpoint_active_clusters(int nc, int smem_bytes, int* out) {
   cudaLaunchConfig_t config;
-  cudaLaunchAttribute attr[1];
-  cudaError_t e = cluster_config(commit_fixpoint_kernel, nc, smem_bytes, nullptr, &config, attr);
+  cudaLaunchAttribute attr[2];
+  cudaError_t e =
+      cluster_config(commit_fixpoint_kernel, 1, nc, smem_bytes, nullptr, &config, attr);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaOccupancyMaxActiveClusters(out, commit_fixpoint_kernel, &config));
 }
 
-// The same question for the stacked entry.
+// The same question for the stacked entry: the most clusters one
+// cooperative launch of it may hold.
 extern "C" int fdb_fixpoint_stacked_active_clusters(int nc, int smem_bytes, int* out) {
   cudaLaunchConfig_t config;
-  cudaLaunchAttribute attr[1];
+  cudaLaunchAttribute attr[2];
   cudaError_t e =
-      cluster_config(commit_fixpoint_stacked_kernel, nc, smem_bytes, nullptr, &config, attr);
+      cluster_config(commit_fixpoint_stacked_kernel, 1, nc, smem_bytes, nullptr, &config, attr);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(
       cudaOccupancyMaxActiveClusters(out, commit_fixpoint_stacked_kernel, &config));
@@ -694,8 +757,9 @@ extern "C" int fdb_commit_fixpoint(
     int nc, int rows_per_cta, int point_cap, int entry_cap, int point_spill_cap,
     int entry_spill_cap, int smem_bytes, void* stream) {
   cudaLaunchConfig_t config;
-  cudaLaunchAttribute attr[1];
-  cudaError_t e = cluster_config(commit_fixpoint_kernel, nc, smem_bytes, stream, &config, attr);
+  cudaLaunchAttribute attr[2];
+  cudaError_t e =
+      cluster_config(commit_fixpoint_kernel, 1, nc, smem_bytes, stream, &config, attr);
   if (e != cudaSuccess) return static_cast<int>(e);
   e = cudaLaunchKernelEx(
       &config, commit_fixpoint_kernel,
@@ -717,8 +781,10 @@ extern "C" int fdb_commit_fixpoint(
 }
 
 // The stacked entry's plain C entry point: as fdb_commit_fixpoint, with the
-// sub-shard count S, the global wtx scratch and whether wtx lives in shared
-// memory (the launch plan's choice, fixpoint_cuda.launch_plan_stacked).
+// sub-shard count S, `clusters` clusters of `nc` CTAs each owning `spc`
+// sub-shards, the global wtx scratch and whether wtx lives in shared memory,
+// and the cross-cluster bitmap scratch gx ([3][T/32] words) — the launch
+// plan's choices (fixpoint_cuda.launch_plan_stacked).
 extern "C" int fdb_commit_fixpoint_stacked(
     const void* t_ok, const void* hist,
     const void* rp_txn, const void* rp_valid, const void* gid_rp,
@@ -726,14 +792,17 @@ extern "C" int fdb_commit_fixpoint_stacked(
     const void* wp_txn, const void* wp_valid, const void* gid_wp,
     const void* w_txn, const void* w_valid,
     const void* ovw, const void* ovrp,
-    void* mn, void* wtx, void* entry_spill, void* point_spill, void* committed, void* rounds,
+    void* mn, void* wtx, void* gx, void* entry_spill, void* point_spill, void* committed,
+    void* rounds,
     int S, int T, int Rp, int Rr, int Wp, int Wr, int WRW, int WPW, int G,
-    int nc, int rows_per_cta, int point_cap, int entry_cap, int point_spill_cap,
-    int entry_spill_cap, int wtx_in_smem, int smem_bytes, void* stream) {
+    int clusters, int nc, int spc, int rows_per_cta, int writers_per_cta, int point_cap,
+    int entry_cap, int point_spill_cap, int entry_spill_cap, int wtx_in_smem, int smem_bytes,
+    void* stream) {
+  if (spc < 1 || clusters != (S + spc - 1) / spc) return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t config;
-  cudaLaunchAttribute attr[1];
-  cudaError_t e =
-      cluster_config(commit_fixpoint_stacked_kernel, nc, smem_bytes, stream, &config, attr);
+  cudaLaunchAttribute attr[2];
+  cudaError_t e = cluster_config(commit_fixpoint_stacked_kernel, clusters, nc, smem_bytes, stream,
+                                 &config, attr);
   if (e != cudaSuccess) return static_cast<int>(e);
   e = cudaLaunchKernelEx(
       &config, commit_fixpoint_stacked_kernel,
@@ -745,11 +814,12 @@ extern "C" int fdb_commit_fixpoint_stacked(
       static_cast<const int32_t*>(gid_wp),
       static_cast<const int32_t*>(w_txn), static_cast<const bool*>(w_valid),
       static_cast<const uint32_t*>(ovw), static_cast<const uint32_t*>(ovrp),
-      static_cast<unsigned long long*>(mn), static_cast<int*>(wtx),
+      static_cast<unsigned long long*>(mn), static_cast<int*>(wtx), static_cast<uint32_t*>(gx),
       static_cast<Entry*>(entry_spill), static_cast<PointRow*>(point_spill),
       static_cast<bool*>(committed), static_cast<int32_t*>(rounds),
-      S, T, Rp, Rr, Wp, Wr, WRW, WPW, G,
-      rows_per_cta, point_cap, entry_cap, point_spill_cap, entry_spill_cap, wtx_in_smem);
+      S, T, Rp, Rr, Wp, Wr, WRW, WPW, G, spc,
+      rows_per_cta, writers_per_cta, point_cap, entry_cap, point_spill_cap, entry_spill_cap,
+      wtx_in_smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -59,6 +59,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import gc
 import threading
 import time
 from collections import deque
@@ -1849,13 +1850,22 @@ class _CardEngine(RoutedConflictEngineBase):
         resets the process's peak counter (torch.cuda.max_memory_allocated)
         at every build, and the allocator cannot restore it: a caller that
         reads that counter over a window holding a build (a warmup, or a
-        steady-state build) gets the peak since the build began."""
+        steady-state build) gets the peak since the build began. The
+        cyclic garbage collector stays off for the build: a collection
+        inside it frees unrelated tensors (an earlier engine's garbage),
+        and the build's own allocations then never rise above `before`."""
         if self.device.type != "cuda":
             return build(), None
-        before = torch.cuda.memory_allocated(self.device)
-        torch.cuda.reset_peak_memory_stats(self.device)
-        prog = build()
-        return prog, torch.cuda.max_memory_allocated(self.device) - before
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            before = torch.cuda.memory_allocated(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+            prog = build()
+            return prog, torch.cuda.max_memory_allocated(self.device) - before
+        finally:
+            if collecting:
+                gc.enable()
 
     def _dispatch_unit(self, bucket: KernelConfig, per_chunks: List[List[Dict[str, np.ndarray]]],
                        packs: Optional[List[Optional[PackSet]]] = None, sample=None):

@@ -241,13 +241,15 @@ class ResolverPipeline:
                  host pack of batch i+1 runs on it while the main thread
                  returns from submit() and the card runs batch i.
     `batcher`  — optional BudgetBatcher fed each forced batch's wall time.
+    `transport_degraded_fn` — optional transport-health probe; while it
+                 reports True the pipeline collapses to depth 1.
     `conflict_sched` — optional ConflictScheduler (pipeline/scheduler.py)
                  trained on each forced batch's verdicts.
     """
 
     def __init__(self, engine, depth: int = 2, executor=None,
                  batcher: Optional[BudgetBatcher] = None,
-                 conflict_sched=None):
+                 transport_degraded_fn=None, conflict_sched=None):
         if depth < 1:
             raise ValueError(f"pipeline depth must be >= 1, got {depth}")
         self.engine = engine
@@ -257,6 +259,12 @@ class ResolverPipeline:
         #: resolution point, so its feedback keeps the admission-side doom
         #: model current whichever layer did the scheduling
         self.conflict_sched = conflict_sched
+        #: optional transport-health probe (RealNetwork.transport_degraded):
+        #: while it reports True the pipeline collapses to depth 1, exactly
+        #: as it does for a degraded ResilientEngine — keeping batches in
+        #: flight across a flapping link only multiplies the replay/requeue
+        #: work when it resets
+        self._transport_degraded_fn = transport_degraded_fn
         self._executor = executor
         #: batches in submission order, any mix of states; DONE batches are
         #: popped from the left as the window advances
@@ -275,10 +283,25 @@ class ResolverPipeline:
             # so enabling the loop never poisons the step path's estimates
             batcher.set_dispatch_mode(getattr(engine, "dispatch_mode", "step"))
 
+    @property
+    def degraded(self) -> bool:
+        """Engine-degraded OR transport-degraded: either collapses depth."""
+        if getattr(self.engine, "degraded", False):
+            return True
+        fn = self._transport_degraded_fn
+        return bool(fn()) if fn is not None else False
+
+    @property
+    def effective_depth(self) -> int:
+        """`depth` while healthy; 1 while the engine or the transport is
+        degraded (mirrors pipeline/service.py's engine-side collapse)."""
+        return 1 if self.degraded else self.depth
+
     def suggested_batch_txns(self) -> Optional[int]:
         if self.batcher is None:
             return None
-        return self.batcher.target_batch_txns(self.depth)
+        return self.batcher.target_batch_txns(
+            self.effective_depth, degraded=self.degraded)
 
     @property
     def in_flight(self) -> int:
@@ -293,8 +316,9 @@ class ResolverPipeline:
         #    base/oldest bookkeeping, which the earlier dispatch advances.
         self._dispatch_pending()
         # 2. Window backpressure: force the oldest beyond depth-1 so this
-        #    batch's dispatch keeps at most `depth` unforced.
-        while self.in_flight >= self.depth:
+        #    batch's dispatch keeps at most `effective_depth` unforced
+        #    (1 while the engine or transport is degraded).
+        while self.in_flight >= self.effective_depth:
             self._force_oldest()
         pb = PendingResolve(self, now, len(transactions))
         txns = list(transactions)

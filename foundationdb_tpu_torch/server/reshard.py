@@ -869,6 +869,20 @@ class ReshardController:
                         g.slots[sid].engine)
                 op.precopied += await handoff.replay_slice(
                     recipient.engine, sorted(delta))
+            # CATCH-UP (the port's; the reference freezes here): wait out
+            # the batch in flight, then replay what the rounds left while
+            # the donors still serve. The frozen transfer then holds only
+            # what lands during this replay: on a loaded host each residual
+            # batch is one eager resolve (~15-60 ms on a CPU), and the
+            # rounds leave up to PRECOPY_DELTA_TARGET of them
+            await g.quiesce()
+            delta = self._slice_all(moving, marks, run_marks)
+            if delta:
+                for sid, _b, _e in moving:
+                    marks[sid] = handoff.last_shadow_version(
+                        g.slots[sid].engine)
+                op.precopied += await handoff.replay_slice(
+                    recipient.engine, sorted(delta))
             if spans_on:
                 span_event("reshard.precopy", rid, ts0, span_now(),
                            Proc="reshard", batches=op.precopied)

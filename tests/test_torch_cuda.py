@@ -27,6 +27,7 @@ All quantities are integers: every comparison is exact.
 import ctypes
 import dataclasses
 import random
+import re
 
 import numpy as np
 import pytest
@@ -1307,7 +1308,7 @@ def stacked_vs_plain(card, cfg, S, seed, n=4):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("S", [1, 2, 8])
+@pytest.mark.parametrize("S", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("cfg", CONFIGS + (RAGGED,), ids=["small", "medium", "ragged"])
 def test_stacked_kernel_matches_plain(card, cfg, S):
     """The stacked entry equals its plain version element for element, in
@@ -1319,14 +1320,19 @@ def test_stacked_kernel_matches_plain(card, cfg, S):
 
 
 @pytest.mark.cuda
-def test_stacked_kernel_deep_chain_in_one_sub_shard(card):
-    """A deep chain in the last of 4 sub-shards, the others empty: one round
-    per link, as the plain version runs."""
+@pytest.mark.parametrize("at", [3, 1])
+def test_stacked_kernel_deep_chain_in_one_sub_shard(card, at):
+    """A deep chain in sub-shard `at` of 4, the others empty: one round per
+    link, as the plain version runs, with the chain in a sub-shard that a
+    cluster other than the first owns, so every round's blocked words
+    cross to the other clusters through the global bitmap."""
     cfg, S, n = WIDE, 4, WIDE.max_txns
     chain = chain_rows(ck.build_batch_arrays, cfg, n)
     empty = chain_rows(ck.build_batch_arrays, cfg, 0)
     empty["t_ok"], empty["t_too_old"] = chain["t_ok"], chain["t_too_old"]
-    batch = ck._stack([ck.batch_from_numpy(cfg, b, "cpu") for b in [empty] * (S - 1) + [chain]])
+    per = [empty] * S
+    per[at] = chain
+    batch = ck._stack([ck.batch_from_numpy(cfg, b, "cpu") for b in per])
     state = ck._stack([ck.initial_state(cfg) for _ in range(S)])
     hist, edges, _ = ck.detect_step_stacked(cfg, state, batch)
     want = fc.commit_fixpoint_stacked(cfg, batch["t_ok"][0], hist, edges, batch)
@@ -1336,15 +1342,22 @@ def test_stacked_kernel_deep_chain_in_one_sub_shard(card):
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want) and int(fc.FIXPOINT_STACKED.last_rounds.item()) == n
     assert torch.equal(want[:n], torch.arange(n) % 2 == 0)
+    plan = fc.FIXPOINT_STACKED.last_plan
+    owner = next(k for k, (s0, s1) in enumerate(plan["cluster_sub_shards"]) if s0 <= at < s1)
+    assert plan["clusters"] > 1 and owner > 0, plan["cluster_sub_shards"]
 
 
 @pytest.mark.cuda
 def test_stacked_kernel_refuses_what_it_cannot_hold(card):
+    """An odd T, a wrong dtype, and a shape whose sub-shards the card
+    cannot hold one cluster each: grouped onto the clusters a card holds,
+    a CTA cannot hold 4 of them (one cluster per sub-shard holds it)."""
     cfg = CONFIGS[0]
     assert fc.supported(cfg, 8) and not fc.supported(dataclasses.replace(cfg, max_txns=33), 2)
+    huge = ck.KernelConfig(max_txns=1 << 16, max_point_reads=1 << 16, max_point_writes=1 << 16)
+    assert fc.launch_plan_stacked(huge, 64)["clusters"] == 64
     with pytest.raises(ValueError, match="stacked"):
-        fc.launch_plan_stacked(ck.KernelConfig(max_txns=1 << 16, max_point_reads=1 << 16,
-                                               max_point_writes=1 << 16), 64)
+        fc.launch_plan_stacked(huge, 64, 16)
     batch = ck._stack([ck.batch_from_numpy(cfg, synth_batch(random.Random(1), cfg, 9), card)
                        for _ in range(2)])
     hist, edges, _ = ck.detect_step_stacked(
@@ -1352,6 +1365,33 @@ def test_stacked_kernel_refuses_what_it_cannot_hold(card):
     with pytest.raises(ValueError, match="hist"):
         fc.commit_fixpoint_stacked_kernel(cfg, batch["t_ok"][0], hist.to(torch.int64), edges,
                                           batch)
+
+
+@pytest.mark.cuda
+def test_stacked_kernel_refuses_a_grid_the_card_cannot_hold(card, monkeypatch):
+    """Given a plan of one 16-CTA cluster per sub-shard at S = 16 (256 CTAs
+    on a card of 132 SMs), the stacked entry raises a ValueError that
+    names the card and the shape: it neither launches, hangs nor falls
+    back."""
+    cfg, S = CONFIGS[0], 16
+    per = [synth_batch(random.Random(s), cfg, 9) for s in range(S)]
+    for b in per[1:]:
+        b["t_ok"], b["t_too_old"] = per[0]["t_ok"], per[0]["t_too_old"]
+    batch = ck._stack([ck.batch_from_numpy(cfg, b, card) for b in per])
+    hist, edges, _ = ck.detect_step_stacked(
+        cfg, ck._stack([ck.initial_state(cfg, device=card) for _ in range(S)]), batch)
+    fc.FIXPOINT_STACKED.reset_counts()
+    with monkeypatch.context() as m:
+        m.setattr(fc, "choose_plan_stacked",
+                  lambda cfg, S, active, name: fc.launch_plan_stacked(cfg, S, None, 16))
+        with pytest.raises(ValueError, match=re.escape(torch.cuda.get_device_name(card))):
+            fc.commit_fixpoint_stacked_kernel(cfg, batch["t_ok"][0], hist, edges, batch)
+    assert fc.FIXPOINT_STACKED.launches == 0 and fc.FIXPOINT_STACKED.plain_cuda_calls == 0
+    # the chosen plan holds every sub-shard in clusters the card holds
+    got = fc.commit_fixpoint_stacked_kernel(cfg, batch["t_ok"][0], hist, edges, batch)
+    want = fc.commit_fixpoint_stacked_plain(cfg, batch["t_ok"][0], hist, edges, batch)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and fc.FIXPOINT_STACKED.launches == 1
 
 
 @pytest.mark.cuda

@@ -166,6 +166,138 @@ def test_launch_plan_raises_past_a_ctas_shared_memory():
     assert not fc.supported(huge_t)
 
 
+ENGINE = tck.KernelConfig()
+
+
+@pytest.mark.parametrize("given", [None, 16, 7, 1], ids=["K=S", "K<=16", "K<=7", "K=1"])
+@pytest.mark.parametrize("S", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("cfg", [ENGINE, BENCH], ids=["engine", "bench"])
+def test_launch_plan_stacked(cfg, S, given):
+    """The stacked entry's plan for a card that holds `given` clusters at
+    once (None: S): K clusters, never more than given, each owning whole
+    sub-shards; every read row and point writer of every sub-shard falls
+    in exactly one CTA of exactly one cluster, the cluster that owns its
+    sub-shard; slices start on whole 32-row steps of the cluster's rows;
+    shared memory within a CTA's 227 KB; lists that hold the worst case
+    between shared memory and the per-CTA global spill. One cluster over
+    32 sub-shards of the bench shape needs more than a CTA's shared memory
+    (the one-cluster plan refused it too) and raises."""
+    if (cfg, S, given) == (BENCH, 32, 1):
+        with pytest.raises(ValueError, match="stacked"):
+            fc.launch_plan_stacked(cfg, S, given)
+        return
+    plan = fc.launch_plan_stacked(cfg, S, given)
+    K, nc, spc = plan["clusters"], plan["cluster"], plan["sub_shards_per_cluster"]
+    RA, Wp = cfg.r_all, cfg.wp
+    assert K <= (S if given is None else min(S, given)) and K == -(-S // spc)
+    if given is None or given >= S:
+        assert (K, spc) == (S, 1)
+    assert plan["ctas"] == K * nc == len(plan["slices"]) == len(plan["writer_slices"])
+    owners = plan["cluster_sub_shards"]
+    assert [s for s0, s1 in owners for s in range(s0, s1)] == list(range(S))
+    assert all(0 < s1 - s0 <= spc for s0, s1 in owners)
+    rows = np.zeros(S * RA, np.int64)
+    writers = np.zeros(S * Wp, np.int64)
+    for i, ((g0, g1), (w0, w1)) in enumerate(zip(plan["slices"], plan["writer_slices"])):
+        s0, s1 = owners[i // nc]
+        assert s0 * RA <= g0 <= g1 <= s1 * RA and s0 * Wp <= w0 <= w1 <= s1 * Wp
+        assert (g0 - s0 * RA) % 32 == 0 and g1 - g0 <= plan["rows_per_cta"]
+        assert w1 - w0 <= plan["writers_per_cta"]
+        rows[g0:g1] += 1
+        writers[w0:w1] += 1
+        points = sum(max(0, min(g1, s * RA + cfg.rp) - max(g0, s * RA)) for s in range(s0, s1))
+        ranges = sum(max(0, min(g1, (s + 1) * RA) - max(g0, s * RA + cfg.rp))
+                     for s in range(s0, s1))
+        assert plan["point_cap"] + plan["point_spill_cap"] >= points
+        assert plan["entry_cap"] + plan["entry_spill_cap"] >= (g1 - g0) * cfg.wr_words \
+            + ranges * cfg.wp_words
+    assert (rows == 1).all() and (writers == 1).all()
+    assert plan["rows_per_cta"] % 32 == 0
+    assert plan["smem_bytes"] <= fc.SMEM_LIMIT == 232448
+    assert plan["entry_scratch_bytes"] == K * nc * plan["entry_spill_cap"] * fc.ENTRY_BYTES
+    assert plan["point_scratch_bytes"] == K * nc * plan["point_spill_cap"] * fc.POINT_BYTES
+    assert plan["gx_bytes"] == (12 * cfg.max_txns // 32 if K > 1 else 0)
+    assert plan["gid_table_bytes"] == 8 * S * (cfg.gid_space + 2)
+    assert plan["wtx_bytes"] == (0 if plan["wtx_in_smem"] else 4 * 32 * S * (cfg.wr_words
+                                                                             + cfg.wp_words))
+    assert fc.supported(cfg, S)
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("cfg", [ENGINE, BENCH], ids=["engine", "bench"])
+def test_stacked_plan_keeps_writer_txns_in_shared_memory(cfg, S):
+    """At one cluster per sub-shard a CTA holds one sub-shard's writer
+    txn table: in shared memory wherever the one-cluster plan (K = 1, 16
+    CTAs over every sub-shard) held it, and at S = 8 too, where that plan
+    spilled it to global memory, and at 32 sub-shards of the bench shape,
+    which that plan could not hold at all."""
+    per = fc.launch_plan_stacked(cfg, S)
+    assert per["wtx_in_smem"] and per["sub_shards_per_cluster"] == 1
+    if (cfg, S) == (BENCH, 32):
+        with pytest.raises(ValueError, match="stacked"):
+            fc.launch_plan_stacked(cfg, S, 1, 16)
+        return
+    one = fc.launch_plan_stacked(cfg, S, 1, 16)
+    assert one["clusters"] == 1 and one["sub_shards_per_cluster"] == S
+    if S == 8 and cfg is ENGINE:
+        assert not one["wtx_in_smem"]
+
+
+#: clusters of each size an H100 holds at once (the stacked entry at 1024
+#: threads, cudaOccupancyMaxActiveClusters on an H100 80GB HBM3)
+H100_ACTIVE = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15, 9: 9, 10: 7, 11: 7,
+               12: 7, 13: 7, 14: 7, 15: 7, 16: 7}
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("cfg", [ENGINE, BENCH], ids=["engine", "bench"])
+def test_choose_plan_stacked(cfg, S):
+    """The cluster size the stacked entry takes on a card: never more
+    clusters than the card holds of that size; one cluster per sub-shard
+    at the largest size that allows it, else the most CTAs per sub-shard
+    in the busiest cluster, a tie going to the most CTAs in all; on an
+    H100 one 16-CTA cluster per sub-shard up to S = 4, one of 9 at S = 8,
+    of 6 at S = 16, of 3 at S = 32."""
+    plan = fc.choose_plan_stacked(cfg, S, H100_ACTIVE)
+    assert plan["clusters"] <= H100_ACTIVE[plan["cluster"]]
+    assert plan["clusters"] == S and plan["sub_shards_per_cluster"] == 1
+
+    def score(p):
+        spc = p["sub_shards_per_cluster"]
+        return spc == 1, p["cluster"] / spc, p["ctas"]
+
+    for nc, n in H100_ACTIVE.items():
+        assert score(plan) >= score(fc.launch_plan_stacked(cfg, S, n, nc))
+    want = {1: (16, 1), 2: (16, 2), 4: (16, 4), 8: (9, 8), 16: (6, 16), 32: (3, 32)}[S]
+    assert (plan["cluster"], plan["clusters"]) == want
+    assert plan == fc.choose_plan_stacked(cfg, S, {**H100_ACTIVE, 2: 0})
+    # a card that holds fewer clusters: the most CTAs per sub-shard
+    few = fc.choose_plan_stacked(cfg, S, {16: 7, 8: 3})
+    assert (few["cluster"], few["clusters"]) == {1: (16, 1), 2: (16, 2), 4: (16, 4), 8: (16, 4),
+                                                 16: (16, 6), 32: (16, 7)}[S]
+
+
+def test_choose_plan_stacked_refuses_a_card_without_room():
+    with pytest.raises(ValueError, match="the test card cannot hold"):
+        fc.choose_plan_stacked(ENGINE, 4, {16: 0, 8: 0}, "the test card")
+    huge = tck.KernelConfig(max_txns=1 << 16, max_point_reads=1 << 16, max_point_writes=1 << 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        fc.choose_plan_stacked(huge, 64, H100_ACTIVE)
+
+
+def test_launch_plan_stacked_refuses_no_cluster_and_groups_past_the_card():
+    with pytest.raises(ValueError, match="cluster"):
+        fc.launch_plan_stacked(ENGINE, 4, 0)
+    with pytest.raises(ValueError, match="cluster"):
+        fc.launch_plan_stacked(ENGINE, 4, None, 17)
+    huge = tck.KernelConfig(max_txns=1 << 16, max_point_reads=1 << 16, max_point_writes=1 << 16)
+    # one cluster per sub-shard holds 64 sub-shards of this shape; grouped
+    # onto a card of 16 co-resident clusters, a CTA cannot hold 4 of them
+    assert fc.launch_plan_stacked(huge, 64)["clusters"] == 64
+    with pytest.raises(ValueError, match="stacked"):
+        fc.launch_plan_stacked(huge, 64, 16)
+
+
 def jax_and_port(arrays):
     """(JAX batch, port batch, JAX phases, port phases) on an empty table."""
     jb = {k: jnp.asarray(v) for k, v in arrays.items()}

@@ -126,6 +126,7 @@ def test_subprocess_import_loads_no_jax():
     "foundationdb_tpu_torch.tools.bench_smoke",
     "foundationdb_tpu_torch.tools.bench_history",
     "foundationdb_tpu_torch.tools.readme_perf",
+    "foundationdb_tpu_torch.tools.stacked_fixpoint_bench",
     "foundationdb_tpu_torch.tools.buggify_coverage",
     "foundationdb_tpu_torch.tools.fdbbackup",
     "foundationdb_tpu_torch.tools.cli",

@@ -722,19 +722,22 @@ def split_under_load(P, concurrent=1, seed=2026):
 
 
 def test_split_under_load_over_tiered_engines_keeps_the_run_delta():
-    """The pre-copy round that finds the delta small leaves it to the frozen
-    transfer. The port keeps that round's run watermark, so the transfer
-    replays the batch served during the pre-copy and every verdict equals
-    the serial oracle's. The reference advances the watermark on that
-    round, replays nothing in the transfer, and its recipient misses a
-    committed write of the moving range: a verdict after the flip differs
-    from the serial oracle's (a standing note on the reference)."""
+    """The pre-copy round that finds the delta small leaves it to a later
+    replay. The port keeps that round's run watermark, so its catch-up
+    round (before the freeze) replays the batch served during the pre-copy,
+    the frozen transfer finds nothing left, and every verdict equals the
+    serial oracle's. The reference advances the watermark on that round,
+    replays nothing in the transfer, and its recipient misses a committed
+    write of the moving range: a verdict after the flip differs from the
+    serial oracle's (a standing note on the reference)."""
     bad, state, precopied, delta, slices = split_under_load(PORT)
-    assert bad == [] and state == "done" and precopied > 0 and delta == 1
+    assert bad == [] and state == "done" and precopied > 0 and delta == 0
     assert slices and all(s is not None and not s[0] for s in slices)
     clean_world()
-    jbad, jstate, _, jdelta, _ = split_under_load(JAX)
+    jbad, jstate, jprecopied, jdelta, _ = split_under_load(JAX)
     assert jstate == "done" and jdelta == 0 and jbad, "the reference lost no delta here"
+    # the one batch the reference loses is the one the port's catch-up replays
+    assert precopied == jprecopied + 1
 
 
 # -- a difference by design: the batch in flight lands before the freeze -----
@@ -790,14 +793,35 @@ def test_batch_in_flight_lands_before_the_freeze_and_the_verdicts_equal_jax():
     (server/reshard.py, `await g.quiesce()` ahead of `g.freeze`); the
     reference freezes first and waits for it inside the blackout. With
     every batch taking 30 virtual ms, both packages give the serial
-    oracle's verdicts, the same verdicts, the same frozen delta, and the
-    port's blackout leaves the in-flight wait out."""
+    oracle's verdicts, the same verdicts, the same batches replayed in
+    all, and the port's blackout leaves the in-flight wait out. The batch
+    that lands in that wait is replayed by the port's catch-up round before
+    the freeze, and by the reference's frozen transfer."""
     pgot, pbad, pop = split_with_slow_batches(PORT)
     clean_world()
     jgot, jbad, jop = split_with_slow_batches(JAX)
     assert pbad == [] and jbad == [] and pgot == jgot
     assert pop.state == jop.state == "done"
-    assert (pop.delta, pop.precopied) == (jop.delta, jop.precopied)
+    assert pop.precopied + pop.delta == jop.precopied + jop.delta
+    assert pop.delta == 0 < jop.delta
     # a replay takes no virtual time: the port's blackout is empty, the
     # reference's holds what was left of the batch in flight
+    assert pop.blackout_ms == 0.0 < jop.blackout_ms
+
+
+@pytest.mark.parametrize("seed,gap_s", [(47, 0.005), (48, 0.02)])
+def test_catch_up_round_leaves_the_frozen_transfer_empty_equals_jax(seed, gap_s):
+    """The port replays what the pre-copy rounds left while the donors
+    still serve (server/reshard.py's catch-up round); the reference leaves
+    it to the frozen transfer, inside the blackout. With slow batches
+    arriving `gap_s` apart, both packages give the serial oracle's
+    verdicts and replay the same batches in all; the port's frozen
+    transfer replays none of them and its blackout is empty."""
+    pgot, pbad, pop = split_with_slow_batches(PORT, gap_s=gap_s, seed=seed)
+    clean_world()
+    jgot, jbad, jop = split_with_slow_batches(JAX, gap_s=gap_s, seed=seed)
+    assert pbad == [] and jbad == [] and pgot == jgot
+    assert pop.state == jop.state == "done"
+    assert pop.precopied + pop.delta == jop.precopied + jop.delta
+    assert pop.delta == 0 < jop.delta
     assert pop.blackout_ms == 0.0 < jop.blackout_ms
