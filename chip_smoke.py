@@ -5225,6 +5225,153 @@ def cpu_subsharded_twin(cfg_fields, splits, kw, batches):
     return verdicts, eng.heat_snapshot(), eng.history_stats_snapshot()
 
 
+#: the groups sub-step's layouts: (label, shards, each shard's group)
+GROUP_LAYOUTS = (("4x1", 4, [0, 1, 2, 3]), ("2x4", 8, [0] * 4 + [1] * 4))
+#: leader fixpoint replays timed per figure
+GROUP_FIX_REPS = 20
+
+
+def leader_exchange_ms(prog, reps=GROUP_FIX_REPS):
+    """A grouped program's leader on the card: the gather's copies of the
+    last chunk's fixpoint inputs and the fixpoint graph's replay, each
+    timed with CUDA events over `reps` repetitions on the leader's stream
+    (the inputs the last unit left). Returns (gather ms, fixpoint ms)."""
+    import torch
+
+    with torch.cuda.device(prog.leader):
+        torch.cuda.synchronize()
+        prog.fix_graph.replay()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        for _ in range(reps):
+            for p in prog.parts:
+                prog._gather(prog.C - 1, p)
+        ev[1].record()
+        for _ in range(reps):
+            prog.fix_graph.replay()
+        ev[2].record()
+        torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps, ev[1].elapsed_time(ev[2]) / reps
+
+
+def groups_substep(ck, fc, card, dev, cfg, batches, oracle_ref, out):
+    """Shards in several groups on the card (parallel/exchange.py): for
+    each of GROUP_LAYOUTS a ShardedConflictEngine and a
+    MeshShardedConflictEngine (served with overlap serial, then on, over
+    an emptied table), at the bench config with one-chunk units and a
+    2-chunk scan, against the oracle and the one-group ShardedConflictEngine
+    of the same N (same programs' scan sizes): every verdict equal, every
+    dispatch without a host sync, the mesh engine 0 blocking syncs, the
+    stacked entry launched (launches under groups_* keys of `out`) and
+    never its plain version. Printed: the bytes the leader gathers per
+    batch, its gather and fixpoint ms, the mesh's measured exchange
+    interval, and txn/s of each grouped sharded engine in turns against
+    the one-group one. With more than one card the same engines run with
+    one group per card (the cards' default placement); with one card the
+    line says the card-to-card route did not run."""
+    import torch
+
+    from foundationdb_tpu_torch.core.keyshard import KeyShardMap
+    from foundationdb_tpu_torch.parallel.mesh_engine import MeshShardedConflictEngine
+    from foundationdb_tpu_torch.parallel.sharding import ShardedConflictEngine
+
+    stacked = fc.FIXPOINT_STACKED
+    kw = dict(ladder=(), scan_sizes=(2,), device_time_sample_rate=0.0)
+    res = {}
+    for label, n, groups in GROUP_LAYOUTS:
+        shards = KeyShardMap(pool_splits(n))
+        one = ShardedConflictEngine(cfg, shards, devices=[dev] * n, **kw)
+        warmed(one)
+        one_sv, one_served = serve(ck, fc, one, batches, f"one-group sharded N={n}",
+                                   [("the oracle", oracle_ref)], counter=stacked)
+        refs = [("the oracle", oracle_ref), (f"the one-group N={n} engine",
+                                            lambda b, *_: one_sv[b])]
+        G = len(set(groups))
+        row = {"one_group_txn_per_s": one_served["txn_per_s"]}
+        for family, cls in (("sharded", ShardedConflictEngine),
+                            ("mesh", MeshShardedConflictEngine)):
+            eng = cls(cfg, shards, devices=[dev] * n, groups=groups, **kw)
+            warm = warmed(eng)
+            check(eng.grouped and len(eng.groups) == G, f"groups {label}: {eng.groups}")
+            check(eng.perf.captures == 8 * G + 2,
+                  f"grouped {family} {label}: warmup captured {eng.perf.captures} graphs")
+            passes = [("", None)] if family == "sharded" else [("_serial", False),
+                                                              ("_overlapped", True)]
+            for suffix, overlap in passes:
+                name = f"{family}{suffix}"
+                if overlap is not None:
+                    eng.overlap = overlap
+                    eng.base = eng.oldest_version = 0
+                    eng.clear(0)
+                    drains0 = dict(eng.loop_stats)
+                    ex0 = (eng.mesh_stats["exchange_ms_total"], eng.mesh_stats["timed_exchanges"])
+                sv, served = serve(ck, fc, eng, batches, f"grouped {name} {label}", refs,
+                                   counter=stacked)
+                out["launches"][f"groups_{name}_{label}"] = served["launches"]
+                prog = eng._programs[(cfg.max_txns, 1)]
+                gather_b = prog.gather_nbytes() * served["launches"] / served["batches"]
+                gather_ms, fix_ms = leader_exchange_ms(prog)
+                r = {"txns": served["txns"], "launches": served["launches"],
+                     "txn_per_s": served["txn_per_s"], "warmup_s": warm["warmup_s"],
+                     "captures": eng.perf.captures, "gather_bytes_per_chunk":
+                         prog.gather_nbytes(), "gather_bytes_per_batch": gather_b,
+                     "gather_ms": gather_ms, "leader_fixpoint_ms": fix_ms}
+                if overlap is not None:
+                    blocking = eng.loop_stats["blocking_syncs"] - drains0["blocking_syncs"]
+                    check(blocking == 0, f"grouped {name} {label} made {blocking} blocking syncs")
+                    n_ex = eng.mesh_stats["timed_exchanges"] - ex0[1]
+                    check(n_ex > 0, f"grouped {name} {label} timed no exchange")
+                    r["exchange_ms_mean"] = (eng.mesh_stats["exchange_ms_total"] - ex0[0]) / n_ex
+                    r["blocking_syncs"] = blocking
+                    r["device_view_groups"] = [row_["group"] for row_ in eng.device_view()]
+                    check(r["device_view_groups"] == groups,
+                          f"grouped {name} {label}: device_view groups {r['device_view_groups']}")
+                row[name] = r
+                print(f"groups {label}, {name} [{card}]: {served['txns']} txns equal the oracle "
+                      f"and the one-group N={n} engine, 0 host syncs in a dispatch"
+                      + (f", {r['blocking_syncs']} blocking syncs" if overlap is not None else "")
+                      + f"; {served['launches']} stacked launches (0 plain); gathered "
+                      f"{gather_b:.0f} bytes a batch ({prog.gather_nbytes()} a chunk); leader "
+                      f"gather {gather_ms:.4f} ms, fixpoint {fix_ms:.4f} ms"
+                      + (f"; exchange interval {r['exchange_ms_mean']:.4f} ms"
+                         if overlap is not None else "")
+                      + f"; {served['txn_per_s']:.0f} txn/s; warmup {warm['warmup_s']:.2f} s",
+                      flush=True)
+            if family == "sharded":
+                turns = {"one": [], "grouped": []}
+                for who, e, v in (("one", one, one_sv), ("grouped", eng, sv), ("grouped", eng, sv),
+                                  ("one", one, one_sv)):
+                    turns[who].append(columnar_timing(e, batches, v)["txn_per_s"])
+                row["turns"] = turns
+                print(f"groups {label} against one group, sharded N={n} [{card}]: txn/s in turns "
+                      f"one group {' / '.join(f'{t:.0f}' for t in turns['one'])}, {G} groups "
+                      f"{' / '.join(f'{t:.0f}' for t in turns['grouped'])} "
+                      f"({max(turns['grouped']) / max(turns['one']):.3f}x)", flush=True)
+            del eng
+        del one
+        res[label] = row
+    k = torch.cuda.device_count()
+    if k > 1:
+        for family, cls in (("sharded", ShardedConflictEngine),
+                            ("mesh", MeshShardedConflictEngine)):
+            eng = cls(cfg, KeyShardMap(pool_splits(8)), **kw)
+            warmed(eng)
+            check(len({g.device for g in eng.groups}) == k, f"{family}: groups {eng.groups}")
+            sv, served = serve(ck, fc, eng, batches, f"{family} over {k} cards",
+                               [("the oracle", oracle_ref)], counter=stacked)
+            out["launches"][f"groups_{family}_cards"] = served["launches"]
+            res[f"{family}_cards"] = {"txn_per_s": served["txn_per_s"],
+                                      "launches": served["launches"], "cards": k}
+            print(f"groups over {k} cards, {family} N=8 [{card}]: {served['txns']} txns equal "
+                  f"the oracle, {served['txn_per_s']:.0f} txn/s", flush=True)
+            del eng
+    else:
+        res["cards"] = 1
+        print(f"groups [{card}]: 1 card, so the card-to-card copy route did not run (every "
+              f"group above shares the card)", flush=True)
+    return res
+
+
 def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, oracle_ref, rng):
     """The sharded resolver on the card.
 
@@ -5249,6 +5396,8 @@ def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, o
     oracle's, the mesh engines make no blocking sync and report
     mesh_stats; then a ResolverPipeline at depth 2 over the widest
     overlapped mesh engine (dispatch mode "mesh").
+
+    Groups: groups_substep (the shards in several groups on the card).
 
     Specs: CycleTestTPU8 and RandomReadWriteTPU8 at TPU8_SEED with the
     8-shard ShardedConflictEngine resolvers on the card; each recorded
@@ -5432,6 +5581,11 @@ def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, o
           f"and mesh engines)", flush=True)
     del widest, eng
     split_end("sharded", "sharded_and_mesh_engines", mark)
+
+    # -- shards in several groups ------------------------------------------------
+    mark = split_start()
+    out["groups"] = groups_substep(ck, fc, card, dev, cfg, batches, oracle_ref, out)
+    split_end("sharded", "groups", mark)
 
     # -- the TPU8 specs --------------------------------------------------------
     mark = split_start()

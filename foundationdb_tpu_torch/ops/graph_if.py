@@ -50,6 +50,7 @@ class GraphIf:
         self.nodes = 0
         self.while_nodes = 0
         self._lib = None
+        self._devices = set()
 
     def lib(self):
         if self._lib is None:
@@ -63,9 +64,17 @@ class GraphIf:
             for fn in (lib.fdb_cond_begin, lib.fdb_cond_set, lib.fdb_cond_end,
                        lib.fdb_cond_init):
                 fn.restype = ctypes.c_int
-            _check(lib.fdb_cond_init(), "loading the set-conditional kernel")
             self._lib = lib
         return self._lib
+
+    def ready(self, device: int) -> None:
+        """Load the set-conditional kernel on card `device` (outside any
+        capture: a node captured on that card launches it)."""
+        lib = self.lib()
+        if device not in self._devices:
+            with torch.cuda.device(device):
+                _check(lib.fdb_cond_init(), "loading the set-conditional kernel")
+            self._devices.add(device)
 
 
 GRAPH_IF = GraphIf()
@@ -81,9 +90,9 @@ def bodies(levels: Sequence[Tuple["torch.cuda.Stream", object]]):
     """Let if_node() / while_node() capture bodies: the body of a node at
     nesting depth d (0 = in the graph itself) on levels[d]'s stream (idle,
     not the capturing stream), allocating from its private pool
-    (torch.cuda.graph_pool_handle()). Enter it outside the capture: it
-    loads the helper first."""
-    GRAPH_IF.lib()
+    (torch.cuda.graph_pool_handle()). Enter it outside the capture, on
+    the card being captured: it loads the helper there first."""
+    GRAPH_IF.ready(torch.cuda.current_device())
     prev = getattr(_LOCAL, "ctx", None)
     _LOCAL.ctx = [list(levels), 0]
     try:

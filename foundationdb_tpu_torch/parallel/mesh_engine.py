@@ -30,8 +30,15 @@ loop's serving treatment, so the cost of combining shards is measured:
     program; the drain stamps when it first saw the scan done and when the
     unit was done, so `mesh_stats` carries a host-observed scan-ready ->
     exchange-ready interval per drained unit (`last_collective_ms`).
-  * A shard is an entry of the engine's device list (sharding.py: every
-    entry names one device; distinct devices raise). The shard map may be
+  * GROUPS (sharding.placement): with the shards in several groups, a
+    unit of any C is one exchange.GroupedProgram: each group's scan on
+    its device and stream, the leader's gather and one stacked launch,
+    each group's apply. The ticket's scan probe is the leader's event
+    after the last group's scan, and its exchange interval ends at the
+    leader's fixpoint event. The unit's done event is recorded on the
+    leader after it waited on every group's last event, so it passes
+    Event.query() only once every group's has.
+  * A shard is an entry of the engine's device list. The shard map may be
     adopted from the heat aggregator's measured equal-load split keys
     (`measured_shard_map`); under ElasticResolverGroup a mesh engine is a
     slot like any other (same resolve() / journal / handoff contract), and
@@ -109,17 +116,20 @@ class _MeshTicket:
     host buffers (pinned, filled behind `event` on the card; filled at
     dispatch on the CPU, where `event` is None)."""
 
-    __slots__ = ("host", "event", "scan_probe", "n_chunks", "heat_layout", "heat_base",
-                 "heat_version", "keep", "enq_t", "scan_ready_t", "sample", "timing",
-                 "status", "overflow", "done")
+    __slots__ = ("host", "event", "scan_probe", "fix_probe", "n_chunks", "heat_layout",
+                 "heat_base", "heat_version", "keep", "enq_t", "scan_ready_t", "fix_ready_t",
+                 "sample", "timing", "status", "overflow", "done")
 
     def __init__(self, host, event, scan_probe, n_chunks: int, heat_layout: str,
-                 heat_base: int, heat_version, keep, sample=None, timing=None):
+                 heat_base: int, heat_version, keep, sample=None, timing=None, fix_probe=None):
         self.host = host
         self.event = event
         #: the scan program's completion (split units only): an event on
         #: the card, True on the CPU (done at dispatch)
         self.scan_probe = scan_probe
+        #: a grouped unit's leader fixpoint completion (as scan_probe), the
+        #: end of its measured exchange interval; None: the unit's end
+        self.fix_probe = fix_probe
         self.n_chunks = n_chunks
         self.heat_layout = heat_layout
         self.heat_base = heat_base
@@ -128,6 +138,7 @@ class _MeshTicket:
         self.keep = keep
         self.enq_t = time.perf_counter()
         self.scan_ready_t: Optional[float] = None
+        self.fix_ready_t: Optional[float] = None
         #: (bucket T, chunks, stamp) of a sampled unit, and its two timing
         #: events on the card
         self.sample = sample
@@ -142,6 +153,9 @@ class _MeshTicket:
         if self.scan_ready_t is None and self.scan_probe is not None and (
                 self.scan_probe is True or self.scan_probe.query()):
             self.scan_ready_t = time.perf_counter()
+        if self.scan_ready_t is not None and self.fix_ready_t is None and \
+                self.fix_probe is not None and (self.fix_probe is True or self.fix_probe.query()):
+            self.fix_ready_t = time.perf_counter()
 
     def ready(self) -> bool:
         """Non-blocking: have this unit's outputs landed?"""
@@ -291,7 +305,9 @@ class MeshShardedConflictEngine(ShardedConflictEngine):
     """N-shard mesh ConflictSet engine: split scan / exchange programs, the
     non-blocking result ring, measured exchange intervals. Same resolve()
     contract as every other engine family; `devices` lists one device per
-    shard (None: `device`, or the card, repeated)."""
+    shard (None: `device` repeated, or the cards as
+    sharding.resolve_devices spreads them) and `groups` places them as
+    sharding.placement does."""
 
     name = "mesh"
     dispatch_mode = "mesh"
@@ -303,7 +319,7 @@ class MeshShardedConflictEngine(ShardedConflictEngine):
                  device_time_sample_rate: Optional[float] = None,
                  queue_depth: Optional[int] = None, overlap: Optional[bool] = None,
                  drain_deadline_s: float = 5.0, history_structure: Optional[str] = None,
-                 device=None):
+                 device=None, groups: Optional[Sequence[int]] = None):
         n = (shards.n_shards if shards is not None
              else len(devices) if devices is not None else mesh_device_count(device))
         #: dispatched-but-undrained tickets: the result ring
@@ -333,7 +349,7 @@ class MeshShardedConflictEngine(ShardedConflictEngine):
                          arena=arena, history_search=history_search,
                          heat_buckets=heat_buckets,
                          device_time_sample_rate=device_time_sample_rate,
-                         history_structure=history_structure, device=device)
+                         history_structure=history_structure, device=device, groups=groups)
         self.mesh_stats["table_bytes_per_shard"] = self._table_bytes_per_shard()
         self._mesh_telemetry_label = telemetry.hub().register_mesh(self, name=self.name)
 
@@ -362,16 +378,22 @@ class MeshShardedConflictEngine(ShardedConflictEngine):
 
     def device_view(self) -> List[dict]:
         """Per-shard placement rows: shard id, owning device, table bytes,
-        the last measured exchange interval."""
+        the last measured exchange interval, and, with several groups, the
+        shard's group."""
         tb = self._table_bytes_per_shard()
         last = round(float(self.mesh_stats["last_collective_ms"]), 4)
-        return [{"shard": s,
+        rows = [{"shard": s,
                  "device": int(d.index) if d.index is not None else 0,
                  "platform": d.type,
                  "span_begin": _fmt_key(self.shards.begins[s]),
                  "table_bytes": tb,
                  "last_collective_ms": last}
                 for s, d in enumerate(self.devices)]
+        if self.grouped:
+            # one group keeps JAX's rows; several name each shard's group
+            for row in rows:
+                row["group"] = self._group_of(row["shard"])
+        return rows
 
     # -- device state ---------------------------------------------------------
     def _reset_device_state(self, version_rel: int) -> None:
@@ -388,7 +410,7 @@ class MeshShardedConflictEngine(ShardedConflictEngine):
         key = (bucket.max_txns, n_chunks)
         prog = self._programs.get(key)
         if prog is None:
-            if n_chunks == 1:
+            if n_chunks == 1 and not self.grouped:
                 # the split pair: each half builds under its own variant
                 scan = self._build_and_record(
                     bucket, 1, variant="scan", make=lambda b, c: _ScanProgram(self, b))
@@ -404,6 +426,11 @@ class MeshShardedConflictEngine(ShardedConflictEngine):
     # -- dispatch / result ring -------------------------------------------------
     def _dispatch_unit(self, bucket: KernelConfig, per_chunks: List[List[Dict[str, np.ndarray]]],
                        packs=None, sample=None):
+        with self._on_leader():
+            return self._enqueue_unit(bucket, per_chunks, packs, sample)
+
+    def _enqueue_unit(self, bucket: KernelConfig, per_chunks: List[List[Dict[str, np.ndarray]]],
+                      packs, sample):
         C = len(per_chunks)
         gcs = [int(per[0]["gc"]) for per in per_chunks]
         if any(gcs[:-1]):
@@ -415,8 +442,18 @@ class MeshShardedConflictEngine(ShardedConflictEngine):
         if sample is not None and cuda:
             timing = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             timing[0].record()
-        scan_probe = None
-        if C == 1:
+        scan_probe = fix_probe = None
+        if self.grouped:
+            for c, per in enumerate(per_chunks):
+                prog.load(c, per, packs[c] if packs else None)
+            prog.run(gcs[-1] > 0)
+            outs = {"status": prog.status, "overflow": prog.overflow, **prog.heat}
+            merged = prog.merged
+            layout = "sc"
+            if C == 1:
+                scan_probe, fix_probe = prog.probes if cuda else (True, True)
+                self.mesh_stats["exchanges"] += 1
+        elif C == 1:
             scan, exch = prog
             scan.load(per_chunks[0], packs[0] if packs else None)
             scan.run()
@@ -455,7 +492,7 @@ class MeshShardedConflictEngine(ShardedConflictEngine):
         ticket = _MeshTicket(host, event, scan_probe, C, layout, self.base, self._heat_version,
                              keep=(per_chunks, packs),
                              sample=None if sample is None else (bucket.max_txns, C, sample),
-                             timing=timing)
+                             timing=timing, fix_probe=fix_probe)
         self._ring.append(ticket)
         self.loop_stats["units"] += 1
         self.loop_stats["enqueued_chunks"] += C
@@ -532,8 +569,12 @@ class MeshShardedConflictEngine(ShardedConflictEngine):
         if ticket.scan_ready_t is not None:
             # host-observed scan-ready -> unit-ready interval: the measured
             # cost of the combine, the fixpoint and the apply (an upper
-            # bound with overlap on: the drain may look late)
-            ex_ms = (t_dec - ticket.scan_ready_t) * 1e3
+            # bound with overlap on: the drain may look late); a grouped
+            # unit's ends at its leader fixpoint event
+            end = t_dec
+            if ticket.fix_probe is not None:
+                end = ticket.fix_ready_t if ticket.fix_ready_t is not None else t_dec
+            ex_ms = (end - ticket.scan_ready_t) * 1e3
             self.mesh_stats["last_collective_ms"] = ex_ms
             self.mesh_stats["exchange_ms_total"] += ex_ms
             self.mesh_stats["scan_ms_total"] += (ticket.scan_ready_t - ticket.enq_t) * 1e3
@@ -546,7 +587,7 @@ class MeshShardedConflictEngine(ShardedConflictEngine):
             self._record_device_sample(*ticket.sample, ms=ms)
         ticket.done = True
         ticket.host = ticket.keep = ticket.timing = ticket.sample = None
-        ticket.event = ticket.scan_probe = None
+        ticket.event = ticket.scan_probe = ticket.fix_probe = None
 
     # -- the split-step path (host long-key tier) ----------------------------------
     def _run_detect(self, per_shard):

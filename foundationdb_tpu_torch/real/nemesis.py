@@ -117,7 +117,8 @@ def make_chaos_engine(engine_mode: str,
     table and ignores it. The card modes ("torch", "device_loop", "mesh")
     build their engine on `device` (None: the card, raising where there is
     none); "mesh" spans `resolver_mesh_devices` shards (0: one per visible
-    device of the kind), every shard on that device, so a campaign over
+    device of the kind), every shard on that device (None: the cards, as
+    parallel/sharding.resolve_devices places them), so a campaign over
     mesh slots exercises the sharded engine's restart and handoff."""
     from ..fault.inject import FaultInjectingEngine, FaultRates
     from ..fault.resilient import ResilienceConfig, ResilientEngine

@@ -60,9 +60,10 @@ def make_engine_factory(device=None, cfg=None, mode: str = "torch",
     table, the default), or "subsharded", "sharded" or "mesh" with
     `n_shards` uniform key-range shards (the JAX package's
     _sharded_engine_factory: 8), every shard on `device`. `device=None`
-    puts it on the card and the factory's engines raise where there is
-    none; the CPU tests pass device="cpu". `cfg` overrides the
-    KernelConfig."""
+    puts it on the card (the sharded modes: on the cards, as
+    parallel/sharding.resolve_devices places them) and the factory's
+    engines raise where there is none; the CPU tests pass device="cpu".
+    `cfg` overrides the KernelConfig."""
     from ..core.keyshard import KeyShardMap
     from ..ops.conflict_kernel import KernelConfig
     from ..ops.host_engine import make_engine

@@ -4,7 +4,9 @@ Port of ``foundationdb_tpu/tools/mesh_smoke.py``. One process, no sockets.
 The reference forces 8 XLA host devices; the port stacks the mesh's 8
 shards on ONE device (its `devices` list repeats it: every shard's table
 lives there, and the shards' fixpoints run in one launch of the stacked
-entry), on the card unless given `--device cpu`:
+entry), on the card unless given `--device cpu`; on a host with several
+cards the shards go one group a card (parallel/sharding.resolve_devices)
+and the leader's one launch covers them all:
 
     python -m foundationdb_tpu_torch.tools.mesh_smoke [--device cpu]
 
@@ -24,7 +26,7 @@ Drives the mesh engine end to end on REAL engines (docs/perf.md
      (`perf.*.compiles_steady == 0`).
   4. MEASURED EXCHANGE — every active mesh slot reports timed exchange
      intervals (`timed_exchanges > 0`) and its per-shard device view,
-     MESH_SHARDS shards on the one device.
+     MESH_SHARDS shards on the devices their placement gives.
   5. MEASURED-SPLIT ADOPTION — a skewed stream's heat histogram yields
      equal-load split keys; `measured_shard_map` adopts them (and they
      differ from the byte-uniform fallback).
@@ -43,7 +45,7 @@ import time
 POOL = 384
 BATCH = 24
 #: shards of every mesh engine the elastic group builds (the reference's 8
-#: forced host devices; here all on one device)
+#: forced host devices; here on one device, or one group a card)
 MESH_SHARDS = 8
 
 
@@ -155,8 +157,9 @@ def check_steady_compiles(rec: dict) -> None:
           "(warmup covered every dispatched program)")
 
 
-def check_mesh_stats(rec: dict) -> dict:
+def check_mesh_stats(rec: dict, device=None) -> dict:
     from ..core import telemetry
+    from ..parallel.sharding import resolve_devices
 
     meshes = telemetry.hub().snapshot().get("meshes") or {}
     assert meshes, "no mesh engines registered with the hub"
@@ -168,7 +171,8 @@ def check_mesh_stats(rec: dict) -> dict:
     shards = {int(m.get("n_shards", 0)) for m in meshes.values()}
     assert shards == {MESH_SHARDS}, \
         f"mesh engines span {shards} shards, expected {MESH_SHARDS}"
-    assert len(devs) == 1, f"the shards of one mesh span devices {devs}"
+    want = {d.index or 0 for d in resolve_devices(MESH_SHARDS, device)}
+    assert devs == want, f"the shards of one mesh span devices {devs}, placed on {want}"
     print(f"  measured exchange: {timed} timed intervals across "
           f"{len(meshes)} mesh engine(s); device view covers "
           f"{len(devs)} device(s) x {len(view)} shard rows")
@@ -237,8 +241,9 @@ def check_prometheus() -> None:
 
 def check_mesh(device=None) -> dict:
     """The drive and checks 1-6; raises AssertionError on a miss. Every
-    mesh engine of the group spans MESH_SHARDS shards on `device`
-    (the `resolver_mesh_devices` knob, restored afterwards)."""
+    mesh engine of the group spans MESH_SHARDS shards on `device` (None:
+    the cards, as sharding.resolve_devices places them; the
+    `resolver_mesh_devices` knob, restored afterwards)."""
     from ..core import telemetry
     from ..core.knobs import SERVER_KNOBS
     from ..real.runtime import RealScheduler, sim_to_aio
@@ -270,7 +275,7 @@ def check_mesh(device=None) -> dict:
         check_ring(rec)
         out["loop_stats"] = dict(rec["group"].loop_stats)
         check_steady_compiles(rec)
-        out["mesh"] = check_mesh_stats(rec)
+        out["mesh"] = check_mesh_stats(rec, device)
     finally:
         SERVER_KNOBS.set_knob("resolver_mesh_devices", str(knob_was))
         set_scheduler(None)

@@ -12,7 +12,9 @@ poll(), and a conflict-scheduled stream on the loop engine; the resolver
 role, the supervisor, the simulated clusters (static and dynamic: card
 resolvers recruited in every generation), a backup restored onto card
 resolvers and a stack-tester stream, over card engines; the sharded
-engines and the stacked entry; and the tools: a ladder drive, the
+engines (their shards in one group, in several groups sharing the card,
+and, on a host of several cards, one group a card) and the stacked entry;
+and the tools: a ladder drive, the
 profile_kernel fixpoint variant and `cli status` over card resolvers.
 
 Every test here needs an NVIDIA card and skips without one. The file
@@ -1428,6 +1430,113 @@ def test_sharded_engines_on_card_match_cpu(card, mode):
     assert gpu.heat_snapshot() == cpu.heat_snapshot()
     if mode == "mesh":
         assert gpu.loop_stats["blocking_syncs"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,overlap", [("sharded", None), ("mesh", False), ("mesh", True)])
+@pytest.mark.parametrize("groups", [(0, 0, 1, 1), (0, 1, 2, 3)])
+@pytest.mark.parametrize("structure", ["monolithic", "tiered"])
+def test_groups_on_one_card_equal_the_stacked_engine(card, mode, overlap, groups, structure):
+    """Shards in several groups on one card (each group's graphs on its own
+    stream and pool, the leader's gather and one stacked launch per chunk)
+    against the one-group engine on the card and the oracle: verdicts and
+    heat equal on the columnar path (every dispatch without a host sync)
+    and through the general router and the long-key split steps, the
+    stacked entry on the path and never its plain version, nothing
+    captured after warmup."""
+    from foundationdb_tpu_torch.core.keyshard import KeyShardMap
+    from foundationdb_tpu_torch.ops.host_engine import make_engine
+
+    cfg = LADDER_CFG
+    shards = KeyShardMap([b"p00150", b"p00300", b"p00450"])
+    kw = dict(shards=shards, ladder=LADDER, scan_sizes=(2,), heat_buckets=8,
+              history_structure=structure)
+    if overlap is not None:
+        kw["overlap"] = overlap
+    eng = make_engine(mode, cfg, groups=list(groups), **kw).warmup()
+    one = make_engine(mode, cfg, **kw).warmup()
+    assert eng.grouped and not one.grouped
+    ora = toracle.OracleConflictEngine()
+    fc.FIXPOINT_STACKED.reset_counts()
+    captures = eng.perf.captures
+    for txns, now, oldest in point_batches(43, [30, 200, 700, 90, 1000, 5]):
+        plan = eng.columnar_pack(txns, now, oldest)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            force = eng.columnar_dispatch(plan)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = [int(v) for v in force()]
+        assert got == [int(v) for v in one.resolve(txns, now, oldest)]
+        assert got == [int(v) for v in ora.resolve(txns, now, oldest)]
+    rng = random.Random(7)
+    for b in range(4):
+        now = 9000 + 50 * b
+        txns = [CommitTransaction(
+            read_snapshot=now - rng.randrange(1, 60),
+            read_conflict_ranges=[KeyRange(b"p%05d" % x, b"p%05d" % (x + rng.randrange(1, 300)))
+                                  for x in (rng.randrange(600),)],
+            write_conflict_ranges=[KeyRange(b"p%05d" % x, b"p%05d\x00" % x)
+                                   for x in (rng.randrange(600),)]) for _ in range(40)]
+        if b == 3:
+            # a key past the 16-byte window: the long-key split steps
+            long = b"p00200" + b"x" * 24
+            txns[0].write_conflict_ranges.append(KeyRange(long, long + b"\x00"))
+            txns[-1].read_conflict_ranges.append(KeyRange(long, long + b"\x00"))
+        got = [int(v) for v in eng.resolve(txns, now, now - 500)]
+        assert got == [int(v) for v in one.resolve(txns, now, now - 500)]
+        assert got == [int(v) for v in ora.resolve(txns, now, now - 500)]
+    assert eng.perf.captures == captures, "captured after warmup"
+    assert fc.FIXPOINT_STACKED.graph_launches > 0
+    assert fc.FIXPOINT_STACKED.plain_cuda_calls == 0
+    assert eng.heat_snapshot() == one.heat_snapshot()
+    if mode == "mesh":
+        assert eng.loop_stats["blocking_syncs"] == 0
+        assert {row["group"] for row in eng.device_view()} == set(groups)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sharded", "mesh"])
+@pytest.mark.parametrize("n", [2, 8])
+def test_groups_over_cards_equal_the_oracle(card, mode, n):
+    """With no device list on a host of k >= 2 cards the shards spread one
+    group a card (N <= k) or in blocks (N > k); the leader gathers across
+    cards and each group applies on its own card: verdicts and heat equal
+    the one-card engine's and the oracle's, every dispatch without a host
+    sync, the stacked entry on the path and never its plain version."""
+    from foundationdb_tpu_torch.core.keyshard import KeyShardMap
+    from foundationdb_tpu_torch.ops.host_engine import make_engine
+
+    k = torch.cuda.device_count()
+    if k < 2:
+        pytest.skip("needs two cards")
+    cfg = LADDER_CFG
+    shards = KeyShardMap([b"p%05d" % (600 * i // n) for i in range(1, n)])
+    kw = dict(shards=shards, ladder=LADDER, scan_sizes=(2,), heat_buckets=8)
+    eng = make_engine(mode, cfg, **kw).warmup()
+    one = make_engine(mode, cfg, devices=[card] * n, **kw).warmup()
+    assert eng.grouped and len({g.device for g in eng.groups}) == min(n, k)
+    assert [d.index for d in eng.devices] == [s if n <= k else s * k // n for s in range(n)]
+    ora = toracle.OracleConflictEngine()
+    fc.FIXPOINT_STACKED.reset_counts()
+    captures = eng.perf.captures
+    for txns, now, oldest in point_batches(47, [30, 200, 700, 90, 1000, 5]):
+        plan = eng.columnar_pack(txns, now, oldest)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            force = eng.columnar_dispatch(plan)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = [int(v) for v in force()]
+        assert got == [int(v) for v in one.resolve(txns, now, oldest)]
+        assert got == [int(v) for v in ora.resolve(txns, now, oldest)]
+    assert eng.perf.captures == captures, "captured after warmup"
+    assert fc.FIXPOINT_STACKED.graph_launches > 0
+    assert fc.FIXPOINT_STACKED.plain_cuda_calls == 0
+    assert eng.heat_snapshot() == one.heat_snapshot()
+    if mode == "mesh":
+        assert eng.loop_stats["blocking_syncs"] == 0
+        assert {row["device"] for row in eng.device_view()} == set(range(min(n, k)))
 
 
 @pytest.mark.cuda

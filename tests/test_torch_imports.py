@@ -114,6 +114,7 @@ def test_subprocess_import_loads_no_jax():
     "foundationdb_tpu_torch.real.scenarios",
     "foundationdb_tpu_torch.parallel",
     "foundationdb_tpu_torch.parallel.sharding",
+    "foundationdb_tpu_torch.parallel.exchange",
     "foundationdb_tpu_torch.parallel.mesh_engine",
     "foundationdb_tpu_torch.tools.sharded_bench",
     "foundationdb_tpu_torch.tools.mesh_bench",

@@ -14,7 +14,8 @@
     JAX ShardedConflictEngine (tests/test_sharded_parity.py,
     test_columnar_sharded.py, test_long_keys.py:150,
     test_bucket_ladder.py:145), the sharded columnar path taken;
-  * shards on distinct devices raise DistinctDevicesError.
+  * shards on distinct devices are placed as groups; a group that names
+    two devices raises.
 
 Inputs are made from seeds. Every comparison is exact (integers and bools).
 """
@@ -331,14 +332,23 @@ def test_sharded_programs_equal_jax_shard_map(S):
 
 
 def test_distinct_devices_raise():
-    with pytest.raises(tsh.DistinctDevicesError, match="distinct devices"):
-        tsh.mesh_device(["cpu", "cuda:1"])
-    with pytest.raises(tsh.DistinctDevicesError):
+    """Shards on distinct devices are placed as groups (sharding.placement,
+    tests/test_torch_groups.py); what still raises is a group that names
+    two devices, group indices that are not contiguous runs numbered in
+    shard order, and an empty device list."""
+    with pytest.raises(ValueError, match="names two devices"):
+        tsh.placement(["cpu", "cuda:1"], [0, 0])
+    with pytest.raises(ValueError, match="names two devices"):
         tsh.ShardedConflictEngine(port_cfg(SMALL), KeyShardMap([b"m"]),
-                                  devices=["cuda:0", "cuda:1"])
+                                  devices=["cuda:0", "cuda:1"], groups=[0, 0])
+    with pytest.raises(ValueError, match="not contiguous"):
+        tsh.placement(["cpu"] * 3, [0, 1, 0])
     with pytest.raises(ValueError, match="at least one device"):
-        tsh.mesh_device([])
-    assert tsh.mesh_device(["cpu", "cpu", torch.device("cpu")]) == torch.device("cpu")
+        tsh.placement([])
+    assert tsh.placement(["cpu", "cpu", torch.device("cpu")]) == [
+        tsh.Group(torch.device("cpu"), 0, 3)]
+    assert [(g.device.index, g.lo, g.hi) for g in tsh.placement(["cuda:0", "cuda:1"])] == [
+        (0, 0, 1), (1, 1, 2)]
 
 
 # ---------------------------------------------------------------------------
