@@ -45,7 +45,8 @@ toolkit. The script
   6. graph-step phase: the step phase's batches through a captured CUDA
      graph of an 8-step chunk scan, against the eager step on the same
      schedule: equal statuses on every batch; ms per batch, txn/s, device
-     busy share and launches per replay of both;
+     busy share and launches per replay of both, the replay's kernels no
+     more than on the parent's tree;
   7. columnar engine phase: TorchConflictEngine() with the bucket ladder
      (512, 1024, 2048) and scans (2, 4, 8), at the default keyspace heat
      (64 buckets), warmed up (graph memory read before and after), on
@@ -244,7 +245,9 @@ toolkit. The script
      single-table card engine's, the heat snapshots and history stats of
      the uniform and tiered engines equal CPU twins'; its one-chunk
      program's device ms and kernels against a single table's at the same
-     config, and txn/s of both in turns; ShardedConflictEngine and
+     config (at most 1.5x; the single table's no more than on the parent's
+     tree), each program's build ms, and txn/s of both in turns;
+     ShardedConflictEngine and
      MeshShardedConflictEngine (serial and overlapped) with 1, 2 and 4
      shards on the card: verdicts equal the oracle's, no blocking sync,
      mesh_stats; a ResolverPipeline at depth 2 over the 4-shard mesh
@@ -1008,7 +1011,8 @@ def graph_step_phase(ck, fc, he, cfg, dev, rng, units: int):
     eager step on the same schedule: unit u is GRAPH_C chunks at one
     version, the GC horizon GC_LAG_BATCHES batches behind on its last
     chunk, as the chunks of one engine batch run. Statuses and overflow
-    flags must be equal on every chunk."""
+    flags must be equal on every chunk, and a replay's kernels at most
+    PARENT_GRAPH_STEP_KERNELS."""
     import torch
 
     T = cfg.max_txns
@@ -1096,6 +1100,9 @@ def graph_step_phase(ck, fc, he, cfg, dev, rng, units: int):
         prog.run(gc_last)
 
     gp = traced_replays(one_unit, n_prof, GRAPH_C, f"the {GRAPH_C}-step graph")
+    check(gp["kernels"] <= PARENT_GRAPH_STEP_KERNELS,
+          f"the {GRAPH_C}-step graph replays {gp['kernels']} kernels, more than the parent "
+          f"tree's {PARENT_GRAPH_STEP_KERNELS}")
     state = ck.initial_state(cfg, device=dev)
 
     def eager_unit():
@@ -5182,9 +5189,21 @@ def real_phase(fc, card):
 SHARDED_S = 8
 SHARDED_N = (1, 2, 4)
 #: the sub-sharded, sharded and mesh engines' programs: the top bucket,
-#: one chunk and (sub-sharded) a 2-chunk scan; a stacked step loops over
-#: its sub-shards, so each capture holds S times a step's kernels
+#: one chunk and (sub-sharded) a 2-chunk scan; a stacked step runs each op
+#: once over its [S] sub-shards, so a capture holds about one step's kernels
 SHARDED_SCANS = (2,)
+#: the most kernels the sub-sharded S = 8 one-chunk program may replay, as
+#: a multiple of the single table's at the same config in the same run
+SUBSHARDED_KERNELS_RATIO = 1.5
+#: kernels a replay on the tree before the stacked step was batched over
+#: its sub-shards (chip_smoke on the tree of commit b067138, NVIDIA H100
+#: 80GB HBM3, 700.00 W: three runs printed 1448.5 / 1451.0 / 1453.0 for
+#: the single table's one-chunk program and 7141.5 / 7141.5 / 7054.0 for
+#: the graph-step phase's 8-step replay, the last a trace that lost
+#: events): the most of each, which the batched stacked step must not
+#: exceed
+PARENT_SINGLE_PROGRAM_KERNELS = 1453.0
+PARENT_GRAPH_STEP_KERNELS = 7141.5
 TPU8_SPECS = ("CycleTestTPU8", "RandomReadWriteTPU8")
 TPU8_SEED = 1
 MESH_CAMPAIGN_SHARDS = 2
@@ -5386,7 +5405,9 @@ def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, o
     through serve(): verdicts equal the oracle's and the single-table card
     engine's on every batch, the stacked entry on the path; the one-chunk
     program's device ms and kernels against a single-table engine at the
-    same config, and txn/s of both in turns. A CPU twin of the uniform and
+    same config (held to SUBSHARDED_KERNELS_RATIO, the single table's to
+    PARENT_SINGLE_PROGRAM_KERNELS), every program's build ms, and txn/s of
+    both in turns. A CPU twin of the uniform and
     the tiered engines (jobs for start_twins) holds their heat snapshots and
     history stats.
 
@@ -5491,6 +5512,25 @@ def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, o
         pw = traced_replays(lambda: prog.run(False), 2, fixpoints, f"the {label} one-chunk program",
                             kernel)
         programs[label] = {"device_ms": pw["device_ms"], "kernels": pw["kernels"]}
+
+    def build_ms(e, n_chunks):
+        """A program's build (its warm run and both captures), from the ledger."""
+        return next(r["duration_ms"] for r in e.perf_ledger.records
+                    if r["n_chunks"] == n_chunks and r["bucket"] == cfg.max_txns)
+
+    capture_ms = {"single": build_ms(single, 1)}
+    for k, (e, _, _) in runs.items():
+        capture_ms[k] = build_ms(e, 1)
+        capture_ms.update({f"{k}_scan{c}": build_ms(e, c) for c in SHARDED_SCANS})
+    out["capture_ms"] = capture_ms
+    check(programs["subsharded"]["kernels"]
+          <= SUBSHARDED_KERNELS_RATIO * programs["single"]["kernels"],
+          f"the sub-sharded S={SHARDED_S} one-chunk program replays "
+          f"{programs['subsharded']['kernels']} kernels, above {SUBSHARDED_KERNELS_RATIO}x the "
+          f"single table's {programs['single']['kernels']}")
+    check(programs["single"]["kernels"] <= PARENT_SINGLE_PROGRAM_KERNELS,
+          f"the single table's one-chunk program replays {programs['single']['kernels']} "
+          f"kernels, more than the parent tree's {PARENT_SINGLE_PROGRAM_KERNELS}")
     turns = {"single": [], "subsharded": []}
     for label, e, sv in (("single", single, ssv), ("subsharded", sub, sub_sv),
                          ("subsharded", sub, sub_sv), ("single", single, ssv)):
@@ -5516,6 +5556,10 @@ def sharded_phase(ck, fc, he, pl, card, dev, cfg, engine_cfg, batches, serial, o
                                                                    "dispatch_ms_per_batch",
                                                                    "force_ms_per_batch"))
           + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
+    print(f"sub-sharded against one table, bench config [{card}]: ms to build a program (its "
+          f"warm run and both graphs), one chunk unless named: single {capture_ms['single']:.1f}, "
+          + ", ".join(f"{k} {v:.1f}" for k, v in capture_ms.items() if k != "single"),
+          flush=True)
     del single
     split_end("sharded", "single_table_and_turns", mark)
 

@@ -13,9 +13,10 @@ any object with the attributes sync() reads.
   * `prometheus_text()` renders the current values as a Prometheus-style
     text exposition.
 
-The cluster watchdog (core/watchdog.py) is not ported yet: the hub starts
-with none attached, and the `watchdog_enabled` knob raises at hub
-construction rather than running without it. Registration is
+The cluster watchdog (core/watchdog.py) rides on the hub: with the
+`watchdog_enabled` knob on, the hub attaches a default-ruleset watchdog
+at construction; campaigns attach their own (attach_watchdog); off, the
+hub holds none and sync() pays one attribute check. Registration is
 append-only and draws no rng.
 """
 from __future__ import annotations

@@ -24,10 +24,12 @@ history, keyspace heat). The step is the same fixed-shape program:
                       loop engine captures it with a CUDA graph WHILE node)
   *_stacked           the step over S key-range sub-shards of one batch on
                       one device (state and batch leaves [S, ...]): phases
-                      1-2, the apply and heat per sub-shard, and one
-                      stacked fixpoint that sums the sub-shards' blocked
-                      counts each round (one launch of the CUDA kernel's
-                      stacked entry on the card)
+                      1-2, the apply and heat written over the leading [S]
+                      axis as JAX's vmap runs them (each op once for all S),
+                      and one stacked fixpoint that sums the sub-shards'
+                      blocked counts each round (one launch of the CUDA
+                      kernel's stacked entry on the card). The single-table
+                      functions are the same code at S = 1.
 
 Every output equals the JAX function's element for element, padding rows
 included (tests/test_torch_conflict_kernel.py).
@@ -234,15 +236,47 @@ def check_supported(cfg: KernelConfig) -> None:
 # ---------------------------------------------------------------------------
 # JAX gather / scatter semantics
 # ---------------------------------------------------------------------------
+#
+# Every function from here to the steps computes over a leading [S] axis of
+# key-range sub-shards, as JAX's vmap of the single-table function does: one
+# op sequence for all S. A single table is the S = 1 case (_one / _first).
 
 def _take(x: Tensor, idx: Tensor) -> Tensor:
     """x[idx] along dim 0 with JAX's out-of-range rule: a negative index
-    wraps once, then the index clamps into [0, len-1]. Known clamp sites:
-    _present at s == n == H (a full table whose last row sorts before the
-    query), eq_wpb2's s_wpb + eq_wpb, and _lower_bound_n's frozen lanes."""
+    wraps once, then the index clamps into [0, len-1]. For a table shared
+    by every sub-shard (the committed mask [T])."""
     n = x.shape[0]
     idx = torch.where(idx < 0, idx + n, idx).clamp_(0, n - 1)
     return x[idx]
+
+
+def _over_lanes(idx: Tensor, x: Tensor) -> Tensor:
+    """Row index idx [S, Q] as a view over x's trailing lanes: [S, Q, ...]."""
+    tail = tuple(x.shape[2:])
+    return idx.reshape(tuple(idx.shape) + (1,) * len(tail)).expand(tuple(idx.shape) + tail)
+
+
+def _gather_each(x: Tensor, idx: Tensor) -> Tensor:
+    """x[s, idx[s, q]] for in-range idx [S, Q] into x [S, N, ...]: one
+    gather along dim 1 (trailing lanes ride along)."""
+    return x.gather(1, _over_lanes(idx, x))
+
+
+def _take_each(x: Tensor, idx: Tensor) -> Tensor:
+    """_take within each sub-shard's own table: x [S, N, ...], idx [S, Q]
+    -> x[s, idx[s, q]]. Known clamp sites: _present at s == n == H (a full
+    table whose last row sorts before the query), eq_wpb2's s_wpb + eq_wpb,
+    and _lower_bound_n's frozen lanes."""
+    n = x.shape[1]
+    idx = torch.where(idx < 0, idx + n, idx).clamp_(0, n - 1)
+    return _gather_each(x, idx)
+
+
+def _put_each(dst: Tensor, idx: Tensor, src: Tensor) -> None:
+    """dst[s, idx[s, q]] = src[s, q] (trailing lanes ride along), in
+    place: one scatter along dim 1. Every index is in range; rows that JAX
+    drops go to a dustbin slot (_drop) the caller slices off."""
+    dst.scatter_(1, _over_lanes(idx, dst), src)
 
 
 def _drop(idx: Tensor, n: int) -> Tensor:
@@ -261,6 +295,25 @@ def _u32_to_i32(x: Tensor) -> Tensor:
 
 def _arange(n: int, dev) -> Tensor:
     return torch.arange(n, dtype=torch.int64, device=dev)
+
+
+def _one(tree: Dict) -> Dict:
+    """A single table's tree as the S = 1 stack: views, no copy (a host
+    value a caller keeps beside the tensors passes as it is)."""
+    return {k: v.unsqueeze(0) if isinstance(v, Tensor) else v for k, v in tree.items()}
+
+
+def _first(tree: Dict) -> Dict:
+    """Sub-shard 0 of a stacked tree: views, no copy."""
+    return {k: v[0] for k, v in tree.items()}
+
+
+def _unstack_state(state: Dict[str, Tensor], one: Dict[str, Tensor],
+                   new: Dict[str, Tensor]) -> Dict[str, Tensor]:
+    """The S = 1 result `new` of a step run on one = _one(state), as the
+    single table's dict: a leaf updated in place stays the caller's own
+    tensor."""
+    return {k: state[k] if v is one[k] else v[0] for k, v in new.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -288,48 +341,43 @@ def _bump(q: Tensor) -> Tensor:
 
 
 def _present(table: Tensor, q: Tensor, s: Tensor) -> Tensor:
-    """1 iff q occurs in the table, given s = lower_bound(q): one row gather
-    (clamped at s == H). upper_bound(q) == s + _present(table, q, s)."""
-    return _key_eq(_take(table, s), q).to(torch.int64)
-
-
-def _lower_bound(cfg: KernelConfig, hkeys: Tensor, n: Tensor, q: Tensor) -> Tensor:
-    return _lower_bound_n(hkeys, n, q, cfg.levels)
+    """1 iff q occurs in its sub-shard's table, given s = lower_bound(q):
+    one row gather (clamped at s == H). upper_bound(q) == s + _present."""
+    return _key_eq(_take_each(table, s), q).to(torch.int64)
 
 
 def _lower_bound_n(table: Tensor, n: Tensor, q: Tensor, levels: int) -> Tensor:
-    """Branchless K-word binary search: lower_bound of every query row into
-    the key-sorted valid prefix table[0:n], all queries in lockstep for
-    `levels` rounds. A converged lane (lo == hi == n) may probe row n == H:
-    the JAX gather clamps it, and so does _take."""
-    lo = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
-    hi = lo + n.to(torch.int64)
+    """Branchless K-word binary search: lower_bound of every query row q
+    [S, Q, K] into its sub-shard's key-sorted valid prefix table[s, 0:n[s]],
+    all queries in lockstep for `levels` rounds -> [S, Q]. A converged lane
+    (lo == hi == n) may probe row n == H: the JAX gather clamps it, and so
+    does _take_each."""
+    lo = torch.zeros(q.shape[:-1], dtype=torch.int64, device=q.device)
+    hi = lo + n.to(torch.int64)[:, None]
     for _ in range(levels):
         active = lo < hi
         mid = (lo + hi) >> 1
-        go_right = _key_less(_take(table, mid), q)
+        go_right = _key_less(_take_each(table, mid), q)
         lo = torch.where(active & go_right, mid + 1, lo)
         hi = torch.where(active & ~go_right, mid, hi)
     return lo
 
 
-def _build_sparse_max(cfg: KernelConfig, vers: Tensor, n: Tensor) -> Tensor:
-    return _build_sparse_max_n(vers, n, cfg.capacity, cfg.levels)
-
-
 def _build_sparse_max_n(vers: Tensor, n: Tensor, h: int, n_levels: int) -> Tensor:
-    """out[k, i] = max(vers[i : i+2^k]) with invalid slots -> NEG."""
+    """out[s, k, i] = max(vers[s, i : i+2^k]) with invalid slots -> NEG:
+    vers [S, H], n [S] -> [S, n_levels, H]."""
     dev = vers.device
-    base = torch.where(_arange(h, dev) < n.to(torch.int64), vers,
+    S = vers.shape[0]
+    base = torch.where(_arange(h, dev) < n.to(torch.int64)[:, None], vers,
                        torch.full_like(vers, NEG_VERSION))
     levels = [base]
     for k in range(1, n_levels):
         half = 1 << (k - 1)
         prev = levels[-1]
-        shifted = torch.cat([prev[half:], torch.full((half,), NEG_VERSION,
-                                                     dtype=prev.dtype, device=dev)])
+        shifted = torch.cat([prev[:, half:], torch.full((S, half), NEG_VERSION,
+                                                        dtype=prev.dtype, device=dev)], dim=1)
         levels.append(torch.maximum(prev, shifted))
-    return torch.stack(levels)
+    return torch.stack(levels, dim=1)
 
 
 def _bit_length(v: Tensor) -> Tensor:
@@ -343,20 +391,17 @@ def _bit_length(v: Tensor) -> Tensor:
     return n + (v > 0).to(v.dtype)
 
 
-def _range_max(cfg: KernelConfig, sparse: Tensor, lo: Tensor, hi: Tensor) -> Tensor:
-    return _range_max_n(sparse, lo, hi, cfg.capacity)
-
-
 def _range_max_n(sparse: Tensor, lo: Tensor, hi: Tensor, h: int) -> Tensor:
-    """max(vers[lo:hi]) for hi > lo, via two overlapping power-of-two
-    blocks. For hi == lo the JAX form gets k = -1 (clz(0) = 32) and a
-    negative, wrapped index; the same arithmetic and _take reproduce it."""
+    """max(vers[s, lo:hi]) for hi > lo, via two overlapping power-of-two
+    blocks of the sub-shard's sparse table [S, L, H]. For hi == lo the JAX
+    form gets k = -1 (clz(0) = 32) and a negative, wrapped index; the same
+    arithmetic and _take_each reproduce it."""
     s = (hi - lo) & U32_ALL
     k = _bit_length(s) - 1
-    flat = sparse.reshape(-1)
+    flat = sparse.reshape(sparse.shape[0], -1)
     pw = torch.where(k >= 0, torch.ones_like(k) << k.clamp(min=0), 0)
-    m1 = _take(flat, k * h + lo)
-    m2 = _take(flat, k * h + hi - pw)
+    m1 = _take_each(flat, k * h + lo)
+    m2 = _take_each(flat, k * h + hi - pw)
     return torch.maximum(m1, m2)
 
 
@@ -378,15 +423,16 @@ def _pack_bits(bits: Tensor, n_words: int) -> Tensor:
 
 
 def _lex_sort_perm(cols: List[Tensor]) -> Tensor:
-    """Permutation sorting rows by the int64 columns `cols` (each holding
-    uint32 values) lexicographically — the port of
-    ``lax.sort(ops, num_keys=len(ops))``. torch has no multi-key sort, so
-    this runs stable LSD passes of torch.sort from the last key to the
-    first. Two uint32 columns fuse into one int64 key,
-    (hi - 2^31) * 2^32 + lo, whose signed order is their lexicographic
-    order, so K+1 operands take ceil((K+1)/2) passes. The callers' last
-    operand (code | original index) is unique per row, so the order is total
-    and the permutation equals JAX's exactly."""
+    """Per-sub-shard permutation [S, N] sorting rows by the int64 columns
+    `cols` (each [S, N], holding uint32 values) lexicographically — the
+    port of ``lax.sort(ops, num_keys=len(ops))``. torch has no multi-key
+    sort, so this runs stable LSD passes of torch.sort along the last dim
+    from the last key to the first, each pass one sort for all S. Two
+    uint32 columns fuse into one int64 key, (hi - 2^31) * 2^32 + lo, whose
+    signed order is their lexicographic order, so K+1 operands take
+    ceil((K+1)/2) passes. The callers' last operand (code | original index)
+    is unique per row within a sub-shard, so the order is total and the
+    permutation equals JAX's exactly."""
     keys = []
     for i in range(0, len(cols) - 1, 2):
         keys.append((cols[i] - 2**31) * 2**32 + cols[i + 1])
@@ -394,37 +440,36 @@ def _lex_sort_perm(cols: List[Tensor]) -> Tensor:
         keys.append(cols[-1])
     perm = None
     for k in reversed(keys):
-        v = k if perm is None else k[perm]
-        order = torch.sort(v, stable=True).indices
-        perm = order if perm is None else perm[order]
+        v = k if perm is None else k.gather(-1, perm)
+        order = torch.sort(v, dim=-1, stable=True).indices
+        perm = order if perm is None else perm.gather(-1, order)
     return perm
 
 
 def _inverse_perm(perm: Tensor) -> Tensor:
-    pos = torch.empty_like(perm)
-    pos[perm] = _arange(perm.shape[0], perm.device)
-    return pos
+    return torch.empty_like(perm).scatter_(
+        -1, perm, _arange(perm.shape[-1], perm.device).expand_as(perm))
 
 
 def _group_ids(skeys: Tensor) -> Tensor:
-    """1-based per-key group ids of key-sorted rows: a new group starts
-    where a row's key differs from its predecessor's."""
-    new = torch.ones(skeys.shape[0], dtype=torch.bool, device=skeys.device)
-    new[1:] = torch.any(skeys[1:] != skeys[:-1], dim=-1)
-    return torch.cumsum(new, 0)
+    """1-based per-key group ids of key-sorted rows [S, N, K]: a new group
+    starts where a row's key differs from its predecessor's."""
+    new = torch.ones(skeys.shape[:-1], dtype=torch.bool, device=skeys.device)
+    new[:, 1:] = torch.any(skeys[:, 1:] != skeys[:, :-1], dim=-1)
+    return torch.cumsum(new, -1)
 
 
 def _sorted_rows(keys: Tensor, codes: Tensor, valid: Tensor):
-    """One lexicographic sort of rows by (key words, tie code, index):
-    invalid rows carry all-ones keys and code 7. Returns (perm, sorted
-    keys)."""
-    N, K = keys.shape
+    """One lexicographic sort of each sub-shard's rows [S, N, K] by (key
+    words, tie code, index): invalid rows carry all-ones keys and code 7.
+    `codes` is [N] (shared) or [S, N]. Returns (perm [S, N], sorted keys)."""
+    N, K = keys.shape[-2:]
     dev = keys.device
     idx_bits = max(1, (N - 1).bit_length())
-    keys_eff = torch.where(valid[:, None], keys, U32_ALL)
+    keys_eff = torch.where(valid[..., None], keys, U32_ALL)
     codeidx = (torch.where(valid, codes, 7) << idx_bits) | _arange(N, dev)
-    perm = _lex_sort_perm([keys_eff[:, c] for c in range(K)] + [codeidx])
-    return perm, keys_eff[perm]
+    perm = _lex_sort_perm([keys_eff[..., c] for c in range(K)] + [codeidx])
+    return perm, _gather_each(keys_eff, perm)
 
 
 # ---------------------------------------------------------------------------
@@ -432,90 +477,104 @@ def _sorted_rows(keys: Tensor, codes: Tensor, valid: Tensor):
 # ---------------------------------------------------------------------------
 
 def _take_rows(x: Tensor, idx: Tensor) -> Tensor:
-    """Per-run _take: x [NR, N, ...], idx [NR, Q] -> x[j, idx[j, q]] with
-    JAX's clamp inside each run's own N rows, as the JAX probe's per-run
-    gathers clamp."""
-    nr, n = x.shape[0], x.shape[1]
+    """Per-run _take: x [S, NR, N, ...], idx [S, NR, Q] -> x[s, j, idx[s,
+    j, q]] with JAX's clamp inside each run's own N rows, as the JAX
+    probe's per-run gathers clamp (one gather over all S * NR runs)."""
+    lead = tuple(idx.shape[:-1])
+    nr, n = math.prod(lead), x.shape[len(lead)]
     idx = torch.where(idx < 0, idx + n, idx).clamp_(0, n - 1)
-    flat = x.reshape((nr * n,) + tuple(x.shape[2:]))
-    return flat[idx + _arange(nr, x.device)[:, None] * n]
+    flat = x.reshape((nr * n,) + tuple(x.shape[len(lead) + 1:]))
+    return flat[idx + (_arange(nr, x.device) * n).reshape(lead + (1,))]
 
 
 def _lower_bound_runs(tables: Tensor, n: Tensor, q: Tensor, levels: int) -> Tensor:
-    """_lower_bound_n of the same queries into every run at once: tables
-    [NR, RC, K] with valid prefixes n [NR], q [Q, K] -> [NR, Q]. One [NR,
-    Q, K] gather a round instead of NR gathers."""
-    nr = tables.shape[0]
-    lo = torch.zeros((nr, q.shape[0]), dtype=torch.int64, device=q.device)
-    hi = lo + n.to(torch.int64)[:, None]
+    """_lower_bound_n of each sub-shard's queries into every one of its
+    runs at once: tables [S, NR, RC, K] with valid prefixes n [S, NR], q
+    [S, Q, K] -> [S, NR, Q]. One [S, NR, Q, K] gather a round."""
+    lo = torch.zeros(tuple(n.shape) + (q.shape[-2],), dtype=torch.int64, device=q.device)
+    hi = lo + n.to(torch.int64)[..., None]
     for _ in range(levels):
         active = lo < hi
         mid = (lo + hi) >> 1
-        go_right = _key_less(_take_rows(tables, mid), q[None])
+        go_right = _key_less(_take_rows(tables, mid), q[:, None])
         lo = torch.where(active & go_right, mid + 1, lo)
         hi = torch.where(active & ~go_right, mid, hi)
     return lo
 
 
 def _build_sparse_max_runs(vers: Tensor, n: Tensor, n_levels: int) -> Tensor:
-    """_build_sparse_max_n of every run at once: vers [NR, RC], n [NR] ->
-    [NR, n_levels, RC]."""
-    nr, rc = vers.shape
+    """_build_sparse_max_n of every run at once: vers [S, NR, RC], n [S, NR]
+    -> [S, NR, n_levels, RC]."""
+    rc = vers.shape[-1]
     dev = vers.device
-    base = torch.where(_arange(rc, dev)[None, :] < n.to(torch.int64)[:, None], vers,
+    base = torch.where(_arange(rc, dev) < n.to(torch.int64)[..., None], vers,
                        torch.full_like(vers, NEG_VERSION))
     levels = [base]
     for k in range(1, n_levels):
         half = 1 << (k - 1)
         prev = levels[-1]
-        shifted = torch.cat([prev[:, half:], torch.full((nr, half), NEG_VERSION,
-                                                        dtype=prev.dtype, device=dev)], dim=1)
+        shifted = torch.cat([prev[..., half:],
+                             torch.full(tuple(prev.shape[:-1]) + (half,), NEG_VERSION,
+                                        dtype=prev.dtype, device=dev)], dim=-1)
         levels.append(torch.maximum(prev, shifted))
-    return torch.stack(levels, dim=1)
+    return torch.stack(levels, dim=-2)
 
 
 def _tiered_read_probe(cfg: KernelConfig, state: Dict[str, Tensor], rpb: Tensor,
                        rp_valid: Tensor, rb: Tensor, re: Tensor, r_valid: Tensor,
                        empty_r: Tensor) -> Tuple[Tensor, Tensor]:
-    """The runs' history answers for both read classes: (point_max [Rp],
-    range_max [Rr]), max-folded into the base table's answers before any
-    hit. The JAX function loops over the NR runs; here all runs are probed
-    in one batched pass ([NR, Q, K] gathers, an [NR, levels, RC] sparse
-    table) with the same values. Each run is a mini interval table whose
-    rows alternate (union-begin, now) / (union-end, NEG gap); a run has no
-    minimal-key row, so an upper bound of 0 or an empty row window answers
-    NEG — except an empty read at b'', which takes the run's row AT b''
-    (the oracle clamps its predecessor scan to the minimal key)."""
+    """_tiered_read_probe_stacked of a single table: (point_max [Rp],
+    range_max [Rr])."""
+    vp, vr = _tiered_read_probe_stacked(cfg, _one(state), rpb[None], rp_valid[None], rb[None],
+                                        re[None], r_valid[None], empty_r[None])
+    return vp[0], vr[0]
+
+
+def _tiered_read_probe_stacked(cfg: KernelConfig, state: Dict[str, Tensor], rpb: Tensor,
+                               rp_valid: Tensor, rb: Tensor, re: Tensor, r_valid: Tensor,
+                               empty_r: Tensor) -> Tuple[Tensor, Tensor]:
+    """The runs' history answers for both read classes: (point_max [S, Rp],
+    range_max [S, Rr]), max-folded into the base table's answers before any
+    hit. The JAX function loops over the NR runs; here all runs of all
+    sub-shards are probed in one batched pass ([S, NR, Q, K] gathers, an
+    [S, NR, levels, RC] sparse table) with the same values. Each run is a
+    mini interval table whose rows alternate (union-begin, now) /
+    (union-end, NEG gap); a run has no minimal-key row, so an upper bound
+    of 0 or an empty row window answers NEG — except an empty read at b'',
+    which takes the run's row AT b'' (the oracle clamps its predecessor
+    scan to the minimal key)."""
     RC, levels = cfg.run_rows, cfg.run_levels
     Rp, Rr = cfg.rp, cfg.max_reads
     rkeys, rvers, rn = state["rkeys"], state["rvers"], state["rn"]
+    S = rkeys.shape[0]
 
-    qvalid = torch.cat([rp_valid, r_valid, r_valid, r_valid])
-    qkeys = torch.cat([rpb, rb, _bump(rb), re])
-    q_eff = torch.where(qvalid[:, None], qkeys, U32_ALL)
-    lb = _lower_bound_runs(rkeys, rn, q_eff, levels)                  # [NR, Q]
-    lb_p, lb_b, lb_bb, lb_e = torch.split(lb, [Rp, Rr, Rr, Rr], dim=1)
+    qvalid = torch.cat([rp_valid, r_valid, r_valid, r_valid], dim=1)
+    qkeys = torch.cat([rpb, rb, _bump(rb), re], dim=1)
+    q_eff = torch.where(qvalid[..., None], qkeys, U32_ALL)
+    lb = _lower_bound_runs(rkeys, rn, q_eff, levels)                  # [S, NR, Q]
+    lb_p, lb_b, lb_bb, lb_e = torch.split(lb, [Rp, Rr, Rr, Rr], dim=2)
 
     # point read: value at k = vers[upper(k) - 1], NEG before the run
-    up_p = lb_p + _key_eq(_take_rows(rkeys, lb_p), rpb[None]).to(torch.int64)
+    up_p = lb_p + _key_eq(_take_rows(rkeys, lb_p), rpb[:, None]).to(torch.int64)
     vp = torch.where(up_p > 0, _take_rows(rvers, torch.clamp(up_p - 1, min=0)),
-                     NEG_VERSION).amax(dim=0)
+                     NEG_VERSION).amax(dim=1)
     if Rr == 0:
-        return vp, torch.full((0,), NEG_VERSION, dtype=torch.int32, device=vp.device)
-    sparse = _build_sparse_max_runs(rvers, rn, levels)               # [NR, L, RC]
-    is_min = torch.all(rb == 0, dim=-1)         # q == b'' (packed zero)
-    eq_b = _key_eq(_take_rows(rkeys, lb_b), rb[None]).to(torch.int64)
-    s_qlo = torch.where(empty_r, lb_b + torch.where(is_min, eq_b, 0), lb_bb)
+        return vp, torch.full((S, 0), NEG_VERSION, dtype=torch.int32, device=vp.device)
+    sparse = _build_sparse_max_runs(rvers, rn, levels)               # [S, NR, L, RC]
+    is_min = torch.all(rb == 0, dim=-1)[:, None]       # q == b'' (packed zero)
+    empty = empty_r[:, None]
+    eq_b = _key_eq(_take_rows(rkeys, lb_b), rb[:, None]).to(torch.int64)
+    s_qlo = torch.where(empty, lb_b + torch.where(is_min, eq_b, 0), lb_bb)
     lo = torch.clamp(s_qlo - 1, min=0)
-    hi = torch.where(empty_r, s_qlo, lb_e)
+    hi = torch.where(empty, s_qlo, lb_e)
     # _range_max_n per run: indices clamp inside the run's own flat table
     hi1 = torch.maximum(hi, lo + 1)
     k = _bit_length((hi1 - lo) & U32_ALL) - 1
     pw = torch.where(k >= 0, torch.ones_like(k) << k.clamp(min=0), 0)
-    flat = sparse.reshape(sparse.shape[0], -1, 1)
+    flat = sparse.reshape(sparse.shape[:2] + (-1, 1))
     m1 = _take_rows(flat, k * RC + lo)[..., 0]
     m2 = _take_rows(flat, k * RC + hi1 - pw)[..., 0]
-    vr = torch.where(hi > lo, torch.maximum(m1, m2), NEG_VERSION).amax(dim=0)
+    vr = torch.where(hi > lo, torch.maximum(m1, m2), NEG_VERSION).amax(dim=1)
     return vp, vr
 
 
@@ -524,22 +583,33 @@ def _tiered_read_probe(cfg: KernelConfig, state: Dict[str, Tensor], rpb: Tensor,
 # ---------------------------------------------------------------------------
 
 def local_phases(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict):
-    """Phases 1-2: reads vs history + intra-batch overlap edges.
+    """Phases 1-2 of a single table: detect_step_stacked at S = 1.
 
     Returns (hist_hits int32 [T], edges, wpos) exactly as the JAX function:
     edges = {"ovw" int32 [r_all, wr_words], "ovrp" int32 [Rr, wp_words],
     "gid_rp" int32 [Rp], "gid_wp" int32 [Wp]} and wpos = {"lo_b", "lo_e",
-    "up_e"} int32 [w_all]. See the JAX docstring for the tie-code ladder
-    (end-read 0 < end-write 1 < begin-write 2 < {begin-read, point-read} 3
-    < point-write 4 < table 5) that makes position compares exact
-    half-open interval logic."""
+    "up_e"} int32 [w_all]."""
+    hist, edges, wpos = detect_step_stacked(cfg, _one(state), _one(batch))
+    return hist[0], _first(edges), _first(wpos)
+
+
+def detect_step_stacked(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict):
+    """Phases 1-2, reads vs history + intra-batch overlap edges, over S
+    sub-shards at once (state and batch leaves [S, ...]): JAX's vmap of
+    local_phases. Returns (hist [S, T], edges, wpos) with every leaf [S,
+    ...]. The split-step path's detect, and the mesh engine's shard-local
+    scan. See the JAX docstring for the tie-code ladder (end-read 0 <
+    end-write 1 < begin-write 2 < {begin-read, point-read} 3 < point-write
+    4 < table 5) that makes position compares exact half-open interval
+    logic."""
     check_supported(cfg)
     hkeys, hvers, n = state["hkeys"], state["hvers"], state["n"]
     dev = hkeys.device
     Rp, Rr = cfg.rp, cfg.max_reads
     Wp, Wr = cfg.wp, cfg.max_writes
     T, H = cfg.max_txns, cfg.capacity
-    n64 = n.to(torch.int64)
+    S = hkeys.shape[0]
+    n64 = n.to(torch.int64)[:, None]
 
     rpb = batch["rpb"]
     rb, re = batch["rb"], batch["re"]
@@ -551,9 +621,21 @@ def local_phases(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict):
     wp_txn, w_txn = batch["wp_txn"].long(), batch["w_txn"].long()
     empty_r = ~_key_less(rb, re)
 
-    def codes(groups):
-        return torch.cat([torch.full((g[0].shape[0],), g[1], dtype=torch.int64, device=dev)
-                          for g in groups])
+    def codes(groups, lead=()):
+        """Each group's tie code on its rows: one fill per run of equal
+        codes (`lead`: (rows, code) groups before the batch's)."""
+        runs = []
+        for rows, code in tuple(lead) + tuple((g[0].shape[1], g[1]) for g in groups):
+            if runs and runs[-1][1] == code:
+                runs[-1][0] += rows
+            else:
+                runs.append([rows, code])
+        out = torch.empty(sum(r for r, _ in runs), dtype=torch.int64, device=dev)
+        at = 0
+        for rows, code in runs:
+            out[at:at + rows].fill_(code)
+            at += rows
+        return out
 
     mode = resolved_history_search(cfg)
     if mode == "fused_sort":
@@ -566,24 +648,23 @@ def local_phases(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict):
             (_bump(rb), 0, r_valid), (wpb, 4, wp_valid),
             (wb, 2, w_valid), (we, 1, w_valid),
         )
-        keys_all = torch.cat([hkeys] + [g[0] for g in groups])
-        code_all = torch.cat([torch.full((H,), 5, dtype=torch.int64, device=dev),
-                              codes(groups)])
-        valid_all = torch.cat([_arange(H, dev) < n64] + [g[2] for g in groups])
+        keys_all = torch.cat([hkeys] + [g[0] for g in groups], dim=1)
+        code_all = codes(groups, lead=((H, 5),))
+        valid_all = torch.cat([_arange(H, dev) < n64] + [g[2] for g in groups], dim=1)
         perm, skeys = _sorted_rows(keys_all, code_all, valid_all)
         pos = _inverse_perm(perm)
         is_tab = (perm < H) & (perm < n64)
-        cum_tab = torch.cumsum(is_tab, 0)
+        cum_tab = torch.cumsum(is_tab, -1)
         gid_sorted = _group_ids(skeys)
-        bpos = pos[H:]
-        lb = cum_tab[bpos]
-        gid = gid_sorted[bpos]
+        bpos = pos[:, H:]
+        lb = cum_tab.gather(1, bpos)
+        gid = gid_sorted.gather(1, bpos)
         pos_rpb, pos_rb, pos_re, _, pos_wpb, pos_wb, pos_we = torch.split(
-            bpos, [Rp, Rr, Rr, Rr, Wp, Wr, Wr])
+            bpos, [Rp, Rr, Rr, Rr, Wp, Wr, Wr], dim=1)
         lb_rp, lb_rb, s_re, lb_rbb, s_wpb, s_wb, s_we = torch.split(
-            lb, [Rp, Rr, Rr, Rr, Wp, Wr, Wr])
-        gid_rp = gid[:Rp]
-        gid_wp = gid[Rp + 3 * Rr:Rp + 3 * Rr + Wp]
+            lb, [Rp, Rr, Rr, Rr, Wp, Wr, Wr], dim=1)
+        gid_rp = gid[:, :Rp]
+        gid_wp = gid[:, Rp + 3 * Rr:Rp + 3 * Rr + Wp]
     else:
         # Sort only the batch rows (same ladder minus table and bump rows)
         # and recover every lower bound by binary search into hkeys[0:n].
@@ -591,20 +672,21 @@ def local_phases(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict):
             (rpb, 3, rp_valid), (rb, 3, r_valid), (re, 0, r_valid),
             (wpb, 4, wp_valid), (wb, 2, w_valid), (we, 1, w_valid),
         )
-        perm, skeys = _sorted_rows(torch.cat([g[0] for g in groups]), codes(groups),
-                                   torch.cat([g[2] for g in groups]))
+        perm, skeys = _sorted_rows(torch.cat([g[0] for g in groups], dim=1), codes(groups),
+                                   torch.cat([g[2] for g in groups], dim=1))
         pos = _inverse_perm(perm)
-        gid = _group_ids(skeys)[pos]
+        gid = _group_ids(skeys).gather(1, pos)
         pos_rpb, pos_rb, pos_re, pos_wpb, pos_wb, pos_we = torch.split(
-            pos, [Rp, Rr, Rr, Wp, Wr, Wr])
-        gid_rp = gid[:Rp]
-        gid_wp = gid[Rp + 2 * Rr:Rp + 2 * Rr + Wp]
-        qvalid = torch.cat([rp_valid, r_valid, r_valid, r_valid, wp_valid, w_valid, w_valid])
-        qkeys = torch.cat([rpb, rb, _bump(rb), re, wpb, wb, we])
-        q_eff = torch.where(qvalid[:, None], qkeys, U32_ALL)
-        lb = _lower_bound(cfg, hkeys, n, q_eff)
+            pos, [Rp, Rr, Rr, Wp, Wr, Wr], dim=1)
+        gid_rp = gid[:, :Rp]
+        gid_wp = gid[:, Rp + 2 * Rr:Rp + 2 * Rr + Wp]
+        qvalid = torch.cat([rp_valid, r_valid, r_valid, r_valid, wp_valid, w_valid, w_valid],
+                           dim=1)
+        qkeys = torch.cat([rpb, rb, _bump(rb), re, wpb, wb, we], dim=1)
+        q_eff = torch.where(qvalid[..., None], qkeys, U32_ALL)
+        lb = _lower_bound_n(hkeys, n, q_eff, cfg.levels)
         lb_rp, lb_rb, lb_rbb, s_re, s_wpb, s_wb, s_we = torch.split(
-            lb, [Rp, Rr, Rr, Rr, Wp, Wr, Wr])
+            lb, [Rp, Rr, Rr, Rr, Wp, Wr, Wr], dim=1)
     s_rp = lb_rp
 
     # Equality gathers (one table row each) derive every upper bound.
@@ -615,52 +697,53 @@ def local_phases(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict):
 
     # Write-interval endpoint positions in the OLD table, for the apply.
     wpos = {
-        "lo_b": _i32(torch.cat([s_wpb, s_wb])),
-        "lo_e": _i32(torch.cat([s_wpb + eq_wpb, s_we])),
-        "up_e": _i32(torch.cat([s_wpb + eq_wpb + eq_wpb2, s_we + eq_we])),
+        "lo_b": _i32(torch.cat([s_wpb, s_wb], dim=1)),
+        "lo_e": _i32(torch.cat([s_wpb + eq_wpb, s_we], dim=1)),
+        "up_e": _i32(torch.cat([s_wpb + eq_wpb + eq_wpb2, s_we + eq_we], dim=1)),
     }
 
     # ---- Phase 1: reads vs. history ----
     # Tiered: every run's answer folds into the base table's before any hit.
     tiered = is_tiered(cfg)
     if tiered:
-        run_vp, run_vr = _tiered_read_probe(cfg, state, rpb, rp_valid, rb, re, r_valid,
-                                            empty_r)
-    vmax_p = _take(hvers, torch.clamp(s_rp + eq_rp - 1, min=0))
+        run_vp, run_vr = _tiered_read_probe_stacked(cfg, state, rpb, rp_valid, rb, re, r_valid,
+                                                    empty_r)
+    vmax_p = _take_each(hvers, torch.clamp(s_rp + eq_rp - 1, min=0))
     if tiered:
         vmax_p = torch.maximum(vmax_p, run_vp)
     hit_p = rp_valid & (vmax_p > batch["rp_snap"])
-    hist = torch.zeros(T + 1, dtype=torch.int32, device=dev)
-    hist.scatter_reduce_(0, _drop(rp_txn, T), _i32(hit_p), "amax", include_self=True)
+    # column T of each sub-shard is the dustbin of JAX's mode="drop"
+    hist = torch.zeros((S, T + 1), dtype=torch.int32, device=dev)
+    hist.scatter_reduce_(1, _drop(rp_txn, T), _i32(hit_p), "amax", include_self=True)
     if Rr > 0:
-        sparse = _build_sparse_max(cfg, hvers, n)
+        sparse = _build_sparse_max_n(hvers, n, H, cfg.levels)
         s_qlo = torch.where(empty_r, lb_rb, lb_rbb)
         lo_e = torch.clamp(s_qlo - 1, min=0)
         lo = torch.where(empty_r, lo_e, s_qlo - 1)
         hi = torch.where(empty_r, lo_e + 1, s_re)
-        rmax = _range_max(cfg, sparse, lo, hi)
+        rmax = _range_max_n(sparse, lo, hi, H)
         if tiered:
             rmax = torch.maximum(rmax, run_vr)
         hit_rg = r_valid & (rmax > batch["r_snap"])
-        hist.scatter_reduce_(0, _drop(r_txn, T), _i32(hit_rg), "amax", include_self=True)
-    hist_hits = hist[:T]
+        hist.scatter_reduce_(1, _drop(r_txn, T), _i32(hit_rg), "amax", include_self=True)
+    hist_hits = hist[:, :T]
 
     # ---- Phase 2: intra-batch overlap edges (earlier txn -> later txn) ----
-    ov_pr = ((pos_wb[None, :] < pos_rpb[:, None])        # wb <= k
-             & (pos_rpb[:, None] < pos_we[None, :])      # k < we
-             & (w_txn[None, :] < rp_txn[:, None])
-             & rp_valid[:, None] & w_valid[None, :])
+    ov_pr = ((pos_wb[:, None, :] < pos_rpb[:, :, None])        # wb <= k
+             & (pos_rpb[:, :, None] < pos_we[:, None, :])      # k < we
+             & (w_txn[:, None, :] < rp_txn[:, :, None])
+             & rp_valid[:, :, None] & w_valid[:, None, :])
     nonempty = ~empty_r & r_valid
-    ov_rp = ((pos_rb[:, None] < pos_wpb[None, :])        # rb <= k
-             & (pos_wpb[None, :] < pos_re[:, None])      # k < re
-             & (wp_txn[None, :] < r_txn[:, None])
-             & nonempty[:, None] & wp_valid[None, :])
-    ov_rr = ((pos_rb[:, None] < pos_we[None, :])
-             & (pos_wb[None, :] < pos_re[:, None])
-             & (w_txn[None, :] < r_txn[:, None])
-             & nonempty[:, None] & w_valid[None, :])
+    ov_rp = ((pos_rb[:, :, None] < pos_wpb[:, None, :])        # rb <= k
+             & (pos_wpb[:, None, :] < pos_re[:, :, None])      # k < re
+             & (wp_txn[:, None, :] < r_txn[:, :, None])
+             & nonempty[:, :, None] & wp_valid[:, None, :])
+    ov_rr = ((pos_rb[:, :, None] < pos_we[:, None, :])
+             & (pos_wb[:, None, :] < pos_re[:, :, None])
+             & (w_txn[:, None, :] < r_txn[:, :, None])
+             & nonempty[:, :, None] & w_valid[:, None, :])
     edges = {
-        "ovw": _pack_bits(torch.cat([ov_pr, ov_rr]), cfg.wr_words),
+        "ovw": _pack_bits(torch.cat([ov_pr, ov_rr], dim=1), cfg.wr_words),
         "ovrp": _pack_bits(ov_rp, cfg.wp_words),
         "gid_rp": _i32(gid_rp),
         "gid_wp": _i32(gid_wp),
@@ -675,8 +758,8 @@ def local_phases(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict):
             edges["heat_hhit_r"] = hit_rg
             edges["heat_hver_r"] = rmax
         else:
-            edges["heat_hhit_r"] = torch.zeros((0,), dtype=torch.bool, device=dev)
-            edges["heat_hver_r"] = torch.zeros((0,), dtype=torch.int32, device=dev)
+            edges["heat_hhit_r"] = torch.zeros((S, 0), dtype=torch.bool, device=dev)
+            edges["heat_hver_r"] = torch.zeros((S, 0), dtype=torch.int32, device=dev)
     return hist_hits, edges, wpos
 
 
@@ -684,80 +767,92 @@ def local_phases(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict):
 # the commit fixpoint, plain form (the CUDA kernel's reference)
 # ---------------------------------------------------------------------------
 
-def _group_bounds(txn: Tensor, valid: Tensor, T: int) -> Tuple[Tensor, Tensor]:
-    """Row range [starts[t], ends[t]) of txn t's rows within one group
-    (valid rows are a prefix, grouped by ascending txn)."""
+def _group_bounds_stacked(txn: Tensor, valid: Tensor, T: int) -> Tuple[Tensor, Tensor]:
+    """Row range [starts[s, t], ends[s, t]) of txn t's rows within one group
+    of sub-shard s (valid rows are a prefix, grouped by ascending txn): [S,
+    R] rows -> [S, T]."""
     idx = _drop(torch.where(valid, txn.long(), T), T)
-    cnt = torch.zeros(T + 1, dtype=torch.int64, device=txn.device)
-    cnt.index_add_(0, idx, torch.ones_like(idx))
-    cnt = cnt[:T]
-    ends = torch.cumsum(cnt, 0)
+    cnt = torch.zeros((txn.shape[0], T + 1), dtype=torch.int64, device=txn.device)
+    cnt.scatter_add_(1, idx, torch.ones_like(idx))
+    cnt = cnt[:, :T]
+    ends = torch.cumsum(cnt, 1)
     return ends - cnt, ends
 
 
-def _read_group_bounds(cfg: KernelConfig, batch: Dict):
-    """Per-txn row windows of the two read groups (loop-invariant)."""
+def _read_group_bounds_stacked(cfg: KernelConfig, batch: Dict):
+    """Per-txn row windows [S, T] of the two read groups (loop-invariant)."""
     T = cfg.max_txns
-    ps, pe = _group_bounds(batch["rp_txn"], batch["rp_valid"], T)
-    rs, re_ = _group_bounds(batch["r_txn"], batch["r_valid"], T)
-    return ps, pe, rs, re_
+    return (_group_bounds_stacked(batch["rp_txn"], batch["rp_valid"], T)
+            + _group_bounds_stacked(batch["r_txn"], batch["r_valid"], T))
+
+
+def _read_group_bounds(cfg: KernelConfig, batch: Dict):
+    """_read_group_bounds_stacked of a single table's batch (its S = 1
+    stack), as _blocked_txns takes them."""
+    return _read_group_bounds_stacked(cfg, _one(batch))
 
 
 def _blocked_rows(cfg: KernelConfig, edges: Dict[str, Tensor], batch: Dict,
                   c: Tensor) -> Tuple[Tensor, Tensor]:
-    """Per-read-row intra-batch blocked flags under committed mask c:
-    (point rows [Rp], range rows [Rr])."""
+    """Per-read-row intra-batch blocked flags of every sub-shard under one
+    committed mask c [T]: (point rows [S, Rp], range rows [S, Rr]). Each
+    sub-shard has its own writer masks and gid table; only the txn space
+    is shared."""
+    S = batch["wp_txn"].shape[0]
     T, Rp, G = cfg.max_txns, cfg.rp, cfg.gid_space
     wp_txn = batch["wp_txn"].long()
     cwp = _take(c, wp_txn) & batch["wp_valid"]
     cwr = _take(c, batch["w_txn"].long()) & batch["w_valid"]
-    maskw = _pack_bits(cwr, cfg.wr_words)
-    hit_w = torch.any((edges["ovw"] & maskw[None, :]) != 0, dim=-1)
+    maskw = _pack_bits(cwr, cfg.wr_words)                        # [S, WRW]
+    hit_w = torch.any((edges["ovw"] & maskw[:, None, :]) != 0, dim=-1)
     maskp = _pack_bits(cwp, cfg.wp_words)
-    hit_rp = torch.any((edges["ovrp"] & maskp[None, :]) != 0, dim=-1)
+    hit_rp = torch.any((edges["ovrp"] & maskp[:, None, :]) != 0, dim=-1)
     # point-point: per-gid min of committed writer txns (T = +inf); G+1 is
     # the dustbin slot for uncommitted rows, G+2 the dropped-index slot
-    mn = torch.full((G + 3,), T, dtype=torch.int64, device=c.device)
+    mn = torch.full((S, G + 3), T, dtype=torch.int64, device=c.device)
     gsl = _drop(torch.where(cwp, edges["gid_wp"].long(), G + 1), G + 2)
-    mn.scatter_reduce_(0, gsl, wp_txn, "amin", include_self=True)
-    hit_pp = _take(mn[:G + 2], edges["gid_rp"].long()) < batch["rp_txn"]
-    return hit_w[:Rp] | hit_pp, hit_w[Rp:] | hit_rp
+    mn.scatter_reduce_(1, gsl, wp_txn, "amin", include_self=True)
+    hit_pp = _take_each(mn[:, :G + 2], edges["gid_rp"].long()) < batch["rp_txn"]
+    return hit_w[:, :Rp] | hit_pp, hit_w[:, Rp:] | hit_rp
 
 
-def _blocked_txns(cfg: KernelConfig, edges: Dict[str, Tensor], batch: Dict,
-                  c: Tensor, bounds=None) -> Tensor:
-    """Per-txn blocked counts [T] under the committed mask c."""
-    ps, pe, rs, re_ = bounds if bounds is not None else _read_group_bounds(cfg, batch)
+def _blocked_txns_stacked(cfg: KernelConfig, edges: Dict[str, Tensor], batch: Dict,
+                          c: Tensor, bounds) -> Tensor:
+    """Per-txn blocked counts [S, T] of every sub-shard under one committed
+    mask c [T], as JAX's vmap of _blocked_txns gives them."""
+    S = batch["wp_txn"].shape[0]
+    ps, pe, rs, re_ = bounds
 
     def seg_count(hit, starts, ends):
-        csum = torch.cat([torch.zeros(1, dtype=torch.int64, device=hit.device),
-                          torch.cumsum(hit, 0)])
-        return csum[ends] - csum[starts]
+        csum = torch.cat([torch.zeros((S, 1), dtype=torch.int64, device=hit.device),
+                          torch.cumsum(hit, 1)], dim=1)
+        return csum.gather(1, ends) - csum.gather(1, starts)
 
     hit_point, hit_range = _blocked_rows(cfg, edges, batch, c)
     return seg_count(hit_point, ps, pe) + seg_count(hit_range, rs, re_)
 
 
+def _blocked_txns(cfg: KernelConfig, edges: Dict[str, Tensor], batch: Dict,
+                  c: Tensor, bounds=None) -> Tensor:
+    """Per-txn blocked counts [T] of a single table under the committed
+    mask c (`bounds` from _read_group_bounds)."""
+    if bounds is None:
+        bounds = _read_group_bounds(cfg, batch)
+    return _blocked_txns_stacked(cfg, _one(edges), _one(batch), c, bounds)[0]
+
+
 def commit_fixpoint(cfg: KernelConfig, t_ok: Tensor, hist_hits: Tensor,
                     edges: Dict[str, Tensor], batch: Dict,
                     allreduce=lambda x: x) -> Tensor:
-    """Earlier-in-batch-wins verdicts, the plain torch form of the JAX
-    while_loop: start from base = t_ok & ~hist_hit and iterate
-    c <- base & ~blocked(c) to its fixpoint, at most T rounds after the
-    first. `allreduce` combines one shard's per-txn blocked counts [T]
-    with the other shards' (counts add across disjoint key shards; the
-    identity for one shard), as JAX's psum hook does. The loop test reads
-    a device value, so on the card every round syncs with the host; the
-    engine's path uses the CUDA kernel there (fixpoint_cuda.py) and this
-    form runs on the card only to check it."""
-    T = cfg.max_txns
-    base = t_ok & ~(hist_hits > 0)
-    bounds = _read_group_bounds(cfg, batch)
-
-    def step(c):
-        return base & ~(allreduce(_blocked_txns(cfg, edges, batch, c, bounds)) > 0)
-
-    return _iterate(step, base, T)
+    """Earlier-in-batch-wins verdicts of a single table, the plain torch
+    form of the JAX while_loop: commit_fixpoint_stacked at S = 1.
+    `allreduce` combines one shard's per-txn blocked counts [T] with the
+    other shards' (counts add across disjoint key shards; the identity for
+    one shard), as JAX's psum hook does. The engine's path on the card uses
+    the CUDA kernel (fixpoint_cuda.py); this form runs there only to check
+    it."""
+    return commit_fixpoint_stacked(cfg, t_ok, hist_hits[None], _one(edges), _one(batch),
+                                   allreduce)
 
 
 # fdbtpu-lint: drain-point — the plain fixpoint's loop test reads one bool
@@ -775,75 +870,26 @@ def _iterate(step, base: Tensor, T: int) -> Tensor:
     return c
 
 
-# ---------------------------------------------------------------------------
-# the stacked commit fixpoint: S sub-shards of one batch
-# ---------------------------------------------------------------------------
-
-def _take_last(x: Tensor, idx: Tensor) -> Tensor:
-    """Per-row _take along the last axis: x [S, N], idx [S, Q] ->
-    x[s, idx[s, q]] with JAX's wrap-once-then-clamp rule."""
-    n = x.shape[-1]
-    idx = torch.where(idx < 0, idx + n, idx).clamp_(0, n - 1)
-    return x.gather(-1, idx)
-
-
-def _group_bounds_stacked(txn: Tensor, valid: Tensor, T: int) -> Tuple[Tensor, Tensor]:
-    """_group_bounds of every sub-shard at once: [S, R] rows -> [S, T]."""
-    idx = _drop(torch.where(valid, txn.long(), T), T)
-    cnt = torch.zeros((txn.shape[0], T + 1), dtype=torch.int64, device=txn.device)
-    cnt.scatter_add_(1, idx, torch.ones_like(idx))
-    cnt = cnt[:, :T]
-    ends = torch.cumsum(cnt, 1)
-    return ends - cnt, ends
-
-
-def _blocked_txns_stacked(cfg: KernelConfig, edges: Dict[str, Tensor], batch: Dict,
-                          c: Tensor, bounds) -> Tensor:
-    """_blocked_txns of every sub-shard under one committed mask c [T]:
-    the [S, T] blocked counts, as JAX's vmap of it gives them. Each
-    sub-shard has its own writer masks, gid table and row windows; only
-    the txn space is shared."""
-    S = batch["wp_txn"].shape[0]
-    T, Rp, G = cfg.max_txns, cfg.rp, cfg.gid_space
-    wp_txn = batch["wp_txn"].long()
-    cwp = _take(c, wp_txn) & batch["wp_valid"]
-    cwr = _take(c, batch["w_txn"].long()) & batch["w_valid"]
-    maskw = _pack_bits(cwr, cfg.wr_words)                        # [S, WRW]
-    hit_w = torch.any((edges["ovw"] & maskw[:, None, :]) != 0, dim=-1)
-    maskp = _pack_bits(cwp, cfg.wp_words)
-    hit_rp = torch.any((edges["ovrp"] & maskp[:, None, :]) != 0, dim=-1)
-    mn = torch.full((S, G + 3), T, dtype=torch.int64, device=c.device)
-    gsl = _drop(torch.where(cwp, edges["gid_wp"].long(), G + 1), G + 2)
-    mn.scatter_reduce_(1, gsl, wp_txn, "amin", include_self=True)
-    hit_pp = _take_last(mn[:, :G + 2], edges["gid_rp"].long()) < batch["rp_txn"]
-    hit_point, hit_range = hit_w[:, :Rp] | hit_pp, hit_w[:, Rp:] | hit_rp
-    ps, pe, rs, re_ = bounds
-
-    def seg_count(hit, starts, ends):
-        csum = torch.cat([torch.zeros((S, 1), dtype=torch.int64, device=hit.device),
-                          torch.cumsum(hit, 1)], dim=1)
-        return csum.gather(1, ends) - csum.gather(1, starts)
-
-    return seg_count(hit_point, ps, pe) + seg_count(hit_range, rs, re_)
-
-
 def commit_fixpoint_stacked(cfg: KernelConfig, t_ok: Tensor, hist_stacked: Tensor,
-                            edges: Dict[str, Tensor], batch: Dict) -> Tensor:
+                            edges: Dict[str, Tensor], batch: Dict,
+                            allreduce=lambda x: x) -> Tensor:
     """Earlier-in-batch-wins verdicts across S sub-shards of one batch on
     one device, the plain form of JAX's commit_fixpoint_stacked: the mesh
     engine's psum becomes a sum over the leading axis. t_ok [T] is
     global; hist_stacked [S, T], and every leaf of edges and batch, carry
     the sub-shard axis first. base = t_ok & ~(sum_s hist > 0), then
-    c <- base & ~(sum_s blocked_s(c) > 0) as commit_fixpoint iterates.
-    The engines' path on the card is the CUDA kernel's stacked entry
+    c <- base & ~(allreduce(sum_s blocked_s(c)) > 0) to its fixpoint, at
+    most T rounds after the first. The loop test reads a device value, so
+    on the card every round syncs with the host. The engines' path on the
+    card is the CUDA kernel's stacked entry
     (fixpoint_cuda.commit_fixpoint_stacked_kernel)."""
     T = cfg.max_txns
     base = t_ok & ~(hist_stacked.sum(0) > 0)
-    bounds = (_group_bounds_stacked(batch["rp_txn"], batch["rp_valid"], T)
-              + _group_bounds_stacked(batch["r_txn"], batch["r_valid"], T))
+    bounds = _read_group_bounds_stacked(cfg, batch)
 
     def step(c):
-        return base & ~(_blocked_txns_stacked(cfg, edges, batch, c, bounds).sum(0) > 0)
+        blocked = _blocked_txns_stacked(cfg, edges, batch, c, bounds).sum(0)
+        return base & ~(allreduce(blocked) > 0)
 
     return _iterate(step, base, T)
 
@@ -880,120 +926,140 @@ def apply_writes_and_gc(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict
 def _apply_writes(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
                   committed: Tensor, wpos: Dict[str, Tensor], gc_branch: bool):
     """apply_writes_and_gc, plus the merge flag: (new_state, overflow,
-    reclaimed, merged bool 0-d under the tiered structure, else None)."""
+    reclaimed, merged bool 0-d under the tiered structure, else None) —
+    _apply_stacked at S = 1."""
+    one = _one(state)
+    new_state, overflow, reclaimed, merged = _apply_stacked(cfg, one, _one(batch), committed,
+                                                            _one(wpos), gc_branch)
+    return (_unstack_state(state, one, new_state), overflow[0], reclaimed[0],
+            None if merged is None else merged[0])
+
+
+def _apply_stacked(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
+                   committed: Tensor, wpos: Dict[str, Tensor], gc_branch: bool):
+    """Phases 3-5 of S sub-shards at once under the one committed mask
+    [T], as JAX's vmap of apply_writes_and_gc: (new_state [S, ...],
+    overflow [S], reclaimed [S], merged [S] under the tiered structure,
+    else None). The tiered apply updates the state's tensors in place."""
     check_supported(cfg)
     hkeys, hvers, n = state["hkeys"], state["hvers"], state["n"]
     dev = hkeys.device
     Wa, H, K = cfg.w_all, cfg.capacity, cfg.lanes
+    S = hkeys.shape[0]
     now = batch["now"].to(torch.int64)
-    n64 = n.to(torch.int64)
-    w_txn_all = torch.cat([batch["wp_txn"], batch["w_txn"]]).long()
-    w_valid_all = torch.cat([batch["wp_valid"], batch["w_valid"]])
-    bkeys = torch.cat([batch["wpb"], batch["wb"]])
-    ekeys = torch.cat([_bump(batch["wpb"]), batch["we"]])
+    n64 = n.to(torch.int64)[:, None]
+    w_txn_all = torch.cat([batch["wp_txn"], batch["w_txn"]], dim=1).long()
+    w_valid_all = torch.cat([batch["wp_valid"], batch["w_valid"]], dim=1)
+    bkeys = torch.cat([batch["wpb"], batch["wb"]], dim=1)
+    ekeys = torch.cat([_bump(batch["wpb"]), batch["we"]], dim=1)
 
     # ---- Phase 3: committed-write union ----
     cw = w_valid_all & _take(committed, w_txn_all)
-    allk = torch.cat([bkeys, ekeys])                                  # [2Wa, K]
-    ecode = torch.cat([torch.zeros(Wa, dtype=torch.int64, device=dev),
-                       torch.ones(Wa, dtype=torch.int64, device=dev)])
-    evalid = torch.cat([cw, cw])
+    allk = torch.cat([bkeys, ekeys], dim=1)                           # [S, 2Wa, K]
+    ecode = _arange(2 * Wa, dev) >= Wa                               # end rows: code 1
+    evalid = torch.cat([cw, cw], dim=1)
     perm, s_keys = _sorted_rows(allk, ecode, evalid)
     # invalid rows sort last with code 7 (the JAX form writes 3; both are
     # >= 2, which is all s_valid reads)
-    s_valid = evalid[perm]
-    s_delta = torch.where(ecode[perm] == 0, 1, -1)
+    s_valid = evalid.gather(1, perm)
+    s_delta = torch.where(perm < Wa, 1, -1)
     d = torch.where(s_valid, s_delta, 0)
-    cum = torch.cumsum(d, 0)
+    cum = torch.cumsum(d, -1)
     is_ub = s_valid & (s_delta > 0) & ((cum - d) == 0)
     is_ue = s_valid & (s_delta < 0) & (cum == 0)
-    ubi = torch.cumsum(is_ub, 0) - 1
-    uei = torch.cumsum(is_ue, 0) - 1
-    u_count = is_ub.sum()
-    pe_lo = torch.cat([wpos["lo_b"], wpos["lo_e"]]).long()
-    pe_up = torch.cat([wpos["lo_b"], wpos["up_e"]]).long()
-    sc = torch.cat([s_keys, pe_lo[perm][:, None], pe_up[perm][:, None]], dim=1)
-    ubc = torch.zeros((Wa + 1, K + 2), dtype=torch.int64, device=dev)
-    ubc[_drop(torch.where(is_ub, ubi, Wa), Wa)] = sc
-    uec = torch.zeros((Wa + 1, K + 2), dtype=torch.int64, device=dev)
-    uec[_drop(torch.where(is_ue, uei, Wa), Wa)] = sc
-    ub_keys, ue_keys = ubc[:Wa, :K], uec[:Wa, :K]
-    u_start, u_stop = ubc[:Wa, K], uec[:Wa, K]
+    ubi = torch.cumsum(is_ub, -1) - 1
+    uei = torch.cumsum(is_ue, -1) - 1
+    u_count = is_ub.sum(-1)                                           # [S]
+    pe_lo = torch.cat([wpos["lo_b"], wpos["lo_e"]], dim=1).long()
+    pe_up = torch.cat([wpos["lo_b"], wpos["up_e"]], dim=1).long()
+    sc = torch.cat([s_keys, pe_lo.gather(1, perm)[..., None], pe_up.gather(1, perm)[..., None]],
+                   dim=-1)
+    ubc = torch.zeros((S, Wa + 1, K + 2), dtype=torch.int64, device=dev)
+    _put_each(ubc, _drop(torch.where(is_ub, ubi, Wa), Wa), sc)
+    uec = torch.zeros((S, Wa + 1, K + 2), dtype=torch.int64, device=dev)
+    _put_each(uec, _drop(torch.where(is_ue, uei, Wa), Wa), sc)
+    ub_keys, ue_keys = ubc[:, :Wa, :K], uec[:, :Wa, :K]
+    u_start, u_stop = ubc[:, :Wa, K], uec[:, :Wa, K]
     if is_tiered(cfg):
         # phase 3's union IS the new run: the capacity-H re-merge and GC
         # compaction of phases 4-5 give way to append, rebase, lazy merge
-        return _tiered_apply(cfg, state, batch, ub_keys, ue_keys, u_count, gc_branch)
-    ue_ver = _take(hvers, torch.clamp(uec[:Wa, K + 1] - 1, min=0))
+        return _tiered_apply_stacked(cfg, state, batch, ub_keys, ue_keys, u_count,
+                                     gc_branch)
+    ue_ver = _take_each(hvers, torch.clamp(uec[:, :Wa, K + 1] - 1, min=0))
 
     # ---- Phase 4: merge the union into the table at version `now` ----
     jslot = _arange(H, dev)
-    valid_u = _arange(Wa, dev) < u_count
-    cov_delta = torch.zeros(H + 2, dtype=torch.int64, device=dev)
-    cov_delta.index_add_(0, _drop(torch.where(valid_u, u_start, H + 1), H + 1),
-                         torch.ones(Wa, dtype=torch.int64, device=dev))
-    cov_delta.index_add_(0, _drop(torch.where(valid_u, u_stop, H + 1), H + 1),
-                         torch.full((Wa,), -1, dtype=torch.int64, device=dev))
-    covered = torch.cumsum(cov_delta[:H], 0) > 0
+    valid_u = _arange(Wa, dev) < u_count[:, None]
+    # column H+1 of each sub-shard is the dustbin of JAX's mode="drop"
+    cov_delta = torch.zeros((S, H + 2), dtype=torch.int64, device=dev)
+    cov_delta.scatter_add_(1, _drop(torch.where(valid_u, u_start, H + 1), H + 1),
+                           torch.ones((S, Wa), dtype=torch.int64, device=dev))
+    cov_delta.scatter_add_(1, _drop(torch.where(valid_u, u_stop, H + 1), H + 1),
+                           torch.full((S, Wa), -1, dtype=torch.int64, device=dev))
+    covered = torch.cumsum(cov_delta[:, :H], -1) > 0
     old_keep = (jslot < n64) & ~covered
 
     # new rows interleave begins (version now) and ends (version ue_ver)
-    nb_keys = torch.stack([ub_keys, ue_keys], dim=1).reshape(2 * Wa, K)
-    nb_vers = torch.stack([now.expand(Wa), ue_ver.long()], dim=1).reshape(2 * Wa)
-    nb_lb = torch.stack([u_start, u_stop], dim=1).reshape(2 * Wa)
+    nb_keys = torch.stack([ub_keys, ue_keys], dim=2).reshape(S, 2 * Wa, K)
+    nb_vers = torch.stack([now[:, None].expand(S, Wa), ue_ver.long()], dim=2).reshape(S, 2 * Wa)
+    nb_lb = torch.stack([u_start, u_stop], dim=2).reshape(S, 2 * Wa)
     j_of = _arange(2 * Wa, dev) >> 1
     is_end_row = (_arange(2 * Wa, dev) & 1) == 1
-    nb_valid = j_of < u_count
+    nb_valid = j_of < u_count[:, None]
     # drop an end row when an equal, uncovered old boundary already exists
     lbc = torch.clamp(nb_lb, max=H - 1)
-    eq_exists = (nb_lb < n64) & _key_eq(hkeys[lbc], nb_keys) & ~covered[lbc]
+    eq_exists = ((nb_lb < n64) & _key_eq(_gather_each(hkeys, lbc), nb_keys)
+                 & ~covered.gather(1, lbc))
     nb_keep = nb_valid & ~(is_end_row & eq_exists)
 
-    ncomp_pos = torch.cumsum(nb_keep, 0) - 1
-    nc = nb_keep.sum()
-    ncc = torch.zeros((2 * Wa + 1, K + 2), dtype=torch.int64, device=dev)
-    ncc[_drop(torch.where(nb_keep, ncomp_pos, 2 * Wa), 2 * Wa)] = torch.cat(
-        [nb_keys, nb_vers[:, None], nb_lb[:, None]], dim=1)
-    nck, ncv, lb_old = ncc[:2 * Wa, :K], ncc[:2 * Wa, K], ncc[:2 * Wa, K + 1]
+    ncomp_pos = torch.cumsum(nb_keep, -1) - 1
+    nc = nb_keep.sum(-1)[:, None]
+    ncc = torch.zeros((S, 2 * Wa + 1, K + 2), dtype=torch.int64, device=dev)
+    _put_each(ncc, _drop(torch.where(nb_keep, ncomp_pos, 2 * Wa), 2 * Wa),
+              torch.cat([nb_keys, nb_vers[..., None], nb_lb[..., None]], dim=-1))
+    nck, ncv, lb_old = ncc[:, :2 * Wa, :K], ncc[:, :2 * Wa, K], ncc[:, :2 * Wa, K + 1]
 
-    cum_keep = torch.cumsum(old_keep, 0)
-    new_cnt = torch.zeros(H + 2, dtype=torch.int64, device=dev)
-    new_cnt.index_add_(0, _drop(torch.where(_arange(2 * Wa, dev) < nc, lb_old, H + 1), H + 1),
-                       torch.ones(2 * Wa, dtype=torch.int64, device=dev))
-    new_before_old = torch.cumsum(new_cnt[:H], 0)
+    cum_keep = torch.cumsum(old_keep, -1)
+    nc_mask = _arange(2 * Wa, dev) < nc
+    new_cnt = torch.zeros((S, H + 2), dtype=torch.int64, device=dev)
+    new_cnt.scatter_add_(1, _drop(torch.where(nc_mask, lb_old, H + 1), H + 1),
+                         torch.ones((S, 2 * Wa), dtype=torch.int64, device=dev))
+    new_before_old = torch.cumsum(new_cnt[:, :H], -1)
     pos_old = cum_keep - 1 + new_before_old
-    cum_cov = torch.cumsum(covered, 0)
-    cov_before = torch.where(lb_old > 0, _take(cum_cov, torch.clamp(lb_old - 1, min=0)), 0)
+    cum_cov = torch.cumsum(covered, -1)
+    cov_before = torch.where(lb_old > 0, _take_each(cum_cov, torch.clamp(lb_old - 1, min=0)), 0)
     pos_new = _arange(2 * Wa, dev) + (lb_old - cov_before)
 
     # merged rows (keys | version) in one int64 matrix, with a dustbin row H
-    outc = torch.zeros((H + 1, K + 1), dtype=torch.int64, device=dev)
-    outc[:, K] = NEG_VERSION
-    outc[_drop(torch.where(old_keep, pos_old, H), H)] = torch.cat(
-        [hkeys, hvers.long()[:, None]], dim=1)
-    nc_mask = _arange(2 * Wa, dev) < nc
-    outc[_drop(torch.where(nc_mask, pos_new, H), H)] = torch.cat(
-        [nck, ncv[:, None]], dim=1)
-    outc = outc[:H]
-    out_v = outc[:, K]
-    n1 = cum_keep[-1] + nc
+    outc = torch.zeros((S, H + 1, K + 1), dtype=torch.int64, device=dev)
+    outc[..., K] = NEG_VERSION
+    _put_each(outc, _drop(torch.where(old_keep, pos_old, H), H),
+              torch.cat([hkeys, hvers.long()[..., None]], dim=-1))
+    _put_each(outc, _drop(torch.where(nc_mask, pos_new, H), H),
+              torch.cat([nck, ncv[..., None]], dim=-1))
+    outc = outc[:, :H]
+    out_v = outc[..., K]
+    n1 = cum_keep[:, -1] + nc[:, 0]
     overflow = n1 > H
 
     # ---- Phase 5: GC + rebase (keep rule of removeBefore) ----
     # The branch is the host's (gc_branch): a captured graph holds one.
-    gc = batch["gc"].to(torch.int64)
+    gc = batch["gc"].to(torch.int64)[:, None]
     if gc_branch:
-        prev_v = torch.cat([torch.full((1,), 2**30, dtype=torch.int64, device=dev), out_v[:-1]])
-        keep = (jslot < n1) & ((jslot == 0) | (out_v >= gc) | (prev_v >= gc))
-        cpos = torch.cumsum(keep, 0) - 1
-        finc = torch.zeros((H + 1, K + 1), dtype=torch.int64, device=dev)
-        finc[:, K] = NEG_VERSION
-        finc[_drop(torch.where(keep, cpos, H), H)] = outc
-        n2 = keep.sum()
-        fin_v = torch.where(jslot < n2, torch.clamp(finc[:H, K] - gc, min=-1), NEG_VERSION)
-        hk = finc[:H, :K]
+        prev_v = torch.cat([torch.full((S, 1), 2**30, dtype=torch.int64, device=dev),
+                            out_v[:, :-1]], dim=1)
+        keep = (jslot < n1[:, None]) & ((jslot == 0) | (out_v >= gc) | (prev_v >= gc))
+        cpos = torch.cumsum(keep, -1) - 1
+        finc = torch.zeros((S, H + 1, K + 1), dtype=torch.int64, device=dev)
+        finc[..., K] = NEG_VERSION
+        _put_each(finc, _drop(torch.where(keep, cpos, H), H), outc)
+        n2 = keep.sum(-1)
+        fin_v = torch.where(jslot < n2[:, None], torch.clamp(finc[:, :H, K] - gc, min=-1),
+                            NEG_VERSION)
+        hk = finc[:, :H, :K]
     else:
-        fin_v = torch.where(jslot < n1, torch.clamp(out_v, min=-1), NEG_VERSION)
-        hk = outc[:, :K]
+        fin_v = torch.where(jslot < n1[:, None], torch.clamp(out_v, min=-1), NEG_VERSION)
+        hk = outc[..., :K]
         n2 = n1
     new_state = {"hkeys": hk.contiguous(), "hvers": _i32(fin_v), "n": _i32(n2)}
     return new_state, overflow, _i32(n1 - n2), None
@@ -1005,9 +1071,20 @@ def _apply_writes(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
 
 def _merge_runs(cfg: KernelConfig, hkeys: Tensor, hvers: Tensor, n: Tensor,
                 rkeys: Tensor, rvers: Tensor, rn: Tensor, nruns: Tensor):
-    """The lazy compaction: fold base + every active run into one key-sorted
-    boundary table. Returns (mkeys [H, K], mvers int32 [H], m_n int32 0-d,
-    overflow bool 0-d, dropped int32 0-d) as the JAX function does.
+    """_merge_runs_stacked of a single table: (mkeys [H, K], mvers int32
+    [H], m_n int32 0-d, overflow bool 0-d, dropped int32 0-d) as the JAX
+    function returns them."""
+    out = _merge_runs_stacked(cfg, hkeys[None], hvers[None], n[None], rkeys[None], rvers[None],
+                              rn[None], nruns[None])
+    return tuple(x[0] for x in out)
+
+
+def _merge_runs_stacked(cfg: KernelConfig, hkeys: Tensor, hvers: Tensor, n: Tensor,
+                        rkeys: Tensor, rvers: Tensor, rn: Tensor, nruns: Tensor):
+    """The lazy compaction of S sub-shards at once: fold each one's base +
+    active runs into one key-sorted boundary table. Returns (mkeys [S, H,
+    K], mvers int32 [S, H], m_n int32 [S], overflow bool [S], dropped int32
+    [S]), each sub-shard's as the JAX function computes it.
 
     Stage 1 folds the runs alone: one sort of the NR*RC run rows, an [NR,
     NR*RC] cummax forward fill (each run's value at every sorted run key;
@@ -1019,100 +1096,106 @@ def _merge_runs(cfg: KernelConfig, hkeys: Tensor, hvers: Tensor, n: Tensor,
     NR, RC = cfg.run_slots, cfg.run_rows
     H, K = cfg.capacity, cfg.lanes
     Md = NR * RC
+    S = hkeys.shape[0]
     dev = hkeys.device
-    n64 = n.to(torch.int64)
+    n64 = n.to(torch.int64)[:, None]
     posn = _arange(Md, dev)
 
     # ---- Stage 1: fold the runs into one coalesced delta boundary list ----
-    akeys = rkeys.reshape(Md, K)
-    avers = rvers.reshape(Md)
+    akeys = rkeys.reshape(S, Md, K)
+    avers = rvers.reshape(S, Md)
     asrc = posn // RC
-    avalid = ((_arange(RC, dev)[None, :] < rn.to(torch.int64)[:, None])
-              & (_arange(NR, dev)[:, None] < nruns.to(torch.int64))).reshape(Md)
+    avalid = ((_arange(RC, dev) < rn.to(torch.int64)[..., None])
+              & (_arange(NR, dev)[:, None] < nruns.to(torch.int64)[:, None, None])).reshape(S, Md)
     # valid rows sort first, invalid ones (all-ones keys) after them by index
     perm, skeys = _sorted_rows(akeys, torch.zeros(Md, dtype=torch.int64, device=dev), avalid)
-    svalid = avalid[perm]
+    svalid = avalid.gather(1, perm)
     ssrc = asrc[perm]
-    svers = avers[perm]
-    tag2 = torch.where(svalid[None, :] & (ssrc[None, :] == _arange(NR, dev)[:, None]),
-                       posn[None, :], -1)
-    last2 = torch.cummax(tag2, dim=1).values
-    val2 = torch.where(last2 >= 0, svers[torch.clamp(last2, min=0)], NEG_VERSION)
-    dval = val2.amax(dim=0)
+    svers = avers.gather(1, perm)
+    tag2 = torch.where(svalid[:, None, :] & (ssrc[:, None, :] == _arange(NR, dev)[:, None]),
+                       posn, -1)                                     # [S, NR, Md]
+    last2 = torch.cummax(tag2, dim=-1).values
+    val2 = torch.where(last2 >= 0,
+                       svers.gather(1, torch.clamp(last2, min=0).reshape(S, NR * Md))
+                       .reshape(S, NR, Md), NEG_VERSION)
+    dval = val2.amax(dim=1)
 
     # one delta row per distinct run key: the last row of each equal-key group
-    diff_next = torch.ones(Md, dtype=torch.bool, device=dev)
-    diff_next[:-1] = torch.any(skeys[:-1] != skeys[1:], dim=-1)
+    diff_next = torch.ones((S, Md), dtype=torch.bool, device=dev)
+    diff_next[:, :-1] = torch.any(skeys[:, :-1] != skeys[:, 1:], dim=-1)
     is_cand = svalid & diff_next
     ptag = torch.where(is_cand, posn, -1)
-    prevc = torch.cat([torch.full((1,), -1, dtype=torch.int64, device=dev),
-                       torch.cummax(ptag, dim=0).values[:-1]])
-    prev_val = torch.where(prevc >= 0, dval[torch.clamp(prevc, min=0)], 2**30)
+    prevc = torch.cat([torch.full((S, 1), -1, dtype=torch.int64, device=dev),
+                       torch.cummax(ptag, dim=-1).values[:, :-1]], dim=1)
+    prev_val = torch.where(prevc >= 0, dval.gather(1, torch.clamp(prevc, min=0)), 2**30)
     dkeep = is_cand & (dval != prev_val)
 
-    dpos = torch.cumsum(dkeep, 0) - 1
-    d_n = dkeep.sum()
-    dc = torch.zeros((Md + 1, K + 1), dtype=torch.int64, device=dev)
-    dc[_drop(torch.where(dkeep, dpos, Md), Md)] = torch.cat(
-        [skeys, dval.to(torch.int64)[:, None]], dim=1)
-    dkeys, dvers = dc[:Md, :K], dc[:Md, K]
+    dpos = torch.cumsum(dkeep, -1) - 1
+    d_n = dkeep.sum(-1)[:, None]
+    dc = torch.zeros((S, Md + 1, K + 1), dtype=torch.int64, device=dev)
+    _put_each(dc, _drop(torch.where(dkeep, dpos, Md), Md),
+              torch.cat([skeys, dval.to(torch.int64)[..., None]], dim=-1))
+    dkeys, dvers = dc[:, :Md, :K], dc[:, :Md, K]
 
     # ---- Stage 2: positional merge of the delta into the sorted base ----
     valid_d = posn < d_n
     lo = _lower_bound_n(hkeys, n, dkeys, cfg.levels)
-    eq = valid_d & (lo < n64) & _key_eq(hkeys[torch.clamp(lo, max=H - 1)], dkeys)
+    eq = (valid_d & (lo < n64)
+          & _key_eq(_gather_each(hkeys, torch.clamp(lo, max=H - 1)), dkeys))
     # a NEG delta row takes the base's value there, hvers[upper - 1]
     ubm1 = lo + eq.to(torch.int64) - 1
-    fill = torch.where(ubm1 >= 0, _take(hvers, torch.clamp(ubm1, min=0)).to(torch.int64),
-                       NEG_VERSION)
+    fill = torch.where(ubm1 >= 0,
+                       _take_each(hvers, torch.clamp(ubm1, min=0)).to(torch.int64), NEG_VERSION)
     dv2 = torch.where(dvers == NEG_VERSION, fill, dvers)
 
     # base rows inside a covering delta segment are overwritten; an
     # equal-key base row is superseded by its delta row either way
     covering = valid_d & (dvers != NEG_VERSION)
-    nxt_lo = torch.cat([lo[1:], torch.zeros(1, dtype=torch.int64, device=dev)])
+    nxt_lo = torch.cat([lo[:, 1:], torch.zeros((S, 1), dtype=torch.int64, device=dev)], dim=1)
     stop = torch.where(posn + 1 < d_n, nxt_lo, n64)
-    cov_delta = torch.zeros(H + 2, dtype=torch.int64, device=dev)
-    ones = torch.ones(Md, dtype=torch.int64, device=dev)
-    cov_delta.index_add_(0, _drop(torch.where(covering, lo, H + 1), H + 1), ones)
-    cov_delta.index_add_(0, _drop(torch.where(covering, stop, H + 1), H + 1), -ones)
-    covered = torch.cumsum(cov_delta[:H], 0) > 0
-    eq_kill = torch.zeros(H + 1, dtype=torch.bool, device=dev).index_fill_(
-        0, _drop(torch.where(eq, lo, H), H), True)[:H]
+    cov_delta = torch.zeros((S, H + 2), dtype=torch.int64, device=dev)
+    ones = torch.ones((S, Md), dtype=torch.int64, device=dev)
+    cov_delta.scatter_add_(1, _drop(torch.where(covering, lo, H + 1), H + 1), ones)
+    cov_delta.scatter_add_(1, _drop(torch.where(covering, stop, H + 1), H + 1), -ones)
+    covered = torch.cumsum(cov_delta[:, :H], -1) > 0
+    eq_kill = torch.zeros((S, H + 1), dtype=torch.bool, device=dev).scatter_(
+        1, _drop(torch.where(eq, lo, H), H), True)[:, :H]
     old_keep = (_arange(H, dev) < n64) & ~covered & ~eq_kill
 
     # merged positions: kept base rows shift by the delta rows before them,
     # delta rows by the kept base rows before them
-    cum_keep = torch.cumsum(old_keep, 0)
-    new_cnt = torch.zeros(H + 2, dtype=torch.int64, device=dev)
-    new_cnt.index_add_(0, _drop(torch.where(valid_d, lo, H + 1), H + 1), ones)
-    pos_old = cum_keep - 1 + torch.cumsum(new_cnt[:H], 0)
-    drop_before = torch.cumsum(covered | eq_kill, 0)
-    db = torch.where(lo > 0, _take(drop_before, torch.clamp(lo - 1, min=0)), 0)
+    cum_keep = torch.cumsum(old_keep, -1)
+    new_cnt = torch.zeros((S, H + 2), dtype=torch.int64, device=dev)
+    new_cnt.scatter_add_(1, _drop(torch.where(valid_d, lo, H + 1), H + 1), ones)
+    pos_old = cum_keep - 1 + torch.cumsum(new_cnt[:, :H], -1)
+    drop_before = torch.cumsum(covered | eq_kill, -1)
+    db = torch.where(lo > 0, _take_each(drop_before, torch.clamp(lo - 1, min=0)), 0)
     pos_new = posn + (lo - db)
 
     G = H + Md
-    img = torch.zeros((G + 1, K + 1), dtype=torch.int64, device=dev)
-    img[:, K] = NEG_VERSION
-    img[_drop(torch.where(old_keep, pos_old, G), G)] = torch.cat(
-        [hkeys, hvers.to(torch.int64)[:, None]], dim=1)
-    img[_drop(torch.where(valid_d, pos_new, G), G)] = torch.cat([dkeys, dv2[:, None]], dim=1)
-    img = img[:G]
-    gvers = img[:, K]
-    mn_raw = cum_keep[H - 1] + d_n
+    img = torch.zeros((S, G + 1, K + 1), dtype=torch.int64, device=dev)
+    img[..., K] = NEG_VERSION
+    _put_each(img, _drop(torch.where(old_keep, pos_old, G), G),
+              torch.cat([hkeys, hvers.to(torch.int64)[..., None]], dim=-1))
+    _put_each(img, _drop(torch.where(valid_d, pos_new, G), G),
+              torch.cat([dkeys, dv2[..., None]], dim=-1))
+    img = img[:, :G]
+    gvers = img[..., K]
+    mn_raw = cum_keep[:, H - 1:] + d_n
 
     # boundary redundancy over the merged image: drop rows whose value
     # equals the previous row's (the first row's sentinel matches nothing)
-    pv = torch.cat([torch.full((1,), 2**30, dtype=torch.int64, device=dev), gvers[:-1]])
+    pv = torch.cat([torch.full((S, 1), 2**30, dtype=torch.int64, device=dev), gvers[:, :-1]],
+                   dim=1)
     keep = (_arange(G, dev) < mn_raw) & (gvers != pv)
-    cpos = torch.cumsum(keep, 0) - 1
-    m_n = keep.sum()
-    out = torch.zeros((H + 1, K + 1), dtype=torch.int64, device=dev)
-    out[:, K] = NEG_VERSION
-    out[_drop(torch.where(keep, cpos, H), H)] = img
-    total = n64 + torch.where(_arange(NR, dev) < nruns.to(torch.int64), rn.to(torch.int64),
-                              0).sum()
-    return (out[:H, :K], _i32(out[:H, K]), _i32(m_n), m_n > H, _i32(total - m_n))
+    cpos = torch.cumsum(keep, -1) - 1
+    m_n = keep.sum(-1)
+    out = torch.zeros((S, H + 1, K + 1), dtype=torch.int64, device=dev)
+    out[..., K] = NEG_VERSION
+    _put_each(out, _drop(torch.where(keep, cpos, H), H), img)
+    total = n64[:, 0] + torch.where(_arange(NR, dev) < nruns.to(torch.int64)[:, None],
+                                    rn.to(torch.int64), 0).sum(-1)
+    return (out[:, :H, :K], _i32(out[:, :H, K]), _i32(m_n), m_n > H, _i32(total - m_n))
 
 
 class HostReads:
@@ -1141,7 +1224,10 @@ def run_if(pred_dev: Tensor, body) -> None:
     (graph_if; body must write its results into tensors that exist before
     the node); on the card outside a capture a host read of `pred_dev`, a
     sync, counted in MERGE.host_reads. Nothing computes both sides and
-    selects."""
+    selects, with one exception: the stacked tiered apply's body computes
+    the merge of all S sub-shards when any one needs it, and each takes the
+    merged or the unmerged value by its own flag (JAX's vmap of lax.cond
+    selects over both branches everywhere)."""
     if pred_dev.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
         with graph_if.if_node(pred_dev):
             body()
@@ -1179,67 +1265,91 @@ def run_while(cond, body) -> None:
 
 def _tiered_apply(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
                   ub_keys: Tensor, ue_keys: Tensor, u_count: Tensor, gc_branch: bool):
-    """Tiered phases 4-5, IN PLACE on the state's tensors: merge the run
-    stack into the base when the incoming run finds no free slot
-    (run_if), append the batch's committed-write union as one sorted run
-    (O(RC*K): one slot written, branch-free), then the GC as an elementwise
-    horizon rebase of base and runs (NEG gap rows stay NEG). Returns
-    (state, overflow bool 0-d, reclaimed int32 0-d, merged bool 0-d)."""
+    """_tiered_apply_stacked of a single table (union rows [Wa, K], u_count
+    0-d): (state, overflow bool 0-d, reclaimed int32 0-d, merged bool 0-d),
+    the state's tensors updated in place."""
+    one = _one(state)
+    new_state, overflow, reclaimed, merged = _tiered_apply_stacked(
+        cfg, one, _one(batch), ub_keys[None], ue_keys[None], u_count.reshape(1), gc_branch)
+    return _unstack_state(state, one, new_state), overflow[0], reclaimed[0], merged[0]
+
+
+def _tiered_apply_stacked(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
+                          ub_keys: Tensor, ue_keys: Tensor, u_count: Tensor, gc_branch: bool):
+    """Tiered phases 4-5 of S sub-shards, IN PLACE on the state's tensors:
+    merge a sub-shard's run stack into its base when its incoming run finds
+    no free slot (one run_if for all S), append each batch's committed-write
+    union as one sorted run (O(RC*K): one slot written per sub-shard,
+    branch-free), then the GC as an elementwise horizon rebase of bases and
+    runs (NEG gap rows stay NEG). Returns (state, overflow bool [S],
+    reclaimed int32 [S], merged bool [S])."""
     NR, RC = cfg.run_slots, cfg.run_rows
     H, K, Wa = cfg.capacity, cfg.lanes, cfg.w_all
     dev = ub_keys.device
+    S = ub_keys.shape[0]
     hkeys, hvers, n = state["hkeys"], state["hvers"], state["n"]
     rkeys, rvers, rn, nruns = state["rkeys"], state["rvers"], state["rn"], state["nruns"]
 
-    # the new run: interleaved (union-begin, now) / (union-end, NEG) rows,
+    # the new runs: interleaved (union-begin, now) / (union-end, NEG) rows,
     # padded with all-ones keys and NEG versions
-    row_valid = (_arange(2 * Wa, dev) >> 1) < u_count
-    nrk = torch.stack([ub_keys, ue_keys], dim=1).reshape(2 * Wa, K)
-    nrv = torch.stack([batch["now"].expand(Wa),
-                       torch.full((Wa,), NEG_VERSION, dtype=torch.int32, device=dev)],
-                      dim=1).reshape(2 * Wa)
-    runk = torch.full((RC, K), U32_ALL, dtype=torch.int64, device=dev)
-    runk[:2 * Wa] = torch.where(row_valid[:, None], nrk, U32_ALL)
-    runv = torch.full((RC,), NEG_VERSION, dtype=torch.int32, device=dev)
-    runv[:2 * Wa] = torch.where(row_valid, nrv, NEG_VERSION)
+    row_valid = (_arange(2 * Wa, dev) >> 1) < u_count[:, None]
+    nrk = torch.stack([ub_keys, ue_keys], dim=2).reshape(S, 2 * Wa, K)
+    nrv = torch.stack([batch["now"][:, None].expand(S, Wa),
+                       torch.full((S, Wa), NEG_VERSION, dtype=torch.int32, device=dev)],
+                      dim=2).reshape(S, 2 * Wa)
+    runk = torch.full((S, RC, K), U32_ALL, dtype=torch.int64, device=dev)
+    runk[:, :2 * Wa] = torch.where(row_valid[..., None], nrk, U32_ALL)
+    runv = torch.full((S, RC), NEG_VERSION, dtype=torch.int32, device=dev)
+    runv[:, :2 * Wa] = torch.where(row_valid, nrv, NEG_VERSION)
     has_rows = u_count > 0
 
-    # lazy merge: only when a run must append and every slot is taken
+    # lazy merge: only where a run must append and every slot is taken
     do_merge = has_rows & (nruns >= NR)
-    overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    reclaimed = torch.zeros((), dtype=torch.int32, device=dev)
+    overflow = torch.zeros((S,), dtype=torch.bool, device=dev)
+    reclaimed = torch.zeros((S,), dtype=torch.int32, device=dev)
 
     def merge():
-        mk, mv, mn, moverflow, dropped = _merge_runs(cfg, hkeys, hvers, n, rkeys, rvers,
-                                                     rn, nruns)
-        hkeys.copy_(mk)
-        hvers.copy_(mv)
-        n.copy_(mn)
-        rkeys.fill_(U32_ALL)
-        rvers.fill_(NEG_VERSION)
-        rn.zero_()
-        nruns.zero_()
-        overflow.copy_(moverflow)
-        reclaimed.copy_(dropped)
+        mk, mv, mn, moverflow, dropped = _merge_runs_stacked(cfg, hkeys, hvers, n, rkeys, rvers,
+                                                             rn, nruns)
 
-    run_if(do_merge, merge)
+        def mask(x):        # do_merge over x's trailing axes
+            return do_merge.reshape((S,) + (1,) * (x.dim() - 1))
 
-    # append at the first free slot (slot 0 after a merge); a read-only
-    # batch rewrites that slot with what it holds
-    slot = torch.clamp(nruns.to(torch.int64), max=NR - 1).reshape(1)
-    rkeys.index_copy_(0, slot, torch.where(has_rows, runk, rkeys.index_select(0, slot)[0])[None])
-    rvers.index_copy_(0, slot, torch.where(has_rows, runv, rvers.index_select(0, slot)[0])[None])
-    rn.index_copy_(0, slot, torch.where(has_rows, _i32(2 * u_count),
-                                        rn.index_select(0, slot)[0]).reshape(1))
+        # each sub-shard takes the merged table only where it merges: one
+        # write per plane (a plain copy where every sub-shard merges)
+        for dst, new in ((hkeys, mk), (hvers, mv), (n, mn)):
+            torch.where(mask(dst), new, dst, out=dst)
+        rkeys.masked_fill_(mask(rkeys), U32_ALL)
+        rvers.masked_fill_(mask(rvers), NEG_VERSION)
+        rn.masked_fill_(mask(rn), 0)
+        nruns.masked_fill_(do_merge, 0)
+        torch.logical_and(moverflow, do_merge, out=overflow)
+        torch.mul(dropped, do_merge, out=reclaimed)
+
+    # one node for all S, entered when any sub-shard must merge
+    run_if(do_merge.any(), merge)
+
+    # append at each sub-shard's first free slot (slot 0 after a merge); a
+    # read-only batch rewrites that slot with what it holds
+    slot = torch.clamp(nruns.to(torch.int64), max=NR - 1)
+    at_k = slot.reshape(S, 1, 1, 1).expand(S, 1, RC, K)
+    rkeys.scatter_(1, at_k, torch.where(has_rows[:, None, None], runk,
+                                        rkeys.gather(1, at_k)[:, 0])[:, None])
+    at_v = slot.reshape(S, 1, 1).expand(S, 1, RC)
+    rvers.scatter_(1, at_v, torch.where(has_rows[:, None], runv,
+                                        rvers.gather(1, at_v)[:, 0])[:, None])
+    at_n = slot.reshape(S, 1)
+    rn.scatter_(1, at_n, torch.where(has_rows, _i32(2 * u_count),
+                                     rn.gather(1, at_n)[:, 0])[:, None])
     nruns.add_(has_rows.to(torch.int32))
 
     # GC as a range deletion; the branch is the host's (gc_branch)
     if gc_branch:
         gc = batch["gc"]
-        hvers.copy_(torch.where(_arange(H, dev) < n.to(torch.int64),
-                                torch.clamp(hvers - gc, min=-1), NEG_VERSION))
+        hvers.copy_(torch.where(_arange(H, dev) < n.to(torch.int64)[:, None],
+                                torch.clamp(hvers - gc[:, None], min=-1), NEG_VERSION))
         rvers.copy_(torch.where(rvers == NEG_VERSION, NEG_VERSION,
-                                torch.clamp(rvers - gc, min=-1)))
+                                torch.clamp(rvers - gc[:, None, None], min=-1)))
     return state, overflow, reclaimed, do_merge
 
 
@@ -1281,28 +1391,29 @@ HEAT_COUNT_LANES = 4         # 0: committed, 1: conflicts, 2: too_old, 3: gc_rec
 
 
 def _heat_bounds(cfg: KernelConfig, hkeys: Tensor, n: Tensor) -> Tensor:
-    """B boundary keys sampled at equally spaced POSITIONS of the sorted
-    valid table prefix hkeys[0:n]: the bucket delimiters of the heat
-    histogram. Bucket i covers [bounds[i], bounds[i+1]) (the last bucket
-    extends to +inf; keys below bounds[0] fold into bucket 0)."""
+    """B boundary keys sampled at equally spaced POSITIONS of each
+    sub-shard's sorted valid table prefix hkeys[s, 0:n[s]]: the bucket
+    delimiters of its heat histogram, [S, B, K]. Bucket i covers
+    [bounds[i], bounds[i+1]) (the last bucket extends to +inf; keys below
+    bounds[0] fold into bucket 0)."""
     B = cfg.heat_buckets
-    pos = (_arange(B, hkeys.device) * torch.clamp(n.to(torch.int64), min=1)) // B
-    # an overflowing apply leaves n > H: the JAX gather clamps, so does _take
-    return _take(hkeys, pos)                                 # [B, K]
+    pos = (_arange(B, hkeys.device) * torch.clamp(n.to(torch.int64), min=1)[:, None]) // B
+    # an overflowing apply leaves n > H: the JAX gather clamps, so does _take_each
+    return _take_each(hkeys, pos)
 
 
 def _heat_bucket_of(cfg: KernelConfig, bounds: Tensor, q: Tensor) -> Tensor:
-    """Bucket index of every query key row q[i] under `bounds`: the last
-    boundary <= q (clamped to 0 below bounds[0]), a branchless binary
-    search of B.bit_length() rounds in lockstep."""
+    """Bucket index of every query key row q[s, i] under its sub-shard's
+    `bounds`: the last boundary <= q (clamped to 0 below bounds[0]), a
+    branchless binary search of B.bit_length() rounds in lockstep."""
     B = cfg.heat_buckets
-    lo = torch.zeros(q.shape[0], dtype=torch.int64, device=q.device)
+    lo = torch.zeros(q.shape[:-1], dtype=torch.int64, device=q.device)
     hi = torch.full_like(lo, B)
     for _ in range(max(1, B.bit_length())):
         active = lo < hi
         mid = (lo + hi) >> 1
         # go right iff bounds[mid] <= q (upper-bound discipline)
-        go_right = ~_key_less(q, bounds[torch.clamp(mid, max=B - 1)])
+        go_right = ~_key_less(q, _gather_each(bounds, torch.clamp(mid, max=B - 1)))
         lo = torch.where(active & go_right, mid + 1, lo)
         hi = torch.where(active & ~go_right, mid, hi)
     return torch.clamp(lo - 1, min=0)
@@ -1310,8 +1421,9 @@ def _heat_bucket_of(cfg: KernelConfig, bounds: Tensor, q: Tensor) -> Tensor:
 
 def heat_of(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict, committed: Tensor,
             edges: Dict[str, Tensor], reclaimed: Tensor) -> Dict[str, Tensor]:
-    """The per-batch keyspace-heat aggregate, computed on the device from
-    values the verdict path already produced, so it changes no verdict:
+    """The per-batch keyspace-heat aggregate of a single table (heat_of_stacked
+    at S = 1), computed on the device from values the verdict path already
+    produced, so it changes no verdict:
 
       bounds     int64 [B, K]  sampled bucket-boundary keys (uint32 words)
       hist       int32 [B, 3]  read / write / conflict-attributed rows
@@ -1327,30 +1439,42 @@ def heat_of(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict, committed:
     `run_rows` (valid rows in live runs), int32 []. `state` is the
     post-apply table; every leaf is a tensor of its own (none aliases the
     state, which the tiered apply updates in place)."""
+    return _first(heat_of_stacked(cfg, _one(state), _one(batch), committed, _one(edges),
+                                  reclaimed[None]))
+
+
+def heat_of_stacked(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
+                    committed: Tensor, edges: Dict[str, Tensor],
+                    reclaimed: Tensor) -> Dict[str, Tensor]:
+    """heat_of of S sub-shards at once under the one committed mask [T]
+    (JAX's vmap of it): every leaf gains the leading [S] axis. Each
+    sub-shard's table delimits its own buckets; the host merges the
+    aggregates keyed by boundary key."""
     B, T = cfg.heat_buckets, cfg.max_txns
     Rp, Rr = cfg.rp, cfg.max_reads
     dev = committed.device
+    S = state["n"].shape[0]
     bounds = _heat_bounds(cfg, state["hkeys"], state["n"])
-    conflicted = batch["t_ok"] & ~committed
-    counts = _i32(torch.stack([committed.sum(), conflicted.sum(), batch["t_too_old"].sum(),
-                               reclaimed.to(torch.int64)]))
+    conflicted = batch["t_ok"] & ~committed                  # [S, T]
+    counts = _i32(torch.stack([committed.sum().expand(S), conflicted.sum(-1),
+                               batch["t_too_old"].sum(-1), reclaimed.to(torch.int64)], dim=-1))
 
     # one packed bucket search serves every row class (range rows bin by
     # their begin key)
-    qkeys = torch.cat([batch["rpb"], batch["rb"], batch["wpb"], batch["wb"]])
+    qkeys = torch.cat([batch["rpb"], batch["rb"], batch["wpb"], batch["wb"]], dim=1)
     bk = _heat_bucket_of(cfg, bounds, qkeys)
-    rbk, wbk = bk[:Rp + Rr], bk[Rp + Rr:]
-    rvalid = torch.cat([batch["rp_valid"], batch["r_valid"]])
-    wvalid = torch.cat([batch["wp_valid"], batch["w_valid"]])
-    r_txn_all = torch.cat([batch["rp_txn"], batch["r_txn"]]).long()
-    r_conflicted = _take(conflicted, r_txn_all)
+    rbk, wbk = bk[:, :Rp + Rr], bk[:, Rp + Rr:]
+    rvalid = torch.cat([batch["rp_valid"], batch["r_valid"]], dim=1)
+    wvalid = torch.cat([batch["wp_valid"], batch["w_valid"]], dim=1)
+    r_txn_all = torch.cat([batch["rp_txn"], batch["r_txn"]], dim=1).long()
+    r_conflicted = _take_each(conflicted, r_txn_all)
     crow = rvalid & r_conflicted                             # conflict rows
-    # a [B+1, 3] histogram whose row B is the dustbin of JAX's mode="drop"
-    hist = torch.zeros((B + 1) * HEAT_HIST_LANES, dtype=torch.int32, device=dev)
+    # an [S, B+1, 3] histogram whose row B is the dustbin of JAX's mode="drop"
+    hist = torch.zeros((S, (B + 1) * HEAT_HIST_LANES), dtype=torch.int32, device=dev)
     for lane, (valid, bkt) in enumerate(((rvalid, rbk), (wvalid, wbk), (crow, rbk))):
         idx = torch.where(valid, bkt, B) * HEAT_HIST_LANES + lane
-        hist.index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
-    hist = hist.reshape(B + 1, HEAT_HIST_LANES)[:B]
+        hist.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.int32))
+    hist = hist.reshape(S, B + 1, HEAT_HIST_LANES)[:, :B]
 
     # first-witness abort attribution: each conflicted txn's first (lowest
     # index) read row that was hit, by history or by an earlier committed
@@ -1358,25 +1482,25 @@ def heat_of(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict, committed:
     ihit_p, ihit_r = _blocked_rows(cfg, edges, batch, committed)
     hhit_p, hver_p = edges["heat_hhit_p"], edges["heat_hver_p"]
     hhit_r, hver_r = edges["heat_hhit_r"], edges["heat_hver_r"]
-    now = batch["now"]
+    now = batch["now"][:, None]
     act = torch.cat([batch["rp_valid"] & (hhit_p | ihit_p),
-                     batch["r_valid"] & (hhit_r | ihit_r)]) & r_conflicted
-    wver = torch.cat([torch.where(hhit_p, hver_p, now), torch.where(hhit_r, hver_r, now)])
+                     batch["r_valid"] & (hhit_r | ihit_r)], dim=1) & r_conflicted
+    wver = torch.cat([torch.where(hhit_p, hver_p, now), torch.where(hhit_r, hver_r, now)], dim=1)
     R = Rp + Rr
-    first = torch.full((T + 1,), R, dtype=torch.int64, device=dev)
-    first.scatter_reduce_(0, _drop(torch.where(act, r_txn_all, T), T), _arange(R, dev),
-                          "amin", include_self=True)
-    first = first[:T]
+    first = torch.full((S, T + 1), R, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(1, _drop(torch.where(act, r_txn_all, T), T),
+                          _arange(R, dev).expand(S, R), "amin", include_self=True)
+    first = first[:, :T]
     has = first < R
     fc = torch.clamp(first, max=R - 1)
     out = {"bounds": bounds, "hist": hist, "counts": counts,
            "occupancy": state["n"].clone(),
-           "wit_ver": torch.where(has, wver[fc], NEG_VERSION).to(torch.int32),
-           "wit_bucket": _i32(torch.where(has, rbk[fc], -1))}
+           "wit_ver": torch.where(has, wver.gather(1, fc), NEG_VERSION).to(torch.int32),
+           "wit_bucket": _i32(torch.where(has, rbk.gather(1, fc), -1))}
     if is_tiered(cfg):
-        live = _arange(cfg.run_slots, dev) < state["nruns"].to(torch.int64)
+        live = _arange(cfg.run_slots, dev) < state["nruns"].to(torch.int64)[:, None]
         out["runs"] = state["nruns"].clone()
-        out["run_rows"] = _i32(torch.where(live, state["rn"], 0).sum())
+        out["run_rows"] = _i32(torch.where(live, state["rn"], 0).sum(-1))
     return out
 
 
@@ -1452,10 +1576,11 @@ def resolve_step_scan(cfg: KernelConfig, state: Dict[str, Tensor], batches: Dict
 # ---------------------------------------------------------------------------
 #
 # JAX vmaps local_phases, apply_writes_and_gc and heat_of over the leading
-# [S] axis. Here they run per sub-shard on [S, ...] slices (a loop of S
-# calls: each call's kernels once per sub-shard in a captured graph), and
-# the fixpoint between them is ONE stacked launch on the card. Outputs
-# are stacked back, so every array equals JAX's element for element.
+# [S] axis. Here the functions above are written over that axis, so a step
+# of S sub-shards runs each op once for all of them (a captured graph holds
+# one table's kernels, not S copies); the fixpoint between the phases is ONE
+# launch of the CUDA kernel's stacked entry on the card. Every array equals
+# JAX's element for element.
 
 def _shard(tree: Dict, s: int) -> Dict:
     return {k: v[s] for k, v in tree.items()}
@@ -1465,33 +1590,10 @@ def _stack(trees: List[Dict]) -> Dict:
     return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
-def detect_step_stacked(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict):
-    """Stacked phases 1-2 (local_phases per sub-shard): (hist [S, T], edges,
-    wpos) with every leaf [S, ...]. The split-step path's detect, and the
-    mesh engine's shard-local scan."""
-    outs = [local_phases(cfg, _shard(state, s), _shard(batch, s))
-            for s in range(batch["t_ok"].shape[0])]
-    return (torch.stack([o[0] for o in outs]), _stack([o[1] for o in outs]),
-            _stack([o[2] for o in outs]))
-
-
 def fix_step_stacked(cfg: KernelConfig, t_ok: Tensor, hist_stacked: Tensor,
                      edges: Dict[str, Tensor], batch: Dict) -> Tensor:
     """The stacked fixpoint with an updated global t_ok [T]."""
     return _fixpoint_stacked(cfg, t_ok, hist_stacked, edges, batch)
-
-
-def _apply_stacked(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
-                   committed: Tensor, wpos: Dict[str, Tensor], gc_branch: bool):
-    """_apply_writes per sub-shard under the one committed mask: (new_state
-    [S, ...], overflow [S], reclaimed [S], merged [S] or None). The tiered
-    apply updates each sub-shard's slice of the state in place."""
-    outs = [_apply_writes(cfg, _shard(state, s), _shard(batch, s), committed,
-                          _shard(wpos, s), gc_branch)
-            for s in range(batch["t_ok"].shape[0])]
-    merged = None if outs[0][3] is None else torch.stack([o[3] for o in outs])
-    return (_stack([o[0] for o in outs]), torch.stack([o[1] for o in outs]),
-            torch.stack([o[2] for o in outs]), merged)
 
 
 def apply_step_stacked(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict,
@@ -1507,9 +1609,9 @@ def exchange_step_stacked(cfg: KernelConfig, state: Dict[str, Tensor], batch: Di
                           wpos: Dict[str, Tensor], gc_branch: bool):
     """Everything of a stacked step after the shard-local phases: the
     stacked fixpoint (the sum over sub-shards of each round's blocked
-    counts), the per-sub-shard apply, the statuses and, with heat on, the
-    per-sub-shard heat aggregates. Returns (new_state, {"status" [T],
-    "overflow" 0-d, "n" [S], "merged" [S] (tiered), "heat" [S, ...]})."""
+    counts), the apply, the statuses and, with heat on, the per-sub-shard
+    heat aggregates. Returns (new_state, {"status" [T], "overflow" 0-d,
+    "n" [S], "merged" [S] (tiered), "heat" [S, ...]})."""
     committed = _fixpoint_stacked(cfg, batch["t_ok"][0], hist_stacked, edges, batch)
     new_state, overflow, reclaimed, merged = _apply_stacked(cfg, state, batch, committed,
                                                             wpos, gc_branch)
@@ -1518,11 +1620,7 @@ def exchange_step_stacked(cfg: KernelConfig, state: Dict[str, Tensor], batch: Di
     if merged is not None:
         out["merged"] = merged
     if cfg.heat_buckets > 0:
-        # per-sub-shard aggregates (each sub-shard's table delimits its own
-        # buckets); the host merges them keyed by boundary key
-        out["heat"] = _stack([heat_of(cfg, _shard(new_state, s), _shard(batch, s), committed,
-                                      _shard(edges, s), reclaimed[s])
-                              for s in range(batch["t_ok"].shape[0])])
+        out["heat"] = heat_of_stacked(cfg, new_state, batch, committed, edges, reclaimed)
     return new_state, out
 
 
@@ -1540,8 +1638,9 @@ def resolve_step_stacked(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dic
 def resolve_step_stacked_scan(cfg: KernelConfig, state: Dict[str, Tensor], batches: Dict,
                               gc_last: bool):
     """C same-shape stacked batches (leaves [C, S, ...]) as one program,
-    threading the stacked table through: status [C, T], overflow [C],
-    merged [C, S] (tiered) and heat leaves [C, S, ...]."""
+    threading the stacked table through chunk by chunk (the graph's
+    counterpart of lax.scan, as resolve_step_scan): status [C, T],
+    overflow [C], merged [C, S] (tiered) and heat leaves [C, S, ...]."""
     C = batches["t_ok"].shape[0]
     outs = []
     for c in range(C):

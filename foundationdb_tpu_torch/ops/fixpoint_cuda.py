@@ -473,6 +473,9 @@ def commit_fixpoint_stacked_kernel(cfg: KernelConfig, t_ok: Tensor, hist_stacked
     any launch."""
     if not t_ok.is_cuda:
         raise ValueError("commit_fixpoint_stacked_kernel needs CUDA tensors")
+    # the kernel reads the history hits as one dense [S, T] array; the
+    # batched phases leave them as a view with a dustbin column per row
+    hist_stacked = hist_stacked.contiguous()
     if cfg.max_txns % 32 and hist_stacked.dim() == 2:
         wide, t_ok, hist_stacked = _whole_words(cfg, t_ok, hist_stacked)
         return commit_fixpoint_stacked_kernel(wide, t_ok, hist_stacked, edges,

@@ -1740,7 +1740,7 @@ class _Program:
         if launches != self.C:
             raise RuntimeError(f"captured {launches} fixpoint launches in a {self.C}-step graph")
         if_nodes = graph_if.GRAPH_IF.nodes - if_before
-        if if_nodes != (self.C * max(self.S, 1) if self.merged is not None else 0):
+        if if_nodes != (self.C if self.merged is not None else 0):
             raise RuntimeError(f"captured {if_nodes} merge IF nodes in a {self.C}-step graph")
         self.launches = launches
         self.graphs[gc_last] = graph

@@ -108,9 +108,7 @@ def apply_group(cfg: KernelConfig, state: Dict[str, Tensor], batch: Dict[str, Te
     if merged is not None:
         out["merged"] = merged
     if cfg.heat_buckets > 0:
-        out["heat"] = ck._stack([ck.heat_of(cfg, ck._shard(new_state, s), ck._shard(batch, s),
-                                            committed, ck._shard(edges, s), reclaimed[s])
-                                 for s in range(batch["t_ok"].shape[0])])
+        out["heat"] = ck.heat_of_stacked(cfg, new_state, batch, committed, edges, reclaimed)
     return new_state, out
 
 
@@ -343,7 +341,7 @@ class _Part:
         graph = _capture(self.gd, perf, warm, lambda: self._apply_body(c, gc_branch, self.gd.state),
                          bodies=True)
         if_nodes = graph_if.GRAPH_IF.nodes - if_before
-        if if_nodes != (self.g.n if tiered else 0):
+        if if_nodes != (1 if tiered else 0):
             raise RuntimeError(f"captured {if_nodes} merge IF nodes in a group's apply")
         return graph
 

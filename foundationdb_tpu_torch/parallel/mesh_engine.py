@@ -288,7 +288,7 @@ class _ExchangeProgram:
         if launches != 1:
             raise RuntimeError(f"captured {launches} stacked fixpoint launches in an exchange")
         if_nodes = graph_if.GRAPH_IF.nodes - if_before
-        if if_nodes != (self.S if self.merged is not None else 0):
+        if if_nodes != (1 if self.merged is not None else 0):
             raise RuntimeError(f"captured {if_nodes} merge IF nodes in an exchange")
         self.graphs[gc_branch] = graph
         count_capture(eng.perf)

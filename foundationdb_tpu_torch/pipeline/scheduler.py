@@ -32,7 +32,7 @@ Four mechanisms, all knob-gated (`resolver_sched*`, docs/scheduling.md):
     snapshot that can actually win. A deterministic 1-in-N counter probe
     dispatches a predicted-doomed transaction anyway; a probe that
     COMMITS increments the mispredict counter the watchdog's
-    `sched_mispredict` rule alerts on (core/watchdog.py, not ported yet).
+    `sched_mispredict` rule alerts on (core/watchdog.py).
 
 Correctness invariant: scheduling only changes WHICH transactions reach
 the resolver in WHICH batch — for any schedule, the resolver's verdicts

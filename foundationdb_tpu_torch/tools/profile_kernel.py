@@ -279,8 +279,8 @@ def main(variants, device=None, steps: Optional[int] = None, out=sys.stdout) -> 
             keys_all = torch.cat([hkeys, bkeys], dim=0)
             code_all = torch.cat([torch.full((H,), 5, dtype=torch.int64, device=dev), bcode])
             valid_all = torch.cat([torch.arange(H, device=dev) < n, bvalid])
-            perm, skeys = ck._sorted_rows(keys_all, code_all, valid_all)
-            acc = c["acc"] + perm[0] + skeys[-1, 0]
+            perm, skeys = ck._sorted_rows(keys_all[None], code_all, valid_all[None])
+            acc = c["acc"] + perm[0, 0] + skeys[0, -1, 0]
             return {"acc": acc, "now": c["now"] + 7}, acc
         p.timed_scan("sort", body, {"acc": zero.clone(), "now": now_t.clone()})
 
@@ -361,8 +361,8 @@ def main(variants, device=None, steps: Optional[int] = None, out=sys.stdout) -> 
             B = bkeys.shape[0]
             valid = torch.cat([b["rp_valid"], b["wp_valid"]])
             code = (torch.arange(B, device=dev) >= cfg.rp).to(torch.int64)
-            perm, skeys = ck._sorted_rows(bkeys, code, valid)
-            acc = c["acc"] + perm[0] + skeys[-1, 0]
+            perm, skeys = ck._sorted_rows(bkeys[None], code, valid[None])
+            acc = c["acc"] + perm[0, 0] + skeys[0, -1, 0]
             return {"acc": acc, "now": c["now"] + 7}, acc
         p.timed_scan("sortbatch", body, {"acc": zero.clone(), "now": now_t.clone()})
     return p

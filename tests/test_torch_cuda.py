@@ -1433,6 +1433,46 @@ def test_sharded_engines_on_card_match_cpu(card, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("structure", sorted(STRUCTURES))
+def test_subsharded_program_replays_about_one_tables_kernels(card, structure):
+    """The sub-sharded engine's S = 8 one-chunk program runs each op of the
+    step once over its [S] sub-shards: a replay of its captured graph runs
+    at most 1.5x the kernels of one table's program at the same config (a
+    torch.profiler trace of one replay each, on emptied tables: a tiered
+    program appends and its merge node runs no body), and its verdicts
+    equal the oracle's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from foundationdb_tpu_torch.core.keyshard import KeyShardMap
+    from foundationdb_tpu_torch.ops.host_engine import SubshardedConflictEngine
+
+    cfg = STRUCTURES[structure]
+    kw = dict(ladder=(), scan_sizes=(), heat_buckets=8, device_time_sample_rate=0.0)
+    single = TorchConflictEngine(cfg, **kw).warmup()
+    sub = SubshardedConflictEngine(cfg, KeyShardMap([b"p%05d" % (75 * i) for i in range(1, 8)]),
+                                   **kw).warmup()
+    assert sub.stack == 8
+    ora = toracle.OracleConflictEngine()
+    for txns, now, oldest in point_batches(43, [200, 90, 256, 30]):
+        want = [int(v) for v in ora.resolve(txns, now, oldest)]
+        assert [int(v) for v in sub.resolve(txns, now, oldest)] == want
+        assert [int(v) for v in single.resolve(txns, now, oldest)] == want
+
+    def kernels(eng):
+        prog = eng._programs[(cfg.max_txns, 1)]
+        eng.clear(0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            prog.run(False)
+            torch.cuda.synchronize()
+        return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+
+    one, stacked = kernels(single), kernels(sub)
+    assert 0 < stacked <= 1.5 * one, (stacked, one)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode,overlap", [("sharded", None), ("mesh", False), ("mesh", True)])
 @pytest.mark.parametrize("groups", [(0, 0, 1, 1), (0, 1, 2, 3)])
 @pytest.mark.parametrize("structure", ["monolithic", "tiered"])
